@@ -1,0 +1,25 @@
+"""Port of ``repro.core``: the ABM engine in PyTorch.
+
+Public API of this slice:
+  Simulation               - facade: owns engine, state, scheduled ops
+  AgentSchema / AgentSoA   - SoA agent container
+  Domain / Partition       - N-D spatial spec
+  Behavior                 - model definition (pair kernel + update)
+  Engine / SimState        - single-device simulation engine (low-level)
+  DeltaConfig              - aura-exchange payload config (full refresh)
+"""
+
+from repro_torch.core.agent_soa import (
+    AgentSchema, AgentSoA, GID_COUNT, GID_RANK, POS,
+)
+from repro_torch.core.behaviors import Behavior
+from repro_torch.core.delta import DeltaConfig
+from repro_torch.core.domain import Domain, Partition
+from repro_torch.core.engine import Engine, SimState, total_agents
+from repro_torch.core.simulation import Simulation
+
+__all__ = [
+    "AgentSchema", "AgentSoA", "GID_COUNT", "GID_RANK", "POS", "Behavior",
+    "DeltaConfig", "Domain", "Engine", "Partition", "SimState", "Simulation",
+    "total_agents",
+]

@@ -1,0 +1,151 @@
+"""Uniform neighbour-search grid with capacity-bounded binning (port of
+``repro/core/grid.py``).
+
+Agents are re-scattered into their cells each step with a sort-based,
+capacity-bounded scatter.  The slot layout is the reference's exactly: the
+same keys, a stable sort, the same within-cell rank, the same sentinel
+slot for invalid and overflowing agents.  Everything stays on the device:
+``dropped`` is returned as a tensor, so no host sync happens inside a step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.agent_soa import AgentSoA, POS, flat_view
+from repro_torch.core.domain import Domain
+
+
+def cell_of(geom: Domain, pos: torch.Tensor, origin: torch.Tensor
+            ) -> torch.Tensor:
+    """Map world positions (N, ndim) to local cell coordinates (N, ndim)
+    including the halo offset: interior cells are [1, i_a] per axis, ring
+    cells (0 or i_a + 1) hold agents that must migrate."""
+    # float32 division by a device tensor (not a Python scalar, which CUDA
+    # may turn into a multiplication by the reciprocal), as the reference's
+    # (pos - origin) / float32(cell_size).
+    cs = torch.tensor(geom.cell_size, dtype=torch.float32, device=pos.device)
+    rel = (pos - origin[None, :]) / cs
+    c = torch.floor(rel).to(torch.int32) + 1
+    shape = geom.local_shape
+    return torch.stack(
+        [torch.clamp(c[:, a], 0, shape[a] - 1) for a in range(geom.ndim)],
+        dim=1)
+
+
+def ravel_cells(geom: Domain, cells: torch.Tensor) -> torch.Tensor:
+    """Row-major fold of per-axis cell coordinates (N, ndim) into flat cell
+    ids (N,) over the local grid."""
+    shape = geom.local_shape
+    cid = cells[:, 0]
+    for a in range(1, geom.ndim):
+        cid = cid * shape[a] + cells[:, a]
+    return cid
+
+
+_SCAN_ROW = 1024
+
+
+def running_max(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running maximum of a 1-D integer tensor (the reference's
+    ``associative_scan(maximum)``), as ``torch.cummax`` in two levels: over
+    rows of ``_SCAN_ROW`` elements, then over the rows' carries.  PyTorch's
+    CUDA cummax scans an innermost row with a single warp, so a one-level
+    call over the ~1e8 slots of a full-size grid would run serially; the
+    max is exact, so the two levels give the same result."""
+    n = x.shape[0]
+    low = torch.iinfo(x.dtype).min
+    pad = (-n) % _SCAN_ROW
+    if pad:
+        x = torch.cat([x, x.new_full((pad,), low)])
+    rows = torch.cummax(x.view(-1, _SCAN_ROW), dim=1).values
+    carry = torch.cummax(rows[:, -1], dim=0).values
+    carry = torch.cat([carry.new_full((1,), low), carry[:-1]])
+    return torch.maximum(rows, carry[:, None]).reshape(-1)[:n]
+
+
+def bin_agents(
+    geom: Domain,
+    attrs: Dict[str, torch.Tensor],
+    valid: torch.Tensor,
+    origin: torch.Tensor,
+) -> Tuple[AgentSoA, torch.Tensor]:
+    """Capacity-bounded scatter of flat agents (N, ...) into the local
+    cell-slot grid ``local_shape + (K, ...)``.
+
+    Returns the binned SoA and the number of agents dropped for cell
+    overflow, as an int32 device tensor.
+    """
+    shape = geom.local_shape
+    cap = geom.cap
+    n = valid.shape[0]
+    dev = valid.device
+
+    cell_id = ravel_cells(geom, cell_of(geom, attrs[POS], origin))
+    n_cells = math.prod(shape)
+    # Invalid agents sort to a sentinel bucket past the last cell.
+    key = torch.where(valid, cell_id, cell_id.new_tensor(n_cells))
+    sorted_key, order = torch.sort(key, stable=True)
+
+    # Rank of each agent within its cell run: distance to the run start,
+    # found with a running maximum of the start indices.
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    is_start = torch.ones_like(sorted_key, dtype=torch.bool)
+    is_start[1:] = sorted_key[1:] != sorted_key[:-1]
+    start_idx = running_max(torch.where(is_start, idx, idx.new_tensor(-1)))
+    rank = idx - start_idx
+
+    live = sorted_key < n_cells
+    ok = live & (rank < cap)
+    dropped = (live & (rank >= cap)).sum(dtype=torch.int32)
+    total = n_cells * cap
+    slot = torch.where(ok, sorted_key * cap + rank,
+                       sorted_key.new_tensor(total)).long()  # sentinel slot
+
+    # Every live slot index is unique; only the sentinel row at ``total``
+    # receives duplicate writes.  index_put_ leaves the order of duplicate
+    # writes undefined on CUDA, which is harmless because that row is
+    # sliced off (the reference's .at[slot].set has the same contract).
+    out_attrs = {}
+    for name, a in attrs.items():
+        tgt = torch.zeros((total + 1,) + tuple(a.shape[1:]), dtype=a.dtype,
+                          device=dev)
+        tgt[slot] = a[order]
+        out_attrs[name] = tgt[:total].reshape(
+            shape + (cap,) + tuple(a.shape[1:]))
+    v = torch.zeros((total + 1,), dtype=torch.bool, device=dev)
+    v[slot] = ok
+    soa = AgentSoA(attrs=out_attrs, valid=v[:total].reshape(shape + (cap,)))
+    return soa, dropped
+
+
+def rebin(geom: Domain, soa: AgentSoA, origin: torch.Tensor
+          ) -> Tuple[AgentSoA, torch.Tensor]:
+    attrs, valid = flat_view(soa)
+    return bin_agents(geom, attrs, valid, origin)
+
+
+def interior_mask(geom: Domain) -> np.ndarray:
+    m = np.zeros(geom.local_shape, dtype=bool)
+    m[(slice(1, -1),) * geom.ndim] = True
+    return m
+
+
+def ring_index(axis: int, index) -> Tuple:
+    """Indexing tuple selecting one cell-hyperplane along a grid axis."""
+    return (slice(None),) * axis + (index,)
+
+
+def clear_ring(soa: AgentSoA) -> AgentSoA:
+    """Invalidate all halo-ring slots (the aura is rebuilt from scratch
+    each iteration, paper section 2.2.1).  Returns a new ``valid``; the
+    input SoA is untouched."""
+    v = soa.valid.clone()
+    for axis in range(v.dim() - 1):   # every grid axis; last dim is the slot
+        v[ring_index(axis, 0)] = False
+        v[ring_index(axis, -1)] = False
+    return soa.replace(valid=v)

@@ -1,0 +1,248 @@
+"""The ``Simulation`` facade (port of ``repro/core/simulation.py``).
+
+    sim = Simulation(dict(interior=(8, 8), cap=24), behavior, dt=0.1)
+    sim.init(positions, attrs)
+    sim.every(1, lambda s: s.n_agents(), name="agents")
+    sim.run(100)
+    sim.series["agents"], sim.engine, sim.state
+
+The facade owns the engine, the state and the scheduled operations.  It
+runs on the CUDA device unless ``device="cpu"`` is passed.  Not ported in
+this slice, and raising ``NotImplementedError`` when asked for: device
+meshes (ROADMAP A7), ``rebalance`` (A8), ``checkpoint`` (A6), ``guards``,
+``supervised`` runs and fault plans (A9), ``compose`` of several
+behaviours (with the ``sir_mechanics`` slice).  Of the construction-time
+contracts only stencil soundness (``radius <= cell_size``) is ported; the
+rest of the contract checker waits for A11.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+
+from repro_torch.core.behaviors import Behavior
+from repro_torch.core.delta import DeltaConfig
+from repro_torch.core.domain import Domain
+from repro_torch.core.engine import Engine, SimState, _unported, total_agents
+
+# Geometry defaults applied when the first argument is a kwargs dict.
+_GEOM_DEFAULTS = dict(cell_size=2.0, interior=(8, 8), mesh_shape=(1, 1),
+                      cap=24, boundary="closed")
+
+
+class ContractError(ValueError):
+    """Raised at construction when an error-severity contract fails."""
+
+
+def check_stencil(geom: Domain, behavior: Behavior, mode: str = "error"
+                  ) -> List[str]:
+    """Stencil soundness: the ``3**ndim`` sweep visits adjacent cells only,
+    so ``radius > cell_size`` would silently drop interacting pairs.
+    ``mode`` is ``"error"`` (raise), ``"warn"`` or ``"off"``; returns the
+    findings."""
+    if mode not in ("off", "warn", "error"):
+        raise ValueError(
+            f"check mode {mode!r} not in ('off', 'warn', 'error')")
+    if mode == "off":
+        return []
+    leaves = behavior.children or (behavior,)
+    errors = [
+        f"stencil-soundness: interaction radius {float(b.radius):g} exceeds "
+        f"cell_size {geom.cell_size:g}: the {3 ** geom.ndim}-cell "
+        "neighbourhood sweep would drop pairs (raise cell_size or reduce "
+        "the radius)"
+        for b in leaves if float(b.radius) > float(geom.cell_size)]
+    if errors and mode == "error":
+        raise ContractError(
+            "simulation contracts violated (pass check=\"warn\" or "
+            "check=\"off\" to bypass):\n" + "\n".join(errors))
+    for e in errors:
+        warnings.warn(f"simcheck contract: {e}", stacklevel=3)
+    return errors
+
+
+@dataclasses.dataclass
+class Operation:
+    """One scheduled operation: ``fn(sim)`` every ``every`` iterations.
+    ``pre`` operations run before the step on ticks with
+    ``tick % every == 0``, post operations after it on ticks with
+    ``(tick + 1) % every == 0``.  (The reference keeps this class in
+    ``core/operations.py``, which comes with ROADMAP A6.)"""
+
+    fn: Callable[[Any], Any]
+    every: int = 1
+    name: str = ""
+    pre: bool = False
+    record: bool = True
+
+    def due(self, tick: int) -> bool:
+        if self.every <= 0:
+            return False
+        return (tick % self.every == 0) if self.pre \
+            else ((tick + 1) % self.every == 0)
+
+
+class Simulation:
+    """Owner of engine, state, step function and scheduled operations.
+
+    Args:
+      geom: a :class:`Domain`, or a dict of Domain kwargs (defaults:
+        ``cell_size=2.0, interior=(8, 8), mesh_shape=(1, 1), cap=24,
+        boundary="closed"``).
+      behaviors: one :class:`Behavior` (or a one-element sequence).
+      delta: ``None`` or ``DeltaConfig(enabled=False)`` (full refresh).
+      dt: integration step.
+      sweep_backend: ``"auto" | "reference" | "tiled" | "kernel"``;
+        ``"auto"`` is the CUDA kernel on the card, the tiled sweep on the
+        CPU.
+      overlap: ``"auto"`` or ``"off"`` (``"on"`` needs ROADMAP A7).
+      check: stencil-soundness gate, ``"error"`` | ``"warn"`` | ``"off"``.
+      device: ``"cuda"`` (default; raises without a GPU) or ``"cpu"``.
+    """
+
+    def __init__(self, geom: Union[Domain, Dict[str, Any]],
+                 behaviors: Union[Behavior, Sequence[Behavior]], *,
+                 mesh=None, delta: Optional[DeltaConfig] = None,
+                 dt: float = 1.0, rebalance=None, checkpoint=None,
+                 sweep_backend: str = "auto", overlap: str = "auto",
+                 check: str = "error", guards=None, device="cuda"):
+        _unported("an explicit device mesh", mesh, "A7")
+        _unported("rebalance", rebalance, "A8")
+        _unported("checkpoint", checkpoint, "A6")
+        _unported("guards", guards, "A9")
+        if isinstance(geom, dict):
+            geom = Domain(**{**_GEOM_DEFAULTS, **geom})
+        if isinstance(behaviors, Behavior):
+            behavior = behaviors
+        else:
+            behs = tuple(behaviors)
+            if len(behs) != 1:
+                raise NotImplementedError(
+                    "compose() of several behaviours comes with the "
+                    "sir_mechanics slice (ROADMAP A5); pass one Behavior")
+            behavior = behs[0]
+        self.engine: Engine = Engine(
+            geom=geom, behavior=behavior,
+            delta_cfg=delta or DeltaConfig(enabled=False), dt=dt,
+            sweep_backend=sweep_backend, overlap=overlap, device=device)
+        check_stencil(geom, behavior, check)
+        self.state: Optional[SimState] = None
+        self.series: Dict[str, List[Any]] = {}
+        self._step_fn: Optional[Callable] = None   # set -> per-step loop
+        self._seg_fn: Optional[Callable] = None    # segment runner
+        self._ticks = 0          # step counter across run() calls
+        self._ops: List[Operation] = []
+
+    # ------------------------------------------------------------------
+    # Introspection
+    # ------------------------------------------------------------------
+    @property
+    def geom(self) -> Domain:
+        return self.engine.geom
+
+    @property
+    def behavior(self) -> Behavior:
+        return self.engine.behavior
+
+    @property
+    def iteration(self) -> int:
+        """The engine iteration counter."""
+        if self.state is None:
+            return 0
+        return int(self.state.it.max())
+
+    def n_agents(self) -> int:
+        return total_agents(self.state)
+
+    # ------------------------------------------------------------------
+    # Setup
+    # ------------------------------------------------------------------
+    def init(self, positions: np.ndarray, attrs: Dict[str, np.ndarray],
+             seed: int = 0) -> "Simulation":
+        """Engine.init_state through the facade; returns self."""
+        self.state = self.engine.init_state(positions, attrs, seed=seed)
+        self._step_fn = None
+        self._seg_fn = None
+        return self
+
+    def every(self, n: int, op: Callable, *, name: Optional[str] = None,
+              pre: bool = False, record: bool = True) -> "Simulation":
+        """Schedule ``op(sim)`` every ``n`` iterations; non-None results
+        are appended to ``self.series[name]``.  Returns self."""
+        self._ops.append(Operation(
+            fn=op, every=n, pre=pre, record=record,
+            name=name or getattr(op, "__name__", f"op{len(self._ops)}")))
+        return self
+
+    # ------------------------------------------------------------------
+    # Running
+    # ------------------------------------------------------------------
+    def _fused_span(self, tick: int, remaining: int, ops) -> int:
+        """Longest segment starting at ``tick`` with no scheduled
+        operation due inside it."""
+        n = 1
+        while n < remaining:
+            t = tick + n
+            if any(op.pre and op.due(t) for op in ops):
+                break
+            if any((not op.pre) and op.due(t - 1) for op in ops):
+                break
+            n += 1
+        return n
+
+    def run(self, steps: int,
+            collect: Optional[Callable[[SimState], Any]] = None,
+            fused: bool = True, fault_plan=None,
+            supervised=None) -> "Simulation":
+        """Drive ``steps`` iterations: scheduled pre-ops, the step, then
+        scheduled post-ops.  Steps between operations run as one segment
+        (``fused=True``) or one step call each (``fused=False``); both give
+        the same state.  ``collect(state)`` records under ``"collect"``
+        every step.  Returns self."""
+        if self.state is None:
+            raise RuntimeError("Simulation.run() before init(): call "
+                               "sim.init(positions, attrs) first")
+        _unported("fault plans", fault_plan, "A9")
+        _unported("supervised runs", supervised, "A9")
+        ops = list(self._ops)
+        if collect is not None:
+            ops.append(Operation(fn=lambda sim: collect(sim.state),
+                                 every=1, name="collect"))
+        per_step = (self._step_fn is not None) or not fused
+        if per_step and self._step_fn is None:
+            self._step_fn = self.engine.make_local_step()
+        if not per_step and self._seg_fn is None:
+            self._seg_fn = self.engine.make_segment_runner()
+
+        done = 0
+        while done < int(steps):
+            tick = self._ticks
+            for op in ops:
+                if op.pre and op.due(tick):
+                    self._run_op(op)
+            n = 1 if per_step else self._fused_span(
+                tick, int(steps) - done, ops)
+            if per_step:
+                self.state = self._step_fn(self.state, full_halo=True)
+            else:
+                self.state = self._seg_fn(self.state, n, full_first=True)
+            for t in range(tick, tick + n):
+                for op in ops:
+                    if not op.pre and op.due(t):
+                        self._run_op(op)
+            self._ticks += n
+            done += n
+        return self
+
+    def _run_op(self, op: Operation) -> None:
+        value = op.fn(self)
+        if op.record and value is not None:
+            self.series.setdefault(op.name, []).append(value)
+
+    def step(self) -> "Simulation":
+        """Single iteration through the full scheduled pipeline."""
+        return self.run(1)

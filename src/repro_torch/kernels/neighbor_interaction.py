@@ -1,0 +1,309 @@
+"""The neighbour pair sweep: a hand-written Hopper kernel
+(``csrc/pair_sweep.cu``) and its plain PyTorch version.
+
+This is the port of the TPU kernel ``pair_sweep_kernel``
+(``src/repro/kernels/neighbor_interaction.py:92``).  For every interior
+cell, each of its K slots is paired with the ``3^D K`` slots of its ``3^D``
+cell neighbourhood; pairs of valid slots with different
+``<gid_rank, gid_count>`` and ``dist2 <= radius^2`` (minimum image on
+toroidal axes) contribute the behaviour's ``pair_fn`` to per-agent sums.
+
+* :func:`pair_sweep` is the wrapper.  On a CUDA tensor it launches the
+  kernel, which reads the resident ``(*local_grid, K, ...)`` SoA tensors
+  directly, or raises; on a CPU tensor it runs :func:`pair_sweep_plain`.
+  There is no fallback between the two.
+* :func:`pair_sweep_plain` is the reference ``pair_accumulate`` math in
+  PyTorch over flattened ``(C, K)`` x ``(C, 3^D K)`` slabs, built by
+  :func:`neighborhood_slabs`.  It runs any ``pair_fn``.
+* The kernel runs the pair laws registered in :data:`LAWS`, one device
+  function each.  A ``pair_fn`` with no device law raises
+  ``NotImplementedError`` on a CUDA tensor.
+
+Each launch adds one to ``LAUNCHES[law]``; nothing else touches the
+counts, so a run can show that it went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import itertools
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+# Reserved column names (the port's core.agent_soa names; string literals
+# keep the kernels package free of the core layer).
+_POS = "pos"
+_GID_RANK = "gid_rank"
+_GID_COUNT = "gid_count"
+
+Tensors = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class PairLaw:
+    """One device pair law of the kernel.
+
+    ``law_id`` selects the device function; ``float_col``/``int_col`` name
+    the SoA columns it reads besides pos and gids; ``params`` lists its
+    float parameters in kernel order as ``(name, default)`` (``None``: the
+    behaviour must supply it); ``outputs`` lists ``(name, per_axis)`` where
+    ``per_axis`` outputs carry a trailing ``(D,)`` dim.
+    """
+
+    name: str
+    law_id: int
+    float_col: Optional[str]
+    int_col: Optional[str]
+    params: Tuple[Tuple[str, Optional[float]], ...]
+    outputs: Tuple[Tuple[str, bool], ...]
+
+
+# Port pair functions (by qualified name) -> device law.
+LAWS: Dict[str, PairLaw] = {
+    "repro_torch.core.behaviors.soft_repulsion_adhesion": PairLaw(
+        name="soft_repulsion_adhesion", law_id=0, float_col="diameter",
+        int_col="ctype",
+        params=(("repulsion", None), ("adhesion", None),
+                ("same_type_only", 1.0)),
+        outputs=(("force", True),)),
+    "repro_torch.sims.cell_clustering._same_type_pair": PairLaw(
+        name="same_type", law_id=1, float_col=None, int_col="ctype",
+        params=(), outputs=(("same", False), ("cnt", False))),
+}
+
+# Kernel launches per law since the last reset_launches().
+LAUNCHES: Dict[str, int] = {law.name: 0 for law in LAWS.values()}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def law_for(pair_fn: Callable) -> PairLaw:
+    """The device law of a port pair function; raises
+    ``NotImplementedError`` for one the kernel does not have."""
+    key = f"{pair_fn.__module__}.{pair_fn.__qualname__}"
+    law = LAWS.get(key)
+    if law is None:
+        raise NotImplementedError(
+            f"pair function {key} has no device law in the pair_sweep "
+            f"kernel (laws: {sorted(LAWS)}); the other bundled laws come "
+            "with ROADMAP B1 - run this behaviour with sweep_backend="
+            "'tiled' or on the CPU")
+    return law
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def neighborhood_slabs(
+    attrs: Tensors, valid: torch.Tensor, names: Sequence[str],
+    rows: Optional[Tuple[int, int]] = None,
+) -> Tuple[Tensors, Tensors, torch.Tensor, torch.Tensor]:
+    """Flatten the interior cells of resident ``(*local_grid, K, ...)``
+    tensors into ``(C, K, ...)`` self slabs and ``(C, 3^D K, ...)``
+    neighbourhood slabs, offsets in row-major order over ``(-1, 0, 1)^D``
+    (the order of ``core.neighbors.offsets_for``).  ``rows=(r0, r1)``
+    restricts the cells to interior rows ``[r0, r1)`` along axis 0.
+
+    Returns ``(attrs_i, attrs_j, valid_i, valid_j)``; the columns are
+    ``names`` plus pos and the two gid columns.
+    """
+    nd = valid.dim() - 1
+    local = tuple(valid.shape[:nd])
+    k = valid.shape[nd]
+    r0, r1 = (0, local[0] - 2) if rows is None else rows
+    offs = list(itertools.product((-1, 0, 1), repeat=nd))
+
+    def cells(off):
+        return ((slice(1 + r0 + off[0], 1 + r1 + off[0]),)
+                + tuple(slice(1 + o, h - 1 + o)
+                        for o, h in zip(off[1:], local[1:])))
+
+    c = (r1 - r0) * math.prod(h - 2 for h in local[1:])
+    centre = cells((0,) * nd)
+
+    def flat_i(a):
+        return a[centre].reshape((c, k) + tuple(a.shape[nd + 1:]))
+
+    def flat_j(a):
+        stacked = torch.stack([a[cells(o)] for o in offs], dim=nd)
+        return stacked.reshape((c, len(offs) * k) + tuple(a.shape[nd + 1:]))
+
+    need = sorted(set(names) | {_POS, _GID_RANK, _GID_COUNT})
+    return ({n: flat_i(attrs[n]) for n in need},
+            {n: flat_j(attrs[n]) for n in need},
+            flat_i(valid), flat_j(valid))
+
+
+def pair_sweep_plain(
+    attrs_i: Tensors, attrs_j: Tensors,
+    valid_i: torch.Tensor, valid_j: torch.Tensor,
+    *, pair_fn: Callable, radius: float, params: dict,
+    box: Optional[Sequence[Optional[float]]] = None,
+) -> Tensors:
+    """The reference pair math over flattened slabs: ``attrs_i`` values are
+    ``(C, K, *t)``, ``attrs_j`` values ``(C, NK, *t)``; returns a dict of
+    ``(C, K, *t)`` sums over the NK axis.  ``box`` holds per-axis minimum-
+    image lengths, ``None`` for a closed axis (or ``None`` for all)."""
+    ai = {n: a.unsqueeze(2) for n, a in attrs_i.items()}   # (C, K, 1, t)
+    aj = {n: a.unsqueeze(1) for n, a in attrs_j.items()}   # (C, 1, NK, t)
+    dev = valid_i.device
+
+    disp = aj[_POS] - ai[_POS]                               # (C, K, NK, D)
+    if box is not None and any(b is not None for b in box):
+        comps = []
+        for axis in range(disp.shape[-1]):
+            d = disp[..., axis]
+            if box[axis] is None:
+                comps.append(d)
+            else:
+                b = torch.tensor(box[axis], dtype=torch.float32, device=dev)
+                comps.append(d - b * torch.round(d / b))
+        disp = torch.stack(comps, dim=-1)
+    dist2 = (disp * disp).sum(dim=-1)                        # (C, K, NK)
+
+    same = (ai[_GID_RANK] == aj[_GID_RANK]) & (
+        ai[_GID_COUNT] == aj[_GID_COUNT])
+    r2 = torch.tensor(np.float32(radius * radius), device=dev)
+    mask = (valid_i[:, :, None] & valid_j[:, None, :] & ~same
+            & (dist2 <= r2))
+
+    contribs = pair_fn(ai, aj, disp, dist2, params)
+    out: Tensors = {}
+    for name, c in contribs.items():
+        m = mask
+        while m.dim() < c.dim():
+            m = m[..., None]
+        out[name] = torch.where(m, c, torch.zeros((), dtype=c.dtype,
+                                                  device=dev)).sum(dim=2)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The wrapper
+# ---------------------------------------------------------------------------
+
+def pair_sweep(
+    attrs: Tensors, valid: torch.Tensor, *, pair_fn: Callable,
+    pair_attrs: Sequence[str], radius: float, params: dict,
+    box: Optional[Sequence[Optional[float]]] = None,
+) -> Tensors:
+    """Per-agent pair sums over the resident SoA.
+
+    ``attrs``/``valid`` are the resident ``(*local_grid, K, ...)`` tensors
+    (interior plus the filled halo ring).  Returns a dict of
+    ``(*interior, K, *t)`` float32 sums.  On a CUDA tensor this launches the
+    ``pair_sweep`` kernel (or raises); on a CPU tensor it runs the plain
+    version.
+    """
+    nd = valid.dim() - 1
+    interior = tuple(h - 2 for h in valid.shape[:nd])
+    k = valid.shape[nd]
+    if valid.device.type == "cpu":
+        ai, aj, vi, vj = neighborhood_slabs(attrs, valid, pair_attrs)
+        acc = pair_sweep_plain(ai, aj, vi, vj, pair_fn=pair_fn,
+                               radius=radius, params=params, box=box)
+        return {n: a.reshape(interior + (k,) + tuple(a.shape[2:]))
+                for n, a in acc.items()}
+    if valid.device.type != "cuda":
+        raise ValueError(f"pair_sweep: unsupported device {valid.device}")
+    return _launch(law_for(pair_fn), attrs, valid, radius, params, box)
+
+
+_ARGTYPES = (
+    [ctypes.c_int] * 3                       # law, ndim, device
+    + [ctypes.c_void_p] * 6                  # pos, gids, valid, columns
+    + [ctypes.c_int] * 4                     # n0, n1, n2, k
+    + [ctypes.c_float] * 4                   # r2, box lengths
+    + [ctypes.c_int] * 3                     # wrap flags
+    + [ctypes.c_float] * 3                   # law params
+    + [ctypes.c_void_p] * 3                  # out0, out1, stream
+)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("pair_sweep")
+    if lib.pair_sweep_launch.argtypes is None:
+        lib.pair_sweep_launch.argtypes = _ARGTYPES
+        lib.pair_sweep_launch.restype = ctypes.c_int
+        lib.pair_sweep_error_string.argtypes = [ctypes.c_int]
+        lib.pair_sweep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
+           shape: Tuple[int, ...], device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"pair_sweep: {name} is on {t.device}, "
+                         f"valid on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"pair_sweep: {name} has dtype {t.dtype}, the "
+                        f"kernel takes {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"pair_sweep: {name} has shape {tuple(t.shape)}, "
+                         f"expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"pair_sweep: {name} is not contiguous")
+
+
+def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
+            radius: float, params: dict,
+            box: Optional[Sequence[Optional[float]]]) -> Tensors:
+    nd = valid.dim() - 1
+    if nd != 2:
+        raise NotImplementedError(
+            f"the pair_sweep kernel is instantiated for 2-D domains only; "
+            f"the {nd}-D instantiation comes with ROADMAP B1")
+    dev = valid.device
+    grid = tuple(valid.shape)
+    interior = tuple(h - 2 for h in grid[:nd])
+    k = grid[nd]
+    _check("valid", valid, torch.bool, grid, dev)
+    _check(_POS, attrs[_POS], torch.float32, grid + (nd,), dev)
+    _check(_GID_RANK, attrs[_GID_RANK], torch.int32, grid, dev)
+    _check(_GID_COUNT, attrs[_GID_COUNT], torch.int32, grid, dev)
+    fcol = icol = None
+    if law.float_col is not None:
+        fcol = attrs[law.float_col]
+        _check(law.float_col, fcol, torch.float32, grid, dev)
+    if law.int_col is not None:
+        icol = attrs[law.int_col]
+        _check(law.int_col, icol, torch.int32, grid, dev)
+
+    p = [float(params[n]) if d is None else float(params.get(n, d))
+         for n, d in law.params]
+    p += [0.0] * (3 - len(p))
+    box = tuple(box) if box is not None else (None,) * nd
+    lens = [0.0 if b is None else float(b) for b in box] + [0.0]
+    wraps = [0 if b is None else 1 for b in box] + [0]
+
+    outs = {name: torch.empty(interior + (k,) + ((nd,) if per_axis else ()),
+                              dtype=torch.float32, device=dev)
+            for name, per_axis in law.outputs}
+    out_ptrs = [o.data_ptr() for o in outs.values()] + [None]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _library()
+    err = lib.pair_sweep_launch(
+        law.law_id, nd, dev.index, ptr(attrs[_POS]), ptr(attrs[_GID_RANK]),
+        ptr(attrs[_GID_COUNT]), ptr(valid), ptr(fcol), ptr(icol),
+        interior[0], interior[1], 1, k,
+        float(np.float32(radius * radius)), *lens, *wraps, *p,
+        out_ptrs[0], out_ptrs[1], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"pair_sweep kernel launch failed: cudaError {err} "
+            f"({lib.pair_sweep_error_string(err).decode()})")
+    LAUNCHES[law.name] += 1
+    return outs

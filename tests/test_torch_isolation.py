@@ -1,0 +1,160 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, nothing falls back from the card to the
+CPU, a CPU tensor never counts as a kernel launch, and the CLI runs on the
+CPU when asked to."""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+PORT = SRC / "repro_torch"
+SMOKE = ROOT / "chip_smoke.py"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    return env
+
+
+def _run(args, cwd=ROOT, timeout=120):
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=_env(),
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_port_and_chip_smoke_imports_leave_jax_and_repro_out():
+    code = textwrap.dedent(f"""
+        import importlib, importlib.util, pkgutil, sys
+        import repro_torch
+        for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+            importlib.import_module(m.name)
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", {str(SMOKE)!r})
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        bad = sorted(n for n in sys.modules
+                     if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("BAD", bad)
+        print("N", len([n for n in sys.modules
+                        if n.startswith("repro_torch.")]))
+    """)
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(out.stdout.split("N ")[1].split()[0])
+    assert n >= 15                    # every module of the slice imported
+
+
+def test_no_jax_or_repro_import_in_the_port_sources():
+    files = sorted(PORT.rglob("*.py")) + [SMOKE]
+    assert len(files) > 15
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad = [n for n in names if _forbidden(n)]
+            assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_default_device_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from repro_torch.core import Simulation
+    from repro_torch.sims import cell_clustering as cc
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Simulation(dict(interior=(6, 6)), cc.behavior())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cc.simulation(n_agents=50, interior=(6, 6))
+    out = _run(["-m", "repro_torch.launch.simulate", "--sim",
+                "cell_clustering", "--agents", "50", "--steps", "1"])
+    assert out.returncode != 0 and "agent_updates" not in out.stdout
+
+
+def test_cpu_tensor_never_counts_as_a_launch():
+    from repro_torch.kernels import neighbor_interaction as ni
+    from repro_torch.sims import cell_clustering as cc
+
+    before = dict(ni.LAUNCHES)
+    sim = cc.simulation(n_agents=120, interior=(6, 6), device="cpu",
+                        sweep_backend="kernel")
+    sim.run(2)
+    frac = cc.same_type_fraction(sim.state, sim.engine)
+    assert 0.0 < frac < 1.0
+    assert ni.LAUNCHES == before
+
+
+def test_cli_smoke_on_cpu():
+    out = _run(["-m", "repro_torch.launch.simulate", "--sim",
+                "cell_clustering", "--device", "cpu", "--agents", "300",
+                "--steps", "4"])
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("sim=cell_clustering devices=1 agents=300 "
+                               "steps=4")
+    assert lines[1].startswith("aura bytes/iter=") and "dropped=0" in lines[1]
+    assert "pair_sweep kernel launches=0" in lines[-1]
+    for flag in (["--mesh", "2x2"], ["--delta", "int8"],
+                 ["--sim", "epidemiology"]):
+        args = ["-m", "repro_torch.launch.simulate", "--sim",
+                "cell_clustering", "--device", "cpu", *flag]
+        bad = _run(args)
+        assert bad.returncode != 0 and "NotImplementedError" in bad.stderr
+
+
+def _result_line(stdout: str):
+    lines = stdout.strip().splitlines()
+    try:
+        return json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        return None
+
+
+def test_chip_smoke_fails_without_a_gpu_and_alone(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = _run([str(SMOKE)])
+    assert out.returncode != 0 and _result_line(out.stdout) is None
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(SMOKE, alone)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and _result_line(out.stdout) is None
+
+
+def test_bridge_round_trip_is_exact():
+    from repro_torch.bridge import state_from_arrays, state_to_arrays
+    from repro_torch.sims import cell_clustering as cc
+
+    sim = cc.simulation(n_agents=100, interior=(6, 6), device="cpu")
+    sim.run(1)
+    arrays = state_to_arrays(sim.state)
+    arrays["key"] = np.array([[[7, 2**32 - 1]]], np.uint32)
+    back = state_to_arrays(state_from_arrays(arrays, device="cpu"))
+    assert set(back) == set(arrays)
+    for k, v in arrays.items():
+        assert back[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(back[k], v, err_msg=k)

@@ -1,0 +1,136 @@
+"""The ``pair_sweep`` CUDA kernel against its plain PyTorch version.
+
+This file imports no JAX, so it runs on a machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_kernel.py
+
+The tests marked ``cuda`` need an NVIDIA GPU and skip (from inside the
+test) elsewhere; the others check, on the CPU, the pieces of the wrapper
+that the kernel relies on.  Forces to 1e-5 (abs and rel), counts exactly.
+"""
+
+import pytest
+import torch
+
+from repro_torch.core.grid import clear_ring
+from repro_torch.core.halo import LocalComm, halo_exchange
+from repro_torch.core.neighbors import minimum_image_box
+from repro_torch.kernels import neighbor_interaction as ni
+from repro_torch.sims import cell_clustering as cc
+from repro_torch.sims.common import make_sim
+
+LAWS = {
+    "soft_repulsion_adhesion": (cc.behavior().pair_fn,
+                                cc.behavior().pair_attrs,
+                                dict(cc.behavior().params)),
+    "same_type": (cc._same_type_pair, ("ctype",), {}),
+}
+COUNTS = ("same", "cnt")
+
+
+def _soa(device, boundary, interior=(12, 12), cap=24, per_cell=6, seed=0,
+         sweep_backend="auto"):
+    """A mid-run SoA with its aura filled, as the engine's sweep sees it."""
+    sim = make_sim(cc.behavior(), interior=interior, cap=cap,
+                   boundary=boundary, device=device,
+                   sweep_backend=sweep_backend)
+    n = per_cell * int(torch.tensor(interior).prod())
+    cc.init(sim, n, seed=seed)
+    sim.run(1)
+    refs = {d: {f: v[(0,) * len(interior)] for f, v in s.items()}
+            for d, s in sim.state.refs.items()}
+    soa, _, _, _ = halo_exchange(
+        sim.geom, clear_ring(sim.state.soa),
+        LocalComm(toroidal=sim.geom.toroidal), refs, sim.engine.delta_cfg,
+        True)
+    return soa, minimum_image_box(sim.geom)
+
+
+def _plain(soa, law, box, rows=None):
+    pair_fn, pattrs, params = LAWS[law]
+    ai, aj, vi, vj = ni.neighborhood_slabs(soa.attrs, soa.valid, pattrs,
+                                           rows=rows)
+    return ni.pair_sweep_plain(ai, aj, vi, vj, pair_fn=pair_fn, radius=2.0,
+                               params=params, box=box)
+
+
+def _wrapper(soa, law, box):
+    pair_fn, pattrs, params = LAWS[law]
+    return ni.pair_sweep(soa.attrs, soa.valid, pair_fn=pair_fn,
+                         pair_attrs=pattrs, radius=2.0, params=params,
+                         box=box)
+
+
+def _assert_match(got, want):
+    assert set(got) == set(want)
+    for name, w in want.items():
+        g = got[name].cpu()
+        w = w.reshape(g.shape).cpu()
+        if name in COUNTS:
+            assert torch.equal(g, w), name
+        else:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("law", sorted(LAWS))
+def test_row_chunks_cover_the_grid(law):
+    soa, box = _soa("cpu", "toroidal")
+    whole = _plain(soa, law, box)
+    parts = [_plain(soa, law, box, rows=(r, min(12, r + 5)))
+             for r in range(0, 12, 5)]
+    for name, w in whole.items():
+        assert torch.equal(torch.cat([p[name] for p in parts]), w)
+
+
+def test_wrapper_input_checks():
+    t = torch.zeros((4, 4, 3), dtype=torch.float32)
+    cpu = torch.device("cpu")
+    ni._check("x", t, torch.float32, (4, 4, 3), cpu)
+    with pytest.raises(TypeError):
+        ni._check("x", t, torch.int32, (4, 4, 3), cpu)
+    with pytest.raises(ValueError, match="shape"):
+        ni._check("x", t, torch.float32, (4, 4, 2), cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        ni._check("x", t.transpose(0, 1), torch.float32, (4, 4, 3), cpu)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [24, 40])
+@pytest.mark.parametrize("boundary", ["closed", "toroidal"])
+@pytest.mark.parametrize("law", sorted(LAWS))
+def test_kernel_matches_plain_on_cuda(cuda, law, boundary, cap):
+    soa, box = _soa(cuda, boundary, cap=cap)
+    before = ni.LAUNCHES[ni.law_for(LAWS[law][0]).name]
+    got = _wrapper(soa, law, box)
+    torch.cuda.synchronize()
+    assert ni.LAUNCHES[ni.law_for(LAWS[law][0]).name] == before + 1
+    _assert_match(got, _plain(soa, law, box))
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    soa, box = _soa(cuda, "closed")
+
+    def other_pair(ai, aj, disp, dist2, params):
+        return {"n": torch.ones_like(dist2)}
+
+    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+        ni.pair_sweep(soa.attrs, soa.valid, pair_fn=other_pair,
+                      pair_attrs=(), radius=2.0, params={}, box=box)
+    # the 3-D state is stepped with the tiled sweep: the kernel is 2-D only
+    soa3, box3 = _soa(cuda, "closed", interior=(4, 4, 3),
+                      sweep_backend="tiled")
+    with pytest.raises(NotImplementedError, match="2-D"):
+        _wrapper(soa3, "same_type", box3)
+    bad = dict(soa.attrs, ctype=soa.attrs["ctype"].to(torch.int64))
+    with pytest.raises(TypeError):
+        ni.pair_sweep(bad, soa.valid, pair_fn=cc._same_type_pair,
+                      pair_attrs=("ctype",), radius=2.0, params={}, box=box)

@@ -1,0 +1,129 @@
+"""Parity of the port's interaction sweep with the JAX package.
+
+Each port backend is held against its JAX counterpart on the same state,
+for both pair laws of the cell-clustering slice and both boundaries:
+``pair_accumulate`` vs JAX ``reference``, ``pair_accumulate_tiled`` vs
+``tiled``, and the kernel's plain version ``pair_sweep_plain`` (the
+``kernel`` backend on a CPU tensor) vs ``pallas`` (the Pallas kernel in
+interpret mode, as tests/test_sweep.py runs it).  Float accumulators to
+1e-5, count accumulators (same, cnt) exactly.
+
+The CUDA kernel itself is held against its plain version in
+tests/test_torch_kernel.py.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import Domain as JDomain
+from repro.core import Engine as JEngine
+from repro.core.grid import clear_ring
+from repro.core.halo import LocalComm, halo_exchange
+from repro.core.neighbors import sweep_accumulate as j_sweep
+from repro.sims import cell_clustering as j_cc
+from repro_torch.bridge import state_from_arrays
+from repro_torch.core import Domain
+from repro_torch.core.neighbors import (
+    pair_accumulate,
+    pair_accumulate_kernel,
+    pair_accumulate_tiled,
+    resolve_sweep_backend,
+    sweep_accumulate,
+)
+from repro_torch.kernels import neighbor_interaction as ni
+from repro_torch.sims import cell_clustering as cc
+from torch_parity import assert_dicts_close, jax_state_arrays, soa_inputs
+
+COUNT_KEYS = ("same", "cnt")
+
+# law -> (JAX pair_fn, port pair_fn, pair_attrs, params)
+LAWS = {
+    "soft_repulsion_adhesion": (
+        j_cc.behavior().pair_fn, cc.behavior().pair_fn,
+        ("diameter", "ctype"), dict(cc.behavior().params)),
+    "same_type": (j_cc._same_type_pair, cc._same_type_pair, ("ctype",), {}),
+}
+
+PORT = {
+    "reference": pair_accumulate,
+    "tiled": pair_accumulate_tiled,
+    "pallas": pair_accumulate_kernel,    # the kernel's plain version on CPU
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _case(boundary, interior=(6, 6), n=260, seed=0):
+    """A post-exchange JAX state (ring filled) and its port twin."""
+    kw = dict(cell_size=2.0, interior=interior, cap=16, boundary=boundary)
+    geom_j = JDomain(**kw)
+    pos, attrs = soa_inputs(n, len(interior), geom_j.domain_size, seed)
+    eng = JEngine(geom=geom_j, behavior=j_cc.behavior(), dt=0.1)
+    st = eng.init_state(pos, attrs, seed=seed)
+    # one step so the SoA is a mid-run one, then refill the ring so the
+    # sweep sees neighbours across the boundary as the engine's sweep does
+    st = eng.make_local_step()(st)
+    refs = {d: {f: v[(0,) * len(interior)] for f, v in s.items()}
+            for d, s in st.refs.items()}
+    soa_j, _, _, _ = halo_exchange(
+        geom_j, clear_ring(st.soa), LocalComm(toroidal=geom_j.toroidal),
+        refs, eng.delta_cfg, True)
+    st_t = state_from_arrays(
+        jax_state_arrays(dataclasses.replace(st, soa=soa_j)), device="cpu")
+    return geom_j, Domain(**kw), soa_j, st_t.soa
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sweep(law, boundary, backend, interior=(6, 6)):
+    geom_j, _, soa_j, _ = _case(boundary, interior)
+    pair_j, _, pattrs, params = LAWS[law]
+    fn = jax.jit(lambda soa: j_sweep(geom_j, soa, pair_j, pattrs, 2.0,
+                                     params, backend=backend))
+    return {k: np.asarray(v) for k, v in fn(soa_j).items()}
+
+
+@pytest.mark.parametrize("backend", ["reference", "tiled", "pallas"])
+@pytest.mark.parametrize("boundary", ["closed", "toroidal"])
+@pytest.mark.parametrize("law", sorted(LAWS))
+def test_port_sweep_matches_jax(law, boundary, backend):
+    want = _jax_sweep(law, boundary, backend)
+    _, geom_t, _, soa_t = _case(boundary)
+    _, pair_t, pattrs, params = LAWS[law]
+    got = PORT[backend](geom_t, soa_t, pair_t, pattrs, 2.0, params)
+    assert_dicts_close(got, want, exact_keys=COUNT_KEYS)
+    if law == "same_type":
+        assert float(got["cnt"].sum()) > 0
+
+
+@pytest.mark.parametrize("backend", ["reference", "tiled", "kernel"])
+def test_port_sweep_3d_matches_jax_tiled(backend):
+    """The 3-D (27-offset) stencil on the CPU paths, against JAX tiled."""
+    interior = (4, 4, 3)
+    want = _jax_sweep("soft_repulsion_adhesion", "toroidal", "tiled",
+                      interior)
+    _, geom_t, _, soa_t = _case("toroidal", interior)
+    _, pair_t, pattrs, params = LAWS["soft_repulsion_adhesion"]
+    got = sweep_accumulate(geom_t, soa_t, pair_t, pattrs, 2.0, params,
+                           backend=backend)
+    assert_dicts_close(got, want)
+
+
+def test_resolve_sweep_backend():
+    assert resolve_sweep_backend("auto", torch.device("cpu")) == "tiled"
+    assert resolve_sweep_backend("auto", torch.device("cuda")) == "kernel"
+    assert resolve_sweep_backend("kernel", torch.device("cpu")) == "kernel"
+    with pytest.raises(ValueError):
+        resolve_sweep_backend("pallas", torch.device("cpu"))
+
+
+def test_unregistered_pair_law_raises():
+    def other_pair(ai, aj, disp, dist2, params):
+        return {"n": torch.ones_like(dist2)}
+
+    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+        ni.law_for(other_pair)
+    assert ni.law_for(cc._same_type_pair).name == "same_type"
