@@ -10,8 +10,10 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; asking for CUDA on a machine without one raises
 (:func:`repro_torch.device.resolve_device`).
 
-Ported so far: single-device cell clustering (``sims.cell_clustering``)
-end to end, with the neighbour sweep on the ``pair_sweep`` kernel.  See
+Ported so far: cell clustering (``sims.cell_clustering``) end to end on
+one device and on a virtual device mesh (the whole mesh on one card), the
+neighbour sweep on the ``pair_sweep`` kernel and the delta-encoded aura
+exchange and migration codec on the four ``delta_codec`` kernels.  See
 ``ROADMAP.md`` for what is still to come.
 """
 

@@ -3,17 +3,21 @@ numpy arrays.
 
 The dict is keyed by ``SimState`` field paths: ``soa.attrs.<name>``,
 ``soa.valid``, ``refs.<edge>.<field>``, ``it``, ``key``, ``gid_counter``,
-``dropped``, ``halo_bytes``, ``codec_overflow``, ``health``.  The layouts
-and dtypes are the same on both sides, so the conversion is exact (the RNG
-``key`` included: it is carried unchanged, uint32).  This module imports no
-JAX: a caller that holds a JAX state builds the dict with ``np.asarray`` on
-each leaf.  Behaviour ``params`` are plain Python floats on both sides and
-need no bridge.
+``dropped``, ``halo_bytes``, ``codec_overflow``, ``health``, in the
+reference's global layout: the agent SoA block-concatenated over the
+device mesh, ``(M0*h0, M1*h1[, M2*h2], K, ...)``, every other field with
+the mesh dims leading.  The port keeps the SoA as ``mesh_shape +
+local_shape + (K, ...)`` (see ``core.engine``); the two conversions below
+only reorder axes, so they are exact (the RNG ``key`` included: it is
+carried unchanged, uint32).  This module imports no JAX: a caller that
+holds a JAX state builds the dict with ``np.asarray`` on each leaf.
+Behaviour ``params`` are plain Python floats on both sides and need no
+bridge.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -26,12 +30,34 @@ _SCALARS = ("it", "key", "gid_counter", "dropped", "halo_bytes",
             "codec_overflow", "health")
 
 
+def mesh_to_global(a: np.ndarray, nd: int) -> np.ndarray:
+    """``mesh + local + rest`` (``nd`` axes each) -> the block-concatenated
+    ``(M0*h0, ..., rest)``."""
+    perm = [ax for pair in zip(range(nd), range(nd, 2 * nd)) for ax in pair]
+    perm += list(range(2 * nd, a.ndim))
+    glob = tuple(a.shape[i] * a.shape[nd + i] for i in range(nd))
+    return a.transpose(perm).reshape(glob + a.shape[2 * nd:])
+
+
+def global_to_mesh(a: np.ndarray, mesh: Sequence[int]) -> np.ndarray:
+    """The inverse of :func:`mesh_to_global`."""
+    nd = len(mesh)
+    local = [g // m for g, m in zip(a.shape[:nd], mesh)]
+    split = [v for m, h in zip(mesh, local) for v in (m, h)]
+    b = a.reshape(tuple(split) + a.shape[nd:])
+    perm = ([2 * i for i in range(nd)] + [2 * i + 1 for i in range(nd)]
+            + list(range(2 * nd, b.ndim)))
+    return b.transpose(perm)
+
+
 def state_to_arrays(state: SimState) -> Dict[str, np.ndarray]:
-    """Every leaf of ``state`` as a numpy array, keyed by field path."""
+    """Every leaf of ``state`` as a numpy array in the reference's global
+    layout, keyed by field path."""
+    nd = state.it.dim()
     out: Dict[str, np.ndarray] = {}
     for name, a in state.soa.attrs.items():
-        out[f"soa.attrs.{name}"] = a.cpu().numpy()
-    out["soa.valid"] = state.soa.valid.cpu().numpy()
+        out[f"soa.attrs.{name}"] = mesh_to_global(a.cpu().numpy(), nd)
+    out["soa.valid"] = mesh_to_global(state.soa.valid.cpu().numpy(), nd)
     for edge, slab in state.refs.items():
         for field, a in slab.items():
             out[f"refs.{edge}.{field}"] = a.cpu().numpy()
@@ -44,20 +70,24 @@ def state_from_arrays(arrays: Dict[str, np.ndarray],
                       device: DeviceLike = "cuda") -> SimState:
     """The inverse of :func:`state_to_arrays`, on ``device``."""
     dev = resolve_device(device)
+    mesh = np.shape(arrays["it"])
 
     def t(a):
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    def soa_t(a):
+        return t(np.ascontiguousarray(global_to_mesh(np.asarray(a), mesh)))
 
     attrs, refs = {}, {}
     for path, a in arrays.items():
         head, _, rest = path.partition(".")
         if path.startswith("soa.attrs."):
-            attrs[path[len("soa.attrs."):]] = t(a)
+            attrs[path[len("soa.attrs."):]] = soa_t(a)
         elif head == "refs":
             edge, _, field = rest.partition(".")
             refs.setdefault(edge, {})[field] = t(a)
         elif path != "soa.valid" and path not in _SCALARS:
             raise KeyError(f"unknown SimState field path {path!r}")
     return SimState(
-        soa=AgentSoA(attrs=attrs, valid=t(arrays["soa.valid"])),
+        soa=AgentSoA(attrs=attrs, valid=soa_t(arrays["soa.valid"])),
         refs=refs, **{name: t(arrays[name]) for name in _SCALARS})

@@ -5,8 +5,8 @@ Public API of this slice:
   AgentSchema / AgentSoA   - SoA agent container
   Domain / Partition       - N-D spatial spec
   Behavior                 - model definition (pair kernel + update)
-  Engine / SimState        - single-device simulation engine (low-level)
-  DeltaConfig              - aura-exchange payload config (full refresh)
+  Engine / SimState        - simulation engine on a virtual device mesh
+  DeltaConfig              - aura-exchange delta / migration codec config
 """
 
 from repro_torch.core.agent_soa import (

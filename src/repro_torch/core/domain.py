@@ -6,7 +6,7 @@ shape, per-axis boundary conditions (``"closed"`` | ``"toroidal"``), the
 NSG cell size, the per-cell slot capacity and the partitioning-box factor.
 :class:`Partition` carries per-axis cut positions for uneven ownership.
 Both are frozen and validated exactly as in the reference; the engine of
-this port runs single-device equal splits only.
+this port runs equal splits only (uneven partitions: ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -301,6 +301,13 @@ class Domain:
             vals = [int(c) * (i * self.cell_size)
                     for c, i in zip(coords, self.interior)]
         return torch.tensor(np.asarray(vals, np.float32), device=device)
+
+    def device_origins(self, device: torch.device) -> torch.Tensor:
+        """:meth:`device_origin` of every device of the mesh, stacked as
+        ``mesh_shape + (ndim,)`` (float32)."""
+        return torch.stack([self.device_origin(c, device)
+                            for c in np.ndindex(*self.mesh_shape)]
+                           ).reshape(self.mesh_shape + (self.ndim,))
 
     def owned_widths(self, coords: Tuple[int, ...]
                      ) -> Optional[Tuple[int, ...]]:

@@ -2,15 +2,25 @@
 interaction -> agent update -> agent migration (port of
 ``repro/core/engine.py``, paper Figure 1).
 
-State layout is the reference's: the agent SoA in the local-grid layout
-``(*local_grid, K, ...)`` and every per-device quantity with ``ndim``
-leading (all-ones) mesh dims.  This slice runs one device through
-:class:`LocalComm` with a full aura refresh every step; the segment runner
-is a plain Python loop over :meth:`Engine.local_step` (CUDA-graph capture
-of that loop is later work).  Options that need a later slice raise
-``NotImplementedError`` naming its ROADMAP item: multi-device meshes,
-uneven partitions, delta encoding and the overlapped sweep (A7), spawning
-behaviours (A5), guards (A9), rebalancing (A8), fault plans (A9).
+The device mesh is virtual: all of it lives in one process on one card,
+as leading dims of every tensor (:class:`~repro_torch.core.halo.
+VirtualMeshComm`).  ``SimState.soa`` holds each device's block as
+``mesh_shape + local_shape + (K, ...)``, so ``soa.attrs[n][c]`` is device
+``c``'s contiguous ``(*local_grid, K, ...)`` block, the layout the kernels
+read; every per-device quantity carries the same leading mesh dims, as in
+the reference.  A single device is the all-ones mesh.
+``repro_torch.bridge`` converts to and from the reference's
+block-concatenated global layout.
+
+One step runs the two exchanges (aura and migration) mesh-wide - per
+directed edge the slabs of every device are taken, encoded in one kernel
+launch per float attribute, shifted, decoded and put - and the per-device
+parts (sweep, update, clamp, binning) as a Python loop over the devices.
+The segment runner is a plain Python loop over :meth:`Engine.local_step`
+(CUDA-graph capture is later work).  Options that need a later slice raise
+``NotImplementedError`` naming its ROADMAP item: uneven partitions and the
+overlapped sweep (A7), spawning behaviours (A5), guards (A9), rebalancing
+(A8), fault plans (A9).
 
 RNG: ``jax.random`` keys cannot be reproduced before the threefry port
 (A5), so :meth:`Engine.init_state` fills ``key`` with zeros and
@@ -23,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -37,10 +47,12 @@ from repro_torch.core.agent_soa import (
     numpy_dtype,
 )
 from repro_torch.core.behaviors import Behavior
-from repro_torch.core.delta import DeltaConfig, Slab
+from repro_torch.core.delta import (
+    DeltaConfig, Slab, decode_migration, encode_migration,
+)
 from repro_torch.core.domain import Domain
 from repro_torch.core.grid import bin_agents, clear_ring, ring_index
-from repro_torch.core.halo import Comm, LocalComm, halo_exchange, \
+from repro_torch.core.halo import Comm, VirtualMeshComm, halo_exchange, \
     init_refs, take_slab
 from repro_torch.core.neighbors import sweep_accumulate
 from repro_torch.device import resolve_device
@@ -48,12 +60,6 @@ from repro_torch.device import resolve_device
 # Number of runtime guard counters in SimState.health (the reference's
 # core.guards.NUM_GUARDS); the guards themselves come with ROADMAP A9.
 NUM_GUARDS = 5
-
-
-def _bcast(x: torch.Tensor, mesh_shape: Tuple[int, ...]) -> torch.Tensor:
-    """Give a per-device value the leading device-mesh dims."""
-    return x.reshape((1,) * len(mesh_shape) + tuple(x.shape)).expand(
-        tuple(mesh_shape) + tuple(x.shape))
 
 
 def _jnp_mod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -65,8 +71,8 @@ def _jnp_mod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class SimState:
-    soa: AgentSoA                   # (*local grid, K, ...)
-    refs: Dict[str, Slab]           # leading mesh_shape dims
+    soa: AgentSoA                   # mesh_shape + (*local grid, K, ...)
+    refs: Dict[str, Slab]           # mesh_shape + slab shape
     it: torch.Tensor                # mesh_shape int32
     key: torch.Tensor               # mesh_shape + (2,) uint32
     gid_counter: torch.Tensor       # mesh_shape int32
@@ -82,6 +88,42 @@ def _unported(what: str, value, item: str) -> None:
             f"{what} is not ported yet (ROADMAP {item})")
 
 
+def device_block(soa: AgentSoA, coords: Tuple[int, ...]) -> AgentSoA:
+    """Device ``coords``' block of a mesh-layout SoA (contiguous views)."""
+    return AgentSoA(attrs={n: a[coords] for n, a in soa.attrs.items()},
+                    valid=soa.valid[coords])
+
+
+class _MeshSoA:
+    """Assembles per-device blocks into a mesh-layout SoA.  A one-device
+    mesh takes its block as a view (no copy); otherwise the mesh tensors
+    are allocated at the first block and each block is copied in, so the
+    caller can free it right away."""
+
+    def __init__(self, mesh_shape: Tuple[int, ...]):
+        self.mesh = tuple(mesh_shape)
+        self.soa = None
+
+    def put(self, coords: Tuple[int, ...], blk: AgentSoA) -> None:
+        if math.prod(self.mesh) == 1:
+            lead = (1,) * len(self.mesh)
+            self.soa = AgentSoA(
+                attrs={n: a.reshape(lead + a.shape)
+                       for n, a in blk.attrs.items()},
+                valid=blk.valid.reshape(lead + blk.valid.shape))
+            return
+        if self.soa is None:
+            def alloc(a):
+                return torch.empty(self.mesh + tuple(a.shape),
+                                   dtype=a.dtype, device=a.device)
+            self.soa = AgentSoA(
+                attrs={n: alloc(a) for n, a in blk.attrs.items()},
+                valid=alloc(blk.valid))
+        for n, a in blk.attrs.items():
+            self.soa.attrs[n][coords].copy_(a)
+        self.soa.valid[coords].copy_(blk.valid)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Engine:
     geom: Domain
@@ -91,8 +133,10 @@ class Engine:
     # "auto" resolves per SoA device: the CUDA kernel on the card, the
     # tiled sweep on the CPU; "reference" | "tiled" | "kernel" force one.
     sweep_backend: str = "auto"
-    # Communication hiding needs a wire (ROADMAP A7): "auto" and "off" run
-    # the monolithic sweep, "on" raises.
+    # Communication hiding needs a wire: on the virtual mesh there is none
+    # to hide, so "auto" and "off" run the monolithic sweep (which the
+    # reference pins bit-exact against its overlapped one); "on" raises
+    # (ROADMAP A7).
     overlap: str = "auto"
     device: Any = "cuda"
 
@@ -104,10 +148,10 @@ class Engine:
             raise NotImplementedError(
                 "the overlapped interior/boundary sweep is not ported yet "
                 "(ROADMAP A7)")
-        if self.geom.n_devices > 1 or self.geom.uneven:
+        if self.geom.uneven:
             raise NotImplementedError(
-                f"mesh {self.geom.mesh_shape} / uneven partitions: the "
-                "multi-device engine is not ported yet (ROADMAP A7)")
+                "uneven partitions (owned masks, traced face indices) are "
+                "not ported yet (ROADMAP A7)")
         if self.behavior.can_spawn:
             raise NotImplementedError(
                 "spawning behaviours need the RNG and spawn path (ROADMAP "
@@ -119,7 +163,9 @@ class Engine:
     # ------------------------------------------------------------------
     def init_state(self, positions: np.ndarray,
                    attrs: Dict[str, np.ndarray], seed: int = 0) -> SimState:
-        """Create the agents in their cells on the (single) device.
+        """Create every agent directly on the device whose block holds it
+        (paper section 2.4.4): per-device blocks, ``gid_rank`` = the
+        device's linear rank, ``gid_count`` counting from 0 on each device.
 
         ``seed`` only seeds the reference's RNG keys, which are not ported
         (ROADMAP A5): ``key`` is zeros here.
@@ -148,39 +194,48 @@ class Engine:
                 "carried gid columns (the re-shard / restore path) are not "
                 "ported yet (ROADMAP A8)")
 
-        n = positions.shape[0]
-        flat: Dict[str, torch.Tensor] = {}
-        for name, (shape, dtype) in schema.all_specs(nd).items():
-            if name == POS:
-                a = positions.astype(np.float32)
-            elif name == GID_RANK:
-                a = np.zeros((n,), dtype=np.int32)   # linear rank 0
-            elif name == GID_COUNT:
-                a = np.arange(n, dtype=np.int32)
-            else:
-                a = np.asarray(attrs[name], dtype=numpy_dtype(dtype))
-            flat[name] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        valid = torch.ones((n,), dtype=torch.bool, device=dev)
-        origin = geom.device_origin((0,) * nd, dev)
-        soa, dropped = bin_agents(geom, flat, valid, origin)
-        if int(dropped) != 0:
-            raise ValueError(
-                f"cell capacity overflow at init: {int(dropped)} agents "
-                "dropped; raise geom.cap")
-
-        refs0 = init_refs(geom, soa)
-        refs = {d: {f: _bcast(v, mesh) for f, v in slab.items()}
-                for d, slab in refs0.items()}
+        lens = [i * geom.cell_size for i in geom.interior]
+        owner = [np.clip((positions[:, a] // lens[a]).astype(np.int64),
+                         0, mesh[a] - 1) for a in range(nd)]
+        blocks = _MeshSoA(mesh)
+        counters = np.zeros(mesh, dtype=np.int32)
+        for coords in np.ndindex(*mesh):
+            sel = np.ones(positions.shape[0], dtype=bool)
+            for a in range(nd):
+                sel &= owner[a] == coords[a]
+            sel = np.flatnonzero(sel)
+            n = sel.size
+            lin = int(np.ravel_multi_index(coords, mesh))
+            flat: Dict[str, torch.Tensor] = {}
+            for name, (shape, dtype) in schema.all_specs(nd).items():
+                if name == POS:
+                    a = positions[sel].astype(np.float32)
+                elif name == GID_RANK:
+                    a = np.full((n,), lin, dtype=np.int32)
+                elif name == GID_COUNT:
+                    a = np.arange(n, dtype=np.int32)
+                else:
+                    a = np.asarray(attrs[name], dtype=numpy_dtype(dtype))[sel]
+                flat[name] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            valid = torch.ones((n,), dtype=torch.bool, device=dev)
+            soa, dropped = bin_agents(geom, flat, valid,
+                                      geom.device_origin(coords, dev))
+            if int(dropped) != 0:
+                raise ValueError(
+                    f"cell capacity overflow at init on device {coords}: "
+                    f"{int(dropped)} agents dropped; raise geom.cap")
+            counters[coords] = n
+            blocks.put(coords, soa)
 
         def scalar(v):
             return torch.full(mesh, v, dtype=torch.int32, device=dev)
 
         return SimState(
-            soa=soa,
-            refs=refs,
+            soa=blocks.soa,
+            refs=init_refs(geom, blocks.soa, lead=nd),
             it=scalar(0),
             key=torch.zeros(mesh + (2,), dtype=torch.uint32, device=dev),
-            gid_counter=scalar(n),
+            gid_counter=torch.from_numpy(counters).to(dev),
             dropped=scalar(0),
             halo_bytes=scalar(0),
             codec_overflow=scalar(0),
@@ -191,41 +246,26 @@ class Engine:
     # ------------------------------------------------------------------
     # One iteration
     # ------------------------------------------------------------------
-    def local_step(self, state: SimState, comm: Comm, full_halo: bool
-                   ) -> SimState:
+    def _device_update(self, blk: AgentSoA, origin: torch.Tensor
+                       ) -> Tuple[AgentSoA, torch.Tensor]:
+        """Sweep, pointwise update, clamp and re-binning of one device's
+        block (its aura filled).  Returns the binned block and the agents
+        dropped for cell overflow."""
         geom = self.geom
         beh = self.behavior
         nd = geom.ndim
-        shape = geom.local_shape
-        k = geom.cap
         tor = geom.toroidal
-        dev = state.soa.valid.device
-
-        origin = geom.device_origin(comm.coords(), dev)
-        idx0 = (0,) * nd
-        refs = {d: {f: v[idx0] for f, v in slab.items()}
-                for d, slab in state.refs.items()}
-        it = state.it[idx0]
-        gidc = state.gid_counter[idx0]
-        dropped = state.dropped[idx0]
-        coflow = state.codec_overflow[idx0]
-        health = state.health[idx0]
-
-        # 1. Aura update (rebuilt from scratch each iteration, §2.2.1).
-        soa, refs, hbytes, oflow = halo_exchange(
-            geom, clear_ring(state.soa), comm, refs, self.delta_cfg,
-            full_halo)
-        coflow = coflow + oflow
+        dev = blk.valid.device
 
         # 2. Local interaction (backend-dispatched sweep).
         acc = sweep_accumulate(
-            geom, soa, beh.pair_fn, beh.pair_attrs, beh.radius, beh.params,
+            geom, blk, beh.pair_fn, beh.pair_attrs, beh.radius, beh.params,
             backend=self.sweep_backend)
 
         # 3. Pointwise update on interior agents.
-        isl = tuple(slice(1, h - 1) for h in shape)
-        int_attrs = {n: a[isl] for n, a in soa.attrs.items()}
-        int_valid = soa.valid[isl]
+        isl = tuple(slice(1, h - 1) for h in geom.local_shape)
+        int_attrs = {n: a[isl] for n, a in blk.attrs.items()}
+        int_valid = blk.valid[isl]
         new_attrs, alive, _, _ = beh.update_fn(
             int_attrs, int_valid, acc, None, beh.params, self.dt)
         new_valid = int_valid & alive
@@ -233,7 +273,6 @@ class Engine:
         # Per-axis boundary condition on positions: closed axes clamp to
         # [eps, L - eps] (eps in float64, bounds rounded to float32, as the
         # reference); toroidal axes wrap inside the migration exchange.
-        lsz = torch.tensor(geom.domain_size, dtype=torch.float32, device=dev)
         if not all(tor):
             eps = 1e-4 * geom.cell_size
             lo = np.asarray([-np.inf if t else eps for t in tor], np.float32)
@@ -245,51 +284,99 @@ class Engine:
                 max=torch.from_numpy(hi).to(dev))
 
         # 4. Flatten the interior for re-binning.
-        n_int = math.prod(geom.interior) * k
+        n_int = math.prod(geom.interior) * geom.cap
         flat = {n: a.reshape((n_int,) + tuple(a.shape[nd + 1:]))
                 for n, a in new_attrs.items()}
-        fvalid = new_valid.reshape((n_int,))
-        soa2, d1 = bin_agents(geom, flat, fvalid, origin)
-        dropped = dropped + d1
+        return bin_agents(geom, flat, new_valid.reshape((n_int,)), origin)
+
+    def local_step(self, state: SimState, comm: Comm, full_halo: bool
+                   ) -> SimState:
+        """One iteration of every device of the mesh (``comm`` is the
+        engine's :class:`VirtualMeshComm`)."""
+        geom = self.geom
+        nd = geom.ndim
+        mesh = geom.mesh_shape
+        lead = comm.lead
+        if lead != nd:
+            raise ValueError(
+                f"local_step needs a comm with {nd} leading mesh dims "
+                f"(a VirtualMeshComm); got lead={lead}")
+        dev = state.soa.valid.device
+        origins = geom.device_origins(dev)
+        lsz = torch.tensor(geom.domain_size, dtype=torch.float32, device=dev)
+
+        # 1. Aura update (rebuilt from scratch each iteration, §2.2.1).
+        soa, refs, hbytes, oflow = halo_exchange(
+            geom, clear_ring(state.soa, lead), comm, state.refs,
+            self.delta_cfg, full_halo)
+        coflow = state.codec_overflow + oflow
+
+        # 2.-4. Per device: sweep, update, clamp, re-bin.
+        binned = _MeshSoA(mesh)
+        drops: List[torch.Tensor] = []
+        for c in np.ndindex(*mesh):
+            blk, d1 = self._device_update(device_block(soa, c), origins[c])
+            binned.put(c, blk)
+            drops.append(d1)
+            del blk
+        del soa   # the aura-filled SoA is dead: free it before migration
+        dropped = state.dropped + torch.stack(drops).reshape(mesh)
 
         # 5. Agent migration: dimension-ordered ring exchange over all axes.
-        soa3, d2 = self._migrate(soa2, comm, origin, lsz)
-        dropped = dropped + d2
-
-        # 6. Repack per-device state.
-        mesh = tuple(state.it.shape)
-
-        def rep(x):
-            return _bcast(torch.as_tensor(x, dtype=torch.int32, device=dev),
-                          mesh)
+        soa3, d2, moflow = self._migrate(binned.soa, comm, origins, lsz)
 
         return SimState(
             soa=soa3,
-            refs={d: {f: _bcast(v, mesh) for f, v in slab.items()}
-                  for d, slab in refs.items()},
-            it=rep(it + 1),
+            refs=refs,
+            it=state.it + 1,
             key=state.key,
-            gid_counter=rep(gidc),
-            dropped=rep(dropped),
-            halo_bytes=rep(hbytes),
-            codec_overflow=rep(coflow),
-            health=_bcast(health, mesh),
+            gid_counter=state.gid_counter,
+            dropped=dropped + d2,
+            halo_bytes=torch.full(mesh, hbytes, dtype=torch.int32,
+                                  device=dev),
+            codec_overflow=coflow + moflow,
+            health=state.health,
         )
 
-    def _migrate(self, soa: AgentSoA, comm: Comm, origin: torch.Tensor,
-                 lsz: torch.Tensor) -> Tuple[AgentSoA, torch.Tensor]:
-        """Dimension-ordered emigrant routing with one-pass re-binning.
+    def _migrate(self, soa: AgentSoA, comm: Comm, origins: torch.Tensor,
+                 lsz: torch.Tensor
+                 ) -> Tuple[AgentSoA, torch.Tensor, torch.Tensor]:
+        """Dimension-ordered emigrant routing with one-pass re-binning,
+        mesh-wide.
 
         Axis-0 faces (incl. corner cells) are exchanged first; each later
         axis's payload widens with the ring cells of every previously
         received slab, carrying diagonal migrants forward, and everything
         (the face-cleared grid and all ``2 * ndim`` receives) re-bins in a
-        single sort pass, as in the reference.
+        single sort pass per device, as in the reference.
+
+        With ``delta_cfg.migration`` set (and the codec enabled) emigrant
+        positions cross as int16 offsets from the sender's box centre
+        (:func:`~repro_torch.core.delta.encode_migration`), one kernel
+        launch each way per hop for every device at once; the codec's
+        minimum image and the receiver's ``mod L`` take the place of
+        ``wrap_pos``.  Returns ``(soa, dropped, codec overflow)``, the last
+        two shaped like the mesh.
         """
         geom = self.geom
         nd = geom.ndim
+        mesh = geom.mesh_shape
         shape = geom.local_shape
         tor = geom.toroidal
+        lead = comm.lead
+        cfg = self.delta_cfg
+        mig_q = cfg.migration if cfg.enabled else None
+        dev = soa.valid.device
+        moflow = torch.zeros(mesh, dtype=torch.int32, device=dev)
+        lsz_np = np.asarray(geom.domain_size, np.float32)
+        if mig_q is not None:
+            # Static quantization frame: box centre at origin + half the
+            # padded extent, range covering that extent plus two cells of
+            # ring/rounding slack on each side.
+            half_ext = np.asarray(
+                [(s - 2) * geom.cell_size / 2.0 for s in shape], np.float32)
+            half_rng = half_ext + 2.0 * np.float32(geom.cell_size)
+            center = origins + torch.from_numpy(half_ext).to(dev)
 
         def wrap_pos(slab: Slab) -> Slab:
             if not any(tor):
@@ -301,12 +388,17 @@ class Engine:
                 torch.tensor(tor, device=p.device), wrapped, p)
             return out
 
-        def fl(slab: Slab):
-            slab = dict(slab)
-            v = slab.pop("valid")
-            return ({n: a.reshape((-1,) + tuple(a.shape[v.dim():]))
-                     for n, a in slab.items()},
-                    v.reshape((-1,)))
+        def ship(slab: Slab, axis: int, dirn: int):
+            """One ring hop of a widened face, through the position codec
+            when configured."""
+            if mig_q is None:
+                return comm.shift(wrap_pos(slab), axis, dirn), 0
+            enc, oflow = encode_migration(
+                slab, POS, center, half_rng, cfg, lsz=lsz_np, toroidal=tor,
+                lead=lead)
+            return decode_migration(
+                comm.shift(enc, axis, dirn), POS, half_rng, cfg,
+                lsz=lsz_np, toroidal=tor, lead=lead), oflow
 
         # Received slabs still carrying cells that need later-axis hops:
         # (slab, axis it arrived along, its fixed cell index on that axis).
@@ -317,8 +409,8 @@ class Engine:
             grid_axes = [c for c in range(nd) if c != a]
             face_grid = tuple(shape[c] for c in grid_axes)
 
-            out_m = take_slab(soa, a, 0)
-            out_p = take_slab(soa, a, hi_idx)
+            out_m = take_slab(soa, a, 0, lead)
+            out_p = take_slab(soa, a, hi_idx, lead)
 
             # Forward the axis-a ring cells of every pending slab inside
             # widened payloads, and invalidate them at their source.
@@ -326,11 +418,12 @@ class Engine:
             for slab, b, fb in pending:
                 p_axes = [c for c in range(nd) if c != b]
                 ap = p_axes.index(a)
-                lo = {n: v[ring_index(ap, 0)] for n, v in slab.items()}
-                hi = {n: v[ring_index(ap, hi_idx)] for n, v in slab.items()}
+                lo = {n: v[ring_index(ap, 0, lead)] for n, v in slab.items()}
+                hi = {n: v[ring_index(ap, hi_idx, lead)]
+                      for n, v in slab.items()}
                 nv = slab["valid"].clone()
-                nv[ring_index(ap, 0)] = False
-                nv[ring_index(ap, hi_idx)] = False
+                nv[ring_index(ap, 0, lead)] = False
+                nv[ring_index(ap, hi_idx, lead)] = False
                 fwd.append(({**slab, "valid": nv}, b, fb))
                 bpos = grid_axes.index(b)
                 blocks_m.append((lo, bpos, fb))
@@ -343,41 +436,56 @@ class Engine:
                 g = len(face_grid)
                 out = {}
                 for n, base in face.items():
-                    trailing = tuple(base.shape[g + 1:])
+                    trailing = tuple(base.shape[lead + g + 1:])
                     parts = [base]
                     for blk, bpos, fb in blocks:
                         v = blk[n]
                         z = torch.zeros(
-                            face_grid + (v.shape[g - 1],) + trailing,
-                            dtype=base.dtype, device=base.device)
-                        z[ring_index(bpos, fb)] = v
+                            mesh + face_grid + (v.shape[lead + g - 1],)
+                            + trailing, dtype=base.dtype, device=base.device)
+                        z[ring_index(bpos, fb, lead)] = v
                         parts.append(z)
-                    out[n] = torch.cat(parts, dim=g)
+                    out[n] = torch.cat(parts, dim=lead + g)
                 return out
 
-            recv_p = comm.shift(wrap_pos(widen(out_p, blocks_p)), a, +1)
-            recv_m = comm.shift(wrap_pos(widen(out_m, blocks_m)), a, -1)
+            recv_p, of_p = ship(widen(out_p, blocks_p), a, +1)
+            recv_m, of_m = ship(widen(out_m, blocks_m), a, -1)
+            moflow = moflow + of_p + of_m
 
             v = soa.valid.clone()
-            v[ring_index(a, 0)] = False
-            v[ring_index(a, hi_idx)] = False
+            v[ring_index(a, 0, lead)] = False
+            v[ring_index(a, hi_idx, lead)] = False
             soa = soa.replace(valid=v)
             # recv_p came from the -a neighbour -> sits at my a-cell 1;
             # recv_m from the +a neighbour -> my a-cell h-2.
             pending = pending + [(recv_p, a, 1), (recv_m, a, h - 2)]
 
-        base_attrs, base_valid = flat_view(soa)
-        parts = [fl(slab) for slab, _, _ in pending]
-        cat = {n: torch.cat([base_attrs[n]] + [p[0][n] for p in parts])
-               for n in base_attrs}
-        catv = torch.cat([base_valid] + [p[1] for p in parts])
-        return bin_agents(geom, cat, catv, origin)
+        def fl(slab: Slab, c):
+            v = slab["valid"][c]
+            return ({n: t[c].reshape((-1,) + tuple(t.shape[lead + v.dim():]))
+                     for n, t in slab.items() if n != "valid"},
+                    v.reshape((-1,)))
+
+        out = _MeshSoA(mesh)
+        drops: List[torch.Tensor] = []
+        for c in np.ndindex(*mesh):
+            base_attrs, base_valid = flat_view(device_block(soa, c))
+            parts = [fl(slab, c) for slab, _, _ in pending]
+            cat = {n: torch.cat([base_attrs[n]] + [p[0][n] for p in parts])
+                   for n in base_attrs}
+            catv = torch.cat([base_valid] + [p[1] for p in parts])
+            blk, d = bin_agents(geom, cat, catv, origins[c])
+            del cat, catv
+            out.put(c, blk)
+            drops.append(d)
+        return out.soa, torch.stack(drops).reshape(mesh), moflow
 
     # ------------------------------------------------------------------
     # Drivers
     # ------------------------------------------------------------------
-    def _comm(self) -> LocalComm:
-        return LocalComm(toroidal=self.geom.toroidal)
+    def _comm(self) -> VirtualMeshComm:
+        return VirtualMeshComm(mesh_shape=self.geom.mesh_shape,
+                               toroidal=self.geom.toroidal)
 
     def make_local_step(self):
         comm = self._comm()
@@ -389,34 +497,67 @@ class Engine:
 
     def make_segment_runner(self):
         """``seg(state, n_steps, full_first=True)`` runs ``n_steps``
-        iterations.  Without delta encoding every step is a full refresh,
-        so ``full_first`` changes nothing; it is kept for the reference's
-        call signature."""
+        iterations: the first a full aura refresh when ``full_first``, the
+        rest through the delta codec.  Without delta encoding every step
+        is full and ``full_first`` is ignored."""
         comm = self._comm()
+        delta_on = self.delta_cfg.enabled
 
         def seg(state: SimState, n_steps: int, full_first: bool = True
                 ) -> SimState:
-            for _ in range(int(n_steps)):
-                state = self.local_step(state, comm, True)
+            for i in range(int(n_steps)):
+                full = (not delta_on) or (full_first and i == 0)
+                state = self.local_step(state, comm, full)
             return state
 
         return seg
 
     def drive(self, state: SimState, n_steps: int, step_fn=None,
               rebalancer=None, collect=None, mesh=None, fault_plan=None):
-        """Low-level driver: ``n_steps`` through the segment runner, or one
+        """Low-level driver with the delta refresh schedule: a full aura
+        refresh at every ``i % refresh_interval == 0`` and after any step
+        that clipped under a fixed codec scale.  ``n_steps`` run through
+        the segment runner (segments end at refresh ticks), or one
         ``step_fn`` call per step when a ``step_fn`` or a per-step
         ``collect`` is given.  Returns ``(engine, state, series)``."""
         _unported("dynamic load balancing", rebalancer, "A8")
-        _unported("a device mesh", mesh, "A7")
+        _unported("an explicit device mesh", mesh, "A7")
         _unported("fault plans", fault_plan, "A9")
+        cfg = self.delta_cfg
+        r = max(int(cfg.refresh_interval), 1)
+        force_full = False
+        # A fixed-scale codec can clip (the adaptive one never does): a
+        # grown overflow count forces the next exchange to a full refresh.
+        track_clip = cfg.enabled and cfg.scale is not None
+        clip_mark = codec_overflow_count(state) if track_clip else 0
+
+        def after(state):
+            nonlocal force_full, clip_mark
+            force_full = False
+            if track_clip:
+                cnt = codec_overflow_count(state)
+                if cnt > clip_mark:
+                    force_full = True
+                    clip_mark = cnt
+
         if step_fn is None and collect is None:
-            return self, self.make_segment_runner()(state, n_steps), []
+            seg_fn = self.make_segment_runner()
+            i = 0
+            while i < n_steps:
+                nxt = min(n_steps, (i // r + 1) * r) if cfg.enabled \
+                    else n_steps
+                full = force_full or (not cfg.enabled) or i % r == 0
+                state = seg_fn(state, nxt - i, full_first=full)
+                after(state)
+                i = nxt
+            return self, state, []
         if step_fn is None:
             step_fn = self.make_local_step()
         series = []
-        for _ in range(n_steps):
-            state = step_fn(state, full_halo=True)
+        for i in range(n_steps):
+            full = force_full or (not cfg.enabled) or i % r == 0
+            state = step_fn(state, full_halo=full)
+            after(state)
             if collect is not None:
                 series.append(collect(state))
         return self, state, series
@@ -424,3 +565,10 @@ class Engine:
 
 def total_agents(state: SimState) -> int:
     return int(state.soa.valid.sum())
+
+
+def codec_overflow_count(state: SimState) -> int:
+    """Largest per-device cumulative clipped-delta count (a host read; each
+    device counts only its own sends, so the max is the monotone 'did
+    anyone clip since the mark' signal)."""
+    return int(state.codec_overflow.max())

@@ -135,17 +135,18 @@ def interior_mask(geom: Domain) -> np.ndarray:
     return m
 
 
-def ring_index(axis: int, index) -> Tuple:
-    """Indexing tuple selecting one cell-hyperplane along a grid axis."""
-    return (slice(None),) * axis + (index,)
+def ring_index(axis: int, index, lead: int = 0) -> Tuple:
+    """Indexing tuple selecting one cell-hyperplane along a grid axis,
+    behind ``lead`` leading device-mesh dims."""
+    return (slice(None),) * (lead + axis) + (index,)
 
 
-def clear_ring(soa: AgentSoA) -> AgentSoA:
+def clear_ring(soa: AgentSoA, lead: int = 0) -> AgentSoA:
     """Invalidate all halo-ring slots (the aura is rebuilt from scratch
-    each iteration, paper section 2.2.1).  Returns a new ``valid``; the
-    input SoA is untouched."""
+    each iteration, paper section 2.2.1) of every device (``lead`` leading
+    mesh dims).  Returns a new ``valid``; the input SoA is untouched."""
     v = soa.valid.clone()
-    for axis in range(v.dim() - 1):   # every grid axis; last dim is the slot
-        v[ring_index(axis, 0)] = False
-        v[ring_index(axis, -1)] = False
+    for axis in range(v.dim() - 1 - lead):   # grid axes; last is the slot
+        v[ring_index(axis, 0, lead)] = False
+        v[ring_index(axis, -1, lead)] = False
     return soa.replace(valid=v)

@@ -3,23 +3,39 @@
 The exchange is dimension-ordered over the Domain's axes (``2 * ndim``
 directed edges): axis-0 slabs first, then axis-1 slabs that include the
 freshly filled axis-0 ring cells, which propagates corner neighbours in at
-most ``ndim`` hops.  This slice ports the single-device ``LocalComm`` and
-the full-refresh payload; ``ShardComm`` and the delta codec wait for the
-multi-device slice (ROADMAP A7).
+most ``ndim`` hops.
+
+Two comms stand in for the reference's:
+
+* :class:`LocalComm` - one device, tensors without mesh dims (the
+  reference's single-device oracle);
+* :class:`VirtualMeshComm` - the counterpart of ``ShardComm``: the whole
+  device mesh in one process on one card, kept as ``lead = ndim`` leading
+  dims of every tensor in the reference's row-major ``linear_rank`` order.
+  ``shift`` moves data one step along a mesh axis, with zeros where a
+  device has no source, as ``ppermute`` gives them.
+
+The exchange and the slab helpers work on either: a comm's ``lead`` says
+how many leading mesh dims its tensors carry.  A ``torch.distributed``
+comm across cards is later work (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.agent_soa import AgentSoA
 from repro_torch.core.delta import (
     DeltaConfig,
     Slab,
+    decode_delta,
     decode_full,
+    encode_delta,
     encode_full,
     payload_bytes,
 )
@@ -30,15 +46,17 @@ from repro_torch.core.grid import ring_index
 class Comm:
     """Spatial communication abstraction over an N-D device mesh."""
 
+    lead = 0   # leading device-mesh dims of every tensor the comm moves
+
     def shift(self, tree: Slab, axis: int, direction: int) -> Slab:
         """Move data one step along a mesh axis; devices with no source get
         zeros (closed boundary) or wrap (toroidal)."""
         raise NotImplementedError
 
-    def coords(self) -> Tuple[int, ...]:
+    def coords(self):
         raise NotImplementedError
 
-    def linear_rank(self) -> int:
+    def linear_rank(self):
         raise NotImplementedError
 
     def sum_over_all_ranks(self, x):
@@ -47,7 +65,7 @@ class Comm:
 
 @dataclasses.dataclass(frozen=True)
 class LocalComm(Comm):
-    """Single-device comm: an all-ones mesh."""
+    """Single-device comm: an all-ones mesh, tensors without mesh dims."""
 
     toroidal: Tuple[bool, ...]
 
@@ -66,30 +84,91 @@ class LocalComm(Comm):
         return x
 
 
+@dataclasses.dataclass(frozen=True)
+class VirtualMeshComm(Comm):
+    """The device mesh as ``len(mesh_shape)`` leading dims of every tensor,
+    in one process.  ``shift`` along ``axis`` by ``direction`` gives device
+    ``i`` the data of device ``i - direction`` (wrapping on toroidal axes)
+    and zeros where there is none - every entry of the payload, its
+    ``/scale`` and ``/center`` entries included.  On a size-1 axis that is
+    the identity when toroidal and zeros when closed, as the reference."""
+
+    mesh_shape: Tuple[int, ...]
+    toroidal: Tuple[bool, ...]
+
+    @property
+    def lead(self) -> int:
+        return len(self.mesh_shape)
+
+    def _shift_one(self, x: torch.Tensor, axis: int, direction: int
+                   ) -> torch.Tensor:
+        size = self.mesh_shape[axis]
+        if self.toroidal[axis]:
+            return torch.roll(x, shifts=direction, dims=axis)
+        keep = x.narrow(axis, 0, size - 1) if direction > 0 \
+            else x.narrow(axis, 1, size - 1)
+        pad = torch.zeros_like(x.narrow(axis, 0, 1))
+        parts = [pad, keep] if direction > 0 else [keep, pad]
+        return torch.cat(parts, dim=axis)
+
+    def shift(self, tree: Slab, axis: int, direction: int) -> Slab:
+        if direction not in (-1, 1):
+            raise ValueError(f"shift direction {direction}; expected +-1")
+        return {k: self._shift_one(v, axis, direction)
+                for k, v in tree.items()}
+
+    def coords(self) -> Tuple[torch.Tensor, ...]:
+        """Per-axis mesh coordinates of every device, each shaped like the
+        mesh (int32)."""
+        grids = np.indices(self.mesh_shape, dtype=np.int32)
+        return tuple(torch.from_numpy(g) for g in grids)
+
+    def linear_rank(self) -> torch.Tensor:
+        """Row-major rank of every device, shaped like the mesh (int32)."""
+        n = math.prod(self.mesh_shape)
+        return torch.arange(n, dtype=torch.int32).reshape(self.mesh_shape)
+
+    def sum_over_all_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the leading mesh dims, given back to every device."""
+        lead = self.lead
+        total = x.sum(dim=tuple(range(lead)), keepdim=True)
+        return total.expand(x.shape)
+
+
 # ---------------------------------------------------------------------------
 # Slab extraction / insertion
 # ---------------------------------------------------------------------------
 
-def take_slab(soa: AgentSoA, axis: int, index: int) -> Slab:
-    """Copy one cell-hyperplane (incl. valid mask) out as an exchange slab.
+def take_slab(soa: AgentSoA, axis: int, index: int, lead: int = 0) -> Slab:
+    """Copy one cell-hyperplane (incl. valid mask) of every device out as
+    an exchange slab (``lead`` mesh dims first).
 
     A copy, not a view: slabs are kept as delta references and must not
     change when the SoA's ring is written later in the same exchange."""
-    idx = ring_index(axis, index)
+    idx = ring_index(axis, index, lead)
     slab = {name: a[idx].clone() for name, a in soa.attrs.items()}
     slab["valid"] = soa.valid[idx].clone()
     return slab
 
 
-def put_slab(soa: AgentSoA, axis: int, index: int, slab: Slab) -> AgentSoA:
+def put_slab(soa: AgentSoA, axis: int, index: int, slab: Slab,
+             lead: int = 0) -> AgentSoA:
     """Write ``slab`` into one hyperplane of ``soa`` **in place** (the
     reference returns a new SoA; the in-place write saves a full SoA copy
     per edge).  Returns ``soa``."""
-    idx = ring_index(axis, index)
+    idx = ring_index(axis, index, lead)
     for name, a in soa.attrs.items():
         a[idx] = slab[name]
     soa.valid[idx] = slab["valid"]
     return soa
+
+
+def clear_slab_at(soa: AgentSoA, axis: int, index: int, lead: int = 0
+                  ) -> AgentSoA:
+    """Invalidate one hyperplane; returns a new ``valid``."""
+    valid = soa.valid.clone()
+    valid[ring_index(axis, index, lead)] = False
+    return soa.replace(valid=valid)
 
 
 def dirs_for(ndim: int) -> Dict[str, Tuple[int, int]]:
@@ -103,6 +182,24 @@ def dirs_for(ndim: int) -> Dict[str, Tuple[int, int]]:
     return out
 
 
+def _zero_overflow(slab: Slab, lead: int) -> torch.Tensor:
+    v = slab["valid"]
+    return torch.zeros(v.shape[:lead], dtype=torch.int32, device=v.device)
+
+
+def _codec_send(slab, ref, cfg: DeltaConfig, full: bool, lead: int):
+    if not cfg.enabled or full:
+        payload, new_ref = encode_full(slab)
+        return payload, new_ref, _zero_overflow(slab, lead)
+    return encode_delta(slab, ref, cfg, lead)
+
+
+def _codec_recv(payload, ref, cfg: DeltaConfig, full: bool, lead: int):
+    if not cfg.enabled or full:
+        return decode_full(payload)
+    return decode_delta(payload, ref, cfg, lead)
+
+
 def halo_exchange(
     geom: Domain,
     soa: AgentSoA,
@@ -110,50 +207,59 @@ def halo_exchange(
     refs: Dict[str, Slab],
     cfg: DeltaConfig,
     full: bool,
-) -> Tuple[AgentSoA, Dict[str, Slab], int, int]:
+) -> Tuple[AgentSoA, Dict[str, Slab], int, torch.Tensor]:
     """Rebuild the aura ring from neighbour devices' boundary cells.
 
-    Returns (soa with ring filled, updated references, wire bytes, codec
-    overflow count).  The ring is written into a copy of ``soa``; the
-    caller's tensors are not modified.  Only the full-refresh payload is
-    ported (``cfg.enabled`` cannot be set in this slice, see
-    :class:`DeltaConfig`), so ``full`` changes nothing yet and the
-    overflow count is always 0.  ``refs[d + "_out"]`` / ``refs[d + "_in"]``
-    end up holding the slabs sent / received along each directed edge,
-    as in the reference.
+    ``soa`` and ``refs`` carry ``comm.lead`` leading mesh dims.  Returns
+    (soa with ring filled, updated references, wire bytes of one device's
+    sends, codec overflow count shaped like the mesh dims).  The ring is
+    written into a copy of ``soa``; the caller's tensors are not modified.
+
+    ``refs[d + "_out"]`` holds what was last sent along directed edge
+    ``d`` (receiver-reconstructed) and ``refs[d + "_in"]`` what was last
+    received from it: the closed-loop invariant is that a device's
+    ``xp_out`` equals its +x neighbour's ``xm_in``.  With ``cfg.enabled``
+    and not ``full`` the float attributes cross as quantized deltas
+    against those references (:func:`repro_torch.core.delta.encode_delta`),
+    one kernel launch per float attribute for every device at once.
     """
+    lead = comm.lead
     shape = geom.local_shape
     new_refs = dict(refs)
     nbytes = 0
+    overflow = None
     soa = AgentSoA(attrs={k: v.clone() for k, v in soa.attrs.items()},
                    valid=soa.valid.clone())
 
     def _exchange(soa, axis, src_index, dst_index, direction, out_key,
                   in_key):
-        slab = take_slab(soa, axis, src_index)
-        payload, new_refs[out_key] = encode_full(slab)
+        nonlocal nbytes, overflow
+        slab = take_slab(soa, axis, src_index, lead)
+        payload, new_refs[out_key], oflow = _codec_send(
+            slab, new_refs[out_key], cfg, full, lead)
+        overflow = oflow if overflow is None else overflow + oflow
+        nbytes += payload_bytes(payload, lead)
         recv = comm.shift(payload, axis, direction)
-        recon, new_refs[in_key] = decode_full(recv)
-        return put_slab(soa, axis, dst_index, recon), payload_bytes(payload)
+        recon, new_refs[in_key] = _codec_recv(
+            recv, new_refs[in_key], cfg, full, lead)
+        return put_slab(soa, axis, dst_index, recon, lead)
 
     for axis in range(geom.ndim):
         h = shape[axis]
         c = AXIS_CHARS[axis]
         # my high face -> +axis neighbour's low ring, and vice versa
-        soa, b = _exchange(soa, axis, h - 2, 0, +1, c + "p_out", c + "m_in")
-        nbytes += b
-        soa, b = _exchange(soa, axis, 1, h - 1, -1, c + "m_out", c + "p_in")
-        nbytes += b
-    return soa, new_refs, nbytes, 0
+        soa = _exchange(soa, axis, h - 2, 0, +1, c + "p_out", c + "m_in")
+        soa = _exchange(soa, axis, 1, h - 1, -1, c + "m_out", c + "p_in")
+    return soa, new_refs, nbytes, overflow
 
 
-def init_refs(geom: Domain, soa: AgentSoA) -> Dict[str, Slab]:
+def init_refs(geom: Domain, soa: AgentSoA, lead: int = 0
+              ) -> Dict[str, Slab]:
     """Zero-valued reference slabs for all ``4 * ndim`` directed-edge refs;
     the slab for an edge along ``axis`` is shaped like that axis's face."""
     refs: Dict[str, Slab] = {}
     for d, (axis, _) in dirs_for(geom.ndim).items():
-        proto = take_slab(soa, axis, 0)
-        zeros = {k: torch.zeros_like(v) for k, v in proto.items()}
-        refs[d + "_out"] = dict(zeros)
-        refs[d + "_in"] = dict(zeros)
+        proto = take_slab(soa, axis, 0, lead)
+        refs[d + "_out"] = {k: torch.zeros_like(v) for k, v in proto.items()}
+        refs[d + "_in"] = {k: torch.zeros_like(v) for k, v in proto.items()}
     return refs

@@ -7,9 +7,11 @@
     sim.series["agents"], sim.engine, sim.state
 
 The facade owns the engine, the state and the scheduled operations.  It
-runs on the CUDA device unless ``device="cpu"`` is passed.  Not ported in
-this slice, and raising ``NotImplementedError`` when asked for: device
-meshes (ROADMAP A7), ``rebalance`` (A8), ``checkpoint`` (A6), ``guards``,
+runs on the CUDA device unless ``device="cpu"`` is passed.  A geometry with
+``mesh_shape`` other than all ones runs on the virtual device mesh of
+``core.engine`` (the whole mesh on one card).  Not ported in this slice,
+and raising ``NotImplementedError`` when asked for: an explicit ``mesh=``
+object (ROADMAP A7), ``rebalance`` (A8), ``checkpoint`` (A6), ``guards``,
 ``supervised`` runs and fault plans (A9), ``compose`` of several
 behaviours (with the ``sir_mechanics`` slice).  Of the construction-time
 contracts only stencil soundness (``radius <= cell_size``) is ported; the
@@ -27,7 +29,9 @@ import numpy as np
 from repro_torch.core.behaviors import Behavior
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain
-from repro_torch.core.engine import Engine, SimState, _unported, total_agents
+from repro_torch.core.engine import (
+    Engine, SimState, _unported, codec_overflow_count, total_agents,
+)
 
 # Geometry defaults applied when the first argument is a kwargs dict.
 _GEOM_DEFAULTS = dict(cell_size=2.0, interior=(8, 8), mesh_shape=(1, 1),
@@ -94,7 +98,11 @@ class Simulation:
         ``cell_size=2.0, interior=(8, 8), mesh_shape=(1, 1), cap=24,
         boundary="closed"``).
       behaviors: one :class:`Behavior` (or a one-element sequence).
-      delta: ``None`` or ``DeltaConfig(enabled=False)`` (full refresh).
+      delta: a :class:`DeltaConfig`, or ``None`` (full refresh every
+        step; ``sims.common.resolve_delta`` turns the int8 codec on for
+        meshes).  With the codec on, the aura exchange is a full refresh
+        every ``refresh_interval`` ticks and after any step that clipped
+        under a fixed scale, and delta-encoded in between.
       dt: integration step.
       sweep_backend: ``"auto" | "reference" | "tiled" | "kernel"``;
         ``"auto"`` is the CUDA kernel on the card, the tiled sweep on the
@@ -135,6 +143,7 @@ class Simulation:
         self._step_fn: Optional[Callable] = None   # set -> per-step loop
         self._seg_fn: Optional[Callable] = None    # segment runner
         self._ticks = 0          # step counter across run() calls
+        self._force_full = False  # next aura exchange must be a full refresh
         self._ops: List[Operation] = []
 
     # ------------------------------------------------------------------
@@ -183,13 +192,18 @@ class Simulation:
     # ------------------------------------------------------------------
     def _fused_span(self, tick: int, remaining: int, ops) -> int:
         """Longest segment starting at ``tick`` with no scheduled
-        operation due inside it."""
+        operation due inside it and no delta full-refresh tick past its
+        first step."""
+        delta = self.engine.delta_cfg
+        r = max(int(delta.refresh_interval), 1)
         n = 1
         while n < remaining:
             t = tick + n
             if any(op.pre and op.due(t) for op in ops):
                 break
             if any((not op.pre) and op.due(t - 1) for op in ops):
+                break
+            if delta.enabled and t % r == 0:
                 break
             n += 1
         return n
@@ -217,6 +231,13 @@ class Simulation:
             self._step_fn = self.engine.make_local_step()
         if not per_step and self._seg_fn is None:
             self._seg_fn = self.engine.make_segment_runner()
+        delta = self.engine.delta_cfg
+        refresh = max(int(delta.refresh_interval), 1)
+        # Fixed-scale codec clip fallback (see Engine.drive): when any
+        # device's cumulative clipped-delta count grows, force the next
+        # aura exchange to a full refresh.
+        track_clip = delta.enabled and delta.scale is not None
+        clip_mark = codec_overflow_count(self.state) if track_clip else 0
 
         done = 0
         while done < int(steps):
@@ -226,10 +247,18 @@ class Simulation:
                     self._run_op(op)
             n = 1 if per_step else self._fused_span(
                 tick, int(steps) - done, ops)
+            full = (self._force_full or not delta.enabled
+                    or tick % refresh == 0)
+            self._force_full = False
             if per_step:
-                self.state = self._step_fn(self.state, full_halo=True)
+                self.state = self._step_fn(self.state, full_halo=full)
             else:
-                self.state = self._seg_fn(self.state, n, full_first=True)
+                self.state = self._seg_fn(self.state, n, full_first=full)
+            if track_clip:
+                cnt = codec_overflow_count(self.state)
+                if cnt > clip_mark:
+                    self._force_full = True
+                    clip_mark = cnt
             for t in range(tick, tick + n):
                 for op in ops:
                     if not op.pre and op.due(t):

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -88,12 +88,24 @@ def build(name: str) -> Built:
     return Built(out, proc.stdout + proc.stderr, seconds)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building it on first use."""
+def load(name: str, built: Optional[Built] = None) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it on first use
+    (``built``: a build already made)."""
     lib = _LOADED.get(name)
     if lib is None:
-        built = build(name)
+        built = built or build(name)
         BUILDS[name] = built
         lib = ctypes.CDLL(str(built.path))
         _LOADED[name] = lib
     return lib
+
+
+def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Load several kernels, building the missing ones with one nvcc each,
+    all started together (the builds are independent processes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    todo = [n for n in names if n not in _LOADED]
+    with ThreadPoolExecutor(max_workers=max(len(todo), 1)) as pool:
+        built = dict(zip(todo, pool.map(build, todo)))
+    return {n: load(n, built.get(n)) for n in names}

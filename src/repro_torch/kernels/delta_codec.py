@@ -1,0 +1,377 @@
+"""The aura-exchange delta codec and the migration position codec: four
+hand-written Hopper kernels (``csrc/delta_codec.cu``), each beside its plain
+PyTorch version.
+
+Ports of the TPU kernels of ``src/repro/kernels/delta_codec.py``:
+
+=========================  ==========================================  ======
+wrapper                    replaces                                    bound
+=========================  ==========================================  ======
+:func:`delta_encode`       ``delta_encode_kernel`` (:44) + the max      bytes
+                           reduction of ``ops.delta_encode``
+:func:`delta_decode`       ``delta_decode_kernel`` (:78)                bytes
+:func:`migration_pos_encode`  ``migration_pos_encode_kernel`` (:126)    bytes
+:func:`migration_pos_decode`  ``migration_pos_decode_kernel`` (:165)    bytes
+=========================  ==========================================  ======
+
+Every array is a stack of ``B`` rows, one per device of the virtual mesh:
+the delta codec takes ``(B, N)`` float32 slabs with one scale a row, the
+position codec ``(B, R, D)`` positions with one centre a row and one scale
+an axis.  The source note of ``csrc/delta_codec.cu`` gives each kernel's
+bound and design.
+
+Two JAX definitions of the same codec disagree, and the kernels take the
+difference as arguments:
+
+* the clip range: ``core/delta.py`` clips to ``[iinfo.min, iinfo.max]``
+  and counts values outside it (the engine's path, ``symmetric=False``);
+  the TPU kernels clip to ``+-iinfo.max`` (``symmetric=True``);
+* dead rows of a migration payload: ``core/delta.encode_migration``
+  quantizes their stale coordinates and leaves them out of the overflow
+  count (``dead="mask"``); the TPU wrapper zeroes them first
+  (``dead="zero"``).
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.  Each launch adds one to
+``LAUNCHES[name]`` and nothing else touches the counts.  An adaptive
+encode is two passes on the card (the per-row max, then the quantize) and
+counts as one launch of ``delta_encode``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+QDTYPES = {torch.int8: 8, torch.int16: 16}
+
+LAUNCHES: Dict[str, int] = {
+    "delta_encode": 0, "delta_decode": 0,
+    "migration_pos_encode": 0, "migration_pos_decode": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def clip_range(qdtype: torch.dtype, symmetric: bool) -> Tuple[float, float]:
+    """``(lo, hi)`` of the quantized range as floats."""
+    if qdtype not in QDTYPES:
+        raise TypeError(f"quantized dtype {qdtype} is not int8 or int16")
+    info = torch.iinfo(qdtype)
+    return (-float(info.max) if symmetric else float(info.min),
+            float(info.max))
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.tensor(np.float32(v))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def delta_encode_plain(x: torch.Tensor, ref: torch.Tensor, *,
+                       qdtype: torch.dtype = torch.int8,
+                       scale: Optional[float] = None,
+                       symmetric: bool = False, with_ref: bool = True):
+    """``(q, scale (B,), overflow (B,) int32, new_ref or None)`` of
+    ``(B, N)`` float32 ``x`` against ``ref``.  ``scale=None`` derives each
+    row's scale from its max ``|x - ref|``."""
+    lo, hi = clip_range(qdtype, symmetric)
+    dev = x.device
+    d = x - ref
+    if scale is None:
+        amax = d.abs().amax(dim=1) if d.shape[1] else \
+            torch.zeros(d.shape[0], device=dev)
+        s = torch.maximum(amax, _f32(1e-30).to(dev)) / _f32(hi).to(dev)
+    else:
+        s = _f32(scale).to(dev).expand(x.shape[0]).clone()
+    qf = torch.round(d / s[:, None])
+    oflow = ((qf > hi) | (qf < lo)).sum(dim=1, dtype=torch.int32)
+    qc = qf.clamp(lo, hi)
+    new_ref = ref + qc * s[:, None] if with_ref else None
+    return qc.to(qdtype), s, oflow, new_ref
+
+
+def delta_decode_plain(q: torch.Tensor, ref: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """``ref + q * scale[b]`` over ``(B, N)`` rows."""
+    return ref + q.to(torch.float32) * scale[:, None]
+
+
+def _frame(d: int, scale, lsz, toroidal):
+    scale = np.asarray(scale, np.float32).reshape(-1)
+    tor = tuple(bool(t) for t in toroidal) if toroidal else (False,) * d
+    if scale.shape != (d,) or len(tor) != d:
+        raise ValueError(f"scale {scale.shape} / toroidal {tor} do not "
+                         f"match {d} axes")
+    lens = (np.asarray(lsz, np.float32).reshape(-1) if any(tor)
+            else np.zeros(d, np.float32))
+    return scale, lens, tor
+
+
+def migration_pos_encode_plain(pos: torch.Tensor, center: torch.Tensor,
+                               scale: Sequence[float], *,
+                               valid: Optional[torch.Tensor] = None,
+                               lsz=None, toroidal=(),
+                               dead: str = "mask",
+                               symmetric: bool = False):
+    """``(q (B, R, D) int16, overflow (B,) int32)`` of ``(B, R, D)``
+    positions as offsets from each row's ``center (B, D)``."""
+    b, r, d = pos.shape
+    scale, lens, tor = _frame(d, scale, lsz, toroidal)
+    lo, hi = clip_range(torch.int16, symmetric)
+    dev = pos.device
+    off = pos - center[:, None, :]
+    if any(tor):
+        L = torch.from_numpy(lens).to(dev)
+        wrapped = off - L * torch.round(off / L)
+        off = torch.where(torch.tensor(tor, device=dev), wrapped, off)
+    live = None if valid is None else valid[..., None]
+    if dead == "zero" and live is not None:
+        off = torch.where(live, off, torch.zeros((), device=dev))
+    elif dead != "mask":
+        raise ValueError(f"dead={dead!r}; expected 'mask' or 'zero'")
+    qf = torch.round(off / torch.from_numpy(scale).to(dev))
+    oob = (qf > hi) | (qf < lo)
+    if live is not None:
+        oob = oob & live
+    return (qf.clamp(lo, hi).to(torch.int16),
+            oob.reshape(b, -1).sum(dim=1, dtype=torch.int32))
+
+
+def migration_pos_decode_plain(q: torch.Tensor, center: torch.Tensor,
+                               scale: Sequence[float], *, lsz=None,
+                               toroidal=()) -> torch.Tensor:
+    """``center[b] + q * scale``, then ``jnp.mod(., L)`` on toroidal
+    axes."""
+    d = q.shape[-1]
+    scale, lens, tor = _frame(d, scale, lsz, toroidal)
+    dev = q.device
+    p = center[:, None, :] + q.to(torch.float32) * torch.from_numpy(
+        scale).to(dev)
+    if any(tor):
+        L = torch.from_numpy(lens).to(dev)
+        r = torch.fmod(p, L)
+        r = torch.where((r != 0) & ((r < 0) != (L < 0)), r + L, r)
+        p = torch.where(torch.tensor(tor, device=dev), r, p)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# The wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    "delta_encode_launch": [_I, _I, _P, _P, _L, _L, _I, _I, _F, _F, _F,
+                            _P, _P, _P, _P, _P, _P],
+    "delta_decode_launch": [_I, _I, _P, _P, _P, _L, _L, _I, _P, _P],
+    "migration_pos_encode_launch": [_I, _P, _P, _P, _L, _L, _I] + [_F] * 6
+    + [_I] * 4 + [_F, _F, _P, _P, _P],
+    "migration_pos_decode_launch": [_I, _P, _P, _L, _L, _I] + [_F] * 6
+    + [_I] * 3 + [_P, _P],
+}
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("delta_codec")
+    if lib.delta_codec_error_string.restype is not ctypes.c_char_p:
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.delta_codec_error_string.argtypes = [ctypes.c_int]
+        lib.delta_codec_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _on_cpu(name: str, t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False
+
+
+def _check(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype,
+           shape: Tuple[int, ...], device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} is on {t.device}, not {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{fn}: {name} has dtype {t.dtype}, the kernel "
+                        f"takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} is not contiguous")
+
+
+def _vec(n: int, *tensors: torch.Tensor) -> int:
+    """1 when rows of ``n`` elements allow 16-byte vectors of four: every
+    row start then sits at a multiple of four elements."""
+    return int(n % 4 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors))
+
+
+def _raise(lib, fn: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{fn} kernel launch failed: cudaError {err} "
+            f"({lib.delta_codec_error_string(err).decode()})")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def delta_encode(x: torch.Tensor, ref: torch.Tensor, *,
+                 qdtype: torch.dtype = torch.int8,
+                 scale: Optional[float] = None, symmetric: bool = False,
+                 with_ref: bool = True):
+    """Quantized delta of ``(B, N)`` float32 ``x`` against ``ref``.
+
+    Returns ``(q (B, N) qdtype, scale (B,) f32, overflow (B,) int32,
+    new_ref (B, N) f32 or None)``.  ``scale=None`` is the adaptive scale
+    ``max(max |x - ref|, 1e-30) / iinfo.max`` of each row; a float fixes
+    one scale for all.  ``new_ref = ref + q * scale`` is the receiver's
+    reconstruction (the closed loop)."""
+    if _on_cpu("delta_encode", x):
+        return delta_encode_plain(x, ref, qdtype=qdtype, scale=scale,
+                                  symmetric=symmetric, with_ref=with_ref)
+    lo, hi = clip_range(qdtype, symmetric)
+    dev = x.device
+    if x.dim() != 2:
+        raise ValueError(f"delta_encode: x has shape {tuple(x.shape)}, "
+                         "expected (B, N)")
+    b, n = x.shape
+    _check("delta_encode", "x", x, torch.float32, (b, n), dev)
+    _check("delta_encode", "ref", ref, torch.float32, (b, n), dev)
+    q = torch.empty((b, n), dtype=qdtype, device=dev)
+    new_ref = torch.empty_like(x) if with_ref else None
+    s = torch.empty((b,), dtype=torch.float32, device=dev)
+    oflow = torch.empty((b,), dtype=torch.int32, device=dev)
+    amax = torch.empty((b,), dtype=torch.int32, device=dev) \
+        if scale is None else None
+    vec = _vec(n, x, ref, q, *([new_ref] if with_ref else []))
+    lib = _library()
+    err = lib.delta_encode_launch(
+        QDTYPES[qdtype], dev.index, x.data_ptr(), ref.data_ptr(), b, n, vec,
+        int(scale is None), float(np.float32(scale or 0.0)), lo, hi,
+        None if amax is None else amax.data_ptr(), q.data_ptr(),
+        None if new_ref is None else new_ref.data_ptr(), s.data_ptr(),
+        oflow.data_ptr(), _stream(dev))
+    _raise(lib, "delta_encode", err)
+    LAUNCHES["delta_encode"] += 1
+    return q, s, oflow, new_ref
+
+
+def delta_decode(q: torch.Tensor, ref: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """``ref + q * scale[b]`` of ``(B, N)`` quantized rows."""
+    if _on_cpu("delta_decode", q):
+        return delta_decode_plain(q, ref, scale)
+    dev = q.device
+    if q.dim() != 2 or q.dtype not in QDTYPES:
+        raise ValueError(f"delta_decode: q is {q.dtype} {tuple(q.shape)}, "
+                         "expected int8/int16 (B, N)")
+    b, n = q.shape
+    _check("delta_decode", "q", q, q.dtype, (b, n), dev)
+    _check("delta_decode", "ref", ref, torch.float32, (b, n), dev)
+    _check("delta_decode", "scale", scale, torch.float32, (b,), dev)
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    lib = _library()
+    err = lib.delta_decode_launch(
+        QDTYPES[q.dtype], dev.index, q.data_ptr(), ref.data_ptr(),
+        scale.data_ptr(), b, n, _vec(n, q, ref, out), out.data_ptr(),
+        _stream(dev))
+    _raise(lib, "delta_decode", err)
+    LAUNCHES["delta_decode"] += 1
+    return out
+
+
+def _frame_args(d: int, scale, lsz, toroidal):
+    scale, lens, tor = _frame(d, scale, lsz, toroidal)
+    pad = 3 - d
+    return ([float(v) for v in scale] + [0.0] * pad
+            + [float(v) for v in lens] + [0.0] * pad
+            + [int(t) for t in tor] + [0] * pad)
+
+
+def migration_pos_encode(pos: torch.Tensor, center: torch.Tensor,
+                         scale: Sequence[float], *,
+                         valid: Optional[torch.Tensor] = None,
+                         lsz=None, toroidal=(), dead: str = "mask",
+                         symmetric: bool = False):
+    """Fixed-point offsets of ``(B, R, D)`` float32 positions from each
+    row's ``center (B, D)``, ``scale`` a float32 quantum per axis; the
+    minimum image on ``toroidal`` axes (period ``lsz``) first.  Returns
+    ``(q (B, R, D) int16, overflow (B,) int32)``; overflow counts the live
+    rows' coordinates outside the int16 range (``valid (B, R)`` bool, or
+    every row)."""
+    if _on_cpu("migration_pos_encode", pos):
+        return migration_pos_encode_plain(
+            pos, center, scale, valid=valid, lsz=lsz, toroidal=toroidal,
+            dead=dead, symmetric=symmetric)
+    if dead not in ("mask", "zero"):
+        raise ValueError(f"dead={dead!r}; expected 'mask' or 'zero'")
+    lo, hi = clip_range(torch.int16, symmetric)
+    dev = pos.device
+    if pos.dim() != 3:
+        raise ValueError(f"migration_pos_encode: pos has shape "
+                         f"{tuple(pos.shape)}, expected (B, R, D)")
+    b, r, d = pos.shape
+    _check("migration_pos_encode", "pos", pos, torch.float32, (b, r, d), dev)
+    _check("migration_pos_encode", "center", center, torch.float32, (b, d),
+           dev)
+    if valid is not None:
+        _check("migration_pos_encode", "valid", valid, torch.bool, (b, r),
+               dev)
+    q = torch.empty((b, r, d), dtype=torch.int16, device=dev)
+    oflow = torch.empty((b,), dtype=torch.int32, device=dev)
+    lib = _library()
+    err = lib.migration_pos_encode_launch(
+        dev.index, pos.data_ptr(), center.data_ptr(),
+        None if valid is None else valid.data_ptr(), b, r, d,
+        *_frame_args(d, scale, lsz, toroidal), int(dead == "zero"), lo, hi,
+        q.data_ptr(), oflow.data_ptr(), _stream(dev))
+    _raise(lib, "migration_pos_encode", err)
+    LAUNCHES["migration_pos_encode"] += 1
+    return q, oflow
+
+
+def migration_pos_decode(q: torch.Tensor, center: torch.Tensor,
+                         scale: Sequence[float], *, lsz=None,
+                         toroidal=()) -> torch.Tensor:
+    """``(B, R, D)`` float32 positions ``center[b] + q * scale``, wrapped
+    into ``[0, L)`` on toroidal axes."""
+    if _on_cpu("migration_pos_decode", q):
+        return migration_pos_decode_plain(q, center, scale, lsz=lsz,
+                                          toroidal=toroidal)
+    dev = q.device
+    if q.dim() != 3:
+        raise ValueError(f"migration_pos_decode: q has shape "
+                         f"{tuple(q.shape)}, expected (B, R, D)")
+    b, r, d = q.shape
+    _check("migration_pos_decode", "q", q, torch.int16, (b, r, d), dev)
+    _check("migration_pos_decode", "center", center, torch.float32, (b, d),
+           dev)
+    pos = torch.empty((b, r, d), dtype=torch.float32, device=dev)
+    lib = _library()
+    err = lib.migration_pos_decode_launch(
+        dev.index, q.data_ptr(), center.data_ptr(), b, r, d,
+        *_frame_args(d, scale, lsz, toroidal), pos.data_ptr(), _stream(dev))
+    _raise(lib, "migration_pos_decode", err)
+    LAUNCHES["migration_pos_decode"] += 1
+    return pos

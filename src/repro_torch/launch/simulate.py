@@ -2,11 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.simulate \
         --sim cell_clustering --agents 4000 --steps 50 --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.simulate \
+        --sim cell_clustering --mesh 2x2 --delta int8+mig
 
-Ported: ``--sim cell_clustering`` on one device.  The other sims (ROADMAP
-A5), ``--mesh`` other than 1x1 and ``--delta`` (A7) and ``--rebalance``
-(A8) raise ``NotImplementedError``.  Prints the reference's two summary
-lines plus the ``pair_sweep`` kernel's launch count.
+Ported: ``--sim cell_clustering`` on one device or on a virtual device
+mesh (``--mesh 2x2``: the whole mesh on one card), with the aura exchange
+delta-encoded (``--delta``).  ``--delta auto`` (default) is int8 on a mesh
+and a full refresh on one device; ``off`` forces a full refresh.  The
+other sims (ROADMAP A5) and ``--rebalance`` (A8) raise
+``NotImplementedError``.  Prints the reference's two summary lines plus
+the kernels' launch counts.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import time
 
 SIMS = ["cell_clustering", "cell_proliferation", "epidemiology",
         "oncology", "sir_mechanics", "tumor_spheroid"]
+DELTAS = ["auto", "off", "int8", "int16", "int8+mig", "int16+mig"]
 
 
 def main(argv=None):
@@ -24,9 +30,11 @@ def main(argv=None):
     ap.add_argument("--agents", type=int, default=400)
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--mesh", default="1x1",
-                    help="spatial device mesh; only 1x1 is ported")
-    ap.add_argument("--delta", default="off",
-                    choices=["off", "int8", "int16"])
+                    help="spatial device mesh, e.g. 2x2 (a virtual mesh on "
+                         "one card)")
+    ap.add_argument("--delta", default="auto", choices=DELTAS,
+                    help="aura codec; auto = int8 on a mesh, full refresh "
+                         "on one device")
     ap.add_argument("--interior", type=int, default=16,
                     help="global NSG cells per axis")
     ap.add_argument("--rebalance", type=int, default=0, metavar="N")
@@ -40,13 +48,9 @@ def main(argv=None):
         raise NotImplementedError(
             f"--sim {args.sim} is not ported yet (ROADMAP A5)")
     mesh_shape = tuple(int(v) for v in args.mesh.split("x"))
-    if any(m != 1 for m in mesh_shape):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-device runs are not ported yet "
-            "(ROADMAP A7)")
-    if args.delta != "off":
-        raise NotImplementedError(
-            f"--delta {args.delta} is not ported yet (ROADMAP A7)")
+    if len(mesh_shape) != 2:
+        ap.error(f"--mesh {args.mesh} has {len(mesh_shape)} axes but "
+                 f"{args.sim} is 2-D")
     if args.rebalance > 0:
         raise NotImplementedError(
             "--rebalance is not ported yet (ROADMAP A8)")
@@ -54,28 +58,35 @@ def main(argv=None):
     import torch
 
     from repro_torch.core.engine import total_agents
-    from repro_torch.kernels.neighbor_interaction import LAUNCHES, \
-        reset_launches
+    from repro_torch.kernels import delta_codec
+    from repro_torch.kernels import neighbor_interaction as ni
     from repro_torch.sims import cell_clustering as mod
 
-    reset_launches()
+    n_dev = 1
+    for m in mesh_shape:
+        n_dev *= m
+    interior = tuple(args.interior // m for m in mesh_shape)
+    ni.reset_launches()
+    delta_codec.reset_launches()
     t0 = time.time()
     state, metrics = mod.run(
-        n_agents=args.agents, steps=args.steps,
-        interior=(args.interior, args.interior),
+        n_agents=args.agents, steps=args.steps, mesh_shape=mesh_shape,
+        interior=interior, delta=None if args.delta == "auto" else args.delta,
         sweep_backend=args.sweep_backend, device=args.device)
     if state.soa.valid.is_cuda:
         torch.cuda.synchronize()
     dt = time.time() - t0
     n = total_agents(state)
-    print(f"sim={args.sim} devices=1 agents={n} steps={args.steps} "
+    print(f"sim={args.sim} devices={n_dev} agents={n} steps={args.steps} "
           f"wall={dt:.2f}s ({n*args.steps/dt:.0f} agent_updates/s)")
     print(f"aura bytes/iter={int(state.halo_bytes.reshape(-1)[0])} "
-          f"dropped={int(state.dropped.sum())}")
+          f"dropped={int(state.dropped.sum())} "
+          f"codec_overflow={int(state.codec_overflow.max())}")
     for k, v in metrics.items():
         print(f"  {k}: {v}")
-    print(f"pair_sweep kernel launches={sum(LAUNCHES.values())} "
-          f"({', '.join(f'{k}={v}' for k, v in LAUNCHES.items())})")
+    launches = {**ni.LAUNCHES, **delta_codec.LAUNCHES}
+    print("kernel launches: "
+          + ", ".join(f"{k}={v}" for k, v in launches.items()))
 
 
 if __name__ == "__main__":

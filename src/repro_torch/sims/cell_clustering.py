@@ -4,7 +4,8 @@ paper's canonical benchmark (port of ``repro/sims/cell_clustering.py``).
 
 Both pair laws here run on the ``pair_sweep`` CUDA kernel on the card:
 ``soft_repulsion_adhesion`` every step, ``_same_type_pair`` in the
-clustering metric :func:`same_type_fraction`."""
+clustering metric :func:`same_type_fraction`, once per device of the
+mesh."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.core.behaviors import (
     soft_repulsion_adhesion,
 )
 from repro_torch.core.agent_soa import AgentSchema
+from repro_torch.core.engine import device_block
 from repro_torch.core.neighbors import sweep_accumulate
 from repro_torch.core.simulation import Simulation
 from repro_torch.sims.common import init_agents, make_sim, uniform_positions
@@ -62,12 +64,17 @@ def _same_type_pair(ai, aj, disp, dist2, params):
 
 
 def same_type_fraction(state, engine) -> float:
-    """Clustering metric: fraction of neighbour pairs with equal type."""
-    acc = sweep_accumulate(engine.geom, state.soa, _same_type_pair,
-                           ("ctype",), float(engine.behavior.radius), {},
-                           backend="auto")
-    same = float(acc["same"].sum())
-    cnt = float(acc["cnt"].sum())
+    """Clustering metric: fraction of neighbour pairs with equal type, over
+    every device's block as it stands (its aura ring empty, as on one
+    device: pairs across a device seam are not counted)."""
+    same = cnt = 0.0
+    for c in np.ndindex(*engine.geom.mesh_shape):
+        acc = sweep_accumulate(engine.geom, device_block(state.soa, c),
+                               _same_type_pair, ("ctype",),
+                               float(engine.behavior.radius), {},
+                               backend="auto")
+        same += float(acc["same"].sum())
+        cnt += float(acc["cnt"].sum())
     return same / max(cnt, 1.0)
 
 

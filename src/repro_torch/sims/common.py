@@ -7,6 +7,7 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain
@@ -14,18 +15,38 @@ from repro_torch.core.simulation import Simulation
 
 
 def resolve_delta(delta, n_devices: int) -> Optional[DeltaConfig]:
-    """Per-sim codec knob -> the facade's ``DeltaConfig``.  ``None`` on one
-    device and ``"off"``/``"full"`` mean a full refresh every step; the
-    quantized codecs (the multi-device default) wait for ROADMAP A7."""
+    """Per-sim codec knob -> the facade's ``DeltaConfig``.
+
+    ``None`` (default) turns the int8 delta codec on exactly where a wire
+    exists - multi-device meshes - and keeps single-device runs on a full
+    refresh.  Shorthands: ``"int8"`` / ``"int16"`` pick the quantized
+    payload width; a ``"+mig"`` suffix (``"int8+mig"``) also sends
+    emigrant positions through the int16 migration codec;
+    ``"full"``/``"off"`` force raw float32 slabs every step.  A
+    :class:`DeltaConfig` passes through untouched.
+    """
+    if delta is None:
+        if n_devices <= 1:
+            return None
+        return DeltaConfig(enabled=True)       # int8, refresh_interval=16
     if isinstance(delta, DeltaConfig):
         return delta
-    if delta is None and n_devices <= 1:
-        return None
-    if delta in ("off", "full"):
-        return DeltaConfig(enabled=False)
-    raise NotImplementedError(
-        f"delta={delta!r} on {n_devices} device(s): the delta codec and "
-        "multi-device runs are not ported yet (ROADMAP A7)")
+    if isinstance(delta, str):
+        if delta in ("off", "full"):
+            return DeltaConfig(enabled=False)
+        base, _, mig = delta.partition("+")
+        if base in ("int8", "int16") and mig in ("", "mig"):
+            return DeltaConfig(
+                enabled=True,
+                qdtype=torch.int8 if base == "int8" else torch.int16,
+                migration=torch.int16 if mig else None)
+        raise ValueError(
+            f"unknown delta quality {delta!r}; expected 'int8', 'int16', "
+            "'int8+mig', 'int16+mig', 'full'/'off', a DeltaConfig, or "
+            "None (auto)")
+    raise TypeError(
+        f"delta must be a DeltaConfig, a quality string, or None; "
+        f"got {type(delta).__name__}")
 
 
 def make_sim(

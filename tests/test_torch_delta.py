@@ -1,0 +1,247 @@
+"""Parity of the port's delta codec and migration position codec with the
+JAX package on the same numpy inputs, on the CPU (the kernels' plain
+versions).
+
+Two JAX definitions are held: ``core/delta.py`` (the engine's path: clip
+to ``[iinfo.min, iinfo.max]``, migration overflow counted on live rows,
+dead rows quantized as they are) and the Pallas kernels of
+``kernels/delta_codec.py`` run in interpret mode as ``tests/test_kernels.py``
+runs them, with their oracles ``kernels/ref.delta_*_ref`` (clip to
+``+-127``, dead rows zeroed).  Quantized values, scales and overflow counts
+exactly; floats within 1e-5 (``torch_parity.FLOAT_TOL``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import delta as jd
+from repro.kernels import delta_codec as jk
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import delta as td
+from repro_torch.kernels import delta_codec as tk
+from repro_torch.kernels import ops as tops
+from torch_parity import assert_close
+
+QDTYPES = {"int8": (jnp.int8, torch.int8), "int16": (jnp.int16, torch.int16)}
+MESH = (2, 2)
+
+
+def _slab(rng, lead=(), face=5, k=6, amp=1.0):
+    """A halo slab of the clustering schema with ``lead`` device dims."""
+    shape = tuple(lead) + (face, k)
+    return {
+        "pos": (rng.normal(size=shape + (2,)) * amp).astype(np.float32),
+        "diameter": (rng.uniform(0.5, 1.5, shape) * amp).astype(np.float32),
+        "ctype": rng.integers(0, 2, shape).astype(np.int32),
+        "valid": rng.random(shape) < 0.7,
+    }
+
+
+def _near(slab, rng, eps):
+    """``slab`` with its float attributes moved by about ``eps``."""
+    return {k: (v + rng.normal(size=v.shape).astype(np.float32) * eps
+                if v.dtype == np.float32 else v) for k, v in slab.items()}
+
+
+def _t(d):
+    return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+
+
+def _j(d):
+    return {k: jnp.asarray(v) for k, v in d.items()}
+
+
+def _cfgs(q, scale, **kw):
+    jq, tq = QDTYPES[q]
+    return (jd.DeltaConfig(qdtype=jq, scale=scale, **kw),
+            td.DeltaConfig(qdtype=tq, scale=scale, **kw))
+
+
+def _per_device(lead):
+    return list(np.ndindex(*lead)) if lead else [()]
+
+
+@pytest.mark.parametrize("lead", [(), MESH], ids=["one", "mesh"])
+@pytest.mark.parametrize("scale", [None, 2e-7], ids=["adaptive", "fixed"])
+@pytest.mark.parametrize("q", list(QDTYPES))
+def test_encode_decode_delta_match_jax(q, scale, lead):
+    """The fixed scale is small enough that int8 clips (and int16 too on
+    the larger deltas): the overflow counts are pinned exactly."""
+    rng = np.random.default_rng(1)
+    ref = _slab(rng, lead)
+    x = _near(ref, rng, 0.01)
+    cfg_j, cfg_t = _cfgs(q, scale)
+    lead_n = len(lead)
+    pay_t, nref_t, of_t = td.encode_delta(_t(x), _t(ref), cfg_t, lead_n)
+    out_t, _ = td.decode_delta(pay_t, _t(ref), cfg_t, lead_n)
+    total = 0
+    for c in _per_device(lead):
+        xj = {k: v[c] for k, v in x.items()}
+        rj = {k: v[c] for k, v in ref.items()}
+        pay_j, nref_j, of_j = jd.encode_delta(_j(xj), _j(rj), cfg_j)
+        assert set(pay_t) == set(pay_j)
+        for k in pay_j:
+            assert_close(pay_t[k][c], pay_j[k], f"payload {k}", exact=True)
+        for k in nref_j:
+            assert_close(nref_t[k][c], nref_j[k], f"new_ref {k}")
+        assert int(of_t[c]) == int(of_j)
+        total += int(of_j)
+        out_j, _ = jd.decode_delta(pay_j, _j(rj), cfg_j)
+        for k in out_j:
+            assert_close(out_t[k][c], out_j[k], f"decoded {k}")
+            # the closed loop: receiver reconstruction == sender's new ref
+            assert torch.equal(out_t[k][c], nref_t[k][c])
+    assert (total > 0) == (scale is not None)
+    assert td.payload_bytes(pay_t, lead_n) == jd.payload_bytes(pay_j)
+
+
+def test_zero_payload_leaves_the_reference_as_jax_does():
+    """A closed-boundary device receives an all-zero payload, scale
+    included: its reconstruction is ``ref + 0 * 0`` (-0.0 becomes +0.0)."""
+    rng = np.random.default_rng(2)
+    ref = _slab(rng)
+    ref["pos"][0, 0, 0] = -0.0
+    cfg_j, cfg_t = _cfgs("int8", None)
+    pay_j, _, _ = jd.encode_delta(_j(ref), _j(ref), cfg_j)
+    zero_j = {k: jnp.zeros_like(v) for k, v in pay_j.items()}
+    zero_t = {k: torch.zeros(v.shape, dtype=getattr(torch, str(v.dtype)))
+              for k, v in pay_j.items()}
+    out_j, _ = jd.decode_delta(zero_j, _j(ref), cfg_j)
+    out_t, _ = td.decode_delta(zero_t, _t(ref), cfg_t)
+    for k in out_j:
+        got, want = out_t[k].numpy(), np.asarray(out_j[k])
+        assert got.tobytes() == want.tobytes(), k
+
+
+def _mig_inputs(rng, lead=(), rows=40, toroidal=(True, False)):
+    lsz = np.asarray([32.0, 24.0], np.float32)
+    center = np.asarray([16.0, 12.0], np.float32)
+    half_rng = np.asarray([18.0, 14.0], np.float32)
+    pos = rng.uniform([0, 0], lsz, tuple(lead) + (rows, 2)).astype(
+        np.float32)
+    valid = rng.random(tuple(lead) + (rows,)) < 0.7
+    # stale coordinates far out on dead rows, and one live row past the
+    # range: only the live one may count as overflow
+    pos[..., 1, :] = 1e4
+    valid[..., 1] = False
+    pos[..., 2, 1] = 70.0
+    valid[..., 2] = True
+    centers = np.broadcast_to(center, tuple(lead) + (2,)).copy()
+    if lead:
+        centers += np.arange(np.prod(lead), dtype=np.float32).reshape(
+            tuple(lead) + (1,))
+    return pos, valid, centers, half_rng, lsz, toroidal
+
+
+@pytest.mark.parametrize("lead", [(), MESH], ids=["one", "mesh"])
+@pytest.mark.parametrize("toroidal", [(True, False), (False, False)],
+                         ids=["toroidal", "closed"])
+def test_encode_decode_migration_match_jax(toroidal, lead):
+    rng = np.random.default_rng(3)
+    pos, valid, centers, half_rng, lsz, tor = _mig_inputs(
+        rng, lead, toroidal=toroidal)
+    cfg_j = jd.DeltaConfig(migration=jnp.int16)
+    cfg_t = td.DeltaConfig(migration=torch.int16)
+    slab = {"pos": pos, "valid": valid}
+    lead_n = len(lead)
+    enc_t, of_t = td.encode_migration(
+        _t(slab), "pos", torch.from_numpy(centers), half_rng, cfg_t,
+        lsz=lsz, toroidal=tor, lead=lead_n)
+    dec_t = td.decode_migration(enc_t, "pos", half_rng, cfg_t, lsz=lsz,
+                                toroidal=tor, lead=lead_n)
+    for c in _per_device(lead):
+        sj = {k: jnp.asarray(v[c]) for k, v in slab.items()}
+        enc_j, of_j = jd.encode_migration(
+            sj, "pos", jnp.asarray(centers[c]), half_rng, cfg_j, lsz=lsz,
+            toroidal=tor)
+        for k in enc_j:
+            assert_close(enc_t[k][c], enc_j[k], f"payload {k}", exact=True)
+        assert int(of_t[c]) == int(of_j) >= 1
+        dec_j = jd.decode_migration(dict(enc_j), "pos", half_rng, cfg_j,
+                                    lsz=lsz, toroidal=tor)
+        assert set(dec_t) == set(dec_j)
+        for k in dec_j:
+            assert_close(dec_t[k][c], dec_j[k], f"decoded {k}")
+
+
+# ---------------------------------------------------------------------------
+# Against the Pallas kernels (interpret mode) and their oracles
+# ---------------------------------------------------------------------------
+
+def _xr(seed, n=64, l=32, eps=0.01):
+    rng = np.random.default_rng(seed)
+    r = rng.normal(size=(n, l)).astype(np.float32)
+    x = (r + rng.normal(size=(n, l)) * eps).astype(np.float32)
+    return x, r
+
+
+def test_ops_match_pallas_and_ref():
+    x, r = _xr(4)
+    q_j, s_j = jops.delta_encode(jnp.asarray(x), jnp.asarray(r))
+    q_t, s_t = tops.delta_encode(torch.from_numpy(x), torch.from_numpy(r))
+    assert_close(q_t, q_j, "q", exact=True)
+    assert_close(s_t, s_j, "scale", exact=True)
+    assert_close(q_t, jref.delta_encode_ref(jnp.asarray(x), jnp.asarray(r),
+                                            s_j), "q vs ref", exact=True)
+    out_j = jops.delta_decode(q_j, jnp.asarray(r), s_j)
+    out_t = tops.delta_decode(q_t, torch.from_numpy(r), s_t)
+    assert_close(out_t, out_j, "decoded")
+    assert_close(out_t, jref.delta_decode_ref(q_j, jnp.asarray(r), s_j),
+                 "decoded vs ref")
+
+
+@pytest.mark.parametrize("scale", [0.05, 10.0 / 127.0, 1e-3])
+def test_fixed_scale_saturation_matches_pallas(scale):
+    """The TPU kernel's +-127 range: saturating elements counted before
+    clipping, as ``tests/test_kernels.py`` pins them."""
+    r = np.zeros((64, 4), np.float32)
+    x = r.copy()
+    x[:3, 0] = 10.0
+    x[5, 1] = -9.0
+    x[7:, 2] = 1.0
+    q_j, of_j = jk.delta_encode_kernel(jnp.asarray(x), jnp.asarray(r),
+                                       scale, interpret=True)
+    q_t, of_t = tops.delta_encode_fixed(torch.from_numpy(x),
+                                        torch.from_numpy(r), scale)
+    assert_close(q_t, q_j, "q", exact=True)
+    assert int(of_t) == int(of_j)
+    j_ops_q, j_ops_of = jops.delta_encode_fixed(jnp.asarray(x),
+                                                jnp.asarray(r), scale)
+    assert_close(q_t, j_ops_q, "q vs ops", exact=True)
+    assert int(of_t) == int(j_ops_of)
+
+
+@pytest.mark.parametrize("toroidal", [(True, False), (False, False)],
+                         ids=["toroidal", "closed"])
+def test_migration_kernels_match_pallas(toroidal):
+    """The TPU wrapper's mode: dead rows zeroed, clip to +-32767."""
+    rng = np.random.default_rng(5)
+    pos, valid, centers, half_rng, lsz, tor = _mig_inputs(
+        rng, toroidal=toroidal, rows=96)
+    scale = np.asarray(half_rng, np.float32) / np.float32(32767.0)
+    q_j, of_j = jk.migration_pos_encode_kernel(
+        jnp.asarray(pos), jnp.asarray(centers), jnp.asarray(scale),
+        valid=jnp.asarray(valid), lsz=lsz, toroidal=tor, interpret=True)
+    q_t, of_t = tk.migration_pos_encode(
+        torch.from_numpy(pos)[None], torch.from_numpy(centers)[None], scale,
+        valid=torch.from_numpy(valid)[None], lsz=lsz, toroidal=tor,
+        dead="zero", symmetric=True)
+    assert_close(q_t[0], q_j, "q", exact=True)
+    assert int(of_t[0]) == int(of_j) == 1
+    p_j = jk.migration_pos_decode_kernel(q_j, jnp.asarray(centers),
+                                         jnp.asarray(scale), lsz=lsz,
+                                         toroidal=tor, interpret=True)
+    p_t = tk.migration_pos_decode(q_t, torch.from_numpy(centers)[None],
+                                  scale, lsz=lsz, toroidal=tor)
+    assert_close(p_t[0], p_j, "decoded")
+
+
+def test_cpu_codec_calls_count_no_launch():
+    before = dict(tk.LAUNCHES)
+    x, r = _xr(6)
+    q, s = tops.delta_encode(torch.from_numpy(x), torch.from_numpy(r))
+    tops.delta_decode(q, torch.from_numpy(r), s)
+    assert tk.LAUNCHES == before

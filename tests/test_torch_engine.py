@@ -17,7 +17,7 @@ from repro.core import Engine as JEngine
 from repro.sims import cell_clustering as j_cc
 from repro.sims.common import make_sim as j_make_sim
 from repro_torch.bridge import state_from_arrays, state_to_arrays
-from repro_torch.core import Domain, Engine
+from repro_torch.core import Domain, Engine, Partition
 from repro_torch.core.engine import total_agents
 from repro_torch.core.simulation import ContractError, Simulation
 from repro_torch.sims import cell_clustering as cc
@@ -130,10 +130,13 @@ def test_unported_options_raise():
                dict(overlap="on")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation(dict(interior=(6, 6)), beh, device="cpu", **kw)
+    uneven = Domain(cell_size=2.0, interior=(5, 4), mesh_shape=(2, 1),
+                    partition=Partition.from_widths([(3, 5), (4,)]))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_sim(beh, interior=(4, 4), mesh_shape=(2, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_sim(beh, delta="int8", device="cpu")
+        make_sim(beh, domain=uneven, device="cpu")
+    # meshes and the delta codec are ported: these build
+    make_sim(beh, interior=(4, 4), mesh_shape=(2, 1), device="cpu")
+    make_sim(beh, delta="int8", device="cpu")
     with pytest.raises(NotImplementedError):
         Simulation(dict(interior=(6, 6)), [beh, beh], device="cpu")
 

@@ -16,15 +16,17 @@ from repro.core.delta import DeltaConfig as JDeltaConfig
 from repro.core.grid import bin_agents_jit as j_bin_agents
 from repro.core.grid import clear_ring as j_clear_ring
 from repro.core.halo import LocalComm as JLocalComm
+from repro.core.halo import clear_slab_at as j_clear_slab_at
 from repro.core.halo import halo_exchange as j_halo_exchange
 from repro.sims import cell_clustering as j_cc
 from repro_torch.core import Domain, Engine
 from repro_torch.core.delta import DeltaConfig
+from repro_torch.core.engine import device_block
 from repro_torch.core.grid import (
     bin_agents, cell_of, clear_ring, ravel_cells, running_max,
 )
-from repro_torch.core.halo import LocalComm, halo_exchange, payload_bytes, \
-    take_slab
+from repro_torch.core.halo import LocalComm, clear_slab_at, halo_exchange, \
+    payload_bytes, take_slab
 from repro_torch.sims import cell_clustering as cc
 from torch_parity import assert_close, assert_dicts_close, soa_inputs
 
@@ -76,7 +78,9 @@ def test_cell_of_and_ravel_cover_the_ring():
 
 
 def _states(boundary, n=260, seed=0):
-    """The same cell_clustering state built by both packages."""
+    """The same cell_clustering state built by both packages; the port's
+    SoA is given as its one device's block (the reference's per-device
+    layout)."""
     kw = dict(cell_size=2.0, interior=(6, 6), cap=16, boundary=boundary)
     geom_j, geom_t = JDomain(**kw), Domain(**kw)
     pos, attrs = soa_inputs(n, 2, geom_t.domain_size, seed)
@@ -84,6 +88,7 @@ def _states(boundary, n=260, seed=0):
                    ).init_state(pos, attrs, seed=seed)
     st_t = Engine(geom=geom_t, behavior=cc.behavior(), dt=0.1, device="cpu"
                   ).init_state(pos, attrs, seed=seed)
+    st_t.soa = device_block(st_t.soa, (0, 0))
     return geom_j, geom_t, st_j, st_t
 
 
@@ -96,6 +101,14 @@ def test_clear_ring_matches_jax():
     assert_close(got, j_clear_ring(soa_j).valid, "valid")
     assert bool(soa_t.valid.all())          # the input is untouched
     assert int(got.sum()) == 6 * 6 * 16
+
+
+@pytest.mark.parametrize("axis,index", [(0, 1), (1, 3), (0, -2)])
+def test_clear_slab_at_matches_jax(axis, index):
+    _, _, st_j, st_t = _states("closed")
+    got = clear_slab_at(st_t.soa, axis, index).valid
+    assert_close(got, j_clear_slab_at(st_j.soa, axis, index).valid, "valid")
+    assert int(got.sum()) < int(st_t.soa.valid.sum())   # it cleared some
 
 
 @pytest.mark.parametrize("boundary", ["closed", "toroidal"])

@@ -113,9 +113,19 @@ def test_cli_smoke_on_cpu():
     assert lines[0].startswith("sim=cell_clustering devices=1 agents=300 "
                                "steps=4")
     assert lines[1].startswith("aura bytes/iter=") and "dropped=0" in lines[1]
-    assert "pair_sweep kernel launches=0" in lines[-1]
-    for flag in (["--mesh", "2x2"], ["--delta", "int8"],
-                 ["--sim", "epidemiology"]):
+    assert lines[-1].startswith("kernel launches: ")
+    assert set(lines[-1].split(": ")[1].split(", ")) == {
+        "soft_repulsion_adhesion=0", "same_type=0", "delta_encode=0",
+        "delta_decode=0", "migration_pos_encode=0",
+        "migration_pos_decode=0"}
+    mesh = _run(["-m", "repro_torch.launch.simulate", "--sim",
+                 "cell_clustering", "--device", "cpu", "--agents", "300",
+                 "--steps", "3", "--mesh", "2x2", "--delta", "int8+mig"])
+    assert mesh.returncode == 0, mesh.stderr
+    lines = mesh.stdout.splitlines()
+    assert lines[0].startswith("sim=cell_clustering devices=4 agents=300 ")
+    assert "dropped=0 codec_overflow=0" in lines[1]
+    for flag in (["--rebalance", "5"], ["--sim", "epidemiology"]):
         args = ["-m", "repro_torch.launch.simulate", "--sim",
                 "cell_clustering", "--device", "cpu", *flag]
         bad = _run(args)

@@ -1,4 +1,5 @@
-"""The ``pair_sweep`` CUDA kernel against its plain PyTorch version.
+"""The CUDA kernels (``pair_sweep`` and the four delta-codec kernels)
+against their plain PyTorch versions.
 
 This file imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -6,15 +7,19 @@ This file imports no JAX, so it runs on a machine with a card and no JAX:
 
 The tests marked ``cuda`` need an NVIDIA GPU and skip (from inside the
 test) elsewhere; the others check, on the CPU, the pieces of the wrapper
-that the kernel relies on.  Forces to 1e-5 (abs and rel), counts exactly.
+that the kernel relies on.  Forces to 1e-5 (abs and rel), counts exactly;
+the codec kernels bit for bit (they do their plain versions' float32
+operations one by one).
 """
 
 import pytest
 import torch
 
+from repro_torch.core.engine import device_block
 from repro_torch.core.grid import clear_ring
 from repro_torch.core.halo import LocalComm, halo_exchange
 from repro_torch.core.neighbors import minimum_image_box
+from repro_torch.kernels import delta_codec as dc
 from repro_torch.kernels import neighbor_interaction as ni
 from repro_torch.sims import cell_clustering as cc
 from repro_torch.sims.common import make_sim
@@ -40,7 +45,8 @@ def _soa(device, boundary, interior=(12, 12), cap=24, per_cell=6, seed=0,
     refs = {d: {f: v[(0,) * len(interior)] for f, v in s.items()}
             for d, s in sim.state.refs.items()}
     soa, _, _, _ = halo_exchange(
-        sim.geom, clear_ring(sim.state.soa),
+        sim.geom, clear_ring(device_block(sim.state.soa,
+                                          (0,) * len(interior))),
         LocalComm(toroidal=sim.geom.toroidal), refs, sim.engine.delta_cfg,
         True)
     return soa, minimum_image_box(sim.geom)
@@ -134,3 +140,103 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         ni.pair_sweep(bad, soa.valid, pair_fn=cc._same_type_pair,
                       pair_attrs=("ctype",), radius=2.0, params={}, box=box)
+
+
+# ---------------------------------------------------------------------------
+# The delta-codec kernels (csrc/delta_codec.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+def _codec_inputs(device, b, n, seed=0, eps=0.01):
+    g = torch.Generator().manual_seed(seed)
+    ref = torch.randn((b, n), generator=g)
+    x = ref + torch.randn((b, n), generator=g) * eps
+    return x.to(device), ref.to(device)
+
+
+def _encode_both(x, ref, **kw):
+    got = dc.delta_encode(x, ref, **kw)
+    want = dc.delta_encode_plain(x, ref, **kw)
+    return got, want
+
+
+def _assert_codec_equal(got, want):
+    """Quantized values, scales, counts and float outputs bit for bit: the
+    kernel does the plain version's float32 operations one by one."""
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_codec_plain_counts_clipped_deltas():
+    x = torch.zeros((2, 8))
+    x[0, :3] = 10.0
+    x[1, 5] = -9.0
+    ref = torch.zeros_like(x)
+    q, s, oflow, nref = dc.delta_encode(x, ref, scale=0.05)
+    assert oflow.tolist() == [3, 1]
+    assert int(q.max()) == 127 and int(q.min()) == -128
+    q, s, oflow, _ = dc.delta_encode(x, ref, scale=0.05, symmetric=True)
+    assert int(q.min()) == -127 and oflow.tolist() == [3, 1]
+    q, s, oflow, nref = dc.delta_encode(x, ref)        # adaptive
+    assert oflow.tolist() == [0, 0]
+    assert torch.equal(s, torch.tensor([10.0, 9.0]) / torch.tensor(127.0))
+    assert torch.equal(dc.delta_decode(q, ref, s), nref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4 * 1000, 4 * 1000 + 3])   # 16-byte or not
+@pytest.mark.parametrize("scale", [None, 1e-4], ids=["adaptive", "fixed"])
+@pytest.mark.parametrize("qdtype", [torch.int8, torch.int16])
+def test_delta_codec_kernels_match_plain_on_cuda(cuda, qdtype, scale, n):
+    x, ref = _codec_inputs(cuda, 4, n)
+    for symmetric in (False, True):
+        before = dict(dc.LAUNCHES)
+        got, want = _encode_both(x, ref, qdtype=qdtype, scale=scale,
+                                 symmetric=symmetric)
+        torch.cuda.synchronize()
+        assert dc.LAUNCHES["delta_encode"] == before["delta_encode"] + 1
+        _assert_codec_equal(got, want)
+        if scale is not None and qdtype == torch.int8:
+            assert int(got[2].sum()) > 0           # the fixed scale clips
+        q, s = got[0], got[1]
+        out = dc.delta_decode(q, ref, s)
+        torch.cuda.synchronize()
+        assert dc.LAUNCHES["delta_decode"] == before["delta_decode"] + 1
+        assert torch.equal(out, dc.delta_decode_plain(q, ref, s))
+        assert torch.equal(out, got[3])          # the closed loop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead", ["mask", "zero"])
+@pytest.mark.parametrize("toroidal", [(True, False), (False, False)],
+                         ids=["toroidal", "closed"])
+def test_migration_codec_kernels_match_plain_on_cuda(cuda, toroidal, dead):
+    g = torch.Generator().manual_seed(1)
+    b, r = 4, 5000
+    lsz = (64.0, 48.0)
+    pos = (torch.rand((b, r, 2), generator=g) * torch.tensor(lsz)).to(cuda)
+    valid = (torch.rand((b, r), generator=g) < 0.7).to(cuda)
+    pos[:, 1] = 1e4                    # stale, far out, on a dead row
+    valid[:, 1] = False
+    pos[:, 2, 1] = 200.0               # live and out of range
+    valid[:, 2] = True
+    center = torch.tensor([[32.0, 24.0]] * b, device=cuda)
+    scale = (torch.tensor([36.0, 28.0]) / torch.tensor(32767.0)).numpy()
+    kw = dict(valid=valid, lsz=lsz, toroidal=toroidal, dead=dead)
+    before = dict(dc.LAUNCHES)
+    q, oflow = dc.migration_pos_encode(pos, center, scale, **kw)
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES["migration_pos_encode"] == \
+        before["migration_pos_encode"] + 1
+    q_p, oflow_p = dc.migration_pos_encode_plain(pos, center, scale, **kw)
+    assert torch.equal(q, q_p) and torch.equal(oflow, oflow_p)
+    assert (oflow >= 1).all()
+    p = dc.migration_pos_decode(q, center, scale, lsz=lsz,
+                                toroidal=toroidal)
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES["migration_pos_decode"] == \
+        before["migration_pos_decode"] + 1
+    assert torch.equal(p, dc.migration_pos_decode_plain(
+        q, center, scale, lsz=lsz, toroidal=toroidal))

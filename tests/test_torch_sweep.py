@@ -28,6 +28,7 @@ from repro.core.neighbors import sweep_accumulate as j_sweep
 from repro.sims import cell_clustering as j_cc
 from repro_torch.bridge import state_from_arrays
 from repro_torch.core import Domain
+from repro_torch.core.engine import device_block
 from repro_torch.core.neighbors import (
     pair_accumulate,
     pair_accumulate_kernel,
@@ -74,7 +75,8 @@ def _case(boundary, interior=(6, 6), n=260, seed=0):
         refs, eng.delta_cfg, True)
     st_t = state_from_arrays(
         jax_state_arrays(dataclasses.replace(st, soa=soa_j)), device="cpu")
-    return geom_j, Domain(**kw), soa_j, st_t.soa
+    return (geom_j, Domain(**kw), soa_j,
+            device_block(st_t.soa, (0,) * len(interior)))
 
 
 @functools.lru_cache(maxsize=None)
