@@ -8,9 +8,9 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
 ``numpy`` only.  Phases, each printing its own lines:
 
 1. card: torch/CUDA versions, the card's name and power limit;
-2. build: compile the ``pair_sweep`` and ``delta_codec`` kernels from
-   ``csrc/``, one nvcc each, started together (timed, with ptxas'
-   registers and spills);
+2. build: compile the ``pair_sweep`` (with ``neighbor_force``),
+   ``delta_codec`` and ``flash_attention`` kernels from ``csrc/``, one
+   nvcc each, started together (timed, with ptxas' registers and spills);
 3. ``pair_sweep`` against its plain version on a (128, 128) grid, cap 24,
    ~6 agents a cell, both pair laws, closed and toroidal: forces to 1e-5,
    counts exactly;
@@ -38,7 +38,37 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
 8. mesh parity on the card, (16, 16) cells a device: 2x2 with a full
    refresh against one device, the int8+mig codec against a full refresh
    (drift and wire bytes), the closed-loop references bit-equal, and a 2x1
-   toroidal mesh whose agents cross the seam.
+   toroidal mesh whose agents cross the seam;
+9. ``flash_attention`` against its plain version: the main shape (4 x 16
+   heads, 2048 tokens, head dim 128), causal and not, in float32 (2e-5)
+   and bf16 (2e-2, and one bf16 ulp + 1e-5 element by element), float32
+   at (2 x 8, 512, 64) and GQA through ``ops.flash_attention_bhsd`` with 2
+   KV heads; kernel, plain, ``scaled_dot_product_attention`` and bound
+   times at the main shape in bf16, causal;
+10. the LM main path: olmo-1b at full width and depth (16 layers, d_model
+   2048, bf16, random weights from ``params.init`` and ``--seed``).
+   (a) scoring: ``loss_fn`` forward, batch 4 x 2048, backend ``"kernel"``,
+   with the counts zeroed before and read after: exactly 16 attention
+   launches, a finite loss, finite logits with the padded columns masked;
+   each of the 16 attention launches of one more forward against the plain
+   version on that launch's inputs (as in phase 9); on float32 copies of
+   the weights the ``"kernel"`` and ``"chunked"`` backends agree to 1e-3,
+   and in bf16, at every position, the kernel backend's largest distance
+   from that float32 forward is at most 2x the chunked backend's; ms a
+   forward, tokens/s, peak memory.  (b) greedy serving: 4 prompts of 480
+   tokens, ``make_prefill_step`` into a 512-slot cache, 32 decode steps of
+   ``make_serve_decode_step`` (bf16, timed; no kernel launch); the
+   prefill's logits against a bf16 chunked forward over the 512 tokens
+   (0.06 abs, 0.05 rel) and every step's held to the float32 forward as
+   scoring is; then, on float32 weights and cache, the prefill's and
+   decode steps' logits at 479..511 against a ``"kernel"`` forward over
+   the 512 tokens (1e-3); prefill ms, ms a decode step, decode tokens/s,
+   peak memory;
+11. the legacy ``ops.neighbor_force`` (its own kernel) on the gathered
+   slabs of a (1024, 1024)-cell, cap-48 clustering SoA (4,194,304 agents),
+   driven once with the counts zeroed, then against its plain version in
+   chunks of cells (1e-5), and on the reference test's (C, K) cases; kernel,
+   plain and bound times.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -69,14 +99,21 @@ from repro_torch.core.grid import clear_ring  # noqa: E402
 from repro_torch.core.halo import LocalComm, halo_exchange  # noqa: E402
 from repro_torch.core.neighbors import minimum_image_box  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.configs import get as get_config  # noqa: E402
 from repro_torch.kernels import delta_codec as dc  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import neighbor_interaction as ni  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import params as P  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.sims import cell_clustering as cc  # noqa: E402
 from repro_torch.sims.common import make_sim  # noqa: E402
+from repro_torch.training import steps as lm_steps  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12          # dense, tensor cores
 
 # Float operations the kernel does per pair (see csrc/pair_sweep.cu): the
 # distance test on every pair of occupied, distinct slots (2 subtractions,
@@ -347,12 +384,13 @@ def phase_main(seed: int):
         fail(f"{dropped} agents dropped")
     if not finite:
         fail("non-finite positions")
-    expected = {"soft_repulsion_adhesion": steps, "same_type": 2}
+    expected = {"soft_repulsion_adhesion": steps, "same_type": 2,
+                "neighbor_force": 0}
     if launches != expected:
         fail(f"kernel launches {launches} != {expected}")
     if not 0.0 < f0 < 1.0 or not 0.0 < f1 < 1.0:
         fail(f"same_type_fraction out of range: {f0}, {f1}")
-    profile_step(sim)
+    profile(lambda: sim.run(1), "profile", "one step")
     return rows, launches, dict(step_ms=step_ms, peak_bytes=peak)
 
 
@@ -387,15 +425,17 @@ def device_ms(fn, reps: int):
     return total / 1e3 / reps if total > 0 else None
 
 
-def profile_step(sim, label: str = "profile"):
-    """Device time by kernel over one more step (torch.profiler): only the
-    device-side entries, so no time is counted twice.  Returns
-    ``{kernel name: device us}`` ({} when nothing was recorded)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(fn, label: str, what: str):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), e.g.
+    one more step: only the device-side entries, so no time is counted
+    twice.  Returns ``{kernel name: device us}`` ({} when nothing was
+    recorded)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sim.run(1)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
 
     kernels = device_events(prof)
@@ -404,7 +444,7 @@ def profile_step(sim, label: str = "profile"):
         print(f"[{label}] no device time recorded: not measured",
               flush=True)
         return {}
-    print(f"[{label}] one step, {total / 1e3:.3f} ms of device kernels "
+    print(f"[{label}] {what}, {total / 1e3:.3f} ms of device kernels "
           f"({len(kernels)} kinds):", flush=True)
     for e in sorted(kernels, key=lambda e: -self_us(e))[:12]:
         print(f"[{label}]   {self_us(e) / 1e3:9.3f} ms "
@@ -452,48 +492,55 @@ def expected_mesh_launches(sim, steps: int, calls_metric: int):
     mig = steps * 2 * nd if cfg.enabled and cfg.migration is not None \
         else 0
     return {"soft_repulsion_adhesion": steps * n_dev,
-            "same_type": calls_metric * n_dev,
+            "same_type": calls_metric * n_dev, "neighbor_force": 0,
+            "flash_attention": 0,
             "delta_encode": halo, "delta_decode": halo,
             "migration_pos_encode": mig, "migration_pos_decode": mig}
 
 
 def all_launches():
-    return {**ni.LAUNCHES, **dc.LAUNCHES}
+    return {**ni.LAUNCHES, **dc.LAUNCHES, **fa.LAUNCHES}
 
 
 def reset_all_launches():
     ni.reset_launches()
     dc.reset_launches()
+    fa.reset_launches()
 
 
-class CodecCapture:
-    """Records a copy of the inputs of every codec wrapper call the engine
-    makes while it is active (the wrappers still run)."""
+class Capture:
+    """Records a copy of the inputs and the output of every call of the
+    wrappers ``names`` of ``module`` while it is active (the wrappers still
+    run): ``calls[name]`` is a list of ``(args, kwargs, output)``."""
 
-    def __init__(self):
-        self.calls = {name: [] for name in CODEC_REPLACES}
+    def __init__(self, module, names):
+        self.module = module
+        self.calls = {name: [] for name in names}
         self._orig = {}
 
     def __enter__(self):
         def copy(v):
+            if isinstance(v, tuple):
+                return tuple(copy(a) for a in v)
             return v.clone() if isinstance(v, torch.Tensor) else v
 
         for name in self.calls:
-            fn = getattr(dc, name)
+            fn = getattr(self.module, name)
             self._orig[name] = fn
 
             def rec(*args, _name=name, _fn=fn, **kw):
+                out = _fn(*args, **kw)
                 self.calls[_name].append(
-                    (tuple(copy(a) for a in args),
-                     {k: copy(v) for k, v in kw.items()}))
-                return _fn(*args, **kw)
+                    (copy(args), {k: copy(v) for k, v in kw.items()},
+                     copy(out)))
+                return out
 
-            setattr(dc, name, rec)
+            setattr(self.module, name, rec)
         return self
 
     def __exit__(self, *exc):
         for name, fn in self._orig.items():
-            setattr(dc, name, fn)
+            setattr(self.module, name, fn)
         return False
 
 
@@ -570,7 +617,7 @@ def phase_mesh(seed: int):
 
     if sim.iteration % cfg.refresh_interval == 0:
         fail("mesh: the profiled step would be a full refresh")
-    times = profile_step(sim, label="mesh profile")
+    times = profile(lambda: sim.run(1), "mesh profile", "one step")
     if times:
         codec_us = sum(us for k, us in times.items()
                        if any(c in k for c in CODEC_DEVICE_NAMES))
@@ -578,7 +625,7 @@ def phase_mesh(seed: int):
         print(f"[mesh profile] codec kernels {codec_us / 1e3:.3f} ms = "
               f"{100 * codec_us / total:.2f}% of the delta step's device "
               "time", flush=True)
-    with CodecCapture() as cap:
+    with Capture(dc, CODEC_REPLACES) as cap:
         sim.run(1)                               # one more delta step
         torch.cuda.synchronize()
     stats = dict(step_ms=step_ms, peak_bytes=peak, bytes_full=bytes_full,
@@ -658,7 +705,7 @@ def phase_codec(calls):
         bound_s = 0.0
         nbytes_all = ops_all = 0
         libs = []
-        for args, kw in recorded:
+        for args, kw, _ in recorded:
             got = kernel(*args, **kw)
             torch.cuda.synchronize()
             want = plain(*args, **kw)
@@ -670,7 +717,7 @@ def phase_codec(calls):
             libs.append(_library(name, args, kw))
 
         def run(fn):
-            return lambda: [fn(*a, **kw) for a, kw in recorded]
+            return lambda: [fn(*a, **kw) for a, kw, _ in recorded]
 
         def per_call(t):
             return None if t is None else t / k
@@ -685,7 +732,7 @@ def phase_codec(calls):
         event_ms = cuda_ms(run(kernel), 20) / k
         t_bytes = nbytes_all / HBM_BYTES_PER_S
         t_ops = ops_all / FP32_OPS_PER_S
-        shapes = sorted({tuple(a[0].shape) for a, _ in recorded})
+        shapes = sorted({tuple(a[0].shape) for a, _, _ in recorded})
         rows[name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=1e3 * bound_s / k,
@@ -826,6 +873,499 @@ def phase_mesh_parity(seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-10: flash attention and the LM main path
+# ---------------------------------------------------------------------------
+
+LM_CONFIG = "olmo-1b"
+LM_BATCH, LM_SEQ = 4, 2048          # phase 10 (a): scoring
+SERVE_PROMPT, SERVE_NEW, SERVE_MAX = 480, 32, 512   # phase 10 (b)
+# Cross-path gates run on float32 copies of the bf16 weights, where the
+# two attention backends, and serving and a forward, must agree (float32
+# tolerance: 16 layers of sums taken in different orders, cuBLAS and the
+# kernel).  In bf16 two paths that round in different places drift apart
+# with depth, past the reference's 0.06 / 0.05 at 16 layers (PERF.md
+# has the readings).  So in bf16 every attention launch of the forward is held against
+# the plain version on its own inputs (ATTN_BF16_ATOL below), and the
+# logits are held, position by position, against the float32 forward: a
+# bf16 path's largest error there may be at most LM_BF16_MARGIN times the
+# bf16 chunked forward's.
+LM_F32_TOL = 1e-3
+LM_BF16_MARGIN = 2.0
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# bf16 outputs: the kernel and the plain version both round a float32
+# result to bf16, and their float32 results differ only in summation order
+# (the float32 cases of phase 9 measure it), so they may differ by one
+# bf16 ulp of the larger, plus that float32 difference where the output
+# is near 0 and its ulp smaller than the difference.
+ATTN_BF16_ATOL = 1e-5
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+
+
+def _randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def attention_bound(bh, sq, skv, hd, hdv, causal, dtype):
+    """(bound_ms, bound_by, bytes, ops) of one attention call: q, k, v
+    read once and the output written once; two operations a multiply-add
+    on the (query, key) pairs the mask keeps, at the peak rate of the
+    inputs' type (bf16 tensor cores, else float32 CUDA cores)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = size * bh * (sq * hd + skv * hd + skv * hdv + sq * hdv)
+    pairs = (sum(min(q + 1, skv) for q in range(sq)) if causal
+             else sq * skv)
+    ops = 2 * bh * pairs * (hd + hdv)
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each element of the float32 ``x`` (2^-8 at 0)."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def _attn_err(got, want, label):
+    """Max |got - want|; fails beyond ATTN_TOL (abs and rel) for the type,
+    and for bf16 beyond one ulp of the larger plus ATTN_BF16_ATOL."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{label}: {got.dtype} {tuple(got.shape)} != {want.dtype} "
+             f"{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max())
+    tol = ATTN_TOL[got.dtype]
+    if not torch.allclose(g, w, atol=tol, rtol=tol):
+        fail(f"{label}: max abs error {err} > {tol} (abs and rel)")
+    if got.dtype == torch.bfloat16:
+        bound = _bf16_ulp(torch.maximum(g.abs(), w.abs())) + ATTN_BF16_ATOL
+        over = int((diff > bound).sum())
+        if over:
+            fail(f"{label}: {over} outputs differ by more than one bf16 ulp "
+                 f"+ {ATTN_BF16_ATOL}")
+    return err
+
+
+def phase_flash(seed: int):
+    """Phase 9: the attention kernel against its plain version."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, s, hd = LM_BATCH, 16, LM_SEQ, 128
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):   # bf16 last: timed below
+        q4, k4, v4 = (_randn(gen, (b, h, s, hd), dtype) for _ in range(3))
+        q, k, v = (t.reshape(b * h, s, hd) for t in (q4, k4, v4))
+        for causal in (True, False):
+            before = fa.LAUNCHES["flash_attention"]
+            got = fa.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if fa.LAUNCHES["flash_attention"] != before + 1:
+                fail("flash: the launch counter did not move")
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            label = (f"main_{'causal' if causal else 'full'}"
+                     f"{'_f32' if dtype == torch.float32 else ''}")
+            errs[label] = _attn_err(got, want, f"flash {label}")
+            del got, want
+    qf, kf, vf = (_randn(gen, (16, 512, 64), torch.float32)
+                  for _ in range(3))
+    errs["f32_16x512x64"] = _attn_err(
+        fa.flash_attention(qf, kf, vf), fa.flash_attention_plain(qf, kf, vf),
+        "flash f32 16x512x64")
+    kg, vg = k4[:, :2].contiguous(), v4[:, :2].contiguous()   # 2 KV heads
+    got = ops.flash_attention_bhsd(q4, kg, vg, causal=True)
+    want = fa.flash_attention_plain(
+        q, kg.repeat_interleave(8, dim=1).reshape(b * h, s, hd),
+        vg.repeat_interleave(8, dim=1).reshape(b * h, s, hd))
+    errs["gqa_hkv2"] = _attn_err(got, want.reshape(b, h, s, hd), "flash gqa")
+    del got, want
+
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 10)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), 10)
+    b_ms, b_by, nbytes, nops = attention_bound(b * h, s, s, hd, hd, True,
+                                               torch.bfloat16)
+    print(f"[flash] max_abs_err {errs}", flush=True)
+    print(f"[flash] main shape ({b}x{h}, {s}, {hd}) bf16 causal: "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{lib_ms:.4f} (scaled_dot_product_attention) bound_ms="
+          f"{b_ms:.4f} ({b_by}; {nbytes} B, {nops} ops); "
+          f"{nops / (ms / 1e3) / 1e12:.2f} TFLOP/s", flush=True)
+    return dict(max_abs_err=max(errs.values()), errs=errs, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, ops=nops)
+
+
+def _lm_close(got, want, label, atol, rtol, vocab):
+    """Max |got - want| over the real vocabulary columns; fails beyond
+    ``atol + rtol * |want|``."""
+    if got.shape != want.shape:
+        fail(f"{label}: shapes {tuple(got.shape)} != {tuple(want.shape)}")
+    g, w = got[..., :vocab].float(), want[..., :vocab].float()
+    err = float((g - w).abs().max())
+    if not torch.allclose(g, w, atol=atol, rtol=rtol):
+        fail(f"{label}: logits differ by up to {err} (atol {atol}, rtol "
+             f"{rtol})")
+    return err
+
+
+def _bf16_ratio(got, base, ref, vocab):
+    """Largest ratio, over positions, of ``got``'s to ``base``'s largest
+    distance from the float32 logits ``ref`` at that position; also the two
+    largest distances."""
+    def dist(x):
+        return (x[..., :vocab].float() - ref[..., :vocab].float()
+                ).abs().amax(dim=-1)
+
+    d_got, d_base = dist(got), dist(base)
+    return (float((d_got / d_base).max()), float(d_got.max()),
+            float(d_base.max()))
+
+
+def serve(model, params, prompt, cache):
+    """Greedy serving: prefill ``prompt`` into ``cache``, then
+    ``SERVE_NEW`` decode steps.  Returns the logits of the prefill's last
+    position and of every step ``(B, SERVE_NEW + 1, V)``, the prompt with
+    the generated tokens, the prefill's ms and the ms a decode step (CUDA
+    events)."""
+    prefill = lm_steps.make_prefill_step(model)
+    decode = lm_steps.make_serve_decode_step(model)
+    start, mid, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    start.record()
+    logits, cache = prefill(params, {"tokens": prompt}, cache)
+    mid.record()
+    rows, gen_tok = [logits[:, -1]], []
+    for t in range(SERVE_NEW):
+        nxt = torch.argmax(rows[-1], dim=-1).to(torch.int32)[:, None]
+        gen_tok.append(nxt)
+        logits, cache = decode(params, cache, nxt, prompt.shape[1] + t)
+        rows.append(logits[:, -1])
+    end.record()
+    end.synchronize()
+    seq = torch.cat([prompt] + gen_tok, dim=1)
+    if seq.shape[1] != SERVE_MAX:
+        fail(f"serving: {seq.shape[1]} tokens, not {SERVE_MAX}")
+    return (torch.stack(rows, dim=1), seq, start.elapsed_time(mid),
+            mid.elapsed_time(end) / SERVE_NEW)
+
+
+def phase_lm(seed: int):
+    """Phase 10: olmo-1b scoring and greedy serving at full size."""
+    cfg = get_config(LM_CONFIG).full
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    model.load_params(P.init(model.spec, gen, device="cuda"))
+    params = model.params
+    torch.cuda.synchronize()
+    n_params = P.count_params(model.spec)
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd}, vocab {cfg.padded_vocab}; "
+          f"{n_params} parameters in bf16 from params.init: "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    tok = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ + 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    out = {}
+    with torch.no_grad():
+        # (a) scoring; a warm-up forward first, then the counted one
+        lm_steps.loss_fn(model, params, batch, backend="kernel")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss = lm_steps.loss_fn(model, params, batch, backend="kernel")
+        end.record()
+        end.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        launches = all_launches()
+        peak = torch.cuda.max_memory_allocated()
+        fwd_ms = start.elapsed_time(end)
+        loss = float(loss)
+        expected = {n: 0 for n in launches}
+        expected["flash_attention"] = cfg.n_layers
+        if launches != expected:
+            fail(f"lm scoring: kernel launches {launches} != {expected}")
+        if not math.isfinite(loss):
+            fail(f"lm scoring: loss {loss}")
+        tokens = LM_BATCH * LM_SEQ
+        print(f"[lm] scoring {LM_BATCH}x{LM_SEQ}: loss {loss:.6f} "
+              f"(ln vocab {math.log(cfg.vocab):.6f}); {fwd_ms:.3f} ms a "
+              f"forward + loss (CUDA events; host {host_ms:.3f}), "
+              f"{tokens / (fwd_ms / 1e3):.6g} tokens/s; peak device memory "
+              f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+        times = profile(lambda: lm_steps.loss_fn(model, params, batch,
+                                                  backend="kernel"),
+                         "lm profile", "one scoring forward + loss")
+        if times:
+            attn_us = sum(us for k, us in times.items()
+                          if "flash_attention_kernel" in k)
+            print(f"[lm profile] flash_attention_kernel "
+                  f"{attn_us / 1e3:.3f} ms = "
+                  f"{100 * attn_us / sum(times.values()):.1f}% of the "
+                  "forward's device time", flush=True)
+        # every attention launch of one more forward, against the plain
+        # version on that launch's own inputs
+        with Capture(fa, ["flash_attention"]) as cap:
+            kern = model.logits(params, batch, backend="kernel")
+        calls = cap.calls["flash_attention"]
+        if len(calls) != cfg.n_layers:
+            fail(f"lm scoring: {len(calls)} attention calls recorded, not "
+                 f"{cfg.n_layers}")
+        err_launch = max(_attn_err(got, fa.flash_attention_plain(*qkv, **kw),
+                                   f"lm attention launch {i}")
+                         for i, (qkv, kw, got) in enumerate(calls))
+        del calls, cap
+        finite = bool(torch.isfinite(kern[..., :cfg.vocab]).all())
+        masked = (float(kern[..., cfg.vocab:].float().max())
+                  if cfg.padded_vocab > cfg.vocab else -math.inf)
+        if kern.shape != (LM_BATCH, LM_SEQ, cfg.padded_vocab) or not finite \
+                or masked > -1e29:
+            fail(f"lm scoring: logits {tuple(kern.shape)}, finite {finite}, "
+                 f"padded columns up to {masked}")
+        chunked = model.logits(params, batch, backend="chunked")
+        chunked_ms = cuda_ms(lambda: model.logits(params, batch,
+                                                  backend="chunked"), 1)
+        # The same weights in float32: the two backends must agree there;
+        # in bf16 each is held against this float32 forward.
+        p32 = P.tree_map(lambda a: a.float(), params)
+        ref = model.logits(p32, batch, backend="chunked")
+        err_f32 = _lm_close(model.logits(p32, batch, backend="kernel"), ref,
+                            "lm kernel vs chunked (float32 weights)",
+                            LM_F32_TOL, LM_F32_TOL, cfg.vocab)
+        v = cfg.vocab
+        ratio, err_k, err_c = _bf16_ratio(kern, chunked, ref, v)
+        bf16_diff = float((kern[..., :v].float()
+                           - chunked[..., :v].float()).abs().max())
+        del kern, chunked, ref
+        print(f"[lm] {cfg.n_layers} attention launches of a forward vs the "
+              f"plain version on their inputs: max abs diff {err_launch:.4g} "
+              f"(one bf16 ulp + {ATTN_BF16_ATOL}); float32 weights: logits "
+              f"kernel vs chunked backend max abs diff {err_f32:.4g} (limit "
+              f"{LM_F32_TOL} abs and rel); bf16 weights: max |logits - "
+              f"float32 forward| kernel {err_k:.5g}, chunked {err_c:.5g}, "
+              f"largest ratio at one position {ratio:.4g} (limit "
+              f"{LM_BF16_MARGIN}); max |kernel - chunked| {bf16_diff:.4g} "
+              f"(reported); chunked forward {chunked_ms:.3f} ms", flush=True)
+        if not ratio <= LM_BF16_MARGIN:
+            fail(f"lm scoring: bf16 kernel backend up to {ratio} x the "
+                 "chunked backend's distance from the float32 forward")
+        out.update(score_ms=fwd_ms, score_host_ms=host_ms,
+                   score_tokens_per_s=tokens / (fwd_ms / 1e3), loss=loss,
+                   score_peak_bytes=peak, score_launches=launches,
+                   launch_vs_plain=err_launch, kernel_vs_chunked_f32=err_f32,
+                   bf16_max_err_kernel=err_k, bf16_max_err_chunked=err_c,
+                   bf16_ratio=ratio, bf16_kernel_vs_chunked=bf16_diff,
+                   chunked_ms=chunked_ms)
+
+        # (b) greedy serving: bf16, timed and counted
+        prompt = tok[:, :SERVE_PROMPT]
+        cache = model.init_cache(LM_BATCH, SERVE_MAX, device="cuda")
+        decode = lm_steps.make_serve_decode_step(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        got, seq, prefill_ms, decode_ms = serve(model, params, prompt, cache)
+        serve_launches = all_launches()
+        serve_peak = torch.cuda.max_memory_allocated()
+        if any(serve_launches.values()):
+            fail(f"serving: prefill/decode launched {serve_launches}; "
+                 "they run the plain attention paths")
+        times = profile(lambda: decode(params, cache, seq[:, -1:],
+                                       SERVE_MAX - 1),
+                        "lm profile", "one more decode step (the last again)")
+        decode_device_ms = sum(times.values()) / 1e3 if times else None
+        if decode_device_ms is not None:
+            print(f"[lm profile] a decode step: {decode_device_ms:.3f} ms "
+                  f"of device kernels in {decode_ms:.3f} ms: the card idles "
+                  f"{100 * (1 - decode_device_ms / decode_ms):.1f}% of it",
+                  flush=True)
+        # bf16: the prefill's row is the chunked forward's own computation;
+        # the decode steps are held, position by position, against the
+        # float32 forward over the same tokens, as scoring is
+        fwd = model.logits(params, {"tokens": seq},
+                           backend="chunked")[:, SERVE_PROMPT - 1:]
+        ref = model.logits(p32, {"tokens": seq},
+                           backend="chunked")[:, SERVE_PROMPT - 1:]
+        err_prefill = _lm_close(got[:, :1], fwd[:, :1],
+                                "serving: prefill vs chunked forward (bf16)",
+                                0.06, 0.05, v)
+        serve_ratio, _, _ = _bf16_ratio(got, fwd, ref, v)
+        bf16_serve = float((got[..., :v].float()
+                            - fwd[..., :v].float()).abs().max())
+        del fwd, ref
+        # float32 weights and cache: the serving path against a kernel
+        # forward over the same tokens
+        cache32 = tuple(c.float() for c in model.init_cache(
+            LM_BATCH, SERVE_MAX, device="cuda"))
+        got, seq, _, _ = serve(model, p32, prompt, cache32)
+        full = model.logits(p32, {"tokens": seq}, backend="kernel")
+        err_serve = _lm_close(got, full[:, SERVE_PROMPT - 1:],
+                              "serving vs kernel forward (float32)",
+                              LM_F32_TOL, LM_F32_TOL, v)
+        del p32, cache32, full
+        print(f"[lm] serving {LM_BATCH} x {SERVE_PROMPT}-token prompts, "
+              f"{SERVE_NEW} greedy tokens, cache {SERVE_MAX}: prefill "
+              f"{prefill_ms:.3f} ms, {decode_ms:.3f} ms a decode step, "
+              f"{LM_BATCH / (decode_ms / 1e3):.6g} decode tokens/s; peak "
+              f"device memory {serve_peak / 2**30:.2f} GiB; logits at "
+              f"{SERVE_PROMPT - 1}..{SERVE_MAX - 1} vs a kernel forward over "
+              f"the {SERVE_MAX} tokens: float32 max abs diff {err_serve:.4g} "
+              f"(limit {LM_F32_TOL}); bf16: prefill vs chunked forward "
+              f"{err_prefill:.4g} (limit 0.06 abs, 0.05 rel), largest ratio "
+              f"of a position's distance from the float32 forward to the "
+              f"chunked forward's {serve_ratio:.4g} (limit {LM_BF16_MARGIN}),"
+              f" max |serving - chunked forward| {bf16_serve:.4g} (reported)",
+              flush=True)
+        if not serve_ratio <= LM_BF16_MARGIN:
+            fail(f"serving: bf16 logits up to {serve_ratio} x the chunked "
+                 "forward's distance from the float32 forward")
+        out.update(prefill_ms=prefill_ms, decode_step_ms=decode_ms,
+                   decode_tokens_per_s=LM_BATCH / (decode_ms / 1e3),
+                   serve_peak_bytes=serve_peak, serve_vs_forward_f32=err_serve,
+                   decode_step_device_ms=decode_device_ms,
+                   serve_prefill_vs_forward_bf16=err_prefill,
+                   serve_bf16_ratio=serve_ratio,
+                   serve_vs_forward_bf16=bf16_serve)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the legacy neighbor_force kernel on gathered slabs
+# ---------------------------------------------------------------------------
+
+FORCE_INTERIOR = (1024, 1024)
+FORCE_KW = dict(radius=2.0, repulsion=2.0, adhesion=0.6)
+FORCE_CHUNK = 4096                  # cells a plain-version chunk
+
+
+def force_slabs(soa):
+    """The legacy kernel's ten slabs, gathered from an aura-filled SoA as
+    ``neighborhood_slabs`` builds them; the single gid is ``gid_count``
+    (one device: every ``gid_rank`` is 0)."""
+    ai, aj, vi, vj = ni.neighborhood_slabs(soa.attrs, soa.valid,
+                                           ("diameter", "ctype"))
+
+    def side(a, v):
+        return [a["pos"].contiguous(), a["diameter"].contiguous(),
+                a["ctype"].contiguous(), v.contiguous(),
+                a["gid_count"].contiguous()]
+
+    return side(ai, vi) + side(aj, vj)
+
+
+def force_plain_chunked(args, kw):
+    """The plain version ``FORCE_CHUNK`` cells at a time (its (C, K, NK)
+    pair tensors would not fit at once); also counts the pairs within the
+    radius, the work the law does on this data."""
+    c = args[0].shape[0]
+    parts, in_radius = [], 0
+    r2 = torch.tensor(np.float32(kw["radius"] ** 2), device="cuda")
+    for c0 in range(0, c, FORCE_CHUNK):
+        sl = [a[c0:c0 + FORCE_CHUNK] for a in args]
+        parts.append(ni.neighbor_force_plain(*sl, **kw))
+        disp = sl[5][:, None] - sl[0][:, :, None]
+        near = ((disp * disp).sum(-1) <= r2) & sl[3][:, :, None] \
+            & sl[8][:, None] & (sl[4][:, :, None] != sl[9][:, None])
+        in_radius += int(near.sum())
+    return torch.cat(parts), in_radius
+
+
+def phase_force(seed: int):
+    """Phase 11: ``ops.neighbor_force`` at the main size, then against its
+    plain version, and on the reference test's (C, K) cases."""
+    n_agents = 4 * math.prod(FORCE_INTERIOR)
+    sim = make_sim(cc.behavior(), interior=FORCE_INTERIOR, cap=MAIN_CAP,
+                   device="cuda")
+    cc.init(sim, n_agents, seed=seed)
+    sim.run(1)
+    refs = {d: {f: v[0, 0] for f, v in s.items()}
+            for d, s in sim.state.refs.items()}
+    soa, _, _, _ = halo_exchange(
+        sim.geom, clear_ring(device_block(sim.state.soa, (0, 0))),
+        LocalComm(toroidal=sim.geom.toroidal), refs, sim.engine.delta_cfg,
+        True)
+    del sim
+    args = force_slabs(soa)
+    del soa
+    gc.collect()
+    torch.cuda.empty_cache()
+    c, k = args[3].shape
+    nk = args[8].shape[1]
+    nbytes = sum(a.numel() * a.element_size() for a in args) + c * k * 2 * 4
+    print(f"[force] slabs of {c} cells, K {k}, NK {nk}: {nbytes / 1e9:.3f} "
+          f"GB read and written; {int(args[3].sum())} agents", flush=True)
+
+    reset_all_launches()
+    got = ops.neighbor_force(*args, **FORCE_KW)            # the entry point
+    torch.cuda.synchronize()
+    launches = all_launches()
+    expected = {n: 0 for n in launches}
+    expected["neighbor_force"] = 1
+    if launches != expected:
+        fail(f"force: kernel launches {launches} != {expected}")
+    plain_t0 = torch.cuda.Event(enable_timing=True)
+    plain_t1 = torch.cuda.Event(enable_timing=True)
+    plain_t0.record()
+    want, in_radius = force_plain_chunked(args, FORCE_KW)
+    plain_t1.record()
+    plain_t1.synchronize()
+    plain_ms = plain_t0.elapsed_time(plain_t1)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=1e-5, rtol=1e-5):
+        fail(f"force: max abs error {err} > 1e-5")
+    del got, want
+    ms = cuda_ms(lambda: ni.neighbor_force(*args, **FORCE_KW), 5)
+    valid_pairs = int((args[3].sum(1, dtype=torch.int64)
+                       * args[8].sum(1, dtype=torch.int64)).sum())
+    nops = OPS_DISTANCE_TEST * valid_pairs \
+        + OPS_LAW["soft_repulsion_adhesion"] * in_radius
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+    b_ms = 1e3 * max(t_bytes, t_ops)
+    b_by = "bytes" if t_bytes >= t_ops else "operations"
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for cc_, kk in ((8, 8), (16, 16), (4, 32)):
+        def side(n):
+            return [torch.rand((cc_, n, 2), generator=gen,
+                               device="cuda") * 10,
+                    0.5 + torch.rand((cc_, n), generator=gen, device="cuda"),
+                    torch.randint(0, 2, (cc_, n), generator=gen,
+                                  device="cuda", dtype=torch.int32),
+                    torch.rand((cc_, n), generator=gen, device="cuda") < 0.8,
+                    torch.randint(0, 10_000, (cc_, n), generator=gen,
+                                  device="cuda", dtype=torch.int32)]
+
+        a = side(kk) + side(9 * kk)
+        kw = dict(radius=2.0, repulsion=2.0, adhesion=0.4)
+        g_, w_ = ni.neighbor_force(*a, **kw), ni.neighbor_force_plain(*a,
+                                                                      **kw)
+        e = float((g_ - w_).abs().max())
+        if not torch.allclose(g_, w_, atol=1e-5, rtol=1e-5):
+            fail(f"force ({cc_}, {kk}): max abs error {e} > 1e-5")
+        small[f"{cc_}x{kk}"] = e
+    print(f"[force] max_abs_err {err:.3g} at the main shape, {small} on the "
+          f"reference test's cases; kernel_ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, {nops} "
+          f"ops; {in_radius} pairs within the radius)", flush=True)
+    return dict(launches=launches["neighbor_force"],
+                max_abs_err=max([err] + list(small.values())), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, bytes=nbytes, ops=nops, small_errs=small)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -845,8 +1385,8 @@ def main(argv=None) -> int:
 
     # 2. build: one nvcc a kernel source, started together
     t0 = time.perf_counter()
-    _build.load_all(["pair_sweep", "delta_codec"])
-    print(f"[build] both kernel libraries in "
+    _build.load_all(["pair_sweep", "delta_codec", "flash_attention"])
+    print(f"[build] the three kernel libraries in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
     for name, built in _build.BUILDS.items():
         print(f"[build] {name}: {built.path.name} (nvcc "
@@ -863,6 +1403,16 @@ def main(argv=None) -> int:
     mesh_launches, calls, mesh_stats = phase_mesh(args.seed)
     codec = phase_codec(calls)
     mesh_parity = phase_mesh_parity(args.seed)
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash = phase_flash(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = phase_lm(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    force = phase_force(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     kernels = [{
@@ -871,7 +1421,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/pair_sweep.cu",
         "replaces": "src/repro/kernels/neighbor_interaction.py:92",
         "tpu": "repro/kernels/neighbor_interaction.py:pair_sweep_kernel",
-        "launches": sum(launches.values()),
+        "launches": launches["soft_repulsion_adhesion"]
+        + launches["same_type"],
         "max_abs_err": max(soft["max_abs_err"], same["max_abs_err"]),
         "max_err": max(soft["max_abs_err"], same["max_abs_err"]),
         # the per-step law at the main-path shape; both laws under "laws"
@@ -894,6 +1445,16 @@ def main(argv=None) -> int:
              "replaces": f"{TPU_CODEC}:{CODEC_REPLACES[name]}",
              "launches": mesh_launches[name]}, **r))
     kernels[0]["mesh_path"] = dict(mesh_stats, parity=mesh_parity)
+    kernels.append(dict(
+        {"name": "neighbor_force", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pair_sweep.cu",
+         "replaces": "src/repro/kernels/neighbor_interaction.py:201"},
+        **force))
+    kernels.append(dict(
+        {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+         "replaces": "src/repro/kernels/flash_attention.py:75",
+         "launches": lm["score_launches"]["flash_attention"]},
+        **flash, lm_path=lm))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,14 @@ Entry points run on the CUDA device unless the caller passes
 Ported so far: cell clustering (``sims.cell_clustering``) end to end on
 one device and on a virtual device mesh (the whole mesh on one card), the
 neighbour sweep on the ``pair_sweep`` kernel and the delta-encoded aura
-exchange and migration codec on the four ``delta_codec`` kernels.  See
-``ROADMAP.md`` for what is still to come.
+exchange and migration codec on the four ``delta_codec`` kernels; the
+legacy ``kernels.ops.neighbor_force`` on its own kernel; and the dense GQA
+language models (``configs``: olmo-1b, internlm2-20b) for scoring
+(``models.model.Model.logits``, ``training.steps.loss_fn``; backend
+``"kernel"`` runs attention on the ``flash_attention`` kernel) and greedy
+serving with a KV cache (``training.steps.make_prefill_step``,
+``make_serve_decode_step``).  Every TPU kernel of the JAX package now has
+a hand-written counterpart.  See ``ROADMAP.md`` for what is still to come.
 """
 
 from repro_torch.device import resolve_device

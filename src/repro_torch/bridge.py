@@ -1,5 +1,5 @@
-"""Carry a simulation state between the JAX package and the port as plain
-numpy arrays.
+"""Carry a simulation state, and a language model's parameters, between
+the JAX package and the port as plain numpy arrays.
 
 The dict is keyed by ``SimState`` field paths: ``soa.attrs.<name>``,
 ``soa.valid``, ``refs.<edge>.<field>``, ``it``, ``key``, ``gid_counter``,
@@ -13,11 +13,16 @@ carried unchanged, uint32).  This module imports no JAX: a caller that
 holds a JAX state builds the dict with ``np.asarray`` on each leaf.
 Behaviour ``params`` are plain Python floats on both sides and need no
 bridge.
+
+LM parameters (:func:`lm_params_from_arrays`, :func:`lm_params_to_arrays`)
+are keyed by the reference tree's dotted paths (``embed.w``,
+``blocks.attn.wq``, ...), the paths the port's ``models.model.Model``
+keeps, so nothing is renamed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -91,3 +96,44 @@ def state_from_arrays(arrays: Dict[str, np.ndarray],
     return SimState(
         soa=AgentSoA(attrs=attrs, valid=soa_t(arrays["soa.valid"])),
         refs=refs, **{name: t(arrays[name]) for name in _SCALARS})
+
+
+def _bf16_tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy bfloat16 array (ml_dtypes' type, which ``torch.from_numpy``
+    refuses) carried as its 16 bits."""
+    bits = np.ascontiguousarray(a).view(np.int16)
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+
+
+def lm_params_from_arrays(arrays: Mapping[str, np.ndarray],
+                          device: DeviceLike = "cuda"):
+    """``{dotted path: array}`` -> the nested parameter tree on ``device``,
+    each array's type kept (bfloat16 included) and its values exact."""
+    dev = resolve_device(device)
+    tree: Dict = {}
+    for path, a in arrays.items():
+        a = np.asarray(a)
+        t = (_bf16_tensor(a) if a.dtype.name == "bfloat16"
+             else torch.from_numpy(np.array(a, copy=True)))
+        *heads, leaf = path.split(".")
+        node = tree
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = t.to(dev)
+    return tree
+
+
+def lm_params_to_arrays(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The inverse of :func:`lm_params_from_arrays`, keyed by dotted path.
+    numpy has no bfloat16 of its own, so a bfloat16 tensor comes back as
+    float32 holding the same values exactly."""
+    out: Dict[str, np.ndarray] = {}
+    for name, v in params.items():
+        path = f"{prefix}{name}"
+        if isinstance(v, dict):
+            out.update(lm_params_to_arrays(v, prefix=f"{path}."))
+        else:
+            v = v.detach().cpu()
+            out[path] = (v.float() if v.dtype == torch.bfloat16
+                         else v).numpy()
+    return out

@@ -258,6 +258,71 @@ cudaError_t launch(const Columns& col, int3 interior, int k, float r2,
   return cudaGetLastError();
 }
 
+// The legacy soft-sphere force on gathered slabs.
+//
+// Replaces the TPU kernel src/repro/kernels/neighbor_interaction.py:201
+// (neighbor_force_kernel, law _soft_sphere_pair at :187), which runs the
+// pair sweep on slabs the caller has already gathered: self slots (C, K)
+// against neighbourhood slots (C, NK) of every cell, columns pos (2
+// floats), diameter, type, valid and one gid (the reference maps it onto
+// the <rank 0, gid> pair).  A pair counts when both slots are valid, the
+// gids differ and dist2 <= radius^2; there is no minimum image.  The law
+// is SoftRepulsionAdhesion<2> above, summed over j in slab order.
+//
+// What bounds it on an H100: bytes.  The slabs are read once and the (C,
+// K, 2) force written once, 21 bytes a slot: at the 1024 x 1024-cell,
+// cap-48 shape of chip_smoke.py (NK = 432) that is about 10.5 GB, some 3 ms
+// at 3.35 TB/s, against ~2e10 float operations on the pairs (0.3 ms at 67
+// TFLOP/s).  One block per cell; its threads stage the cell's NK
+// neighbour rows in shared memory with coalesced reads, then one thread a
+// self slot sums its pairs in registers, in order, with no atomics.
+__global__ void neighbor_force_kernel(
+    const float* pos_i, const float* diam_i, const int* type_i,
+    const unsigned char* valid_i, const int* gid_i, const float* pos_j,
+    const float* diam_j, const int* type_j, const unsigned char* valid_j,
+    const int* gid_j, int k, int nk, float r2, LawParams p, float* out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_pos = reinterpret_cast<float*>(smem);      // (nk, 2)
+  float* s_diam = s_pos + 2 * nk;
+  int* s_type = reinterpret_cast<int*>(s_diam + nk);
+  int* s_gid = s_type + nk;
+  unsigned char* s_valid = reinterpret_cast<unsigned char*>(s_gid + nk);
+
+  const long long cell = blockIdx.x;
+  const long long j0 = cell * nk;
+  for (int e = threadIdx.x; e < 2 * nk; e += blockDim.x)
+    s_pos[e] = pos_j[2 * j0 + e];
+  for (int e = threadIdx.x; e < nk; e += blockDim.x) {
+    s_diam[e] = diam_j[j0 + e];
+    s_type[e] = type_j[j0 + e];
+    s_gid[e] = gid_j[j0 + e];
+    s_valid[e] = valid_j[j0 + e];
+  }
+  __syncthreads();
+
+  const int i = threadIdx.x;
+  if (i >= k) return;
+  const long long self = cell * k + i;
+  float acc[2] = {0.f, 0.f};
+  if (valid_i[self]) {
+    const float px = pos_i[2 * self];
+    const float py = pos_i[2 * self + 1];
+    const float fi = diam_i[self];
+    const int ti = type_i[self];
+    const int gi = gid_i[self];
+    for (int j = 0; j < nk; ++j) {
+      if (!s_valid[j] || s_gid[j] == gi) continue;
+      float disp[2] = {s_pos[2 * j] - px, s_pos[2 * j + 1] - py};
+      const float dist2 = disp[0] * disp[0] + disp[1] * disp[1];
+      if (!(dist2 <= r2)) continue;
+      SoftRepulsionAdhesion<2>::add(acc, disp, dist2, fi, s_diam[j], ti,
+                                    s_type[j], p);
+    }
+  }
+  out[2 * self] = acc[0];
+  out[2 * self + 1] = acc[1];
+}
+
 }  // namespace
 
 extern "C" const char* pair_sweep_error_string(int err) {
@@ -296,4 +361,42 @@ extern "C" int pair_sweep_launch(
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Self slabs (c, k), neighbourhood slabs (c, nk), each contiguous: pos
+// float (.., 2), diam float, type int32, valid bool, gid int32; out (c, k,
+// 2) float.  same_type_only: 1.0 or 0.0.  Returns a cudaError_t (0 on
+// success); the launch is asynchronous on `stream`.
+extern "C" int neighbor_force_launch(
+    int device, const void* pos_i, const void* diam_i, const void* type_i,
+    const void* valid_i, const void* gid_i, const void* pos_j,
+    const void* diam_j, const void* type_j, const void* valid_j,
+    const void* gid_j, int c, int k, int nk, float r2, float repulsion,
+    float adhesion, float same_type_only, void* out, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (c == 0 || k == 0) return cudaSuccess;
+  if (c < 0 || k < 0 || nk < 0) return cudaErrorInvalidValue;
+  const int threads = ((k + 31) / 32) * 32;
+  if (threads > 1024) return cudaErrorInvalidValue;
+  // pos (2 floats), diam, type, gid, valid
+  const size_t smem = static_cast<size_t>(nk) * (5 * sizeof(float) + 1);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(neighbor_force_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const LawParams p{{repulsion, adhesion, same_type_only}};
+  neighbor_force_kernel<<<static_cast<unsigned>(c), threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pos_i), static_cast<const float*>(diam_i),
+      static_cast<const int*>(type_i),
+      static_cast<const unsigned char*>(valid_i),
+      static_cast<const int*>(gid_i), static_cast<const float*>(pos_j),
+      static_cast<const float*>(diam_j), static_cast<const int*>(type_j),
+      static_cast<const unsigned char*>(valid_j),
+      static_cast<const int*>(gid_j), k, nk, r2, p,
+      static_cast<float*>(out));
+  return cudaGetLastError();
 }

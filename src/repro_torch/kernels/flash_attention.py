@@ -1,0 +1,122 @@
+"""Blocked (flash) attention: a hand-written Hopper kernel
+(``csrc/flash_attention.cu``) and its plain PyTorch version.
+
+This is the port of the TPU kernel ``flash_attention_kernel``
+(``src/repro/kernels/flash_attention.py:75``): for each of BH heads,
+``softmax(q k^T * scale [causal]) v`` with an online softmax in float32,
+q ``(BH, Sq, hd)``, k ``(BH, Skv, hd)``, v ``(BH, Skv, hdv)``, float32 or
+bfloat16, the output in q's type.
+
+* :func:`flash_attention` is the wrapper.  On a CUDA tensor it launches
+  the kernel or raises; on a CPU tensor it runs
+  :func:`flash_attention_plain`.  There is no fallback between the two.
+* :func:`flash_attention_plain` is the port of the reference's oracle
+  ``kernels/ref.flash_attention_ref``: float32 scores, the mask, a softmax,
+  then the cast.
+
+Each launch adds one to ``LAUNCHES["flash_attention"]``; nothing else
+touches the count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (8, 16, 32, 64, 128)     # head dims the kernel is built for
+
+LAUNCHES = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """q (BH, Sq, hd), k (BH, Skv, hd), v (BH, Skv, hdv) -> (BH, Sq, hdv)."""
+    _, sq, hd = q.shape
+    skv = k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * hd ** -0.5
+    if causal:
+        above = (torch.arange(sq, device=q.device)[:, None]
+                 < torch.arange(skv, device=q.device)[None, :])
+        s = s.masked_fill(above[None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def _check_blocks(sq: int, skv: int) -> None:
+    """The TPU kernel's shape contract (``flash_attention.py:88-90``): its
+    128-row blocks, or the whole sequence where it is shorter, must tile
+    Sq and Skv.  The CUDA kernel tiles by 64 rows and takes the same
+    shapes."""
+    bq, bk = min(128, sq), min(128, skv)
+    if sq % bq or skv % bk:
+        raise ValueError(f"flash_attention: Sq={sq} must be a multiple of "
+                         f"{bq} and Skv={skv} of {bk}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention of ``(BH, S, hd)`` heads, scaled by ``hd ** -0.5``."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("flash_attention: q, k, v must be (BH, S, d)")
+    bh, sq, hd = q.shape
+    _, skv, hdv = v.shape
+    if k.shape != (bh, skv, hd) or v.shape[0] != bh:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    _check_blocks(sq, skv)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _launch(q, k, v, causal, hd ** -0.5)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    if lib.flash_attention_launch.argtypes is None:
+        lib.flash_attention_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+            + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    bh, sq, hd = q.shape
+    skv, hdv = v.shape[1], v.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, "
+                             f"q on {q.device}")
+        if t.dtype != q.dtype or t.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+            raise TypeError(f"flash_attention: {name} has dtype {t.dtype}; "
+                            "the kernel takes q, k, v all float32 or all "
+                            "bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} is not contiguous")
+    if hd not in HEAD_DIMS or hdv not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims hd={hd}, hdv={hdv}; "
+                         f"the kernel is built for {HEAD_DIMS}")
+    out = torch.empty((bh, sq, hdv), dtype=q.dtype, device=q.device)
+    lib = _library()
+    err = lib.flash_attention_launch(
+        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), bh, sq, skv, hd, hdv, float(scale), int(causal),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: cudaError {err} "
+            f"({lib.flash_attention_error_string(err).decode()})")
+    LAUNCHES["flash_attention"] += 1
+    return out

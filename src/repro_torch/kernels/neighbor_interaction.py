@@ -19,8 +19,16 @@ toroidal axes) contribute the behaviour's ``pair_fn`` to per-agent sums.
   function each.  A ``pair_fn`` with no device law raises
   ``NotImplementedError`` on a CUDA tensor.
 
-Each launch adds one to ``LAUNCHES[law]``; nothing else touches the
-counts, so a run can show that it went through the kernel.
+The legacy soft-sphere entry point is here too: :func:`neighbor_force`,
+the port of ``neighbor_force_kernel`` (``neighbor_interaction.py:201``),
+sums the soft-sphere law over already gathered ``(C, K)`` x ``(C, NK)``
+slabs on its own kernel in the same source, with
+:func:`neighbor_force_plain` (the port of ``ref.neighbor_force_ref``)
+beside it.
+
+Each launch adds one to ``LAUNCHES[law]`` (``LAUNCHES["neighbor_force"]``
+for the legacy kernel); nothing else touches the counts, so a run can show
+that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -77,8 +85,10 @@ LAWS: Dict[str, PairLaw] = {
         params=(), outputs=(("same", False), ("cnt", False))),
 }
 
-# Kernel launches per law since the last reset_launches().
+# Kernel launches per law since the last reset_launches(), and of the
+# legacy neighbor_force kernel.
 LAUNCHES: Dict[str, int] = {law.name: 0 for law in LAWS.values()}
+LAUNCHES["neighbor_force"] = 0
 
 
 def reset_launches() -> None:
@@ -307,3 +317,95 @@ def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
             f"({lib.pair_sweep_error_string(err).decode()})")
     LAUNCHES[law.name] += 1
     return outs
+
+
+# ---------------------------------------------------------------------------
+# The legacy soft-sphere force on gathered slabs (neighbor_force_kernel)
+# ---------------------------------------------------------------------------
+
+def neighbor_force_plain(pos_i, diam_i, type_i, valid_i, gid_i,
+                         pos_j, diam_j, type_j, valid_j, gid_j,
+                         *, radius, repulsion, adhesion,
+                         same_type_only=True) -> torch.Tensor:
+    """Per-cell pairwise force: i ``(C, K, ...)`` own agents, j
+    ``(C, NK, ...)`` neighbourhood agents -> force ``(C, K, 2)``; no
+    minimum image.  The reference oracle's arithmetic op for op."""
+    dev = pos_i.device
+    disp = pos_j[:, None, :, :] - pos_i[:, :, None, :]       # (C,K,NK,2)
+    dist2 = torch.sum(disp * disp, dim=-1)
+    dist = torch.sqrt(dist2 + torch.tensor(1e-6, dtype=torch.float32,
+                                           device=dev))
+    unit = disp / dist[..., None]
+    r_sum = 0.5 * (diam_i[:, :, None] + diam_j[:, None, :])
+    overlap = r_sum - dist
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    rep = torch.where(overlap > 0, repulsion * overlap, zero)
+    same = (type_i[:, :, None] == type_j[:, None, :]).float()
+    gate = same if same_type_only else torch.ones_like(same)
+    adh = torch.where(overlap <= 0, adhesion * gate, zero)
+    f = -(rep - adh)[..., None] * unit
+    r2 = torch.tensor(np.float32(radius * radius), device=dev)
+    mask = (valid_i[:, :, None] & valid_j[:, None, :]
+            & (gid_i[:, :, None] != gid_j[:, None, :])
+            & (dist2 <= r2))
+    return torch.sum(torch.where(mask[..., None], f, zero), dim=2)
+
+
+def neighbor_force(pos_i, diam_i, type_i, valid_i, gid_i,
+                   pos_j, diam_j, type_j, valid_j, gid_j,
+                   *, radius, repulsion, adhesion,
+                   same_type_only=True) -> torch.Tensor:
+    """Soft-sphere force sweep on gathered slabs (the legacy single-law
+    entry point).  On a CUDA tensor this launches the ``neighbor_force``
+    kernel (or raises); on a CPU tensor it runs the plain version."""
+    args = (pos_i, diam_i, type_i, valid_i, gid_i,
+            pos_j, diam_j, type_j, valid_j, gid_j)
+    kw = dict(radius=radius, repulsion=repulsion, adhesion=adhesion,
+              same_type_only=same_type_only)
+    if pos_i.device.type == "cpu":
+        return neighbor_force_plain(*args, **kw)
+    if pos_i.device.type != "cuda":
+        raise ValueError(f"neighbor_force: unsupported device "
+                         f"{pos_i.device}")
+    return _launch_force(*args, **kw)
+
+
+def _force_library() -> ctypes.CDLL:
+    lib = _library()
+    if lib.neighbor_force_launch.argtypes is None:
+        lib.neighbor_force_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+            + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2)
+        lib.neighbor_force_launch.restype = ctypes.c_int
+    return lib
+
+
+def _launch_force(pos_i, diam_i, type_i, valid_i, gid_i,
+                  pos_j, diam_j, type_j, valid_j, gid_j,
+                  *, radius, repulsion, adhesion, same_type_only):
+    dev = pos_i.device
+    c, k = valid_i.shape[:2]
+    nk = valid_j.shape[1]
+    for side, n, (pos, diam, ctype, valid, gid) in (
+            ("i", k, (pos_i, diam_i, type_i, valid_i, gid_i)),
+            ("j", nk, (pos_j, diam_j, type_j, valid_j, gid_j))):
+        _check(f"pos_{side}", pos, torch.float32, (c, n, 2), dev)
+        _check(f"diam_{side}", diam, torch.float32, (c, n), dev)
+        _check(f"type_{side}", ctype, torch.int32, (c, n), dev)
+        _check(f"valid_{side}", valid, torch.bool, (c, n), dev)
+        _check(f"gid_{side}", gid, torch.int32, (c, n), dev)
+    out = torch.empty((c, k, 2), dtype=torch.float32, device=dev)
+    lib = _force_library()
+    err = lib.neighbor_force_launch(
+        dev.index, pos_i.data_ptr(), diam_i.data_ptr(), type_i.data_ptr(),
+        valid_i.data_ptr(), gid_i.data_ptr(), pos_j.data_ptr(),
+        diam_j.data_ptr(), type_j.data_ptr(), valid_j.data_ptr(),
+        gid_j.data_ptr(), c, k, nk, float(np.float32(radius * radius)),
+        float(repulsion), float(adhesion), 1.0 if same_type_only else 0.0,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"neighbor_force kernel launch failed: cudaError {err} "
+            f"({lib.pair_sweep_error_string(err).decode()})")
+    LAUNCHES["neighbor_force"] += 1
+    return out

@@ -1,9 +1,12 @@
-"""Public wrappers around the delta-codec kernels (port of the delta part
-of ``repro/kernels/ops.py``): one ``(N, L)`` float32 slab, one scalar
-scale, the TPU kernel's int8 range of ``+-127``.
+"""Public wrappers around the port's kernels (port of
+``repro/kernels/ops.py``): attention of ``(B, H, S, hd)`` heads with GQA,
+the legacy soft-sphere force sweep, and the delta codec on one ``(N, L)``
+float32 slab with one scalar scale and the TPU kernel's int8 range of
+``+-127``.
 
-The engine does not go through these; it calls ``core.delta``, which
-runs the same kernels over the stacked slabs of every device."""
+The engine does not go through the codec wrappers; it calls
+``core.delta``, which runs the same kernels over the stacked slabs of
+every device."""
 
 from __future__ import annotations
 
@@ -11,7 +14,37 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import delta_codec
+from repro_torch.kernels import delta_codec, flash_attention, \
+    neighbor_interaction
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """q (B, H, Sq, hd); k/v (B, Hkv, Skv, hd).  GQA handled by repeating KV
+    head groups, as the reference does."""
+    b, h, sq, hd = q.shape
+    hkv = k.shape[1]
+    if hkv != h:
+        rep = h // hkv
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    qf = q.reshape(b * h, sq, hd).contiguous()
+    kf = k.reshape(b * h, k.shape[2], hd).contiguous()
+    vf = v.reshape(b * h, v.shape[2], v.shape[3]).contiguous()
+    out = flash_attention.flash_attention(qf, kf, vf, causal=causal)
+    return out.reshape(b, h, sq, v.shape[3])
+
+
+def neighbor_force(pos_i, diam_i, type_i, valid_i, gid_i,
+                   pos_j, diam_j, type_j, valid_j, gid_j,
+                   *, radius, repulsion, adhesion, same_type_only=True):
+    """Soft-sphere force of ``(C, K)`` self slots against ``(C, NK)``
+    neighbourhood slots -> ``(C, K, 2)`` float32."""
+    return neighbor_interaction.neighbor_force(
+        pos_i, diam_i, type_i, valid_i, gid_i,
+        pos_j, diam_j, type_j, valid_j, gid_j,
+        radius=radius, repulsion=repulsion, adhesion=adhesion,
+        same_type_only=same_type_only)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,250 @@
+"""Model assembly (port of ``repro/models/model.py``): the dense family.
+
+dense - [GQA attention + SwiGLU MLP] x L, the L layers' parameters stacked
+along a leading axis as in the reference, applied by a Python loop (the
+reference's ``lax.scan``; without autograd there is no remat to choose).
+
+The other families (moe, ssm, hybrid, audio, vlm) and MLA raise
+``NotImplementedError`` (ROADMAP A12).
+
+The parameter tree is a nested dict of tensors keyed as the reference's
+(``embed.w``, ``blocks.attn.wq``, ``blocks.ln1.scale``, ...).  ``Model`` is
+an ``nn.Module``: :meth:`Model.load_params` registers a tree under those
+same paths, so ``model.state_dict()`` is keyed by the reference's dotted
+paths and carrying weights across (``repro_torch.bridge``) renames
+nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import NORM_FNS, NORM_SPECS, mm, swiglu, \
+    swiglu_spec
+from repro_torch.models.params import ParamSpec, tree_map
+
+Tensor = torch.Tensor
+
+_FAMILIES = ("dense",)
+
+
+def _unported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP A12)")
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise _unported(f"the {cfg.family!r} model family")
+    if cfg.attention != "gqa":
+        raise _unported(f"{cfg.attention!r} attention")
+
+
+def _stack_specs(spec_tree, n: int):
+    """Add a leading stacked-layers dim to every ParamSpec leaf."""
+    return tree_map(lambda s: ParamSpec((n,) + s.shape, ("layers",)
+                                        + s.logical, s.dtype, s.init,
+                                        s.scale), spec_tree)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
+    return tree_map(lambda a: a[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Decoder block (dense)
+# ---------------------------------------------------------------------------
+
+def _block_spec(cfg: ArchConfig):
+    _check_family(cfg)
+    return {
+        "ln1": NORM_SPECS[cfg.norm](cfg.d_model),
+        "ln2": NORM_SPECS[cfg.norm](cfg.d_model),
+        "attn": attn_mod.gqa_spec(cfg),
+        "ffn": swiglu_spec(cfg.d_model, cfg.d_ff),
+    }
+
+
+def _block_apply(params, cfg: ArchConfig, x, positions, cache=None,
+                 cache_index=None, length_mask=None, backend="chunked"):
+    norm = NORM_FNS[cfg.norm]
+    h, new_cache = attn_mod.gqa_apply(
+        params["attn"], cfg, norm(params["ln1"], x), positions,
+        cache=cache, cache_index=cache_index, length_mask=length_mask,
+        backend=backend,
+    )
+    x = x + h
+    f = swiglu(params["ffn"], norm(params["ln2"], x))
+    return x + f, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Model spec + apply
+# ---------------------------------------------------------------------------
+
+class Model(nn.Module):
+    """The dense LM: its configuration, its spec tree and, once
+    :meth:`load_params` has run, its parameters as registered tensors.
+    The forward functions take the parameter tree explicitly, as the
+    reference's do."""
+
+    def __init__(self, cfg: ArchConfig, spec: Any):
+        super().__init__()
+        self.cfg = cfg
+        self.spec = spec
+
+    # logits over the full input sequence (scoring / prefill without cache)
+    def logits(self, params, batch: Dict[str, Tensor],
+               backend: str = "chunked") -> Tensor:
+        return _forward(params, self.cfg, batch, backend)
+
+    def prefill(self, params, batch, cache):
+        return _prefill(params, self.cfg, batch, cache)
+
+    def decode_step(self, params, tokens, cache, index, length_mask):
+        return _decode(params, self.cfg, tokens, cache, index, length_mask)
+
+    def init_cache(self, batch: int, max_len: int,
+                   device: DeviceLike = "cuda"):
+        return _init_cache(self.cfg, batch, max_len, device)
+
+    def load_params(self, params) -> "Model":
+        """Register every tensor of ``params`` (a tree of :attr:`spec`'s
+        shape) under its path, without copying: ``self.state_dict()`` is
+        then keyed ``embed.w``, ``blocks.attn.wq``, ...  Returns self."""
+        def register(module: nn.Module, spec, tree, path: str):
+            # a subtree without leaves (a non-parametric norm's {}) may be
+            # absent: a dict of dotted paths cannot hold it
+            need = {n for n, sub in spec.items() if sub != {}}
+            if not need <= set(tree) <= set(spec):
+                raise KeyError(f"{path or 'params'}: keys {sorted(tree)} "
+                               f"!= spec's {sorted(spec)}")
+            for name, sub in spec.items():
+                where = f"{path}.{name}" if path else name
+                if isinstance(sub, dict):
+                    child = nn.Module()
+                    module.add_module(name, child)
+                    register(child, sub, tree.get(name, {}), where)
+                    continue
+                t = tree[name]
+                if tuple(t.shape) != sub.shape:
+                    raise ValueError(f"{where}: shape {tuple(t.shape)} != "
+                                     f"spec's {sub.shape}")
+                module.register_parameter(
+                    name, nn.Parameter(t, requires_grad=False))
+
+        for name in list(self._modules):
+            del self._modules[name]
+        register(self, self.spec, params, "")
+        return self
+
+    @property
+    def params(self):
+        """The registered parameters as the nested dict the forward
+        functions take."""
+        def tree(module: nn.Module):
+            out = {n: p.data for n, p in module._parameters.items()}
+            out.update({n: tree(m) for n, m in module._modules.items()})
+            return out
+
+        return tree(self)
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    _check_family(cfg)
+    d, v = cfg.d_model, cfg.padded_vocab
+    spec: Dict[str, Any] = {
+        "embed": {"w": ParamSpec((v, d), ("vocab", "embed"))},
+        "blocks": _stack_specs(_block_spec(cfg), cfg.n_layers),
+        "ln_f": NORM_SPECS[cfg.norm](d),
+    }
+    if not cfg.tie_embeddings:
+        spec["head"] = {"w": ParamSpec((d, v), ("embed", "vocab"))}
+    return Model(cfg=cfg, spec=spec)
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(params, cfg: ArchConfig, batch) -> Tensor:
+    if "tokens" not in batch or set(batch) - {"tokens", "labels",
+                                              "loss_mask"}:
+        raise _unported("non-token model inputs (frames, patches)")
+    return params["embed"]["w"][batch["tokens"].long()]
+
+
+def _head(params, cfg: ArchConfig, x: Tensor) -> Tensor:
+    x = NORM_FNS[cfg.norm](params["ln_f"], x)
+    if cfg.tie_embeddings:
+        logits = mm("bsd,vd->bsv", x, params["embed"]["w"])
+    else:
+        logits = mm("bsd,dv->bsv", x, params["head"]["w"])
+    if cfg.padded_vocab != cfg.vocab:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+def _n_layers(params) -> int:
+    return params["blocks"]["attn"]["wq"].shape[0]
+
+
+def _forward(params, cfg: ArchConfig, batch, backend: str) -> Tensor:
+    _check_family(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(_n_layers(params)):
+        x, _ = _block_apply(_layer(params["blocks"], i), cfg, x,
+                            positions, backend=backend)
+    return _head(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def _init_cache(cfg: ArchConfig, batch: int, max_len: int,
+                device: DeviceLike = "cuda") -> Tuple[Tensor, Tensor]:
+    """The bfloat16 ``(L, B, Hkv, T, hd)`` key and value caches."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    return (torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+
+
+def _run_cached(params, cfg, x, positions, cache, index, length_mask):
+    ck, cv = cache
+    for i in range(_n_layers(params)):
+        x, _ = _block_apply(_layer(params["blocks"], i), cfg, x,
+                            positions, cache=(ck[i], cv[i]),
+                            cache_index=index, length_mask=length_mask)
+    return x
+
+
+def _prefill(params, cfg: ArchConfig, batch, cache):
+    """Run the full prompt, filling the cache in place; returns
+    ``(last_logits, cache)``."""
+    _check_family(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_cached(params, cfg, x, positions, cache, 0, None)
+    return _head(params, cfg, x[:, -1:]), cache
+
+
+def _decode(params, cfg: ArchConfig, tokens, cache, index: int,
+            length_mask):
+    """One autoregressive step.  tokens: (B, 1); index: the write offset.
+    The cache is updated in place."""
+    _check_family(cfg)
+    x = _embed_inputs(params, cfg, {"tokens": tokens})
+    positions = torch.full((1,), index, device=x.device)
+    x = _run_cached(params, cfg, x, positions, cache, index, length_mask)
+    return _head(params, cfg, x), cache

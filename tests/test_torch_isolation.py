@@ -57,12 +57,12 @@ def test_port_and_chip_smoke_imports_leave_jax_and_repro_out():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 15                    # every module of the slice imported
+    assert n >= 34                    # every module of the slices imported
 
 
 def test_no_jax_or_repro_import_in_the_port_sources():
     files = sorted(PORT.rglob("*.py")) + [SMOKE]
-    assert len(files) > 15
+    assert len(files) > 30
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -86,22 +86,54 @@ def test_default_device_raises_without_a_gpu():
         Simulation(dict(interior=(6, 6)), cc.behavior())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cc.simulation(n_agents=50, interior=(6, 6))
+    from repro_torch.configs import get
+    from repro_torch.models import params as P
+    from repro_torch.models.model import build_model
+
+    model = build_model(get("olmo-1b").smoke)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        P.init(model.spec, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(2, 16)
     out = _run(["-m", "repro_torch.launch.simulate", "--sim",
                 "cell_clustering", "--agents", "50", "--steps", "1"])
     assert out.returncode != 0 and "agent_updates" not in out.stdout
 
 
 def test_cpu_tensor_never_counts_as_a_launch():
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import neighbor_interaction as ni
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as P
+    from repro_torch.models.model import build_model
     from repro_torch.sims import cell_clustering as cc
+    from repro_torch.training.steps import loss_fn
 
-    before = dict(ni.LAUNCHES)
+    before = {**ni.LAUNCHES, **fa.LAUNCHES}
     sim = cc.simulation(n_agents=120, interior=(6, 6), device="cpu",
                         sweep_backend="kernel")
     sim.run(2)
     frac = cc.same_type_fraction(sim.state, sim.engine)
     assert 0.0 < frac < 1.0
-    assert ni.LAUNCHES == before
+    g = torch.Generator().manual_seed(0)
+    c, k = 4, 8
+    slabs = [torch.rand((c, n, 2), generator=g) for n in (k, 9 * k)]
+    side = {n: (torch.rand((c, n), generator=g) + 0.5,
+                torch.zeros((c, n), dtype=torch.int32),
+                torch.ones((c, n), dtype=torch.bool),
+                torch.arange(c * n, dtype=torch.int32).reshape(c, n))
+            for n in (k, 9 * k)}
+    force = ops.neighbor_force(slabs[0], *side[k], slabs[1], *side[9 * k],
+                               radius=2.0, repulsion=2.0, adhesion=0.4)
+    assert force.shape == (c, k, 2) and bool(torch.isfinite(force).all())
+    model = build_model(get("olmo-1b").smoke)
+    params = P.init(model.spec, g, device="cpu")
+    tokens = torch.randint(0, 256, (2, 128), generator=g)
+    loss = loss_fn(model, params, {"tokens": tokens, "labels": tokens},
+                   backend="kernel")
+    assert bool(torch.isfinite(loss))
+    assert {**ni.LAUNCHES, **fa.LAUNCHES} == before
 
 
 def test_cli_smoke_on_cpu():
@@ -115,7 +147,8 @@ def test_cli_smoke_on_cpu():
     assert lines[1].startswith("aura bytes/iter=") and "dropped=0" in lines[1]
     assert lines[-1].startswith("kernel launches: ")
     assert set(lines[-1].split(": ")[1].split(", ")) == {
-        "soft_repulsion_adhesion=0", "same_type=0", "delta_encode=0",
+        "soft_repulsion_adhesion=0", "same_type=0", "neighbor_force=0",
+        "delta_encode=0",
         "delta_decode=0", "migration_pos_encode=0",
         "migration_pos_decode=0"}
     mesh = _run(["-m", "repro_torch.launch.simulate", "--sim",

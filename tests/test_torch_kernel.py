@@ -1,5 +1,6 @@
-"""The CUDA kernels (``pair_sweep`` and the four delta-codec kernels)
-against their plain PyTorch versions.
+"""The CUDA kernels (``pair_sweep``, the legacy ``neighbor_force``, the
+four delta-codec kernels and ``flash_attention``) against their plain
+PyTorch versions.
 
 This file imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -9,7 +10,9 @@ The tests marked ``cuda`` need an NVIDIA GPU and skip (from inside the
 test) elsewhere; the others check, on the CPU, the pieces of the wrapper
 that the kernel relies on.  Forces to 1e-5 (abs and rel), counts exactly;
 the codec kernels bit for bit (they do their plain versions' float32
-operations one by one).
+operations one by one); attention to 2e-5 in float32 and 2e-2 in bfloat16
+(the reference's kernel-vs-oracle tolerances, tests/test_kernels.py): the
+kernel's online softmax sums in another order than the plain softmax.
 """
 
 import pytest
@@ -20,7 +23,9 @@ from repro_torch.core.grid import clear_ring
 from repro_torch.core.halo import LocalComm, halo_exchange
 from repro_torch.core.neighbors import minimum_image_box
 from repro_torch.kernels import delta_codec as dc
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import neighbor_interaction as ni
+from repro_torch.kernels import ops
 from repro_torch.sims import cell_clustering as cc
 from repro_torch.sims.common import make_sim
 
@@ -240,3 +245,137 @@ def test_migration_codec_kernels_match_plain_on_cuda(cuda, toroidal, dead):
         before["migration_pos_decode"] + 1
     assert torch.equal(p, dc.migration_pos_decode_plain(
         q, center, scale, lsz=lsz, toroidal=toroidal))
+
+
+# ---------------------------------------------------------------------------
+# The legacy neighbor_force kernel (csrc/pair_sweep.cu) on gathered slabs
+# ---------------------------------------------------------------------------
+
+def _force_slabs(device, c, k, nk, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def side(n):
+        return (torch.rand((c, n, 2), generator=g) * 10,
+                0.5 + torch.rand((c, n), generator=g),
+                torch.randint(0, 2, (c, n), generator=g, dtype=torch.int32),
+                torch.rand((c, n), generator=g) < 0.8,
+                torch.randint(0, 10_000, (c, n), generator=g,
+                              dtype=torch.int32))
+
+    i, j = side(k), side(nk)
+    # j slot 4 carries self slot 0's gid half a unit away (as an aura copy
+    # would): the gid test, not the distance, must exclude it
+    for a in range(5):
+        j[a][:, 4] = i[a][:, 0]
+    j[0][:, 4, 0] += 0.5
+    i[3][:, 0] = j[3][:, 4] = True
+    return [t.to(device) for t in i + j]
+
+
+def test_neighbor_force_plain_excludes_self_and_far_pairs():
+    args = _force_slabs("cpu", 4, 8, 72)
+    kw = dict(radius=2.0, repulsion=2.0, adhesion=0.4)
+    full = ni.neighbor_force_plain(*args, **kw)
+    args[9] = args[9].clone()
+    args[9][:, 4] += 1                       # no longer the same agent
+    assert not torch.equal(ni.neighbor_force_plain(*args, **kw)[:, 0],
+                           full[:, 0])
+    far = ni.neighbor_force_plain(*args, **dict(kw, radius=0.0))
+    assert torch.equal(far, torch.zeros_like(far))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("same_type_only", [True, False])
+@pytest.mark.parametrize("c,k", [(8, 8), (16, 16), (4, 32), (64, 48)])
+def test_neighbor_force_kernel_matches_plain_on_cuda(cuda, c, k,
+                                                     same_type_only):
+    args = _force_slabs(cuda, c, k, 9 * k)
+    kw = dict(radius=2.0, repulsion=2.0, adhesion=0.4,
+              same_type_only=same_type_only)
+    before = ni.LAUNCHES["neighbor_force"]
+    got = ops.neighbor_force(*args, **kw)
+    torch.cuda.synchronize()
+    assert ni.LAUNCHES["neighbor_force"] == before + 1
+    want = ni.neighbor_force_plain(*args, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert float(want.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_neighbor_force_kernel_refuses_what_it_does_not_take(cuda):
+    args = _force_slabs(cuda, 4, 8, 72)
+    kw = dict(radius=2.0, repulsion=2.0, adhesion=0.4)
+    bad = list(args)
+    bad[2] = bad[2].long()
+    with pytest.raises(TypeError):
+        ni.neighbor_force(*bad, **kw)
+    bad = list(args)
+    bad[5] = bad[5].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ni.neighbor_force(*bad, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The flash-attention kernel (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(device, bh, sq, skv, hd, hdv, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype).to(device)
+            for shape in ((bh, sq, hd), (bh, skv, hd), (bh, skv, hdv))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,sq,skv,hd,hdv", [
+    (2, 128, 128, 64, 64),
+    (1, 256, 256, 128, 128),
+    (3, 128, 256, 32, 32),
+    (2, 128, 128, 16, 16),       # the olmo-1b smoke head dim
+    (4, 64, 64, 8, 8),           # internlm2-20b smoke; one partial tile
+    (2, 100, 100, 64, 32),       # ragged 64-row tiles, hdv != hd
+])
+def test_flash_kernel_matches_plain_on_cuda(cuda, bh, sq, skv, hd, hdv,
+                                            causal, dtype):
+    q, k, v = _qkv(cuda, bh, sq, skv, hd, hdv, dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (bh, sq, hdv)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_bhsd_gqa_on_cuda(cuda):
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn((2, 8, 128, 64), generator=g).to(cuda)
+    k = torch.randn((2, 2, 128, 64), generator=g).to(cuda)
+    v = torch.randn((2, 2, 128, 64), generator=g).to(cuda)
+    got = ops.flash_attention_bhsd(q, k, v, causal=True)
+    kr = k.repeat_interleave(4, dim=1).reshape(16, 128, 64)
+    vr = v.repeat_interleave(4, dim=1).reshape(16, 128, 64)
+    want = fa.flash_attention_plain(q.reshape(16, 128, 64), kr, vr)
+    torch.testing.assert_close(got, want.reshape(2, 8, 128, 64), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 128, 128, 64, 64, torch.float32)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(*_qkv(cuda, 1, 128, 128, 24, 24, torch.float32))
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)

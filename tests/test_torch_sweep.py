@@ -8,7 +8,12 @@ for both pair laws of the cell-clustering slice and both boundaries:
 interpret mode, as tests/test_sweep.py runs it).  Float accumulators to
 1e-5, count accumulators (same, cnt) exactly.
 
-The CUDA kernel itself is held against its plain version in
+The legacy soft-sphere entry point ``ops.neighbor_force`` (the plain
+version of its kernel on a CPU tensor) is held against JAX
+``ops.neighbor_force`` (the Pallas kernel in interpret mode) to 1e-5, the
+reference's own tolerance (tests/test_kernels.py).
+
+The CUDA kernels themselves are held against their plain versions in
 tests/test_torch_kernel.py.
 """
 
@@ -25,6 +30,7 @@ from repro.core import Engine as JEngine
 from repro.core.grid import clear_ring
 from repro.core.halo import LocalComm, halo_exchange
 from repro.core.neighbors import sweep_accumulate as j_sweep
+from repro.kernels import ops as j_ops
 from repro.sims import cell_clustering as j_cc
 from repro_torch.bridge import state_from_arrays
 from repro_torch.core import Domain
@@ -37,6 +43,7 @@ from repro_torch.core.neighbors import (
     sweep_accumulate,
 )
 from repro_torch.kernels import neighbor_interaction as ni
+from repro_torch.kernels import ops
 from repro_torch.sims import cell_clustering as cc
 from torch_parity import assert_dicts_close, jax_state_arrays, soa_inputs
 
@@ -129,3 +136,32 @@ def test_unregistered_pair_law_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP B1"):
         ni.law_for(other_pair)
     assert ni.law_for(cc._same_type_pair).name == "same_type"
+
+
+def _random_cells(rng, c, k):
+    """Gathered (C, K) slabs: pos, diameter, type, valid, gid (numpy)."""
+    return (rng.uniform(0, 10, (c, k, 2)).astype(np.float32),
+            rng.uniform(0.5, 1.5, (c, k)).astype(np.float32),
+            rng.integers(0, 2, (c, k)).astype(np.int32),
+            rng.random((c, k)) < 0.8,
+            rng.integers(0, 10_000, (c, k)).astype(np.int32))
+
+
+@pytest.mark.parametrize("same_type_only", [True, False])
+@pytest.mark.parametrize("c,k", [(8, 8), (16, 16), (4, 32)])
+def test_neighbor_force_matches_jax(c, k, same_type_only):
+    rng = np.random.default_rng(c * k)
+    args = _random_cells(rng, c, k) + _random_cells(rng, c, 9 * k)
+    # a neighbourhood slot that is the self slot itself: same gid, excluded
+    for a in (0, 1, 2, 4):
+        args[5 + a][:, 4] = args[a][:, 0]
+    kw = dict(radius=2.0, repulsion=2.0, adhesion=0.4,
+              same_type_only=same_type_only)
+    want = np.asarray(j_ops.neighbor_force(*map(jax.numpy.asarray, args),
+                                           **kw))
+    before = dict(ni.LAUNCHES)
+    got = ops.neighbor_force(*map(torch.from_numpy, args), **kw)
+    assert ni.LAUNCHES == before          # a CPU tensor never counts
+    assert got.dtype == torch.float32 and got.shape == (c, k, 2)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    assert np.abs(want).max() > 0
