@@ -9,8 +9,10 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
 
 1. card: torch/CUDA versions, the card's name and power limit;
 2. build: compile the ``pair_sweep`` (with ``neighbor_force``),
-   ``delta_codec`` and ``flash_attention`` kernels from ``csrc/``, one
-   nvcc each, started together (timed, with ptxas' registers and spills);
+   ``delta_codec`` and ``flash_attention`` (both attention kernels)
+   libraries from ``csrc/``, one nvcc each, started together (timed, with
+   ptxas' registers and spills), and count the HGMMA instructions of the
+   attention library's machine code (none fails);
 3. ``pair_sweep`` against its plain version on a (128, 128) grid, cap 24,
    ~6 agents a cell, both pair laws, closed and toroidal: forces to 1e-5,
    counts exactly;
@@ -40,20 +42,23 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    (drift and wire bytes), the closed-loop references bit-equal, and a 2x1
    toroidal mesh whose agents cross the seam;
 9. ``flash_attention`` against its plain version: the main shape (4 x 16
-   heads, 2048 tokens, head dim 128), causal and not, in float32 (2e-5)
-   and bf16 (2e-2, and one bf16 ulp + 1e-5 element by element), float32
-   at (2 x 8, 512, 64) and GQA through ``ops.flash_attention_bhsd`` with 2
-   KV heads; kernel, plain, ``scaled_dot_product_attention`` and bound
-   times at the main shape in bf16, causal;
+   heads, 2048 tokens, head dim 128), causal and not, in float32 on the
+   CUDA-core kernel (2e-5) and bf16 on the tensor-core kernel (2e-2, and
+   one bf16 ulp + 1e-5 element by element), float32 at (2 x 8, 512, 64)
+   and bf16 GQA through ``ops.flash_attention_bhsd`` with 2 KV heads;
+   kernel, plain, ``scaled_dot_product_attention`` and bound times of each
+   kernel at the main shape, causal; the bf16 kernel on bf16(p) alone
+   instead of p_hi + p_lo (error and time, reported);
 10. the LM main path: olmo-1b at full width and depth (16 layers, d_model
    2048, bf16, random weights from ``params.init`` and ``--seed``).
    (a) scoring: ``loss_fn`` forward, batch 4 x 2048, backend ``"kernel"``,
-   with the counts zeroed before and read after: exactly 16 attention
-   launches, a finite loss, finite logits with the padded columns masked;
-   each of the 16 attention launches of one more forward against the plain
-   version on that launch's inputs (as in phase 9); on float32 copies of
-   the weights the ``"kernel"`` and ``"chunked"`` backends agree to 1e-3,
-   and in bf16, at every position, the kernel backend's largest distance
+   with the counts zeroed before and read after: exactly 16 launches of
+   the bf16 tensor-core attention kernel, a finite loss, finite logits
+   with the padded columns masked; each of the 16 attention launches of
+   one more forward against the plain version on that launch's inputs (as
+   in phase 9); on float32 copies of the weights the ``"kernel"`` backend
+   (16 launches of the float32 kernel, counted) and ``"chunked"`` agree to
+   1e-3, and in bf16, at every position, the kernel backend's largest distance
    from that float32 forward is at most 2x the chunked backend's; ms a
    forward, tokens/s, peak memory.  (b) greedy serving: 4 prompts of 480
    tokens, ``make_prefill_step`` into a 512-slot cache, 32 decode steps of
@@ -114,6 +119,7 @@ from repro_torch.training import steps as lm_steps  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12          # dense, tensor cores
+PROFILE_TRIES = 3        # empty profiler traces before device_ms uses events
 
 # Float operations the kernel does per pair (see csrc/pair_sweep.cu): the
 # distance test on every pair of occupied, distinct slots (2 subtractions,
@@ -408,21 +414,28 @@ def device_events(prof):
 
 def device_ms(fn, reps: int):
     """Mean device time of ``fn()`` - every kernel, copy and memset it
-    enqueues - over ``reps`` calls after a warm-up, from torch.profiler;
-    ``None`` when the profiler records no device time.  Unlike CUDA events
-    around back-to-back calls, this does not count the gaps in which the
-    card waits for the host."""
+    enqueues - over ``reps`` calls after a warm-up, from torch.profiler.
+    Unlike CUDA events around back-to-back calls, this does not count the
+    gaps in which the card waits for the host.  The profiler now and then
+    records no device event at all; it is then asked again, and after
+    ``PROFILE_TRIES`` empty traces the time is taken with CUDA events
+    instead, and the line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(self_us(e) for e in device_events(prof))
-    return total / 1e3 / reps if total > 0 else None
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(self_us(e) for e in device_events(prof))
+        if total > 0:
+            return total / 1e3 / reps
+    print(f"[timing] the profiler recorded no device time {PROFILE_TRIES} "
+          "times: this time is by CUDA events", flush=True)
+    return cuda_ms(fn, reps, warmup=False)
 
 
 def profile(fn, label: str, what: str):
@@ -493,7 +506,7 @@ def expected_mesh_launches(sim, steps: int, calls_metric: int):
         else 0
     return {"soft_repulsion_adhesion": steps * n_dev,
             "same_type": calls_metric * n_dev, "neighbor_force": 0,
-            "flash_attention": 0,
+            "flash_attention": 0, "flash_attention_wgmma": 0,
             "delta_encode": halo, "delta_decode": halo,
             "migration_pos_encode": mig, "migration_pos_decode": mig}
 
@@ -719,16 +732,11 @@ def phase_codec(calls):
         def run(fn):
             return lambda: [fn(*a, **kw) for a, kw, _ in recorded]
 
-        def per_call(t):
-            return None if t is None else t / k
-
-        ms = per_call(device_ms(run(kernel), 20))
-        if ms is None:
-            fail("codec: the profiler recorded no device time")
-        plain_ms = per_call(device_ms(run(plain), 5))
+        ms = device_ms(run(kernel), 20) / k
+        plain_ms = device_ms(run(plain), 5) / k
         lib_ms = None
         if all(lib is not None for lib in libs):
-            lib_ms = per_call(device_ms(lambda: [f() for f in libs], 20))
+            lib_ms = device_ms(lambda: [f() for f in libs], 20) / k
         event_ms = cuda_ms(run(kernel), 20) / k
         t_bytes = nbytes_all / HBM_BYTES_PER_S
         t_ops = ops_all / FP32_OPS_PER_S
@@ -950,54 +958,86 @@ def _attn_err(got, want, label):
 
 
 def phase_flash(seed: int):
-    """Phase 9: the attention kernel against its plain version."""
+    """Phase 9: both attention kernels against their plain version: the
+    tensor-core kernel on bf16, the CUDA-core kernel on float32."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     b, h, s, hd = LM_BATCH, 16, LM_SEQ, 128
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):   # bf16 last: timed below
+    scale = hd ** -0.5
+    errs, rows = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):   # bf16 last: GQA below
+        name = fa.kernel_for(dtype, hd, hd)
         q4, k4, v4 = (_randn(gen, (b, h, s, hd), dtype) for _ in range(3))
         q, k, v = (t.reshape(b * h, s, hd) for t in (q4, k4, v4))
         for causal in (True, False):
-            before = fa.LAUNCHES["flash_attention"]
+            before = fa.LAUNCHES[name]
             got = fa.flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            if fa.LAUNCHES["flash_attention"] != before + 1:
-                fail("flash: the launch counter did not move")
+            if fa.LAUNCHES[name] != before + 1:
+                fail(f"flash: the {name} launch counter did not move")
             want = fa.flash_attention_plain(q, k, v, causal=causal)
             label = (f"main_{'causal' if causal else 'full'}"
                      f"{'_f32' if dtype == torch.float32 else ''}")
             errs[label] = _attn_err(got, want, f"flash {label}")
             del got, want
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 10)
+        b_ms, b_by, nbytes, nops = attention_bound(b * h, s, s, hd, hd,
+                                                   True, dtype)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                          ops=nops, dtype=str(dtype).split(".")[-1])
+        print(f"[flash] {name}, main shape ({b}x{h}, {s}, {hd}) "
+              f"{rows[name]['dtype']} causal: kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"(scaled_dot_product_attention) bound_ms={b_ms:.4f} "
+              f"({b_by}; {nbytes} B, {nops} ops); "
+              f"{nops / (ms / 1e3) / 1e12:.2f} TFLOP/s", flush=True)
+
+    # What the split of p buys: the bf16 kernel on bf16(p) alone (reported,
+    # not gated: the wrapper always runs p_hi and p_lo).
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    single = fa._launch(q, k, v, True, scale, p_terms=1)
+    diff = (single.float() - want.float()).abs()
+    over = int((diff > _bf16_ulp(torch.maximum(single.float().abs(),
+                                               want.float().abs()))
+                + ATTN_BF16_ATOL).sum())
+    single_p = dict(max_abs_err=float(diff.max()), outputs_beyond_ulp=over,
+                    outputs=diff.numel(),
+                    ms=cuda_ms(lambda: fa._launch(q, k, v, True, scale,
+                                                  p_terms=1), 10))
+    del single, want, diff
+    print(f"[flash] bf16 p alone instead of p_hi + p_lo: max_abs_err "
+          f"{single_p['max_abs_err']:.4g} (split {errs['main_causal']:.4g}),"
+          f" {over} of {single_p['outputs']} outputs beyond one bf16 ulp + "
+          f"{ATTN_BF16_ATOL}; {single_p['ms']:.4f} ms (split "
+          f"{rows['flash_attention_wgmma']['ms']:.4f})", flush=True)
+
     qf, kf, vf = (_randn(gen, (16, 512, 64), torch.float32)
                   for _ in range(3))
     errs["f32_16x512x64"] = _attn_err(
         fa.flash_attention(qf, kf, vf), fa.flash_attention_plain(qf, kf, vf),
         "flash f32 16x512x64")
     kg, vg = k4[:, :2].contiguous(), v4[:, :2].contiguous()   # 2 KV heads
+    before = fa.LAUNCHES["flash_attention_wgmma"]
     got = ops.flash_attention_bhsd(q4, kg, vg, causal=True)
+    if fa.LAUNCHES["flash_attention_wgmma"] != before + 1:
+        fail("flash gqa: not on the flash_attention_wgmma kernel")
     want = fa.flash_attention_plain(
         q, kg.repeat_interleave(8, dim=1).reshape(b * h, s, hd),
         vg.repeat_interleave(8, dim=1).reshape(b * h, s, hd))
     errs["gqa_hkv2"] = _attn_err(got, want.reshape(b, h, s, hd), "flash gqa")
     del got, want
-
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 10)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), 10)
-    b_ms, b_by, nbytes, nops = attention_bound(b * h, s, s, hd, hd, True,
-                                               torch.bfloat16)
     print(f"[flash] max_abs_err {errs}", flush=True)
-    print(f"[flash] main shape ({b}x{h}, {s}, {hd}) bf16 causal: "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-          f"{lib_ms:.4f} (scaled_dot_product_attention) bound_ms="
-          f"{b_ms:.4f} ({b_by}; {nbytes} B, {nops} ops); "
-          f"{nops / (ms / 1e3) / 1e12:.2f} TFLOP/s", flush=True)
-    return dict(max_abs_err=max(errs.values()), errs=errs, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, ops=nops)
+    f32 = ("main_causal_f32", "main_full_f32", "f32_16x512x64")
+    rows["flash_attention"]["max_abs_err"] = max(errs[n] for n in f32)
+    rows["flash_attention_wgmma"]["max_abs_err"] = max(
+        v for n, v in errs.items() if n not in f32)
+    rows["flash_attention_wgmma"]["p_alone"] = single_p
+    return dict(rows=rows, errs=errs)
 
 
 def _lm_close(got, want, label, atol, rtol, vocab):
@@ -1091,7 +1131,7 @@ def phase_lm(seed: int):
         fwd_ms = start.elapsed_time(end)
         loss = float(loss)
         expected = {n: 0 for n in launches}
-        expected["flash_attention"] = cfg.n_layers
+        expected["flash_attention_wgmma"] = cfg.n_layers   # bf16, hd 128
         if launches != expected:
             fail(f"lm scoring: kernel launches {launches} != {expected}")
         if not math.isfinite(loss):
@@ -1105,21 +1145,26 @@ def phase_lm(seed: int):
         times = profile(lambda: lm_steps.loss_fn(model, params, batch,
                                                   backend="kernel"),
                          "lm profile", "one scoring forward + loss")
+        attn_share = None
         if times:
             attn_us = sum(us for k, us in times.items()
-                          if "flash_attention_kernel" in k)
-            print(f"[lm profile] flash_attention_kernel "
-                  f"{attn_us / 1e3:.3f} ms = "
-                  f"{100 * attn_us / sum(times.values()):.1f}% of the "
-                  "forward's device time", flush=True)
+                          if "flash_wgmma_kernel" in k
+                          or "flash_attention_kernel" in k)
+            attn_share = attn_us / sum(times.values())
+            print(f"[lm profile] attention kernels {attn_us / 1e3:.3f} ms "
+                  f"= {100 * attn_share:.1f}% of the forward's device "
+                  "time", flush=True)
         # every attention launch of one more forward, against the plain
         # version on that launch's own inputs
+        before = dict(fa.LAUNCHES)
         with Capture(fa, ["flash_attention"]) as cap:
             kern = model.logits(params, batch, backend="kernel")
         calls = cap.calls["flash_attention"]
-        if len(calls) != cfg.n_layers:
-            fail(f"lm scoring: {len(calls)} attention calls recorded, not "
-                 f"{cfg.n_layers}")
+        if len(calls) != cfg.n_layers or fa.LAUNCHES["flash_attention_wgmma"] \
+                != before["flash_attention_wgmma"] + cfg.n_layers:
+            fail(f"lm scoring: {len(calls)} attention calls recorded, "
+                 f"launches {before} -> {fa.LAUNCHES}; expected "
+                 f"{cfg.n_layers} on flash_attention_wgmma")
         err_launch = max(_attn_err(got, fa.flash_attention_plain(*qkv, **kw),
                                    f"lm attention launch {i}")
                          for i, (qkv, kw, got) in enumerate(calls))
@@ -1138,9 +1183,21 @@ def phase_lm(seed: int):
         # in bf16 each is held against this float32 forward.
         p32 = P.tree_map(lambda a: a.float(), params)
         ref = model.logits(p32, batch, backend="chunked")
-        err_f32 = _lm_close(model.logits(p32, batch, backend="kernel"), ref,
+        # the float32 kernel's path: the kernel backend on float32 weights,
+        # its launches counted
+        reset_all_launches()
+        kern32 = model.logits(p32, batch, backend="kernel")
+        torch.cuda.synchronize()
+        f32_launches = all_launches()
+        expected = {n: 0 for n in f32_launches}
+        expected["flash_attention"] = cfg.n_layers
+        if f32_launches != expected:
+            fail(f"lm scoring, float32 weights: kernel launches "
+                 f"{f32_launches} != {expected}")
+        err_f32 = _lm_close(kern32, ref,
                             "lm kernel vs chunked (float32 weights)",
                             LM_F32_TOL, LM_F32_TOL, cfg.vocab)
+        del kern32
         v = cfg.vocab
         ratio, err_k, err_c = _bf16_ratio(kern, chunked, ref, v)
         bf16_diff = float((kern[..., :v].float()
@@ -1161,6 +1218,7 @@ def phase_lm(seed: int):
         out.update(score_ms=fwd_ms, score_host_ms=host_ms,
                    score_tokens_per_s=tokens / (fwd_ms / 1e3), loss=loss,
                    score_peak_bytes=peak, score_launches=launches,
+                   f32_launches=f32_launches, attention_share=attn_share,
                    launch_vs_plain=err_launch, kernel_vs_chunked_f32=err_f32,
                    bf16_max_err_kernel=err_k, bf16_max_err_chunked=err_c,
                    bf16_ratio=ratio, bf16_kernel_vs_chunked=bf16_diff,
@@ -1392,8 +1450,15 @@ def main(argv=None) -> int:
         print(f"[build] {name}: {built.path.name} (nvcc "
               f"{built.seconds:.2f}s)", flush=True)
         for line in built.log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 print(f"[build]   {line.strip()}", flush=True)
+    # the bf16 attention kernel must run on the tensor cores' wgmma
+    hgmma = sum("HGMMA" in line
+                for line in _build.sass("flash_attention").splitlines())
+    print(f"[build] flash_attention: {hgmma} HGMMA instructions in its "
+          "machine code (cuobjdump -sass)", flush=True)
+    if hgmma == 0:
+        fail("flash_attention: no HGMMA instruction in the machine code")
 
     small = phase_small(args.seed)
     rows, launches, main_stats = phase_main(args.seed)
@@ -1451,10 +1516,17 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/neighbor_interaction.py:201"},
         **force))
     kernels.append(dict(
+        {"name": "flash_attention_wgmma", "route": "cuda",
+         "source": FLASH_SOURCE,
+         "replaces": "src/repro/kernels/flash_attention.py:75",
+         "launches": lm["score_launches"]["flash_attention_wgmma"]},
+        **flash["rows"]["flash_attention_wgmma"], lm_path=lm))
+    kernels.append(dict(
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
          "replaces": "src/repro/kernels/flash_attention.py:75",
-         "launches": lm["score_launches"]["flash_attention"]},
-        **flash, lm_path=lm))
+         # the scoring forward on float32 copies of the weights
+         "launches": lm["f32_launches"]["flash_attention"]},
+        **flash["rows"]["flash_attention"]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

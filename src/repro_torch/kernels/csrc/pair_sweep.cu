@@ -7,8 +7,9 @@
 // 3^D * K slots j of the cell's 3^D neighbourhood.  A pair counts when both
 // slots are valid, their <gid_rank, gid_count> differ and
 // dist2 <= radius^2 (displacement taken as the minimum image on toroidal
-// axes); the pair law's contributions are summed over j.  Only D = 2 is
-// instantiated in this slice.
+// axes); the pair law's contributions are summed over j, offset-major (the
+// offsets row-major over (-1, 0, 1)^D, last axis fastest), then slot.
+// Only D = 2 is instantiated.
 //
 // What bounds it on an H100.  Bytes: each slot's valid flag (1 B), the
 // law's columns of the occupied slots only (pos 8 B, gids 8 B, up to 8 B
@@ -19,29 +20,46 @@
 // pair of occupied slots (the distance test), ~20 more on each pair within
 // the radius: ~8.4e9 operations, 0.13 ms at 67 TFLOP/s (fp32, outside the
 // tensor cores).  So a kernel that skips empty slots is bound by memory,
-// mostly the dense output; one that evaluates every slot pair, as the TPU
-// kernel does with masked vector arithmetic, would need ~6e11 operations,
-// about 9 ms.  (chip_smoke.py computes these bounds from each run's data.)
+// mostly the dense output.  (chip_smoke.py computes these bounds from each
+// run's data.)
 //
-// What the design does about it.  One block per interior cell and one
-// thread per slot i (the block is K rounded up to a warp, so any capacity
-// works).  The block's first warp reads the valid flags of its 3^D
-// neighbour cells straight from the resident SoA tensors and stages only
-// the occupied slots' columns in shared memory, compacted with a ballot
-// and a popcount in the reference's order (the TPU path first builds a
-// 3^D-times gathered copy in device memory; here a slot's 3^D re-reads by
-// the blocks around it are served by L2, not by a copy).  Each thread then
-// loops over the occupied slots only, so empty slots cost neither bytes
-// beyond their flag nor arithmetic, and sums its pairs in registers in
-// the reference's order (offset-major, then slot): no atomics, the result
-// is deterministic.  Invalid i slots get zeros.  Making it fast (several
-// cells a block, wider loads, a persistent grid) is later work; this
-// version is simple and right.
+// What the design does about it.  One block of 256 threads takes a strip
+// of up to 32 consecutive interior cells along the last axis (shorter at
+// a row's end), so a slot's columns are read by the strips of its own row
+// and of the rows above and below, about 3 x 34 / 32 times, against 9
+// times when every cell stages its own neighbourhood:
+//  1. the valid flags of the 3 x 34 staged cells (three contiguous runs of
+//     the SoA) go to shared memory as 16-byte vectors where K is a
+//     multiple of 16, and the strip's dense outputs are zeroed with
+//     16-byte stores (the occupied slots' sums overwrite theirs in 5);
+//  2. a thread a staged cell counts its occupied slots (0/1 bytes, a
+//     popcount a word), and one warp scans the counts: each staged cell's
+//     occupied slots get consecutive numbers, rows first, in slot order;
+//  3. a thread a staged cell lists where its occupied slots go;
+//  4. a thread an occupied slot stages its columns (pos and gids as one
+//     16-byte entry, the law's columns as an 8-byte one);
+//  5. a thread an occupied slot i of the strip (a warp per cell would
+//     idle 28 of 32 lanes at the main path's 4 agents a cell) walks its
+//     three neighbour rows, each a run of three cells' slots in order:
+//     offset-major, then slot, the reference's order, summed in registers
+//     with no atomics; the same float32 operations as the plain version
+//     (built with -fmad=false), in the same order as the one-cell-a-block
+//     kernel this design replaced, so the result is deterministic.
+// Shared memory holds 1024 staged occupied slots (9 K if that is more);
+// a strip whose 3 x 34 staged cells hold more is swept in parts of
+// consecutive cells that fit (one cell's 9 K always do).  That keeps a
+// block at ~38 KB at K = 48, whatever the occupancy, and five blocks on
+// an SM.  On the main path (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py)
+// it takes ~4 ms against its 0.66 ms bound: the pair loop of step 5 is
+// bound by instruction issue (an IEEE sqrt and two IEEE divisions a pair
+// within the radius, many instructions each, and lanes of one warp
+// walking the lists of different cells), not by bytes.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -70,6 +88,8 @@ struct Columns {
 template <int D>
 struct SoftRepulsionAdhesion {
   static constexpr int kAcc = D;
+  static constexpr int kParts = 1;  // output tensors
+  static constexpr int kOut = D;    // floats a slot over all of them
 
   __device__ static void add(float* acc, const float* disp, float dist2,
                              float fi, float fj, int ti, int tj,
@@ -101,6 +121,8 @@ struct SoftRepulsionAdhesion {
 template <int D>
 struct SameType {
   static constexpr int kAcc = 2;
+  static constexpr int kParts = 2;
+  static constexpr int kOut = 2;
 
   __device__ static void add(float* acc, const float*, float, float, float,
                              int ti, int tj, const LawParams&) {
@@ -115,146 +137,273 @@ struct SameType {
   }
 };
 
-template <int D>
-__host__ __device__ constexpr int n_offsets() {
-  return D == 2 ? 9 : 27;
+constexpr int kSweepThreads = 256;
+constexpr int kMaxStrip = 32;         // cells a strip
+constexpr int kMinEntries = 1024;     // compacted slots a block holds
+constexpr size_t kStripBudget = 48 * 1024;   // shared memory a block
+
+// Shared memory of a block (byte offsets) for strip width w, capacity k
+// and room for `entries` compacted slots.
+struct StripLayout {
+  size_t a, b, src, own, start, flag, bytes;
+};
+
+__host__ __device__ inline StripLayout strip_layout(int w, int k,
+                                                    int entries) {
+  StripLayout s;
+  size_t at = 0;
+  s.a = at;     at += 16 * static_cast<size_t>(entries);  // x, y, gids
+  s.b = at;     at += 8 * static_cast<size_t>(entries);   // f, t
+  s.src = at;   at += 4 * static_cast<size_t>(entries);   // staged slot
+  s.own = at;   at += 4 * static_cast<size_t>(entries);   // output slot
+  s.start = at; at += 4 * static_cast<size_t>(3 * (w + 2) + 1);
+  at = (at + 15) & ~static_cast<size_t>(15);
+  s.flag = at;  at += 3 * static_cast<size_t>(w + 2) * k;
+  s.bytes = (at + 15) & ~static_cast<size_t>(15);
+  return s;
 }
 
-template <int D>
-__host__ __device__ constexpr size_t smem_bytes_per_slot() {
-  // pos, gid_rank, gid_count, float column, int column
-  return sizeof(float) * D + 4 * sizeof(int);
+// Zeros n floats of global memory: scalars up to a 16-byte boundary, then
+// 16-byte stores, then the tail.
+__device__ __forceinline__ void zero_strip(float* dst, int n) {
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
+  const int head = min(n, ((16 - mis) & 15) / 4);
+  const int body = (n - head) / 4;
+  for (int e = threadIdx.x; e < head; e += blockDim.x) dst[e] = 0.f;
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int e = threadIdx.x; e < body; e += blockDim.x)
+    d4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e = head + 4 * body + threadIdx.x; e < n; e += blockDim.x)
+    dst[e] = 0.f;
+}
+
+// Occupied slots of a cell: its k valid flags are 0/1 bytes, so a word's
+// popcount counts four (`words`: k is a multiple of 4, the flags 4-byte
+// aligned).
+__device__ __forceinline__ int count_flags(const unsigned char* f, int k,
+                                           bool words) {
+  int c = 0;
+  int x = 0;
+  if (words) {
+    const unsigned* w = reinterpret_cast<const unsigned*>(f);
+    for (; x + 4 <= k; x += 4) c += __popc(w[x / 4]);
+  }
+  for (; x < k; ++x) c += f[x];
+  return c;
 }
 
 template <int D, class Law>
-__global__ void pair_sweep_kernel(Columns col, int3 interior, int k,
-                                  float r2, Box box, LawParams p,
-                                  float* out0, float* out1) {
-  constexpr int kOff = n_offsets<D>();
-  const int nk = kOff * k;
+__global__ void __launch_bounds__(kSweepThreads)
+    pair_sweep_kernel(Columns col, int n0, int n1, int k, int w,
+                      int entries, float r2, Box box, LawParams p,
+                      float* out0, float* out1) {
+  static_assert(D == 2, "the strip layout is written for D = 2");
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_pos = reinterpret_cast<float*>(smem);
-  int* s_rank = reinterpret_cast<int*>(s_pos + static_cast<size_t>(nk) * D);
-  int* s_count = s_rank + nk;
-  float* s_f = reinterpret_cast<float*>(s_count + nk);
-  int* s_t = reinterpret_cast<int*>(s_f + nk);
-  __shared__ int s_n;  // occupied slots staged
+  const StripLayout lay = strip_layout(w, k, entries);
+  float4* s_a = reinterpret_cast<float4*>(smem + lay.a);
+  float2* s_b = reinterpret_cast<float2*>(smem + lay.b);
+  int* s_src = reinterpret_cast<int*>(smem + lay.src);
+  int* s_own = reinterpret_cast<int*>(smem + lay.own);
+  int* s_start = reinterpret_cast<int*>(smem + lay.start);
+  unsigned char* s_flag = smem + lay.flag;
 
-  // This block's interior cell, row-major over the interior grid, and the
-  // local grid (interior + one halo ring on each side).
-  const int n_int[3] = {interior.x, interior.y, interior.z};
-  const long long cell = blockIdx.x;
-  int c[D];
-  {
-    long long rem = cell;
-#pragma unroll
-    for (int a = D - 1; a >= 0; --a) {
-      c[a] = static_cast<int>(rem % n_int[a]);
-      rem /= n_int[a];
+  // This block's strip: interior row `row`, interior columns c0 .. c0 +
+  // wc - 1.  Staged cell (dr, dc) is local-grid cell (row + dr, c0 + dc)
+  // (the local grid is the interior plus one ring); staged cells are
+  // numbered row-major, dr * nc + dc.
+  const int strips = (n1 + w - 1) / w;
+  const int row = blockIdx.x / strips;
+  const int c0 = (blockIdx.x % strips) * w;
+  const int wc = min(w, n1 - c0);
+  const int nc = wc + 2;
+  const int n_cells = 3 * nc;
+  const long long l1 = n1 + 2;
+  auto first_slot = [&](int dr) {   // global slot of staged cell (dr, 0)
+    return ((row + dr) * l1 + c0) * k;
+  };
+  constexpr int kPer = Law::kOut / Law::kParts;   // floats a slot a part
+  const long long slot0 = (static_cast<long long>(row) * n1 + c0) * k;
+
+  // 1. The valid flags of the three staged rows; the strip's outputs
+  // zeroed (the occupied slots' sums overwrite theirs in step 5).
+  const bool vec = k % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(col.valid) & 15) == 0;
+  for (int dr = 0; dr < 3; ++dr) {
+    const unsigned char* src = col.valid + first_slot(dr);
+    unsigned char* dst = s_flag + dr * nc * k;
+    if (vec) {
+      for (int e = threadIdx.x; e < nc * k / 16; e += blockDim.x)
+        reinterpret_cast<uint4*>(dst)[e] =
+            reinterpret_cast<const uint4*>(src)[e];
+    } else {
+      for (int e = threadIdx.x; e < nc * k; e += blockDim.x) dst[e] = src[e];
     }
   }
-  // Local-grid index of the neighbour cell at stencil offset o: offsets
-  // row-major over (-1, 0, 1)^D, last axis fastest (the reference's order).
-  auto neighbour_cell = [&](int o) {
-    int digit[D];
-#pragma unroll
-    for (int a = D - 1; a >= 0; --a) {
-      digit[a] = o % 3 - 1;
-      o /= 3;
-    }
-    long long lc = 0;
-#pragma unroll
-    for (int a = 0; a < D; ++a)
-      lc = lc * (n_int[a] + 2) + (c[a] + 1 + digit[a]);
-    return lc;
-  };
+  zero_strip(out0 + slot0 * kPer, wc * k * kPer);
+  if (Law::kParts == 2) zero_strip(out1 + slot0 * kPer, wc * k * kPer);
+  __syncthreads();
 
-  // The first warp stages the occupied slots of the 3^D neighbour cells,
-  // compacted in the reference's order (offset-major, then slot): a ballot
-  // over each 32 slots and a popcount give every occupied slot its place.
+  // 2. Occupied slots of each staged cell, then their exclusive scan (one
+  // warp, a run of cells a lane): cell c's compacted slots are numbered
+  // s_start[c] .. s_start[c + 1] - 1, in slot order.
+  const bool words = k % 4 == 0;
+  for (int c = threadIdx.x; c < n_cells; c += blockDim.x)
+    s_start[c] = count_flags(s_flag + c * k, k, words);
+  __syncthreads();
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
-    int n = 0;
-    for (int e0 = 0; e0 < nk; e0 += 32) {
-      const int e = e0 + lane;
-      long long s = 0;
-      bool occupied = false;
-      if (e < nk) {
-        const int o = e / k;
-        s = neighbour_cell(o) * k + (e - o * k);
-        occupied = col.valid[s] != 0;
-      }
-      const unsigned mask = __ballot_sync(0xffffffffu, occupied);
-      if (occupied) {
-        const int at = n + __popc(mask & ((1u << lane) - 1u));
-#pragma unroll
-        for (int d = 0; d < D; ++d) s_pos[at * D + d] = col.pos[s * D + d];
-        s_rank[at] = col.gid_rank[s];
-        s_count[at] = col.gid_count[s];
-        s_f[at] = col.fcol != nullptr ? col.fcol[s] : 0.f;
-        s_t[at] = col.icol != nullptr ? col.icol[s] : 0;
-      }
-      n += __popc(mask);
+    const int per = (n_cells + 31) / 32;
+    const int lo = min(lane * per, n_cells);
+    const int hi = min(lo + per, n_cells);
+    int sum = 0;
+    for (int c = lo; c < hi; ++c) sum += s_start[c];
+    int incl = sum;
+    for (int off = 1; off < 32; off *= 2) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
     }
-    if (lane == 0) s_n = n;
+    int run = incl - sum;
+    for (int c = lo; c < hi; ++c) {
+      const int n = s_start[c];
+      s_start[c] = run;
+      run += n;
+    }
+    if (lane == 31) s_start[n_cells] = incl;
   }
   __syncthreads();
 
-  const int i = threadIdx.x;
-  if (i >= k) return;
-  float acc[Law::kAcc];
-#pragma unroll
-  for (int n = 0; n < Law::kAcc; ++n) acc[n] = 0.f;
-
-  const long long self = neighbour_cell(kOff / 2) * k + i;  // offset 0
-  if (col.valid[self]) {
-    float pi[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) pi[d] = col.pos[self * D + d];
-    const int ri = col.gid_rank[self];
-    const int ci = col.gid_count[self];
-    const float fi = col.fcol != nullptr ? col.fcol[self] : 0.f;
-    const int ti = col.icol != nullptr ? col.icol[self] : 0;
-    const int n = s_n;
-    for (int e = 0; e < n; ++e) {
-      if (s_rank[e] == ri && s_count[e] == ci) continue;
-      float disp[D];
-      float dist2 = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        float dd = s_pos[e * D + d] - pi[d];
-        if (box.wrap[d]) dd = dd - box.len[d] * rintf(dd / box.len[d]);
-        disp[d] = dd;
-        dist2 += dd * dd;
-      }
-      if (!(dist2 <= r2)) continue;
-      Law::add(acc, disp, dist2, fi, s_f[e], ti, s_t[e], p);
+  // The strip in parts of consecutive cells a .. b (staged columns a + 1
+  // .. b + 1) whose staged slots, columns a .. b + 2 of the three rows,
+  // fit `entries` (one cell's 9 K always do): at 4 agents a cell one part
+  // is the whole strip.  A part's slots are its three rows' runs of the
+  // compacted numbering, one after the other: slot s of row dr sits at
+  // s + shift[dr].
+  for (int a = 0; a < wc;) {
+    auto staged = [&](int b) {
+      int n = 0;
+      for (int dr = 0; dr < 3; ++dr)
+        n += s_start[dr * nc + b + 3] - s_start[dr * nc + a];
+      return n;
+    };
+    int b = wc - 1;   // the whole rest of the strip, as a rule
+    if (staged(b) > entries) {
+      b = a;
+      while (staged(b + 1) <= entries) ++b;
     }
+    int shift[3];
+    int total = 0;
+    for (int dr = 0; dr < 3; ++dr) {
+      shift[dr] = total - s_start[dr * nc + a];
+      total += s_start[dr * nc + b + 3] - s_start[dr * nc + a];
+    }
+    const int cols = b - a + 3;
+
+    // 3. Where each occupied slot of the part goes (shared memory only):
+    // a thread a staged cell lists its occupied slots in slot order.
+    for (int u = threadIdx.x; u < 3 * cols; u += blockDim.x) {
+      const int dr = u / cols;
+      const int c = dr * nc + a + (u - dr * cols);
+      const unsigned char* f = s_flag + c * k;
+      int* dst = s_src + s_start[c] + shift[dr];
+      int x = 0;
+      if (words) {   // flags are 0/1 bytes: a set byte is bit 8 i of its word
+        const unsigned* fw = reinterpret_cast<const unsigned*>(f);
+        for (; x + 4 <= k; x += 4)
+          for (unsigned v = fw[x / 4]; v != 0; v &= v - 1)
+            *dst++ = c * k + x + (__ffs(v) - 1) / 8;
+      }
+      for (; x < k; ++x)
+        if (f[x]) *dst++ = c * k + x;
+    }
+    __syncthreads();
+
+    // 4. Their columns, a thread a slot; the strip's own slots (row 1,
+    // staged columns a + 1 .. b + 1) also keep their output slot.
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int s = s_src[e];
+      const int c = s / k;
+      const int j = s - c * k;
+      const int dr = c / nc;
+      const int dc = c - dr * nc;
+      const long long g = first_slot(dr) + static_cast<long long>(dc) * k + j;
+      const float2 xy = reinterpret_cast<const float2*>(col.pos)[g];
+      s_a[e] = make_float4(xy.x, xy.y, __int_as_float(col.gid_rank[g]),
+                           __int_as_float(col.gid_count[g]));
+      s_b[e] = make_float2(col.fcol != nullptr ? col.fcol[g] : 0.f,
+                           __int_as_float(col.icol != nullptr ? col.icol[g]
+                                                              : 0));
+      s_own[e] = (dc - 1) * k + j;
+    }
+    __syncthreads();
+
+    // 5. A thread an occupied slot i of the part's cells: its pairs over
+    // the three rows, each row's three cells in order and their slots in
+    // order (offset-major, then slot), summed in registers.
+    const int i0 = s_start[nc + a + 1] + shift[1];
+    const int i1 = s_start[nc + b + 2] + shift[1];
+    for (int e = i0 + threadIdx.x; e < i1; e += blockDim.x) {
+      const int at = s_own[e];
+      const int dc = at / k + 1;
+      const float4 ai = s_a[e];
+      const float2 bi = s_b[e];
+      const int ri = __float_as_int(ai.z);
+      const int ci = __float_as_int(ai.w);
+      const int ti = __float_as_int(bi.y);
+      float acc[Law::kAcc];
+#pragma unroll
+      for (int x = 0; x < Law::kAcc; ++x) acc[x] = 0.f;
+      for (int dr = 0; dr < 3; ++dr) {
+        const int lo = s_start[dr * nc + dc - 1] + shift[dr];
+        const int hi = s_start[dr * nc + dc + 2] + shift[dr];
+        for (int x = lo; x < hi; ++x) {
+          const float4 aj = s_a[x];
+          if (__float_as_int(aj.z) == ri && __float_as_int(aj.w) == ci)
+            continue;
+          float disp[D] = {aj.x - ai.x, aj.y - ai.y};
+          float dist2 = 0.f;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            float dd = disp[d];
+            if (box.wrap[d]) dd = dd - box.len[d] * rintf(dd / box.len[d]);
+            disp[d] = dd;
+            dist2 += dd * dd;
+          }
+          if (!(dist2 <= r2)) continue;
+          const float2 bj = s_b[x];
+          Law::add(acc, disp, dist2, bi.x, bj.x, ti, __float_as_int(bj.y),
+                   p);
+        }
+      }
+      Law::store(acc, out0, out1, slot0 + at);
+    }
+    __syncthreads();   // the next part reuses the buffers
+    a = b + 1;
   }
-  Law::store(acc, out0, out1, cell * k + i);
 }
 
 template <int D, class Law>
 cudaError_t launch(const Columns& col, int3 interior, int k, float r2,
                    const Box& box, const LawParams& p, float* out0,
                    float* out1, cudaStream_t stream) {
-  long long cells = static_cast<long long>(interior.x) * interior.y;
-  if (D == 3) cells *= interior.z;
-  if (cells == 0) return cudaSuccess;
-  if (cells > INT_MAX || k < 1) return cudaErrorInvalidValue;
-  const int threads = ((k + 31) / 32) * 32;
-  if (threads > 1024) return cudaErrorInvalidValue;
-  const size_t smem =
-      static_cast<size_t>(n_offsets<D>()) * k * smem_bytes_per_slot<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pair_sweep_kernel<D, Law>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  pair_sweep_kernel<D, Law><<<static_cast<unsigned>(cells), threads, smem,
-                              stream>>>(col, interior, k, r2, box, p, out0,
-                                        out1);
+  static_assert(D == 2, "only D = 2 is instantiated");
+  const int n0 = interior.x;
+  const int n1 = interior.y;
+  if (static_cast<long long>(n0) * n1 == 0) return cudaSuccess;
+  if (k < 1 || k > (1 << 20)) return cudaErrorInvalidValue;
+  const int entries = 9 * k > kMinEntries ? 9 * k : kMinEntries;
+  int w = kMaxStrip;
+  while (w > 1 && strip_layout(w, k, entries).bytes > kStripBudget) --w;
+  const size_t smem = strip_layout(w, k, entries).bytes;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  const long long blocks = static_cast<long long>(n0) * ((n1 + w - 1) / w);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      pair_sweep_kernel<D, Law>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  pair_sweep_kernel<D, Law>
+      <<<static_cast<unsigned>(blocks), kSweepThreads, smem, stream>>>(
+          col, n0, n1, k, w, entries, r2, box, p, out0, out1);
   return cudaGetLastError();
 }
 

@@ -8,14 +8,21 @@ q ``(BH, Sq, hd)``, k ``(BH, Skv, hd)``, v ``(BH, Skv, hdv)``, float32 or
 bfloat16, the output in q's type.
 
 * :func:`flash_attention` is the wrapper.  On a CUDA tensor it launches
-  the kernel or raises; on a CPU tensor it runs
-  :func:`flash_attention_plain`.  There is no fallback between the two.
+  one of the two kernels of ``csrc/flash_attention.cu`` or raises; on a
+  CPU tensor it runs :func:`flash_attention_plain`.  There is no fallback
+  between them.  bf16 q, k, v with ``hd == hdv`` in :data:`WGMMA_HEAD_DIMS`
+  go to ``flash_wgmma_kernel`` (TMA and ``wgmma`` on the tensor cores,
+  ``p`` split into two bf16 terms); everything else the kernel takes
+  (float32, the other head dims, ``hdv != hd``) goes to
+  ``flash_attention_kernel`` (float32 on the CUDA cores).  The choice is
+  made from the dtype and head dims alone (:func:`kernel_for`).
 * :func:`flash_attention_plain` is the port of the reference's oracle
   ``kernels/ref.flash_attention_ref``: float32 scores, the mask, a softmax,
   then the cast.
 
-Each launch adds one to ``LAUNCHES["flash_attention"]``; nothing else
-touches the count.
+Each launch adds one to the count of the kernel it launched,
+``LAUNCHES["flash_attention"]`` (float32 kernel) or
+``LAUNCHES["flash_attention_wgmma"]``; nothing else touches the counts.
 """
 
 from __future__ import annotations
@@ -26,13 +33,23 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (8, 16, 32, 64, 128)     # head dims the kernel is built for
+HEAD_DIMS = (8, 16, 32, 64, 128)     # head dims the kernels are built for
+WGMMA_HEAD_DIMS = (64, 128)          # bf16, hd == hdv: the tensor-core kernel
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def kernel_for(dtype: torch.dtype, hd: int, hdv: int) -> str:
+    """The kernel (its ``LAUNCHES`` key) that takes inputs of this dtype
+    and these head dims."""
+    if dtype == torch.bfloat16 and hd == hdv and hd in WGMMA_HEAD_DIMS:
+        return "flash_attention_wgmma"
+    return "flash_attention"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,8 +69,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check_blocks(sq: int, skv: int) -> None:
     """The TPU kernel's shape contract (``flash_attention.py:88-90``): its
     128-row blocks, or the whole sequence where it is shorter, must tile
-    Sq and Skv.  The CUDA kernel tiles by 64 rows and takes the same
-    shapes."""
+    Sq and Skv.  The CUDA kernels tile by 64 (float32) or 128 (bf16)
+    rows, mask the ragged tile, and take the same shapes."""
     bq, bk = min(128, sq), min(128, skv)
     if sq % bq or skv % bk:
         raise ValueError(f"flash_attention: Sq={sq} must be a multiple of "
@@ -85,12 +102,20 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
             + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_wgmma_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+            + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.flash_attention_wgmma_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, scale: float,
+            p_terms: int = 2) -> torch.Tensor:
+    """Launch the kernel :func:`kernel_for` picks.  ``p_terms`` (the bf16
+    kernel only): 2 runs PV on ``p_hi`` and ``p_lo``, as the wrapper
+    does; 1 on ``bf16(p)`` alone, which exists to measure the split."""
     bh, sq, hd = q.shape
     skv, hdv = v.shape[1], v.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -107,16 +132,27 @@ def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     if hd not in HEAD_DIMS or hdv not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dims hd={hd}, hdv={hdv}; "
                          f"the kernel is built for {HEAD_DIMS}")
+    name = kernel_for(q.dtype, hd, hdv)
     out = torch.empty((bh, sq, hdv), dtype=q.dtype, device=q.device)
     lib = _library()
-    err = lib.flash_attention_launch(
-        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), bh, sq, skv, hd, hdv, float(scale), int(causal),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if name == "flash_attention_wgmma":
+        for t_name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {t_name} is not 16-byte "
+                                 "aligned (the TMA loads need it)")
+        err = lib.flash_attention_wgmma_launch(
+            q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), bh, sq, skv, hd, float(scale), int(causal),
+            int(p_terms), stream)
+    else:
+        err = lib.flash_attention_launch(
+            q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), bh, sq, skv, hd, hdv, float(scale), int(causal),
+            int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(
-            f"flash_attention kernel launch failed: cudaError {err} "
+            f"{name} kernel launch failed: cudaError {err} "
             f"({lib.flash_attention_error_string(err).decode()})")
-    LAUNCHES["flash_attention"] += 1
+    LAUNCHES[name] += 1
     return out

@@ -12,7 +12,11 @@ that the kernel relies on.  Forces to 1e-5 (abs and rel), counts exactly;
 the codec kernels bit for bit (they do their plain versions' float32
 operations one by one); attention to 2e-5 in float32 and 2e-2 in bfloat16
 (the reference's kernel-vs-oracle tolerances, tests/test_kernels.py): the
-kernel's online softmax sums in another order than the plain softmax.
+kernel's online softmax sums in another order than the plain softmax.  The
+bf16 tensor-core kernel is also held element by element to one bf16 ulp
+(of the larger output) + 1e-5: both versions round a float32 result to
+bf16, and those float32 results differ by summation order and by the
+~16 bits that p keeps.
 """
 
 import pytest
@@ -123,6 +127,36 @@ def test_kernel_matches_plain_on_cuda(cuda, law, boundary, cap):
     got = _wrapper(soa, law, box)
     torch.cuda.synchronize()
     assert ni.LAUNCHES[ni.law_for(LAWS[law][0]).name] == before + 1
+    _assert_match(got, _plain(soa, law, box))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [24, 48])
+@pytest.mark.parametrize("boundary", ["closed", "toroidal"])
+@pytest.mark.parametrize("law", sorted(LAWS))
+def test_kernel_strips_match_plain_on_cuda(cuda, law, boundary, cap):
+    """37 cells along the last axis: the kernel's strips of 32 cells leave
+    a shorter strip at every row's end, whose last cell takes its right
+    neighbours from the halo ring."""
+    soa, box = _soa(cuda, boundary, interior=(5, 37), cap=cap)
+    got = _wrapper(soa, law, box)
+    torch.cuda.synchronize()
+    _assert_match(got, _plain(soa, law, box))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,per_cell", [(24, 12), (48, 20)])
+@pytest.mark.parametrize("boundary", ["closed", "toroidal"])
+@pytest.mark.parametrize("law", sorted(LAWS))
+def test_kernel_crowded_strips_match_plain_on_cuda(cuda, law, boundary, cap,
+                                                   per_cell):
+    """Crowded enough that a strip's staged slots (3 x 34 cells) pass the
+    1024 a block holds, so the kernel sweeps each strip in parts."""
+    soa, box = _soa(cuda, boundary, interior=(4, 40), cap=cap,
+                    per_cell=per_cell)
+    assert int(soa.valid[1:4, :34].sum()) > 1024   # interior row 1, strip 0
+    got = _wrapper(soa, law, box)
+    torch.cuda.synchronize()
     _assert_match(got, _plain(soa, law, box))
 
 
@@ -343,14 +377,60 @@ def _qkv(device, bh, sq, skv, hd, hdv, dtype, seed=0):
 def test_flash_kernel_matches_plain_on_cuda(cuda, bh, sq, skv, hd, hdv,
                                             causal, dtype):
     q, k, v = _qkv(cuda, bh, sq, skv, hd, hdv, dtype)
-    before = fa.LAUNCHES["flash_attention"]
+    name = fa.kernel_for(dtype, hd, hdv)
+    before = fa.LAUNCHES[name]
     got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert fa.LAUNCHES[name] == before + 1
     assert got.dtype == dtype and got.shape == (bh, sq, hdv)
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _assert_within_bf16_ulp(got, want):
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    bound = torch.ldexp(torch.ones_like(g), e - 8) + 1e-5
+    over = (g - w).abs() > bound
+    assert not over.any(), (
+        f"{int(over.sum())} outputs beyond one bf16 ulp + 1e-5; max abs "
+        f"diff {float((g - w).abs().max())}")
+
+
+@pytest.mark.parametrize("dtype,hd,hdv,name", [
+    (torch.bfloat16, 128, 128, "flash_attention_wgmma"),
+    (torch.bfloat16, 64, 64, "flash_attention_wgmma"),
+    (torch.bfloat16, 8, 8, "flash_attention"),
+    (torch.bfloat16, 64, 32, "flash_attention"),
+    (torch.float32, 128, 128, "flash_attention"),
+    (torch.float32, 64, 64, "flash_attention"),
+])
+def test_flash_kernel_choice(dtype, hd, hdv, name):
+    assert fa.kernel_for(dtype, hd, hdv) == name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,hd", [
+    (1, 128, 128),          # one tile
+    (1, 128, 64),
+    (2, 64, 128),           # a tile longer than the sequence
+    (3, 384, 128),          # three tiles, the diagonal on each
+    (2, 256, 64),
+    (64, 2048, 128),        # olmo-1b's scoring shape (4 x 16 heads)
+])
+def test_flash_wgmma_matches_plain_on_cuda(cuda, bh, s, hd, causal):
+    q, k, v = _qkv(cuda, bh, s, s, hd, hd, torch.bfloat16, seed=bh + s)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + 1
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"]
+    assert got.dtype == torch.bfloat16 and got.shape == (bh, s, hd)
+    _assert_within_bf16_ulp(got, fa.flash_attention_plain(q, k, v,
+                                                          causal=causal))
 
 
 @pytest.mark.cuda
@@ -365,6 +445,21 @@ def test_flash_bhsd_gqa_on_cuda(cuda):
     want = fa.flash_attention_plain(q.reshape(16, 128, 64), kr, vr)
     torch.testing.assert_close(got, want.reshape(2, 8, 128, 64), atol=2e-5,
                                rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_bhsd_gqa_bf16_on_cuda(cuda):
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(cuda)
+               for shape in ((2, 8, 256, 128), (2, 2, 256, 128),
+                             (2, 2, 256, 128)))
+    before = fa.LAUNCHES["flash_attention_wgmma"]
+    got = ops.flash_attention_bhsd(q, k, v, causal=True)
+    assert fa.LAUNCHES["flash_attention_wgmma"] == before + 1
+    kr = k.repeat_interleave(4, dim=1).reshape(16, 256, 128)
+    vr = v.repeat_interleave(4, dim=1).reshape(16, 256, 128)
+    want = fa.flash_attention_plain(q.reshape(16, 256, 128), kr, vr)
+    _assert_within_bf16_ulp(got, want.reshape(2, 8, 256, 128))
 
 
 @pytest.mark.cuda
