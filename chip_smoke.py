@@ -11,7 +11,8 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
 2. build: compile the ``pair_sweep`` (with ``neighbor_force``),
    ``delta_codec`` and ``flash_attention`` (both attention kernels)
    libraries from ``csrc/``, one nvcc each, started together (timed, with
-   ptxas' registers and spills), and count the HGMMA instructions of the
+   ptxas' registers and spills of every kernel), and count the HGMMA
+   instructions of the
    attention library's machine code (none fails);
 3. ``pair_sweep`` against its plain version on a (128, 128) grid, cap 24,
    ~6 agents a cell, both pair laws, closed and toroidal: forces to 1e-5,
@@ -43,12 +44,15 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    toroidal mesh whose agents cross the seam;
 9. ``flash_attention`` against its plain version: the main shape (4 x 16
    heads, 2048 tokens, head dim 128), causal and not, in float32 on the
-   CUDA-core kernel (2e-5) and bf16 on the tensor-core kernel (2e-2, and
-   one bf16 ulp + 1e-5 element by element), float32 at (2 x 8, 512, 64)
-   and bf16 GQA through ``ops.flash_attention_bhsd`` with 2 KV heads;
+   3xTF32 tensor-core kernel (2e-5) and bf16 on the wgmma kernel (2e-2,
+   and one bf16 ulp + 1e-5 element by element), float32 at (2 x 8, 512,
+   64) and bf16 GQA through ``ops.flash_attention_bhsd`` with 2 KV heads;
    kernel, plain, ``scaled_dot_product_attention`` and bound times of each
-   kernel at the main shape, causal; the bf16 kernel on bf16(p) alone
-   instead of p_hi + p_lo (error and time, reported);
+   kernel at the main shape, causal (float32: both bounds, three TF32
+   products and float32 FMA, the device kernels SDPA runs in float32, and
+   the kernel's and the plain version's distance from a float64
+   attention); the bf16 kernel on bf16(p) alone instead of p_hi + p_lo
+   (error and time, reported);
 10. the LM main path: olmo-1b at full width and depth (16 layers, d_model
    2048, bf16, random weights from ``params.init`` and ``--seed``).
    (a) scoring: ``loss_fn`` forward, batch 4 x 2048, backend ``"kernel"``,
@@ -72,8 +76,9 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
 11. the legacy ``ops.neighbor_force`` (its own kernel) on the gathered
    slabs of a (1024, 1024)-cell, cap-48 clustering SoA (4,194,304 agents),
    driven once with the counts zeroed, then against its plain version in
-   chunks of cells (1e-5), and on the reference test's (C, K) cases; kernel,
-   plain and bound times.
+   chunks of cells (1e-5), and on the reference test's (C, K) cases; kernel
+   and plain times, and two bounds: the bytes a valid-first read needs
+   (``bound_ms``) and those of reading every slab row.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -119,6 +124,7 @@ from repro_torch.training import steps as lm_steps  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12          # dense, tensor cores
+TF32_OPS_PER_S = 495e12          # dense, tensor cores
 PROFILE_TRIES = 3        # empty profiler traces before device_ms uses events
 
 # Float operations the kernel does per pair (see csrc/pair_sweep.cu): the
@@ -917,17 +923,44 @@ def _randn(gen, shape, dtype):
 def attention_bound(bh, sq, skv, hd, hdv, causal, dtype):
     """(bound_ms, bound_by, bytes, ops) of one attention call: q, k, v
     read once and the output written once; two operations a multiply-add
-    on the (query, key) pairs the mask keeps, at the peak rate of the
-    inputs' type (bf16 tensor cores, else float32 CUDA cores)."""
+    on the (query, key) pairs the mask keeps.  bf16: at the bf16 tensor
+    cores' peak.  float32: the smaller of :func:`f32_attention_floors`,
+    which is three TF32 products on the tensor cores."""
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = size * bh * (sq * hd + skv * hd + skv * hdv + sq * hdv)
     pairs = (sum(min(q + 1, skv) for q in range(sq)) if causal
              else sq * skv)
     ops = 2 * bh * pairs * (hd + hdv)
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (ops / BF16_OPS_PER_S if dtype == torch.bfloat16
+             else min(f32_attention_floors(ops)) / 1e3)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def f32_attention_floors(ops):
+    """(ms, ms): the least time of float32-accurate products of ``ops``
+    operations as three TF32 products on the tensor cores (the kernel's
+    3xTF32 split), and as float32 FMA on the CUDA cores."""
+    return 3e3 * ops / TF32_OPS_PER_S, 1e3 * ops / FP32_OPS_PER_S
+
+
+def attention_f64(q, k, v, causal):
+    """The attention of float32 ``(BH, S, d)`` q, k, v in float64, 8 heads
+    at a time: what both float32 versions are measured against."""
+    sq, skv = q.shape[1], k.shape[1]
+    above = (torch.arange(sq, device=q.device)[:, None]
+             < torch.arange(skv, device=q.device)[None, :])
+    out = torch.empty(v.shape[0], sq, v.shape[2], dtype=torch.float64,
+                      device=q.device)
+    for h in range(0, q.shape[0], 8):
+        s = torch.einsum("bqd,bkd->bqk", q[h:h + 8].double(),
+                         k[h:h + 8].double()) * q.shape[2] ** -0.5
+        if causal:
+            s = s.masked_fill(above[None], fa.NEG_INF)
+        out[h:h + 8] = torch.einsum("bqk,bkd->bqd", torch.softmax(s, dim=-1),
+                                    v[h:h + 8].double())
+    return out
 
 
 def _bf16_ulp(x):
@@ -959,7 +992,7 @@ def _attn_err(got, want, label):
 
 def phase_flash(seed: int):
     """Phase 9: both attention kernels against their plain version: the
-    tensor-core kernel on bf16, the CUDA-core kernel on float32."""
+    wgmma kernel on bf16, the 3xTF32 kernel on float32."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -980,6 +1013,13 @@ def phase_flash(seed: int):
             label = (f"main_{'causal' if causal else 'full'}"
                      f"{'_f32' if dtype == torch.float32 else ''}")
             errs[label] = _attn_err(got, want, f"flash {label}")
+            if dtype == torch.float32:    # reported, not gated
+                exact = attention_f64(q, k, v, causal)
+                print(f"[flash] {label}: max |x - float64 attention| "
+                      f"kernel {float((got - exact).abs().max()):.4e}, "
+                      f"plain {float((want - exact).abs().max()):.4e}",
+                      flush=True)
+                del exact
             del got, want
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 10)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
@@ -996,6 +1036,17 @@ def phase_flash(seed: int):
               f"(scaled_dot_product_attention) bound_ms={b_ms:.4f} "
               f"({b_by}; {nbytes} B, {nops} ops); "
               f"{nops / (ms / 1e3) / 1e12:.2f} TFLOP/s", flush=True)
+        if dtype == torch.float32:
+            tf32_ms, core_ms = f32_attention_floors(nops)
+            profile(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True),
+                "flash", "scaled_dot_product_attention in float32")
+            print(f"[flash] {name} float32 bounds: {tf32_ms:.4f} ms as "
+                  f"three TF32 products at {TF32_OPS_PER_S / 1e12:.0f} "
+                  f"TFLOP/s (the kernel's 3xTF32; bound_ms), "
+                  f"{core_ms:.4f} ms as float32 FMA at "
+                  f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s (CUDA cores)",
+                  flush=True)
 
     # What the split of p buys: the bf16 kernel on bf16(p) alone (reported,
     # not gated: the wrapper always runs p_hi and p_lo).
@@ -1320,6 +1371,14 @@ def force_slabs(soa):
     return side(ai, vi) + side(aj, vj)
 
 
+def sector_bytes(valid, sizes):
+    """Bytes of the 32-byte sectors that hold the valid rows of columns of
+    ``sizes`` bytes a row, laid out like ``valid``."""
+    rows = valid.reshape(-1).nonzero().squeeze(1)    # ascending
+    return sum(32 * torch.unique_consecutive(rows * size // 32).numel()
+               for size in sizes)
+
+
 def force_plain_chunked(args, kw):
     """The plain version ``FORCE_CHUNK`` cells at a time (its (C, K, NK)
     pair tensors would not fit at once); also counts the pairs within the
@@ -1386,7 +1445,15 @@ def phase_force(seed: int):
                        * args[8].sum(1, dtype=torch.int64)).sum())
     nops = OPS_DISTANCE_TEST * valid_pairs \
         + OPS_LAW["soft_repulsion_adhesion"] * in_radius
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+    # the bytes a valid-first read needs: both valid columns whole, the
+    # 32-byte sectors of the other columns that hold valid rows, the output
+    sizes = (8, 4, 4, 4)              # pos, diameter, type, gid
+    first_bytes = (args[3].numel() + args[8].numel() + c * k * 2 * 4
+                   + sector_bytes(args[3], sizes)
+                   + sector_bytes(args[8], sizes))
+    t_ops = nops / FP32_OPS_PER_S
+    dense_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, t_ops)
+    t_bytes = first_bytes / HBM_BYTES_PER_S
     b_ms = 1e3 * max(t_bytes, t_ops)
     b_by = "bytes" if t_bytes >= t_ops else "operations"
     del args
@@ -1416,12 +1483,15 @@ def phase_force(seed: int):
         small[f"{cc_}x{kk}"] = e
     print(f"[force] max_abs_err {err:.3g} at the main shape, {small} on the "
           f"reference test's cases; kernel_ms={ms:.4f} plain_ms="
-          f"{plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, {nops} "
-          f"ops; {in_radius} pairs within the radius)", flush=True)
+          f"{plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; {first_bytes} B "
+          f"read valid-first and written, {nops} ops; {in_radius} pairs "
+          f"within the radius); dense bound {dense_ms:.4f} ms ({nbytes} B "
+          f"if every slab row is read)", flush=True)
     return dict(launches=launches["neighbor_force"],
                 max_abs_err=max([err] + list(small.values())), ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, bytes=nbytes, ops=nops, small_errs=small)
+                library_ms=None, bytes=first_bytes, ops=nops,
+                small_errs=small)
 
 
 def main(argv=None) -> int:

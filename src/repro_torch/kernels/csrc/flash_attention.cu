@@ -54,19 +54,43 @@
 //   warpgroups' softmax, which still run at the same time, hold it there;
 //   making the warpgroups take turns (FlashAttention-3's ping-pong) was
 //   tried and gave little at this shape.
-// * flash_attention_kernel - float32 inputs, other head dims, and hd !=
-//   hdv: float32 fmaf on the CUDA cores, as the TPU kernel computes them.
-//   A float32 product on the tensor cores would be TF32 (10-bit
-//   mantissas), which the float32 gates (2e-5) do not allow, so this
-//   kernel stays the float32 one; its own floor is 68.7 GFLOP at 67
-//   TFLOP/s, about 1 ms, at the main shape.  One block per (head, 64 query
-//   rows), heavy causal blocks first; four lanes a query row, each holding
-//   a quarter of the row's q (scaled, in registers) and of its
-//   accumulator, interleaved in 16-byte pieces; K and V tiles of 64 rows
-//   staged in shared memory as float32; a score is four partial dot
-//   products joined by two shuffles, so every lane of the row holds the
-//   same bits; the running max and sum are updated once a tile, with
-//   expf.
+// * flash_attention_kernel - float32 inputs, the other head dims, and hd
+//   != hdv: the same products on the tensor cores in 3xTF32, so that they
+//   keep float32's accuracy.  A single TF32 product (10-bit mantissas)
+//   misses the float32 gate of 2e-5 (tests/test_torch_flash_tf32.py shows
+//   it), but every float32 operand x is split in registers as it is loaded
+//   into big = rna(x) and small = rna(x - big) (cvt.rna.tf32.f32's
+//   rounding, see split(); x - big is exact), and S = Qs Kb + Qb Ks + Qb
+//   Kb and O += Ps Vb + Pb Vs + Pb Vb, small terms first, drop only small
+//   x small (about 2^-22 relative).  bf16 operands are exact in TF32: their
+//   S takes one product and PV two (p's split alone).  What bounds it on
+//   an H100: at the main shape the three TF32 products are 3 x 68.75
+//   GFLOP, 0.417 ms at 495 TFLOP/s (float32 FMA on the CUDA cores would
+//   take at least 1.026 ms).  The design is FlashAttention-2's on mma.sync
+//   m16n8k8 (wgmma's TF32 form needs both operands K-major, so V would need
+//   a transposed, split copy in shared memory): one block per (head, 128
+//   query rows), heavy causal blocks first, 8 warps of 16 rows each; the Q
+//   tile, and 64-row K and V tiles double-buffered, in shared memory by
+//   16-byte cp.async (207 KB at hd 128: a block an SM), row strides padded
+//   so that a warp's fragment reads hit distinct banks; S and O as mma
+//   fragments, each summed from zero in short runs of mma (S four k-steps
+//   at a time, P V a tile at a time) and added in float32, since mma.sync
+//   truncates its sums (see kSSteps); the online softmax once a tile on
+//   the fragments, with exp2f (not the fast-math form) of scores
+//   pre-scaled by log2 e, a row's max
+//   over the four threads of a quad in two shuffles and its sum a
+//   per-thread share until the end; the k index of both products is
+//   permuted (see the kernel) so that S's C fragment is P's A fragment as
+//   it stands and V's B fragment is read straight from row-major V.  A
+//   warp whose rows all lie above a tile's keys skips it.  Measured at the
+//   main shape (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py): ~1.35 ms,
+//   3.2x its bound, ~0.8x scaled_dot_product_attention's float32 kernel
+//   (PyTorch's CUTLASS memory-efficient one), ~3.8x faster than the
+//   CUDA-core kernel it replaced (one shared-memory read for every 4 FMAs,
+//   ~5 ms).  Every warp splits every K and V element it reads (a quarter
+//   of its instructions), and 255 registers (no spills) and 207 KB of
+//   shared memory leave 8 warps an SM to hide mma.sync's latency: that
+//   holds it there.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -77,187 +101,386 @@
 
 namespace {
 
-constexpr int kRows = 64;                 // query rows a block
-constexpr int kLanes = 4;                 // lanes a query row
-constexpr int kThreads = kRows * kLanes;  // 256
-constexpr int kTile = 64;                 // kv rows a shared-memory tile
-constexpr int kScoreStride = kTile + 1;   // padded: rows hit distinct banks
-constexpr float kNegInf = -1e30f;
+// ---------------------------------------------------------------------------
+// float32-accurate attention on the tensor cores: 3xTF32 on mma.sync.
+// ---------------------------------------------------------------------------
 
-// How a head dim of D floats is split over the four lanes of a row: lane c
-// holds vectors i = 0..N-1 of VW floats at element VW * (c + 4 i).
-template <int D>
-struct Split {
-  static constexpr int VW = (D % 16 == 0) ? 4 : 2;
-  static constexpr int N = D / (kLanes * VW);
-  static_assert(D % (kLanes * VW) == 0, "head dim must be a multiple of 8");
-  __device__ static int at(int c, int i) { return VW * (c + kLanes * i); }
+constexpr int kRows = 128;                // query rows a block
+constexpr int kThreads = 256;             // 8 warps of 16 rows each
+constexpr int kTile = 64;                 // kv rows a shared-memory tile
+constexpr int kStages = 2;                // K and V tiles double-buffered
+constexpr float kNegInf = -1e30f;
+// mma.sync adds its products to the accumulator and truncates the sum
+// toward zero, so a long chain of mma into one accumulator loses up to an
+// ulp of the running sum at each step, all one way.  S is summed kSSteps
+// k-steps at a time, and each tile's P V whole, into accumulators that
+// start from zero; those are added to S and to O in float32, rounded to
+// nearest.  With S and O chained whole the kernel was 4x further from a
+// float64 attention than the plain version; so it is slightly closer
+// (PERF.md; tools/flash_f32_sums.py measures other kSSteps).
+constexpr int kSSteps = 4;
+
+// Padded shared-memory row strides (elements) of the Q tile and of a K
+// and a V tile: rows stay 16-byte aligned for cp.async, and the fragment
+// reads of a warp hit distinct banks (Q and K: an 8-byte read of row g (+
+// 8n), column 8s + 2t, so the stride is 8 mod 32 floats; V: 4-byte reads
+// of rows 2t and 2t + 1, column 8n + g, so the stride is 4 mod 8 floats).
+// The Q tile (kRows rows) comes first, then kStages K tiles, then kStages
+// V tiles.
+template <int HD, int HDV, class T>
+struct TileLayout {
+  static constexpr int kSK = HD + 8;
+  static constexpr int kSV = HDV + 16 / static_cast<int>(sizeof(T));
+  static constexpr size_t kBytes =
+      sizeof(T) * (kRows * static_cast<size_t>(kSK) +
+                   kStages * kTile * static_cast<size_t>(kSK + kSV));
 };
 
-// One 16- or 8-byte shared-memory read of a lane's piece of a row.
-__device__ __forceinline__ void lds(const float* p, float (&r)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  r[0] = t.x;
-  r[1] = t.y;
-  r[2] = t.z;
-  r[3] = t.w;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void lds(const float* p, float (&r)[2]) {
-  const float2 t = *reinterpret_cast<const float2*>(p);
-  r[0] = t.x;
-  r[1] = t.y;
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-__device__ __forceinline__ float load(const void* p, long long i,
-                                      bool bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int HD, int HDV>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const void* q, const void* k, const void* v,
-                           void* out, int bh, int sq, int skv, float scale,
-                           int causal, int bf16) {
-  using SQ = Split<HD>;
-  using SV = Split<HDV>;
-  extern __shared__ __align__(16) float smem[];
-  float* sk = smem;                    // (kTile, HD)
-  float* sv = sk + kTile * HD;         // (kTile, HDV)
-  float* ss = sv + kTile * HDV;        // (kRows, kScoreStride) scores, p
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows r0 .. r0 + R - 1 of an (n, D) head into a tile of row stride S;
+// rows past n are zeros (Q rows past sq are never stored, K rows past skv
+// are masked, and a zero V row keeps 0 * p finite).
+template <int R, int D, int S, class T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
+                                          int n) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));   // a chunk
+  constexpr int kChunks = D / kPer;                         // a row
+  for (int e = threadIdx.x; e < R * kChunks; e += kThreads) {
+    const int row = e / kChunks;
+    const int c = e % kChunks;
+    const bool in = r0 + row < n;
+    const T* p = src + static_cast<long long>(in ? r0 + row : 0) * D +
+                 c * kPer;
+    cp_async16(smem_addr(dst + row * S + c * kPer), p, in ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// x = big + small to about 22 bits: big = rna(x), small = rna(x - big),
+// where rna rounds to TF32 (10 mantissa bits) to nearest, ties away from
+// zero: cvt.rna.tf32.f32's rounding.  sm_90 has no instruction for that
+// cvt (ptxas emits a compare, an integer add and selects around it), so
+// it is written as the integer add of half a TF32 ulp to the magnitude
+// bits: big's low 13 bits are then cleared, so that x - big is exact, and
+// small's are left, since mma.sync reads a TF32 operand's top 19 bits
+// only.  For finite x (an infinity stays one).
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// d += a b: a (16 x 8) in the m16n8k8 A layout, b (8 x 8) in the B layout.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The m16n8k8 fragments, with g = lane / 4 and t = lane % 4: A holds (row
+// g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B holds (k t, column
+// g), (t + 4, g); C holds (row g, columns 2t, 2t + 1), (g + 8, 2t, 2t +
+// 1).  A sum over k may visit its terms in any order, so logical k t and t
+// + 4 stand for columns 2t and 2t + 1 of each group of 8: in S = Q K^T, a
+// thread then reads Q and K as 8-byte pairs, and in O += P V, the C
+// fragment of S is already P's A fragment (no shuffle), with V's rows 2t
+// and 2t + 1.
+template <int HD, int HDV, class T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ out,
+                           int bh, int sq, int skv, float scale2,
+                           int causal) {
+  using L = TileLayout<HD, HDV, T>;
+  // bf16 operands are exact in TF32; float32 ones are split in two.
+  constexpr bool kSplit = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sq_ = reinterpret_cast<T*>(smem);         // (kRows, kSK)
+  T* sk = sq_ + kRows * L::kSK;                // (kStages, kTile, kSK)
+  T* sv = sk + kStages * kTile * L::kSK;       // (kStages, kTile, kSV)
 
   // Heavy causal blocks (the last query rows) are issued first.
   const int n_q = (sq + kRows - 1) / kRows;
   const int head = blockIdx.x % bh;
-  const int qb = n_q - 1 - static_cast<int>(blockIdx.x / bh);
-  const int q0 = qb * kRows;
-  const int row = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  const int qpos = q0 + row;
-  const bool live = qpos < sq;
-  const bool is_bf16 = bf16 != 0;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x / bh)) * kRows;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int w0 = q0 + 16 * warp;             // the warp's first row
+  const int r0 = w0 + g;                     // this thread's two rows
+  const int r1 = r0 + 8;
+  const int w_last = min(w0 + 15, sq - 1);   // its last row before sq
 
-  // This lane's quarter of q, cast to float32 and scaled.
-  float qr[SQ::N][SQ::VW];
-  const long long qbase = (static_cast<long long>(head) * sq + qpos) * HD;
+  float o[HDV / 8][4];
 #pragma unroll
-  for (int i = 0; i < SQ::N; ++i)
+  for (int n = 0; n < HDV / 8; ++n)
 #pragma unroll
-    for (int u = 0; u < SQ::VW; ++u)
-      qr[i][u] = live ? load(q, qbase + SQ::at(c, i) + u, is_bf16) * scale
-                      : 0.f;
-
-  float acc[SV::N][SV::VW];
-#pragma unroll
-  for (int i = 0; i < SV::N; ++i)
-#pragma unroll
-    for (int u = 0; u < SV::VW; ++u) acc[i][u] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
-  float* srow = ss + row * kScoreStride;
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};   // this thread's share of each row's sum
 
   const int q_last = min(q0 + kRows, sq) - 1;
   const int kv_end = causal ? min(skv, q_last + 1) : skv;
-  const long long kvbase = static_cast<long long>(head) * skv;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {
-    const int n = min(kTile, skv - kv0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = threadIdx.x; e < n * HD; e += kThreads)
-      sk[e] = load(k, (kvbase + kv0) * HD + e, is_bf16);
-    for (int e = threadIdx.x; e < n * HDV; e += kThreads)
-      sv[e] = load(v, (kvbase + kv0) * HDV + e, is_bf16);
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  const T* kh = k + static_cast<long long>(head) * skv * HD;
+  const T* vh = v + static_cast<long long>(head) * skv * HDV;
+
+  // The Q tile, then each K and V tile one tile ahead, a commit group
+  // each.
+  load_tile<kRows, HD, L::kSK>(
+      sq_, q + static_cast<long long>(head) * sq * HD, q0, sq);
+  cp_async_commit();
+  load_tile<kTile, HD, L::kSK>(sk, kh, 0, skv);
+  load_tile<kTile, HDV, L::kSV>(sv, vh, 0, skv);
+  cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it % kStages;
+    const int next = (it + 1) % kStages;
+    if (it + 1 < n_tiles) {
+      load_tile<kTile, HD, L::kSK>(sk + next * kTile * L::kSK, kh,
+                                   (it + 1) * kTile, skv);
+      load_tile<kTile, HDV, L::kSV>(sv + next * kTile * L::kSV, vh,
+                                    (it + 1) * kTile, skv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();      // Q, and K and V of this tile, have landed
     __syncthreads();
 
-    // Scores of this row against the tile; all four lanes get the same.
-    float tmax = kNegInf;
-    for (int j = 0; j < n; ++j) {
-      const float* kr = sk + j * HD;
-      float part = 0.f;
+    const int kv0 = it * kTile;
+    // a warp whose rows all lie above this tile's keys (or past sq) skips
+    // it: its scores would all be masked, p = 0 and corr = 1
+    const bool live = w0 < sq && (!causal || kv0 <= w_last);
+    float s[kTile / 8][4];
+    if (live) {
+      // S = Q K^T: Qs Kb + Qb Ks + Qb Kb (small terms first), or one
+      // product of bf16 operands.  Q's A fragment of k-step ks: columns
+      // 8ks + 2t, 8ks + 2t + 1 of rows r0 and r1.  kSSteps k-steps at a
+      // time are summed from zero and then added to S in float32 (see
+      // kSSteps).
+      const T* kt = sk + stage * kTile * L::kSK + g * L::kSK + 2 * t;
+      const T* qt = sq_ + (16 * warp + g) * L::kSK + 2 * t;
 #pragma unroll
-      for (int i = 0; i < SQ::N; ++i) {
-        float kp[SQ::VW];
-        lds(kr + SQ::at(c, i), kp);
+      for (int k0 = 0; k0 < HD / 8; k0 += kSSteps) {
+        float c[kTile / 8][4];
 #pragma unroll
-        for (int u = 0; u < SQ::VW; ++u) part = fmaf(qr[i][u], kp[u], part);
+        for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+        for (int ks = k0; ks < k0 + kSSteps && ks < HD / 8; ++ks) {
+          const float2 x0 = ld2(qt + 8 * ks);
+          const float2 x1 = ld2(qt + 8 * L::kSK + 8 * ks);
+          const float qa[4] = {x0.x, x1.x, x0.y, x1.y};
+          uint32_t ab[4], as[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if constexpr (kSplit)
+              split(qa[i], ab[i], as[i]);
+            else
+              ab[i] = __float_as_uint(qa[i]);
+          }
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n) {
+            const float2 kx = ld2(kt + 8 * n * L::kSK + 8 * ks);
+            if constexpr (kSplit) {
+              uint32_t bb0, bs0, bb1, bs1;
+              split(kx.x, bb0, bs0);
+              split(kx.y, bb1, bs1);
+              mma(c[n], as, bb0, bb1);
+              mma(c[n], ab, bs0, bs1);
+              mma(c[n], ab, bb0, bb1);
+            } else {
+              mma(c[n], ab, __float_as_uint(kx.x), __float_as_uint(kx.y));
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = k0 == 0 ? c[n][e] : s[n][e] + c[n][e];
       }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const float s = (causal && kv0 + j > qpos) ? kNegInf : part;
-      if (c == 0) srow[j] = s;
-      tmax = fmaxf(tmax, s);
-    }
-    __syncwarp();
 
-    // The online softmax update, once a tile.
-    const float m_new = fmaxf(m, tmax);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-    for (int j = c; j < n; j += kLanes) {
-      const float p = expf(srow[j] - m_new);
-      srow[j] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * corr + psum;
-    m = m_new;
-    __syncwarp();
+      // Scale (in log2 units, for exp2f) and mask: keys past skv, and
+      // with causal keys after the row.
+      const bool masked =
+          kv0 + kTile > skv || (causal && kv0 + kTile - 1 > w0);
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale2;
+          if (masked) {
+            const int key = kv0 + 8 * n + 2 * t + (e & 1);
+            const int row = e < 2 ? r0 : r1;
+            if (key >= skv || (causal && key > row)) x = kNegInf;
+          }
+          s[n][e] = x;
+        }
 
+      // The online softmax, once a tile: a row's scores lie on the four
+      // threads of a quad, so its max takes two shuffles; its sum stays
+      // a per-thread share until the end.
+      float corr[2];
 #pragma unroll
-    for (int i = 0; i < SV::N; ++i)
+      for (int h = 0; h < 2; ++h) {
+        float mx = m[h];
 #pragma unroll
-      for (int u = 0; u < SV::VW; ++u) acc[i][u] *= corr;
-    for (int j = 0; j < n; ++j) {
-      const float p = srow[j];
-      const float* vr = sv + j * HDV;
+        for (int n = 0; n < kTile / 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        corr[h] = exp2f(m[h] - mx);
+        float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < SV::N; ++i) {
-        float vp[SV::VW];
-        lds(vr + SV::at(c, i), vp);
+        for (int n = 0; n < kTile / 8; ++n)
 #pragma unroll
-        for (int u = 0; u < SV::VW; ++u) acc[i][u] = fmaf(p, vp[u], acc[i][u]);
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(s[n][2 * h + e] - mx);
+            s[n][2 * h + e] = p;
+            sum += p;
+          }
+        l[h] = l[h] * corr[h] + sum;
+        m[h] = mx;
       }
+
+      // O = O corr + P V, with P V = Ps Vb + Pb Vs + Pb Vb (bf16 V: Ps V +
+      // Pb V).  Key step j is S's column tile j; V's B fragment is rows 8j
+      // + 2t, 8j + 2t + 1 of row-major V, column 8n + g.  The tile's P V
+      // is summed from zero and then added to O in float32 (see kSSteps).
+      const T* vt = sv + stage * kTile * L::kSV + 2 * t * L::kSV + g;
+      float c[HDV / 8][4];
+#pragma unroll
+      for (int n = 0; n < HDV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        uint32_t pb[4], ps[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split(pa[i], pb[i], ps[i]);
+        const T* v0 = vt + 8 * j * L::kSV;
+#pragma unroll
+        for (int n = 0; n < HDV / 8; ++n) {
+          const float x0 = ld1(v0 + 8 * n);
+          const float x1 = ld1(v0 + L::kSV + 8 * n);
+          if constexpr (kSplit) {
+            uint32_t vb0, vs0, vb1, vs1;
+            split(x0, vb0, vs0);
+            split(x1, vb1, vs1);
+            mma(c[n], ps, vb0, vb1);
+            mma(c[n], pb, vs0, vs1);
+            mma(c[n], pb, vb0, vb1);
+          } else {
+            mma(c[n], ps, __float_as_uint(x0), __float_as_uint(x1));
+            mma(c[n], pb, __float_as_uint(x0), __float_as_uint(x1));
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < HDV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[n][e] = o[n][e] * corr[e / 2] + c[n][e];
     }
-    __syncwarp();  // srow is rewritten by the next tile
+    __syncthreads();         // this stage is refilled next iteration
   }
 
-  if (!live) return;
-  const float denom = fmaxf(l, 1e-30f);
-  const long long obase = (static_cast<long long>(head) * sq + qpos) * HDV;
 #pragma unroll
-  for (int i = 0; i < SV::N; ++i)
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  T* oh = out + static_cast<long long>(head) * sq * HDV;
 #pragma unroll
-    for (int u = 0; u < SV::VW; ++u) {
-      const float o = acc[i][u] / denom;
-      const long long at = obase + SV::at(c, i) + u;
-      if (is_bf16)
-        static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(o);
-      else
-        static_cast<float*>(out)[at] = o;
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int row = h == 0 ? r0 : r1;
+    if (row >= sq) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+    T* orow = oh + static_cast<long long>(row) * HDV + 2 * t;
+#pragma unroll
+    for (int n = 0; n < HDV / 8; ++n)
+      st2(orow + 8 * n, o[n][2 * h] / denom, o[n][2 * h + 1] / denom);
+  }
 }
 
-template <int HD, int HDV>
+template <int HD, int HDV, class T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int bh, int sq, int skv, float scale, int causal,
-                   int bf16, cudaStream_t stream) {
+                   cudaStream_t stream) {
   const long long blocks =
       static_cast<long long>(bh) * ((sq + kRows - 1) / kRows);
   if (blocks == 0) return cudaSuccess;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * (kTile * (HD + HDV) + kRows * kScoreStride);
+  if (blocks > INT_MAX || skv < 1) return cudaErrorInvalidValue;
+  constexpr size_t smem = TileLayout<HD, HDV, T>::kBytes;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<HD, HDV>,
+        flash_attention_kernel<HD, HDV, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  flash_attention_kernel<HD, HDV>
+  // scores in log2 units: exp2f(x * scale * log2 e) = expf(x * scale)
+  const float scale2 = scale * 1.4426950408889634f;
+  flash_attention_kernel<HD, HDV, T>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-          q, k, v, out, bh, sq, skv, scale, causal, bf16);
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), bh, sq, skv,
+          scale2, causal);
   return cudaGetLastError();
+}
+
+template <int HD, int HDV>
+cudaError_t launch_dtype(int bf16, const void* q, const void* k,
+                         const void* v, void* out, int bh, int sq, int skv,
+                         float scale, int causal, cudaStream_t s) {
+  return bf16 ? launch<HD, HDV, __nv_bfloat16>(q, k, v, out, bh, sq, skv,
+                                               scale, causal, s)
+              : launch<HD, HDV, float>(q, k, v, out, bh, sq, skv, scale,
+                                       causal, s);
 }
 
 template <int HD>
@@ -265,11 +488,11 @@ cudaError_t launch_hdv(int hdv, const void* q, const void* k, const void* v,
                        void* out, int bh, int sq, int skv, float scale,
                        int causal, int bf16, cudaStream_t s) {
   switch (hdv) {
-    case 8: return launch<HD, 8>(q, k, v, out, bh, sq, skv, scale, causal, bf16, s);
-    case 16: return launch<HD, 16>(q, k, v, out, bh, sq, skv, scale, causal, bf16, s);
-    case 32: return launch<HD, 32>(q, k, v, out, bh, sq, skv, scale, causal, bf16, s);
-    case 64: return launch<HD, 64>(q, k, v, out, bh, sq, skv, scale, causal, bf16, s);
-    case 128: return launch<HD, 128>(q, k, v, out, bh, sq, skv, scale, causal, bf16, s);
+    case 8: return launch_dtype<HD, 8>(bf16, q, k, v, out, bh, sq, skv, scale, causal, s);
+    case 16: return launch_dtype<HD, 16>(bf16, q, k, v, out, bh, sq, skv, scale, causal, s);
+    case 32: return launch_dtype<HD, 32>(bf16, q, k, v, out, bh, sq, skv, scale, causal, s);
+    case 64: return launch_dtype<HD, 64>(bf16, q, k, v, out, bh, sq, skv, scale, causal, s);
+    case 128: return launch_dtype<HD, 128>(bf16, q, k, v, out, bh, sq, skv, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -416,60 +416,275 @@ cudaError_t launch(const Columns& col, int3 interior, int k, float r2,
 // floats), diameter, type, valid and one gid (the reference maps it onto
 // the <rank 0, gid> pair).  A pair counts when both slots are valid, the
 // gids differ and dist2 <= radius^2; there is no minimum image.  The law
-// is SoftRepulsionAdhesion<2> above, summed over j in slab order.
+// is SoftRepulsionAdhesion<2> above, summed over j in slab order.  Any
+// valid mask is taken, not only slots packed at the front of a cell.
 //
-// What bounds it on an H100: bytes.  The slabs are read once and the (C,
-// K, 2) force written once, 21 bytes a slot: at the 1024 x 1024-cell,
-// cap-48 shape of chip_smoke.py (NK = 432) that is about 10.5 GB, some 3 ms
-// at 3.35 TB/s, against ~2e10 float operations on the pairs (0.3 ms at 67
-// TFLOP/s).  One block per cell; its threads stage the cell's NK
-// neighbour rows in shared memory with coalesced reads, then one thread a
-// self slot sums its pairs in registers, in order, with no atomics.
-__global__ void neighbor_force_kernel(
-    const float* pos_i, const float* diam_i, const int* type_i,
-    const unsigned char* valid_i, const int* gid_i, const float* pos_j,
-    const float* diam_j, const int* type_j, const unsigned char* valid_j,
-    const int* gid_j, int k, int nk, float r2, LawParams p, float* out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* s_pos = reinterpret_cast<float*>(smem);      // (nk, 2)
-  float* s_diam = s_pos + 2 * nk;
-  int* s_type = reinterpret_cast<int*>(s_diam + nk);
-  int* s_gid = s_type + nk;
-  unsigned char* s_valid = reinterpret_cast<unsigned char*>(s_gid + nk);
+// What bounds it on an H100: bytes, and only those the valid rows need.
+// Both valid columns are read whole, the other columns only in the 32-byte
+// sectors that hold valid rows, and the (C, K, 2) force is written whole.
+// At the 1024 x 1024-cell, cap-48 shape of chip_smoke.py (NK = 432, ~4
+// agents a cell, ~36 valid neighbour rows of 432) that is 2.38 GB, 0.71 ms
+// at 3.35 TB/s, against 10.97 GB (3.28 ms) if every slab row were read,
+// and ~2e9 float operations on the valid pairs (0.03 ms at 67 TFLOP/s);
+// chip_smoke.py computes both byte counts from each run's data.
+//
+// What the design does about it.  A block of 256 threads takes up to 48
+// consecutive cells, whose valid flags are two contiguous runs of bytes:
+//  1. the threads read both runs as 16-byte vectors (bytes where a run is
+//     not 16-byte aligned), all loads in flight at once, keep each vector's
+//     16 flags as a bit mask in shared memory, count each cell's valid
+//     neighbour rows (shared-memory atomics, one a vector), and zero the
+//     block's (cells, K, 2) output run with 16-byte stores;
+//  2. a block-wide prefix count numbers the valid neighbour rows and the
+//     valid self slots in slab order, and each thread places the row
+//     indices of its vectors' set bits at their numbers in shared memory;
+//  3. the threads gather only those rows' pos, diameter, type and gid
+//     into 16-byte entries (x, y, diameter, type) and a gid, all at once;
+//  4. a thread a valid self slot (~190 of 256 at 4 agents a cell) sums
+//     over its own cell's staged rows, in slab order: the pairs and their
+//     order are those of the one-cell-a-block kernel this design replaced,
+//     the same float32 operations under -fmad=false, so the result is
+//     unchanged; it writes its 8 bytes over the zeros.
+// A block whose valid rows exceed its room (2048 neighbour rows, 256 self
+// slots) is swept in windows of consecutive numbers, self windows outside
+// and, inside, the windows of the neighbour rows of their cells, the sums
+// carried in shared memory: a crowded cell costs re-staging and nothing
+// else.  No atomics touch device memory.  Measured at that shape (NVIDIA
+// H100 80GB HBM3, 700 W; chip_smoke.py): ~1.8 ms, 2.6x its valid-first
+// bound, against ~13.9 ms for the one-cell-a-block kernel.
+constexpr int kForceThreads = 256;
+constexpr int kForceCells = 48;        // most cells a block takes
+constexpr int kForceRoomJ = 2048;      // neighbour rows staged at once
+constexpr int kForceRoomI = 256;       // self slots staged at once
+constexpr int kForceUnitsJ = 2048;     // 16-flag vectors of the j run
+constexpr int kForceUnitsI = 512;      // and of the self run
+constexpr unsigned kFull = 0xffffffffu;
 
-  const long long cell = blockIdx.x;
-  const long long j0 = cell * nk;
-  for (int e = threadIdx.x; e < 2 * nk; e += blockDim.x)
-    s_pos[e] = pos_j[2 * j0 + e];
-  for (int e = threadIdx.x; e < nk; e += blockDim.x) {
-    s_diam[e] = diam_j[j0 + e];
-    s_type[e] = type_j[j0 + e];
-    s_gid[e] = gid_j[j0 + e];
-    s_valid[e] = valid_j[j0 + e];
+struct ForceSmem {
+  float4 j_ent[kForceRoomJ];           // x, y, diameter, type bits
+  float4 i_ent[kForceRoomI];
+  float2 i_acc[kForceRoomI];           // a staged self slot's sum
+  int j_gid[kForceRoomJ];
+  int j_row[kForceRoomJ];              // row in the block's j run
+  int i_gid[kForceRoomI];
+  int i_row[kForceRoomI];              // slot in the block's self run
+  int j_count[kForceCells];            // valid neighbour rows of a cell
+  int j_first[kForceCells];            // and the number of its first
+  int warp_sums[2 * (kForceThreads / 32)];
+  unsigned short mask_j[kForceUnitsJ];
+  unsigned short mask_i[kForceUnitsI];
+};
+
+// Bits 0..3: which of the four bytes of x are nonzero.
+__device__ __forceinline__ unsigned nibble(unsigned x) {
+  const unsigned y = __vcmpne4(x, 0u);
+  return (y & 1u) | ((y >> 7) & 2u) | ((y >> 14) & 4u) | ((y >> 21) & 8u);
+}
+
+// Bit u: flag first + u of a run of n flags is set (u < 16, first + u <
+// n); one 16-byte read where the run is 16-byte aligned.
+__device__ __forceinline__ unsigned unit_flags(const unsigned char* run,
+                                               int n, int first) {
+  if (first + 16 <= n && (reinterpret_cast<uintptr_t>(run) & 15) == 0) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(run + first));
+    return nibble(w.x) | (nibble(w.y) << 4) | (nibble(w.z) << 8) |
+           (nibble(w.w) << 12);
   }
-  __syncthreads();
+  unsigned b = 0u;
+  for (int u = 0; u < 16 && first + u < n; ++u)
+    b |= (run[first + u] != 0 ? 1u : 0u) << u;
+  return b;
+}
 
-  const int i = threadIdx.x;
-  if (i >= k) return;
-  const long long self = cell * k + i;
-  float acc[2] = {0.f, 0.f};
-  if (valid_i[self]) {
-    const float px = pos_i[2 * self];
-    const float py = pos_i[2 * self + 1];
-    const float fi = diam_i[self];
-    const int ti = type_i[self];
-    const int gi = gid_i[self];
-    for (int j = 0; j < nk; ++j) {
-      if (!s_valid[j] || s_gid[j] == gi) continue;
-      float disp[2] = {s_pos[2 * j] - px, s_pos[2 * j + 1] - py};
-      const float dist2 = disp[0] * disp[0] + disp[1] * disp[1];
-      if (!(dist2 <= r2)) continue;
-      SoftRepulsionAdhesion<2>::add(acc, disp, dist2, fi, s_diam[j], ti,
-                                    s_type[j], p);
+// Exclusive prefix sums over the block's threads of a and b; tot_a and
+// tot_b get the totals.
+__device__ __forceinline__ void block_scan2(int& a, int& b, int& tot_a,
+                                            int& tot_b, int* warp_sums) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  constexpr int kWarps = kForceThreads / 32;
+  int ia = a, ib = b;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int ya = __shfl_up_sync(kFull, ia, d);
+    const int yb = __shfl_up_sync(kFull, ib, d);
+    if (lane >= d) {
+      ia += ya;
+      ib += yb;
     }
   }
-  out[2 * self] = acc[0];
-  out[2 * self + 1] = acc[1];
+  if (lane == 31) {
+    warp_sums[warp] = ia;
+    warp_sums[kWarps + warp] = ib;
+  }
+  __syncthreads();
+  int ba = 0, bb = 0;
+  tot_a = 0;
+  tot_b = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) {
+      ba += warp_sums[w];
+      bb += warp_sums[kWarps + w];
+    }
+    tot_a += warp_sums[w];
+    tot_b += warp_sums[kWarps + w];
+  }
+  a = ba + ia - a;
+  b = bb + ib - b;
+}
+
+// Rows of this thread's vectors [u0, u1) of `mask`, numbered from `num`
+// in run order: those whose numbers fall in [lo, lo + room) go to
+// row[number - lo].
+__device__ __forceinline__ void place(const unsigned short* mask, int u0,
+                                      int u1, int num, int lo, int room,
+                                      int* row) {
+  for (int u = u0; u < u1 && num < lo + room; ++u) {
+    unsigned bits = mask[u];
+    while (bits) {
+      const int b = __ffs(bits) - 1;
+      bits &= bits - 1;
+      if (num >= lo && num < lo + room) row[num - lo] = 16 * u + b;
+      ++num;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kForceThreads)
+    neighbor_force_kernel(const float* __restrict__ pos_i,
+                          const float* __restrict__ diam_i,
+                          const int* __restrict__ type_i,
+                          const unsigned char* __restrict__ valid_i,
+                          const int* __restrict__ gid_i,
+                          const float* __restrict__ pos_j,
+                          const float* __restrict__ diam_j,
+                          const int* __restrict__ type_j,
+                          const unsigned char* __restrict__ valid_j,
+                          const int* __restrict__ gid_j, long long c, int k,
+                          int nk, int cells, float r2, LawParams p,
+                          float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  ForceSmem& sm = *reinterpret_cast<ForceSmem*>(smem);
+  const int tid = threadIdx.x;
+  const long long cb = static_cast<long long>(blockIdx.x) * cells;
+  const int nc = static_cast<int>(min(static_cast<long long>(cells), c - cb));
+  const int n_j = nc * nk;             // the block's runs of flags
+  const int n_i = nc * k;
+  const int units_j = (n_j + 15) / 16;
+  const int units_i = (n_i + 15) / 16;
+  const unsigned char* run_j = valid_j + cb * nk;
+  const unsigned char* run_i = valid_i + cb * k;
+
+  // 1. Flags as bit masks, each cell's valid neighbour rows counted, the
+  // output run zeroed.
+  for (int x = tid; x < nc; x += kForceThreads) sm.j_count[x] = 0;
+  __syncthreads();
+  for (int u = tid; u < units_j; u += kForceThreads) {
+    const unsigned bits = unit_flags(run_j, n_j, 16 * u);
+    sm.mask_j[u] = static_cast<unsigned short>(bits);
+    const int x0 = 16 * u / nk;
+    const int x1 = min(16 * u + 15, n_j - 1) / nk;
+    if (x0 == x1) {
+      if (bits) atomicAdd(&sm.j_count[x0], __popc(bits));
+    } else {
+      for (unsigned b = bits; b; b &= b - 1)
+        atomicAdd(&sm.j_count[(16 * u + __ffs(b) - 1) / nk], 1);
+    }
+  }
+  for (int u = tid; u < units_i; u += kForceThreads)
+    sm.mask_i[u] = static_cast<unsigned short>(unit_flags(run_i, n_i, 16 * u));
+  zero_strip(out + 2 * cb * k, 2 * n_i);
+  __syncthreads();
+
+  // 2. This thread's vectors and the numbers of their first valid rows.
+  const int per_j = (units_j + kForceThreads - 1) / kForceThreads;
+  const int per_i = (units_i + kForceThreads - 1) / kForceThreads;
+  const int uj0 = min(tid * per_j, units_j), uj1 = min(uj0 + per_j, units_j);
+  const int ui0 = min(tid * per_i, units_i), ui1 = min(ui0 + per_i, units_i);
+  int num_j = 0, num_i = 0;
+  for (int u = uj0; u < uj1; ++u) num_j += __popc(sm.mask_j[u]);
+  for (int u = ui0; u < ui1; ++u) num_i += __popc(sm.mask_i[u]);
+  if (tid < 32) {       // each cell's first number (one warp's scan)
+    int first = 0;
+    for (int x0 = 0; x0 < nc; x0 += 32) {
+      const int v = x0 + tid < nc ? sm.j_count[x0 + tid] : 0;
+      int incl = v;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, d);
+        if (tid >= d) incl += y;
+      }
+      if (x0 + tid < nc) sm.j_first[x0 + tid] = first + incl - v;
+      first += __shfl_sync(kFull, incl, 31);
+    }
+  }
+  int tot_j, tot_i;
+  block_scan2(num_j, num_i, tot_j, tot_i, sm.warp_sums);
+
+  for (int s0 = 0; s0 < tot_i; s0 += kForceRoomI) {
+    // 2-3. The self slots numbered s0 .. s0 + kForceRoomI - 1.
+    __syncthreads();
+    place(sm.mask_i, ui0, ui1, num_i, s0, kForceRoomI, sm.i_row);
+    __syncthreads();
+    const int n_self = min(kForceRoomI, tot_i - s0);
+    for (int e = tid; e < n_self; e += kForceThreads) {
+      const long long s = cb * k + sm.i_row[e];
+      const float2 xy = __ldg(reinterpret_cast<const float2*>(pos_i) + s);
+      sm.i_ent[e] = make_float4(xy.x, xy.y, __ldg(diam_i + s),
+                                __int_as_float(__ldg(type_i + s)));
+      sm.i_gid[e] = __ldg(gid_i + s);
+      sm.i_acc[e] = make_float2(0.f, 0.f);
+    }
+    // the neighbour rows of the cells these self slots belong to
+    const int x_lo = sm.i_row[0] / k;
+    const int x_hi = sm.i_row[n_self - 1] / k;
+    const int lo = sm.j_first[x_lo];
+    const int hi = sm.j_first[x_hi] + sm.j_count[x_hi];
+    for (int p0 = lo; p0 < hi; p0 += kForceRoomJ) {
+      // 2-3. The neighbour rows numbered p0 .. p0 + kForceRoomJ - 1.
+      __syncthreads();
+      place(sm.mask_j, uj0, uj1, num_j, p0, kForceRoomJ, sm.j_row);
+      __syncthreads();
+      const int n = min(kForceRoomJ, hi - p0);
+#pragma unroll 4
+      for (int e = tid; e < n; e += kForceThreads) {
+        const long long r = cb * nk + sm.j_row[e];
+        const float2 xy = __ldg(reinterpret_cast<const float2*>(pos_j) + r);
+        const float d = __ldg(diam_j + r);
+        const int ty = __ldg(type_j + r);
+        const int gd = __ldg(gid_j + r);
+        sm.j_ent[e] = make_float4(xy.x, xy.y, d, __int_as_float(ty));
+        sm.j_gid[e] = gd;
+      }
+      __syncthreads();
+      // 4. A thread a self slot, over its cell's staged rows in order.
+      for (int e = tid; e < n_self; e += kForceThreads) {
+        const int x = sm.i_row[e] / k;
+        const int a0 = max(sm.j_first[x] - p0, 0);
+        const int a1 = min(sm.j_first[x] + sm.j_count[x] - p0, n);
+        if (a0 >= a1) continue;
+        const float4 me = sm.i_ent[e];
+        const int gi = sm.i_gid[e];
+        const int ti = __float_as_int(me.w);
+        float a[2] = {sm.i_acc[e].x, sm.i_acc[e].y};
+        for (int jj = a0; jj < a1; ++jj) {
+          if (sm.j_gid[jj] == gi) continue;
+          const float4 o = sm.j_ent[jj];
+          float disp[2] = {o.x - me.x, o.y - me.y};
+          const float dist2 = disp[0] * disp[0] + disp[1] * disp[1];
+          if (!(dist2 <= r2)) continue;
+          SoftRepulsionAdhesion<2>::add(a, disp, dist2, me.z, o.z, ti,
+                                        __float_as_int(o.w), p);
+        }
+        sm.i_acc[e] = make_float2(a[0], a[1]);
+      }
+    }
+    // 4. The sums over the zeros (the block barriers above order the two).
+    __syncthreads();
+    for (int e = tid; e < n_self; e += kForceThreads)
+      reinterpret_cast<float2*>(out)[cb * k + sm.i_row[e]] = sm.i_acc[e];
+  }
 }
 
 }  // namespace
@@ -526,26 +741,30 @@ extern "C" int neighbor_force_launch(
   if (e != cudaSuccess) return e;
   if (c == 0 || k == 0) return cudaSuccess;
   if (c < 0 || k < 0 || nk < 0) return cudaErrorInvalidValue;
-  const int threads = ((k + 31) / 32) * 32;
-  if (threads > 1024) return cudaErrorInvalidValue;
-  // pos (2 floats), diam, type, gid, valid
-  const size_t smem = static_cast<size_t>(nk) * (5 * sizeof(float) + 1);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(neighbor_force_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  // up to kForceCells cells a block, fewer where their flags would not
+  // fit the masks
+  if (nk > 16 * kForceUnitsJ || k > 16 * kForceUnitsI)
+    return cudaErrorInvalidValue;
+  int cells = kForceCells;
+  if (nk > 0 && cells > 16 * kForceUnitsJ / nk) cells = 16 * kForceUnitsJ / nk;
+  if (cells > 16 * kForceUnitsI / k) cells = 16 * kForceUnitsI / k;
+  const long long blocks = (c + cells - 1) / cells;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(ForceSmem);
+  e = cudaFuncSetAttribute(neighbor_force_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
   const LawParams p{{repulsion, adhesion, same_type_only}};
-  neighbor_force_kernel<<<static_cast<unsigned>(c), threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  neighbor_force_kernel<<<static_cast<unsigned>(blocks), kForceThreads,
+                          smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos_i), static_cast<const float*>(diam_i),
       static_cast<const int*>(type_i),
       static_cast<const unsigned char*>(valid_i),
       static_cast<const int*>(gid_i), static_cast<const float*>(pos_j),
       static_cast<const float*>(diam_j), static_cast<const int*>(type_j),
       static_cast<const unsigned char*>(valid_j),
-      static_cast<const int*>(gid_j), k, nk, r2, p,
+      static_cast<const int*>(gid_j), c, k, nk, cells, r2, p,
       static_cast<float*>(out));
   return cudaGetLastError();
 }

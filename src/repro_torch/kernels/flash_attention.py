@@ -14,8 +14,10 @@ bfloat16, the output in q's type.
   go to ``flash_wgmma_kernel`` (TMA and ``wgmma`` on the tensor cores,
   ``p`` split into two bf16 terms); everything else the kernel takes
   (float32, the other head dims, ``hdv != hd``) goes to
-  ``flash_attention_kernel`` (float32 on the CUDA cores).  The choice is
-  made from the dtype and head dims alone (:func:`kernel_for`).
+  ``flash_attention_kernel`` (``mma.sync`` on the tensor cores in
+  3xTF32: each float32 operand split into two TF32 terms, so the products
+  keep float32's accuracy).  The choice is made from the dtype and head
+  dims alone (:func:`kernel_for`).
 * :func:`flash_attention_plain` is the port of the reference's oracle
   ``kernels/ref.flash_attention_ref``: float32 scores, the mask, a softmax,
   then the cast.
@@ -69,8 +71,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check_blocks(sq: int, skv: int) -> None:
     """The TPU kernel's shape contract (``flash_attention.py:88-90``): its
     128-row blocks, or the whole sequence where it is shorter, must tile
-    Sq and Skv.  The CUDA kernels tile by 64 (float32) or 128 (bf16)
-    rows, mask the ragged tile, and take the same shapes."""
+    Sq and Skv.  The CUDA kernels take 128 query rows a block and K and V
+    tiles of 64 rows (``flash_attention_kernel``) or 128 (the bf16
+    ``flash_wgmma_kernel``), mask the ragged tile, and take the same
+    shapes."""
     bq, bk = min(128, sq), min(128, skv)
     if sq % bq or skv % bk:
         raise ValueError(f"flash_attention: Sq={sq} must be a multiple of "
@@ -136,11 +140,11 @@ def _launch(q, k, v, causal: bool, scale: float,
     out = torch.empty((bh, sq, hdv), dtype=q.dtype, device=q.device)
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    for t_name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {t_name} is not 16-byte "
+                             "aligned (the TMA and cp.async loads need it)")
     if name == "flash_attention_wgmma":
-        for t_name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash_attention: {t_name} is not 16-byte "
-                                 "aligned (the TMA loads need it)")
         err = lib.flash_attention_wgmma_launch(
             q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), bh, sq, skv, hd, float(scale), int(causal),

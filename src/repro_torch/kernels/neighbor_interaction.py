@@ -394,6 +394,9 @@ def _launch_force(pos_i, diam_i, type_i, valid_i, gid_i,
         _check(f"type_{side}", ctype, torch.int32, (c, n), dev)
         _check(f"valid_{side}", valid, torch.bool, (c, n), dev)
         _check(f"gid_{side}", gid, torch.int32, (c, n), dev)
+        if pos.data_ptr() % 8:
+            raise ValueError(f"neighbor_force: pos_{side} is not 8-byte "
+                             "aligned (the kernel reads (x, y) as float2)")
     out = torch.empty((c, k, 2), dtype=torch.float32, device=dev)
     lib = _force_library()
     err = lib.neighbor_force_launch(

@@ -335,6 +335,56 @@ def test_neighbor_force_kernel_matches_plain_on_cuda(cuda, c, k,
     assert float(want.abs().max()) > 0
 
 
+def _force_masked(device, c, k, nk, mode, seed=0):
+    """Slabs of ``_force_slabs`` with the valid masks of ``mode``: "all"
+    (every row, the worst case), "none", "one" (a single valid neighbour
+    row a cell, at a random place), "random" (a random, not front-packed
+    mask), "crowded" (9 in 10 rows valid: a block's cells far past the
+    kernel's staging room of 2048 neighbour rows and 256 self slots)."""
+    args = [t.cpu() for t in _force_slabs("cpu", c, k, nk, seed)]
+    g = torch.Generator().manual_seed(seed + 1)
+    vi, vj = args[3], args[8]
+    if mode == "all":
+        vi, vj = torch.ones_like(vi), torch.ones_like(vj)
+    elif mode == "none":
+        vi, vj = torch.zeros_like(vi), torch.zeros_like(vj)
+    elif mode == "one":
+        vj = torch.zeros_like(vj)
+        vj[torch.arange(c), torch.randint(0, nk, (c,), generator=g)] = True
+    elif mode == "random":
+        vi = torch.rand(vi.shape, generator=g) < 0.3
+        vj = torch.rand(vj.shape, generator=g) < 0.3
+    elif mode == "crowded":
+        vi = torch.rand(vi.shape, generator=g) < 0.9
+        vj = torch.rand(vj.shape, generator=g) < 0.9
+    args[3], args[8] = vi.contiguous(), vj.contiguous()
+    return [t.to(device) for t in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("same_type_only", [True, False])
+@pytest.mark.parametrize("mode", ["all", "none", "one", "random",
+                                  "crowded"])
+def test_neighbor_force_kernel_masks_on_cuda(cuda, mode, same_type_only):
+    """Any valid mask at phase 11's K 48, NK 432, on 53 cells (a block of
+    48 and one of 5): the kernel stages only valid rows, in windows past
+    its room, and still equals the plain version."""
+    args = _force_masked(cuda, 53, 48, 432, mode)
+    # neighbours within reach: positions in a 4 x 4 box, radius 2
+    args[0], args[5] = args[0] * 0.4, args[5] * 0.4
+    kw = dict(radius=2.0, repulsion=2.0, adhesion=0.4,
+              same_type_only=same_type_only)
+    before = ni.LAUNCHES["neighbor_force"]
+    got = ops.neighbor_force(*args, **kw)
+    torch.cuda.synchronize()
+    assert ni.LAUNCHES["neighbor_force"] == before + 1
+    want = ni.neighbor_force_plain(*args, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got[~args[3]], torch.zeros_like(got[~args[3]]))
+    if mode in ("all", "random", "crowded"):
+        assert float(want.abs().max()) > 0
+
+
 @pytest.mark.cuda
 def test_neighbor_force_kernel_refuses_what_it_does_not_take(cuda):
     args = _force_slabs(cuda, 4, 8, 72)
@@ -347,6 +397,29 @@ def test_neighbor_force_kernel_refuses_what_it_does_not_take(cuda):
     bad[5] = bad[5].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         ni.neighbor_force(*bad, **kw)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes into its storage."""
+    flat = torch.empty(t.numel() * t.element_size() + 4, dtype=torch.uint8,
+                       device=t.device)
+    view = flat[4:].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 8 == 4
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 5], ids=["pos_i", "pos_j"])
+def test_neighbor_force_kernel_refuses_misaligned_positions(cuda, which):
+    """The kernel reads (x, y) as one 8-byte float2: a contiguous view 4
+    bytes into its storage is refused before the launch, not faulted on."""
+    args = list(_force_slabs(cuda, 4, 8, 72))
+    args[which] = _misaligned(args[which])
+    before = ni.LAUNCHES["neighbor_force"]
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        ni.neighbor_force(*args, radius=2.0, repulsion=2.0, adhesion=0.4)
+    assert ni.LAUNCHES["neighbor_force"] == before
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +459,80 @@ def test_flash_kernel_matches_plain_on_cuda(cuda, bh, sq, skv, hd, hdv,
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hdv", fa.HEAD_DIMS)
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_flash_f32_every_head_dim_on_cuda(cuda, hd, hdv, causal):
+    """The float32 tensor-core kernel at every (hd, hdv) it is built for,
+    with Sq != Skv (128 query rows against 256 keys)."""
+    q, k, v = _qkv(cuda, 2, 128, 256, hd, hdv, torch.float32, seed=hd + hdv)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def attention_f64(q, k, v, causal):
+    """The function in float64: the reference both float32 versions are
+    held to where their own rounding is larger than the gate (also used
+    by tests/test_torch_flash_tf32.py)."""
+    q, k, v = q.double(), k.double(), v.double()
+    sq, skv = q.shape[1], k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q, k) * q.shape[2] ** -0.5
+    if causal:
+        above = (torch.arange(sq, device=q.device)[:, None]
+                 < torch.arange(skv, device=q.device)[None, :])
+        s = s.masked_fill(above[None], -1e30)
+    return torch.einsum("bqk,bkd->bqd", torch.softmax(s, dim=-1), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_as_close_to_float64_as_plain_on_cuda(cuda, causal):
+    """mma.sync truncates its sums: chained through all of S and O, they
+    put the kernel ~4x further from float64 than the plain version at
+    olmo-1b's scoring shape; summed in short runs from zero, no further.
+    16 of its 64 heads here."""
+    q, k, v = _qkv(cuda, 16, 2048, 2048, 128, 128, torch.float32, seed=3)
+    want = attention_f64(q, k, v, causal)
+    err = float((fa.flash_attention(q, k, v, causal=causal).double()
+                 - want).abs().max())
+    plain_err = float((fa.flash_attention_plain(q, k, v, causal=causal)
+                       .double() - want).abs().max())
+    assert err <= 1.5 * plain_err, (err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_refuse_misaligned_views(cuda, dtype):
+    """Both attention kernels load 16-byte chunks (cp.async, TMA): a
+    contiguous view that does not start on 16 bytes is refused."""
+    q, k, v = _qkv(cuda, 2, 128, 128, 64, 64, dtype)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(q, _misaligned(k), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_scaled_inputs_on_cuda(cuda, causal):
+    """Inputs x8 stress the TF32 split: scores x64, a peaked softmax.
+    float32 itself is then ~5e-4 from the float64 function (the CPU
+    emulation in tests/test_torch_flash_tf32.py shows it), so the kernel
+    is held to float64 within 2x of the plain version's own error."""
+    q, k, v = (t * 8 for t in _qkv(cuda, 4, 256, 256, 128, 128,
+                                   torch.float32, seed=8))
+    want = attention_f64(q, k, v, causal)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    plain = fa.flash_attention_plain(q, k, v, causal=causal)
+    err = float((got.double() - want).abs().max())
+    plain_err = float((plain.double() - want).abs().max())
+    assert err <= 2 * plain_err, (err, plain_err)
 
 
 def _assert_within_bf16_ulp(got, want):
