@@ -47,11 +47,13 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    3xTF32 tensor-core kernel (2e-5) and bf16 on the wgmma kernel (2e-2,
    and one bf16 ulp + 1e-5 element by element), float32 at (2 x 8, 512,
    64) and bf16 GQA through ``ops.flash_attention_bhsd`` with 2 KV heads;
+   head dim 80 (hubert-xlarge's, zero-padded to 128 by the wrapper),
+   causal and full, float32 and bf16, at the same tolerances;
    kernel, plain, ``scaled_dot_product_attention`` and bound times of each
-   kernel at the main shape, causal (float32: both bounds, three TF32
-   products and float32 FMA, the device kernels SDPA runs in float32, and
-   the kernel's and the plain version's distance from a float64
-   attention); the bf16 kernel on bf16(p) alone instead of p_hi + p_lo
+   kernel at the main shape (and at head dim 80), causal (float32: both
+   bounds, three TF32 products and float32 FMA, the device kernels SDPA
+   runs in float32, and the kernel's and the plain version's distance
+   from a float64 attention); the bf16 kernel on bf16(p) alone instead of p_hi + p_lo
    (error and time, reported);
 10. the LM main path: olmo-1b at full width and depth (16 layers, d_model
    2048, bf16, random weights from ``params.init`` and ``--seed``).
@@ -78,7 +80,22 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    driven once with the counts zeroed, then against its plain version in
    chunks of cells (1e-5), and on the reference test's (C, K) cases; kernel
    and plain times, and two bounds: the bytes a valid-first read needs
-   (``bound_ms``) and those of reading every slab row.
+   (``bound_ms``) and those of reading every slab row;
+12. the other bundled sims through ``Simulation`` on the card, each driven
+   with the counts zeroed just before and read just after, then its pair
+   law's kernel against the plain version on a mid-run SoA (forces to
+   1e-5, counts exactly), timed with its bound: (a) ``epidemiology`` at
+   (2048, 2048) cells, 16,777,216 agents (838,861 infected), cap 24,
+   toroidal, 10 steps: S+I+R = N at every step, nothing dropped, law 2
+   once a step; per-step ms, agent-updates/s, peak memory, a profiled
+   step and the RNG's share of it (its draws timed alone); (b)
+   ``sir_mechanics`` on the same grid and agents at cap 32 (48 if 32
+   drops, with the drops at 32 printed): the stack's one launch a step,
+   S+I+R = N, nothing dropped; (c) ``cell_proliferation`` (20 steps) and
+   ``oncology`` (10) on the full grid at cap 32, seeded as the reference
+   does as a disk of radius L/8 at the centre, at 8 and 4 agents a cell:
+   at every step live agents = initial + spawned - dropped, gids unique
+   at the end, one launch a step (law 0, law 3).
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -116,8 +133,14 @@ from repro_torch.kernels import neighbor_interaction as ni  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.core import operations, prng  # noqa: E402
 from repro_torch.sims import cell_clustering as cc  # noqa: E402
-from repro_torch.sims.common import make_sim  # noqa: E402
+from repro_torch.sims import cell_proliferation as cp  # noqa: E402
+from repro_torch.sims import epidemiology as ep  # noqa: E402
+from repro_torch.sims import oncology as onc  # noqa: E402
+from repro_torch.sims import sir_mechanics as sm  # noqa: E402
+from repro_torch.sims.common import (  # noqa: E402
+    disk_positions, init_agents, make_sim, uniform_positions)
 from repro_torch.training import steps as lm_steps  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
@@ -130,16 +153,29 @@ PROFILE_TRIES = 3        # empty profiler traces before device_ms uses events
 # Float operations the kernel does per pair (see csrc/pair_sweep.cu): the
 # distance test on every pair of occupied, distinct slots (2 subtractions,
 # 2 multiplies, 2 adds, 1 compare), then the law on pairs within radius.
+# The law's own operations on a pair within the radius: the soft-sphere
+# force ~20; a count a compare and an add; oncology the force and a count;
+# the mechanics + SIR stack the force, the SIR count and two gate tests.
 OPS_DISTANCE_TEST = 7
-OPS_LAW = {"soft_repulsion_adhesion": 20, "same_type": 3}
+STACK = "stack(soft_repulsion_adhesion,epidemiology)"
+PROLIF_LAW = "soft_repulsion_adhesion@cell_proliferation"
+OPS_LAW = {"soft_repulsion_adhesion": 20, "same_type": 3, "epidemiology": 2,
+           "oncology": 21, STACK: 24, PROLIF_LAW: 20}
 
 LAW_ARGS = {   # law -> (pair_fn, pair_attrs, params)
     "soft_repulsion_adhesion": (
         cc.behavior().pair_fn, cc.behavior().pair_attrs,
         dict(cc.behavior().params)),
     "same_type": (cc._same_type_pair, ("ctype",), {}),
+    "epidemiology": (ep._pair, ("state",), {}),
+    "oncology": (onc._pair, onc.behavior().pair_attrs,
+                 dict(onc.behavior().params)),
+    STACK: (sm.behavior().pair_fn, sm.behavior().pair_attrs,
+            sm.behavior().params),
+    PROLIF_LAW: (cp.behavior().pair_fn, cp.behavior().pair_attrs,
+                 dict(cp.behavior().params)),
 }
-COUNT_OUTPUTS = ("same", "cnt")
+COUNT_OUTPUTS = ("same", "cnt", "n_inf", "crowd", "b1.n_inf")
 
 SMALL_INTERIOR = (128, 128)   # phase 3 grid, ~6 agents a cell
 MAIN_INTERIOR = (2048, 2048)  # phase 4 grid, 4 agents a cell
@@ -252,7 +288,7 @@ def bound(soa, geom, law, in_radius_pairs: int):
     and the float operations on the occupied pairs."""
     pl = ni.law_for(LAW_ARGS[law][0])
     cols = 4 * geom.ndim + 4 + 4      # pos, gid_rank, gid_count
-    cols += 4 * ((pl.float_col is not None) + (pl.int_col is not None))
+    cols += 4 * (len(pl.float_cols) + len(pl.int_cols))
     out_floats = sum(geom.ndim if per_axis else 1
                      for _, per_axis in pl.outputs)
     nbytes = (soa.valid.numel() + int(soa.valid.sum()) * cols
@@ -295,29 +331,66 @@ def check_kernel(soa, geom, law, rows_per_chunk, reps, label):
         lambda: want.update(plain_call(soa, geom, law, rows_per_chunk)), 1,
         warmup=False)
     err = compare(got, want, f"{label} {law}")
-    in_radius = (int(want["cnt"].sum(dtype=torch.float64))
-                 if "cnt" in want else None)
+    in_radius = next((int(want[c].sum(dtype=torch.float64))
+                      for c in ("cnt", "crowd") if c in want), None)
     ms = cuda_ms(lambda: kernel_call(soa, geom, law), reps)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), in_radius
 
 
+def count_pair(ai, aj, disp, dist2, params):
+    """Counts the pairs within the radius (for the bound's operations)."""
+    return {"n": torch.ones_like(dist2)}
+
+
+def in_radius_pairs(soa, geom, rows_per_chunk: int) -> int:
+    n0 = geom.interior[0]
+    total = 0
+    for r0 in range(0, n0, rows_per_chunk):
+        ai, aj, vi, vj = ni.neighborhood_slabs(
+            soa.attrs, soa.valid, (), rows=(r0, min(n0, r0 + rows_per_chunk)))
+        total += int(ni.pair_sweep_plain(
+            ai, aj, vi, vj, pair_fn=count_pair, radius=2.0, params={},
+            box=minimum_image_box(geom))["n"].sum(dtype=torch.float64))
+    return total
+
+
+def aura_block(sim):
+    """Device (0, 0)'s block of a one-device sim with its aura filled, as
+    the step's sweep sees it."""
+    refs = {d: {f: v[0, 0] for f, v in s.items()}
+            for d, s in sim.state.refs.items()}
+    soa, _, _, _ = halo_exchange(
+        sim.geom, clear_ring(device_block(sim.state.soa, (0, 0))),
+        LocalComm(toroidal=sim.geom.toroidal), refs, sim.engine.delta_cfg,
+        True)
+    return soa
+
+
+def law_row(soa, geom, law, rows_per_chunk, reps, label, in_radius=None):
+    """``law``'s kernel against its plain version on ``soa``, both timed,
+    with its bound; the pairs within the radius come from the law's own
+    count output, else ``in_radius``, else a counting pass."""
+    res, counted = check_kernel(soa, geom, law, rows_per_chunk, reps, label)
+    if counted is not None:
+        in_radius = counted
+    elif in_radius is None:
+        in_radius = in_radius_pairs(soa, geom, rows_per_chunk)
+    b_ms, b_by, nbytes, ops = bound(soa, geom, law, in_radius)
+    print(f"[{label}] {law}: max_abs_err={res['max_abs_err']:.3g} "
+          f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, {ops} ops)",
+          flush=True)
+    return dict(res, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
+                in_radius_pairs=in_radius)
+
+
 def law_rows(soa, geom, rows_per_chunk, reps, label):
-    """Both laws checked and timed on ``soa`` with their bounds."""
-    res_same, in_radius = check_kernel(soa, geom, "same_type",
-                                       rows_per_chunk, reps, label)
-    res_soft, _ = check_kernel(soa, geom, "soft_repulsion_adhesion",
-                               rows_per_chunk, reps, label)
-    rows = {}
-    for law, res in (("soft_repulsion_adhesion", res_soft),
-                     ("same_type", res_same)):
-        b_ms, b_by, nbytes, ops = bound(soa, geom, law, in_radius)
-        rows[law] = dict(res, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                         ops=ops)
-        print(f"[{label}] {law}: max_abs_err={res['max_abs_err']:.3g} "
-              f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, {ops} ops)",
-              flush=True)
-    return rows
+    """Both clustering laws checked and timed on ``soa`` with their
+    bounds (the same-type law counts the pairs in range for both)."""
+    same = law_row(soa, geom, "same_type", rows_per_chunk, reps, label)
+    soft = law_row(soa, geom, "soft_repulsion_adhesion", rows_per_chunk,
+                   reps, label, in_radius=same["in_radius_pairs"])
+    return {"soft_repulsion_adhesion": soft, "same_type": same}
 
 
 def phase_small(seed: int):
@@ -328,14 +401,9 @@ def phase_small(seed: int):
                        boundary=boundary, device="cuda")
         cc.init(sim, 6 * math.prod(SMALL_INTERIOR), seed=seed)
         sim.run(1)        # a mid-run SoA, then its aura as the step sees it
-        refs = {d: {f: v[0, 0] for f, v in s.items()}
-                for d, s in sim.state.refs.items()}
-        soa, _, _, _ = halo_exchange(
-            sim.geom, clear_ring(device_block(sim.state.soa, (0, 0))),
-            LocalComm(toroidal=sim.geom.toroidal), refs,
-            sim.engine.delta_cfg, True)
-        rows[boundary] = law_rows(soa, sim.geom, rows_per_chunk=32,
-                                  reps=20, label=f"small {boundary}")
+        rows[boundary] = law_rows(aura_block(sim), sim.geom,
+                                  rows_per_chunk=32, reps=20,
+                                  label=f"small {boundary}")
     return rows
 
 
@@ -396,8 +464,8 @@ def phase_main(seed: int):
         fail(f"{dropped} agents dropped")
     if not finite:
         fail("non-finite positions")
-    expected = {"soft_repulsion_adhesion": steps, "same_type": 2,
-                "neighbor_force": 0}
+    expected = dict({n: 0 for n in launches},
+                    soft_repulsion_adhesion=steps, same_type=2)
     if launches != expected:
         fail(f"kernel launches {launches} != {expected}")
     if not 0.0 < f0 < 1.0 or not 0.0 < f1 < 1.0:
@@ -510,11 +578,11 @@ def expected_mesh_launches(sim, steps: int, calls_metric: int):
     halo = delta_steps * 2 * nd * n_float if cfg.enabled else 0
     mig = steps * 2 * nd if cfg.enabled and cfg.migration is not None \
         else 0
-    return {"soft_repulsion_adhesion": steps * n_dev,
-            "same_type": calls_metric * n_dev, "neighbor_force": 0,
-            "flash_attention": 0, "flash_attention_wgmma": 0,
-            "delta_encode": halo, "delta_decode": halo,
-            "migration_pos_encode": mig, "migration_pos_decode": mig}
+    return dict({n: 0 for n in all_launches()},
+                soft_repulsion_adhesion=steps * n_dev,
+                same_type=calls_metric * n_dev,
+                delta_encode=halo, delta_decode=halo,
+                migration_pos_encode=mig, migration_pos_decode=mig)
 
 
 def all_launches():
@@ -1082,8 +1150,44 @@ def phase_flash(seed: int):
         vg.repeat_interleave(8, dim=1).reshape(b * h, s, hd))
     errs["gqa_hkv2"] = _attn_err(got, want.reshape(b, h, s, hd), "flash gqa")
     del got, want
+
+    # Head dim 80 (hubert-xlarge's), which the wrapper zero-pads to 128:
+    # the bf16 case on the wgmma kernel, float32 on the 3xTF32 one.
+    for dtype in (torch.float32, torch.bfloat16):
+        name = fa.kernel_for(dtype, 128, 128)
+        sfx = "_f32" if dtype == torch.float32 else ""
+        q4, k4, v4 = (_randn(gen, (b, h, s, 80), dtype) for _ in range(3))
+        q, k, v = (t.reshape(b * h, s, 80) for t in (q4, k4, v4))
+        for causal in (True, False):
+            before = dict(fa.LAUNCHES)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if (fa.LAUNCHES[name] != before[name] + 1
+                    or sum(fa.LAUNCHES.values()) != sum(before.values()) + 1):
+                fail(f"flash hd 80: not one launch of {name}")
+            label = f"hd80_{'causal' if causal else 'full'}{sfx}"
+            errs[label] = _attn_err(
+                got, fa.flash_attention_plain(q, k, v, causal=causal),
+                f"flash {label}")
+            del got
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 10)
+        b_ms, b_by, nbytes, nops = attention_bound(b * h, s, s, 80, 80,
+                                                   True, dtype)
+        rows[name]["hd80"] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+            bound_by=b_by, useful_share=80 / 128)
+        print(f"[flash] {name} at head dim 80, padded to 128, "
+              f"({b}x{h}, {s}, 80) causal: kernel_ms={ms:.4f} (at 128: "
+              f"{rows[name]['ms']:.4f}) plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; of "
+              f"the true 80 columns); 80/128 of the work is useful",
+              flush=True)
     print(f"[flash] max_abs_err {errs}", flush=True)
-    f32 = ("main_causal_f32", "main_full_f32", "f32_16x512x64")
+    f32 = ("main_causal_f32", "main_full_f32", "f32_16x512x64",
+           "hd80_causal_f32", "hd80_full_f32")
     rows["flash_attention"]["max_abs_err"] = max(errs[n] for n in f32)
     rows["flash_attention_wgmma"]["max_abs_err"] = max(
         v for n, v in errs.items() if n not in f32)
@@ -1494,6 +1598,253 @@ def phase_force(seed: int):
                 small_errs=small)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the other bundled sims, the RNG and the spawn path
+# ---------------------------------------------------------------------------
+
+SIM_AGENTS = 4 * math.prod(MAIN_INTERIOR)    # epidemiology, sir_mechanics
+SIM_INFECTED = round(0.05 * SIM_AGENTS)      # the reference's 30 of 600
+SIM_STEPS = 10
+EPI_CAP = 24                                 # epidemiology's own cap
+SIRM_CAP = 32                                # sir_mechanics' own cap
+SIRM_CAP_RAISED = 48                         # if 32 drops agents
+# The spawn sims on the reference's init geometry, a disk of radius L/8
+# at the centre, cap 32.  The reference's densities (~16 and ~26 agents
+# a cell) overflow cap 32 at init, so the seeds are cut to 8 agents a
+# cell (2 a unit^2) for proliferation and 4 (1 a unit^2) for oncology.
+SPAWN_CAP = 32
+PROLIF_DENSITY, ONC_DENSITY = 2.0, 1.0       # agents a unit^2 in the disk
+PROLIF_STEPS, ONC_STEPS = 20, 10             # proliferation: the default
+
+
+def drive(sim, steps, label, collect):
+    """``steps`` steps with the launch counts zeroed just before and read
+    just after; per-step device ms by CUDA events around each of steps
+    2.. alone; peak memory; ``collect(sim)`` (a device tensor, read after
+    the last step) after every step, outside the timed windows."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    series = []
+    sim.run(1)
+    series.append(collect(sim))
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(steps - 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sim.run(1)
+        end.record()
+        windows.append((start, end))
+        series.append(collect(sim))
+    torch.cuda.synchronize()
+    series = [tuple(int(v) for v in t.tolist()) for t in series]
+    launches = {k: v for k, v in all_launches().items() if v}
+    step_ms = sum(a.elapsed_time(b) for a, b in windows) / (steps - 1)
+    peak = torch.cuda.max_memory_allocated()
+    n = total_agents(sim.state)
+    print(f"[{label}] steps 2-{steps}: {step_ms:.3f} ms/step (CUDA events),"
+          f" "
+          f"{n / (step_ms / 1e3):.4g} agent-updates/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    return series, launches, dict(step_ms=step_ms, peak_bytes=peak,
+                                  agents=n)
+
+
+def sir_counts_of(sim):
+    st, v = sim.state.soa.attrs["state"], sim.state.soa.valid
+    return torch.stack([((st == c) & v).sum() for c in (ep.S, ep.I, ep.R)])
+
+
+def check_launches(launches, law, steps, label):
+    want = {ni.law_for(LAW_ARGS[law][0]).name: steps}
+    if launches != want:
+        fail(f"{label}: kernel launches {launches} != {want}")
+
+
+def rng_row(sim):
+    """The epidemiology update's draws at the step's shapes, timed alone:
+    the normal walk (threefry bits, then the uniform transform and XLA's
+    erfinv) and the two uniforms; ms a step and ns a draw."""
+    key = prng.fold_in(sim.state.key[0, 0], 0)
+    shape_u = sim.geom.interior + (sim.geom.cap,)
+    shape_n = shape_u + (2,)
+    n_u, n_n = math.prod(shape_u), math.prod(shape_n)
+    bits_ms = (cuda_ms(lambda: prng.random_bits(key, shape_n), 3)
+               + 2 * cuda_ms(lambda: prng.random_bits(key, shape_u), 3))
+    normal_ms = cuda_ms(lambda: prng.normal(key, shape_n), 3)
+    uniform_ms = cuda_ms(lambda: prng.uniform(key, shape_u), 3)
+    total = normal_ms + 2 * uniform_ms
+    return dict(threefry_ms=bits_ms, normal_ms=normal_ms,
+                uniform_ms=uniform_ms, total_ms=total,
+                ns_per_normal=1e6 * normal_ms / n_n,
+                ns_per_uniform=1e6 * uniform_ms / n_u,
+                draws=n_n + 2 * n_u)
+
+
+def phase_epidemiology(seed: int):
+    """Phase 12 (a): epidemiology at the main path's width, 10 steps."""
+    t0 = time.perf_counter()
+    sim = make_sim(ep.behavior(), interior=MAIN_INTERIOR, cap=EPI_CAP,
+                   boundary="toroidal", dt=1.0, sweep_backend="auto",
+                   device="cuda")
+    ep.init(sim, SIM_AGENTS, SIM_INFECTED, seed=seed)
+    torch.cuda.synchronize()
+    s0 = ep.sir_counts(sim.state)
+    print(f"[epidemiology] init {SIM_AGENTS} agents ({s0[1]} infected) on "
+          f"{sim.geom.local_shape} x {EPI_CAP} slots: "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    series, launches, stats = drive(sim, SIM_STEPS, "epidemiology",
+                                    sir_counts_of)
+    print(f"[epidemiology] S/I/R by step {[s0] + series}", flush=True)
+    for t, c in enumerate(series):
+        if sum(c) != SIM_AGENTS:
+            fail(f"epidemiology: S+I+R = {sum(c)} != {SIM_AGENTS} at step "
+                 f"{t + 1}")
+    if int(sim.state.dropped.sum()) != 0:
+        fail(f"epidemiology: {int(sim.state.dropped.sum())} agents dropped")
+    if not series[-1][2] > 0 or not series[-1][0] < s0[0]:
+        fail(f"epidemiology: no infection or recovery ({series[-1]})")
+    check_launches(launches, "epidemiology", SIM_STEPS, "epidemiology")
+    if not torch.isfinite(sim.state.soa.pos).all():
+        fail("epidemiology: non-finite positions")
+    sim.run(1)                                      # a mid-run SoA (step 11)
+    row = law_row(aura_block(sim), sim.geom, "epidemiology", 8, 5,
+                  "epidemiology")
+    rng = rng_row(sim)
+    times = profile(lambda: sim.run(1), "epidemiology profile", "one step")
+    step_dev = sum(times.values()) / 1e3 if times else stats["step_ms"]
+    print(f"[epidemiology] RNG of a step, timed alone at its shapes: "
+          f"{rng['total_ms']:.3f} ms = {100 * rng['total_ms'] / step_dev:.1f}"
+          f"% of a step's {step_dev:.3f} ms of device time (threefry "
+          f"{rng['threefry_ms']:.3f} ms; normal {rng['normal_ms']:.3f} ms, "
+          f"{rng['ns_per_normal']:.4f} ns a draw, incl. erfinv; uniform "
+          f"{rng['uniform_ms']:.3f} ms, {rng['ns_per_uniform']:.4f} ns a "
+          f"draw; {rng['draws']} draws)", flush=True)
+    return row, dict(stats, launches=launches[ni.law_for(ep._pair).name],
+                     rng=rng, sir_final=list(series[-1]))
+
+
+def phase_sir_mechanics(seed: int):
+    """Phase 12 (b): sir_mechanics (the compose stack) at full width."""
+    drops32 = None
+    for cap in (SIRM_CAP, SIRM_CAP_RAISED):
+        t0 = time.perf_counter()
+        sim = make_sim(sm.behavior(), interior=MAIN_INTERIOR, cap=cap,
+                       boundary="toroidal", dt=1.0, sweep_backend="auto",
+                       device="cuda")
+        sm.init(sim, SIM_AGENTS, SIM_INFECTED, seed=seed)
+        torch.cuda.synchronize()
+        print(f"[sir_mechanics] init {SIM_AGENTS} agents on "
+              f"{sim.geom.local_shape} x {cap} slots: "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+        series, launches, stats = drive(sim, SIM_STEPS, "sir_mechanics",
+                                        sir_counts_of)
+        dropped = int(sim.state.dropped.sum())
+        print(f"[sir_mechanics] cap {cap}: dropped {dropped}; S/I/R by "
+              f"step {series}", flush=True)
+        if cap == SIRM_CAP:
+            drops32 = dropped
+        if dropped == 0:
+            break
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    if dropped != 0:
+        fail(f"sir_mechanics: {dropped} agents dropped at cap {cap}")
+    n_live = total_agents(sim.state)
+    for t, c in enumerate(series):
+        if sum(c) != SIM_AGENTS:
+            fail(f"sir_mechanics: S+I+R = {sum(c)} != {SIM_AGENTS} at step "
+                 f"{t + 1}")
+    if n_live != SIM_AGENTS:
+        fail(f"sir_mechanics: agents {n_live} != {SIM_AGENTS}")
+    check_launches(launches, STACK, SIM_STEPS, "sir_mechanics")
+    sim.run(1)
+    row = law_row(aura_block(sim), sim.geom, STACK, 8, 5, "sir_mechanics")
+    return row, dict(stats, cap=cap, dropped_at_cap32=drops32,
+                     launches=launches[STACK], sir_final=list(series[-1]))
+
+
+def spawn_collect(sim):
+    st = sim.state
+    return torch.stack([st.soa.valid.sum(), st.gid_counter.sum(),
+                        st.dropped.sum()])
+
+
+def phase_spawn(seed: int, name: str):
+    """Phase 12 (c): a spawn sim on the full grid, seeded as a disk."""
+    # The sim's own init attributes (diameter, ctype), on a disk of
+    # cell_proliferation's radius min(L) / 8 for both sims.
+    mod, density, steps, law, diameter, ctype = {
+        "cell_proliferation": (cp, PROLIF_DENSITY, PROLIF_STEPS, PROLIF_LAW,
+                               0.6, 0),
+        "oncology": (onc, ONC_DENSITY, ONC_STEPS, "oncology", 0.9, 1)}[name]
+    t0 = time.perf_counter()
+    sim = make_sim(mod.behavior(), interior=MAIN_INTERIOR, cap=SPAWN_CAP,
+                   sweep_backend="auto", device="cuda")
+    lx, ly = sim.geom.domain_size
+    radius = min(lx, ly) / 8
+    n0 = int(density * math.pi * radius ** 2)
+    pos = disk_positions(np.random.default_rng(seed), n0, (lx / 2, ly / 2),
+                         radius)
+    init_agents(sim, pos, {"diameter": np.full((n0,), diameter, np.float32),
+                           "ctype": np.full((n0,), ctype, np.int32)},
+                seed=seed)
+    del pos
+    torch.cuda.synchronize()
+    print(f"[{name}] init {n0} agents in a disk of radius {radius:g} on "
+          f"{sim.geom.local_shape} x {SPAWN_CAP} slots: "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    c0 = tuple(int(v) for v in spawn_collect(sim).tolist())
+    series, launches, stats = drive(sim, steps, name, spawn_collect)
+    spawned = series[-1][1] - c0[1]
+    dropped = series[-1][2]
+    print(f"[{name}] agents / gid counters / dropped by step "
+          f"{[c0] + series}; {spawned} spawned, {dropped} dropped",
+          flush=True)
+    for t, (n, g, d) in enumerate(series):
+        if n != n0 + (g - c0[1]) - d:
+            fail(f"{name}: step {t + 1}: {n} live != {n0} + "
+                 f"{g - c0[1]} spawned - {d} dropped")
+    if spawned <= 0:
+        fail(f"{name}: nothing spawned in {steps} steps")
+    v = sim.state.soa.valid
+    gid = ((sim.state.soa.attrs["gid_rank"][v].to(torch.int64) << 32)
+           | sim.state.soa.attrs["gid_count"][v].to(torch.int64))
+    if int(torch.unique(gid).numel()) != int(v.sum()):
+        fail(f"{name}: gids are not unique")
+    if not torch.isfinite(sim.state.soa.pos[v]).all():
+        fail(f"{name}: non-finite positions")
+    check_launches(launches, law, steps, name)
+    sim.run(1)
+    row = law_row(aura_block(sim), sim.geom, law, 8, 5, name)
+    return row, dict(stats, agents_initial=n0, spawned=spawned,
+                     dropped=dropped, launches=launches[
+                         ni.law_for(LAW_ARGS[law][0]).name])
+
+
+def phase_sims(seed: int):
+    """Phase 12: epidemiology, sir_mechanics, cell_proliferation and
+    oncology on the card."""
+    rows, stats = {}, {}
+    for name, fn in (("epidemiology", phase_epidemiology),
+                     ("sir_mechanics", phase_sir_mechanics),
+                     ("cell_proliferation",
+                      lambda s: phase_spawn(s, "cell_proliferation")),
+                     ("oncology", lambda s: phase_spawn(s, "oncology"))):
+        law = {"epidemiology": "epidemiology", "sir_mechanics": STACK,
+               "cell_proliferation": PROLIF_LAW,
+               "oncology": "oncology"}[name]
+        row, st = fn(seed)
+        rows[law] = dict(row, launches=st["launches"])
+        stats[name] = st
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1548,6 +1899,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     force = phase_force(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sim_rows, sim_stats = phase_sims(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     kernels = [{
@@ -1565,8 +1919,10 @@ def main(argv=None) -> int:
         "ms": soft["ms"], "plain_ms": soft["plain_ms"],
         "bound_ms": soft["bound_ms"], "bound_by": soft["bound_by"],
         "library_ms": None,
-        "laws": {law: dict(r, launches=launches[law])
-                 for law, r in rows.items()},
+        # every law it ran: the main path's two, then phase 12's
+        "laws": {**{law: dict(r, launches=launches[law])
+                    for law, r in rows.items()}, **sim_rows},
+        "sims": sim_stats,
         "small_128x128": small,
         "step_ms": main_stats["step_ms"],
         "peak_device_bytes": main_stats["peak_bytes"],

@@ -11,8 +11,11 @@ Entry points run on the CUDA device unless the caller passes
 (:func:`repro_torch.device.resolve_device`).
 
 Ported so far: cell clustering (``sims.cell_clustering``) end to end on
-one device and on a virtual device mesh (the whole mesh on one card), the
-neighbour sweep on the ``pair_sweep`` kernel and the delta-encoded aura
+one device and on a virtual device mesh (the whole mesh on one card);
+``epidemiology``, ``sir_mechanics`` (a ``core.behaviors.compose`` stack),
+``cell_proliferation`` and ``oncology`` with the reference's threefry
+draws (``core.prng``) and the spawn path; every sim's neighbour sweep on
+the ``pair_sweep`` kernel and the delta-encoded aura
 exchange and migration codec on the four ``delta_codec`` kernels; the
 legacy ``kernels.ops.neighbor_force`` on its own kernel; and the dense GQA
 language models (``configs``: olmo-1b, internlm2-20b) for scoring

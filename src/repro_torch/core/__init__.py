@@ -4,7 +4,8 @@ Public API of this slice:
   Simulation               - facade: owns engine, state, scheduled ops
   AgentSchema / AgentSoA   - SoA agent container
   Domain / Partition       - N-D spatial spec
-  Behavior                 - model definition (pair kernel + update)
+  Behavior / compose       - model definition (pair kernel + update) and
+                             the composition of several
   Engine / SimState        - simulation engine on a virtual device mesh
   DeltaConfig              - aura-exchange delta / migration codec config
 """
@@ -12,7 +13,7 @@ Public API of this slice:
 from repro_torch.core.agent_soa import (
     AgentSchema, AgentSoA, GID_COUNT, GID_RANK, POS,
 )
-from repro_torch.core.behaviors import Behavior
+from repro_torch.core.behaviors import Behavior, compose
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain, Partition
 from repro_torch.core.engine import Engine, SimState, total_agents
@@ -20,6 +21,7 @@ from repro_torch.core.simulation import Simulation
 
 __all__ = [
     "AgentSchema", "AgentSoA", "GID_COUNT", "GID_RANK", "POS", "Behavior",
+    "compose",
     "DeltaConfig", "Domain", "Engine", "Partition", "SimState", "Simulation",
     "total_agents",
 ]

@@ -1,11 +1,14 @@
 """Agent behaviours - the user-facing modelling API (port of part of
 ``repro/core/behaviors.py``).
 
-A :class:`Behavior` is a pair-interaction kernel plus a pointwise update.
-This slice ports the mechanics shared by the biology-flavoured sims
-(:func:`soft_repulsion_adhesion`, :func:`displacement_update`).
-``compose`` comes with the ``sir_mechanics`` slice and the spawn path with
-the RNG slice (ROADMAP A5): the engine raises on ``can_spawn=True``.
+A :class:`Behavior` is a pair-interaction kernel plus a pointwise update,
+and behaviours form a composition algebra: :func:`compose` (alias
+``Behavior.stack``) merges several into one - schemas unioned, every pair
+kernel over the same neighbourhood (each gated to its own radius),
+accumulators namespaced ``b{i}.``, updates chained in order.
+``compose(b)`` of one behaviour is bit-exact with ``b``.  The mechanics
+shared by the biology-flavoured sims (:func:`soft_repulsion_adhesion`,
+:func:`displacement_update`) are here too.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.agent_soa import AgentSchema, POS
 from repro_torch.core.neighbors import PairFn
 
@@ -40,6 +44,114 @@ class Behavior:
         default_factory=dict)
     max_displacement: Optional[float] = None
     children: Tuple["Behavior", ...] = ()
+
+
+def _merge_schemas(behaviors: Tuple[Behavior, ...]) -> AgentSchema:
+    spec: Dict[str, Tuple[Tuple[int, ...], object]] = {}
+    for b in behaviors:
+        for name, shape, dtype in b.schema.fields:
+            if name in spec and spec[name] != (shape, dtype):
+                raise ValueError(
+                    f"compose: attribute {name!r} declared with conflicting "
+                    f"specs {spec[name]} vs {(shape, dtype)}")
+            spec[name] = (shape, dtype)
+    return AgentSchema.create(spec)
+
+
+def _broadcast_mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    while mask.dim() < like.dim():
+        mask = mask[..., None]
+    return mask
+
+
+def compose(*behaviors: Behavior) -> Behavior:
+    """Merge several behaviours into one (BioDynaMo's per-agent behaviour
+    list), with the reference's semantics:
+
+    * schema: the union of the sub-schemas (conflicting specs raise);
+    * pair kernels: all over one neighbourhood at the largest radius; a
+      narrower one's contributions are gated to ``dist2 <=
+      float32(radius**2)``; accumulators are namespaced ``b{i}.{name}``
+      and un-namespaced before each update;
+    * updates: chained in order, update ``i`` seeing the attribute writes
+      of updates ``< i``; alive masks AND together, spawn masks OR, a
+      later child winning a contested slot, and a child completed to the
+      union schema from the parent's current attributes; behaviour 0
+      gets the step key unchanged, behaviour ``i > 0`` ``fold_in(key,
+      i)``;
+    * params: each sub-kernel closes over its own; the merged dict
+      (namespaced the same way) is for introspection.
+
+    The merged pair function carries its parts, ``(pair_fn, radius,
+    params)`` of each behaviour, as ``pair.parts`` and the gathered radius
+    as ``pair.radius``: the ``pair_sweep`` kernel runs a stack as one
+    sweep from them.
+    """
+    behs = tuple(behaviors)
+    if not behs:
+        raise ValueError("compose() needs at least one Behavior")
+    for b in behs:
+        if not isinstance(b, Behavior):
+            raise TypeError(f"compose() takes Behaviors, got {type(b)!r}")
+
+    schema = _merge_schemas(behs)
+    radius = max(float(b.radius) for b in behs)
+    pair_attrs = tuple(sorted({a for b in behs for a in b.pair_attrs}))
+    can_spawn = any(b.can_spawn for b in behs)
+    params = {f"b{i}.{k}": v
+              for i, b in enumerate(behs) for k, v in b.params.items()}
+    acc_spec = {f"b{i}.{k}": v
+                for i, b in enumerate(behs) for k, v in b.acc_spec.items()}
+
+    def pair(attrs_i, attrs_j, disp, dist2, _params):
+        out: Dict[str, torch.Tensor] = {}
+        for i, b in enumerate(behs):
+            sub = b.pair_fn(attrs_i, attrs_j, disp, dist2, b.params)
+            gate = None
+            if float(b.radius) < radius:
+                gate = dist2 <= _f32(float(b.radius) ** 2, dist2)
+            for k, v in sub.items():
+                if gate is not None:
+                    v = torch.where(_broadcast_mask(gate, v), v,
+                                    torch.zeros_like(v))
+                out[f"b{i}.{k}"] = v
+        return out
+
+    pair.parts = tuple((b.pair_fn, float(b.radius), b.params) for b in behs)
+    pair.radius = radius
+
+    def update(attrs, valid, acc, key, _params, dt):
+        cur = dict(attrs)
+        alive = valid
+        spawn = torch.zeros_like(valid)
+        child: Optional[Dict[str, torch.Tensor]] = None
+        for i, b in enumerate(behs):
+            pfx = f"b{i}."
+            acc_i = {k[len(pfx):]: v for k, v in acc.items()
+                     if k.startswith(pfx)}
+            ki = key if i == 0 else prng.fold_in(key, i)
+            cur, alive_i, spawn_i, child_i = b.update_fn(
+                cur, valid, acc_i, ki, b.params, dt)
+            cur = dict(cur)
+            alive = alive & alive_i
+            if b.can_spawn and child_i is not None:
+                child_i = {**cur, **child_i}
+                if child is None:
+                    child, spawn = child_i, spawn_i
+                else:
+                    child = {k: torch.where(
+                        _broadcast_mask(spawn_i, child_i[k]),
+                        child_i[k], child[k]) for k in child}
+                    spawn = spawn | spawn_i
+        return cur, alive, spawn, child
+
+    return Behavior(
+        schema=schema, pair_fn=pair, pair_attrs=pair_attrs,
+        update_fn=update, radius=radius, params=params,
+        can_spawn=can_spawn, acc_spec=acc_spec, children=behs)
+
+
+Behavior.stack = staticmethod(compose)
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:

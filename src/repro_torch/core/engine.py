@@ -15,18 +15,20 @@ block-concatenated global layout.
 One step runs the two exchanges (aura and migration) mesh-wide - per
 directed edge the slabs of every device are taken, encoded in one kernel
 launch per float attribute, shifted, decoded and put - and the per-device
-parts (sweep, update, clamp, binning) as a Python loop over the devices.
-The segment runner is a plain Python loop over :meth:`Engine.local_step`
-(CUDA-graph capture is later work).  Options that need a later slice raise
-``NotImplementedError`` naming its ROADMAP item: uneven partitions and the
-overlapped sweep (A7), spawning behaviours (A5), guards (A9), rebalancing
-(A8), fault plans (A9).
+parts (sweep, update, spawn, clamp, binning) as a Python loop over the
+devices.  The segment runner is a plain Python loop over
+:meth:`Engine.local_step` (CUDA-graph capture is later work).  Options
+that need a later slice raise ``NotImplementedError`` naming its ROADMAP
+item: uneven partitions and the overlapped sweep (A7), guards (A9),
+rebalancing (A8), fault plans (A9).
 
-RNG: ``jax.random`` keys cannot be reproduced before the threefry port
-(A5), so :meth:`Engine.init_state` fills ``key`` with zeros and
-:meth:`Engine.local_step` passes ``key=None`` to the update, which the
-ported behaviours never read.  A state carried over from the JAX package
-keeps its keys unchanged (``repro_torch.bridge``).
+RNG: the reference's ``jax.random`` lineage, bit for bit
+(:mod:`repro_torch.core.prng`).  :meth:`Engine.init_state` splits
+``PRNGKey(seed)`` (or ``fold_in(base_key, it0)``) into one key a device,
+in row-major rank order, and each device's update draws from
+``fold_in(fold_in(key, it), rank)``.  Spawned children go after the
+interior agents into re-binning, with ``gid_rank`` the device's rank and
+``gid_count`` counting on from the device's ``gid_counter``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.agent_soa import (
     AgentSoA,
     GID_COUNT,
@@ -152,23 +155,21 @@ class Engine:
             raise NotImplementedError(
                 "uneven partitions (owned masks, traced face indices) are "
                 "not ported yet (ROADMAP A7)")
-        if self.behavior.can_spawn:
-            raise NotImplementedError(
-                "spawning behaviours need the RNG and spawn path (ROADMAP "
-                "A5)")
         object.__setattr__(self, "device", resolve_device(self.device))
 
     # ------------------------------------------------------------------
     # Initialization (host side, numpy-friendly)
     # ------------------------------------------------------------------
     def init_state(self, positions: np.ndarray,
-                   attrs: Dict[str, np.ndarray], seed: int = 0) -> SimState:
+                   attrs: Dict[str, np.ndarray], seed: int = 0, *,
+                   it0: int = 0, base_key=None) -> SimState:
         """Create every agent directly on the device whose block holds it
         (paper section 2.4.4): per-device blocks, ``gid_rank`` = the
         device's linear rank, ``gid_count`` counting from 0 on each device.
 
-        ``seed`` only seeds the reference's RNG keys, which are not ported
-        (ROADMAP A5): ``key`` is zeros here.
+        The per-device RNG keys are ``split(PRNGKey(seed), n_devices)``, or
+        split from ``fold_in(base_key, it0)`` when a ``(2,)`` uint32
+        ``base_key`` is given; ``it0`` starts the iteration counter.
         """
         geom = self.geom
         nd = geom.ndim
@@ -230,11 +231,18 @@ class Engine:
         def scalar(v):
             return torch.full(mesh, v, dtype=torch.int32, device=dev)
 
+        if base_key is not None:
+            base = torch.from_numpy(np.array(base_key, np.uint32))
+            root = prng.fold_in(base.to(dev), int(it0))
+        else:
+            root = prng.PRNGKey(seed, device=dev)
+        keys = prng.split(root, geom.n_devices).reshape(mesh + (2,))
+
         return SimState(
             soa=blocks.soa,
             refs=init_refs(geom, blocks.soa, lead=nd),
-            it=scalar(0),
-            key=torch.zeros(mesh + (2,), dtype=torch.uint32, device=dev),
+            it=scalar(it0),
+            key=keys,
             gid_counter=torch.from_numpy(counters).to(dev),
             dropped=scalar(0),
             halo_bytes=scalar(0),
@@ -246,11 +254,13 @@ class Engine:
     # ------------------------------------------------------------------
     # One iteration
     # ------------------------------------------------------------------
-    def _device_update(self, blk: AgentSoA, origin: torch.Tensor
-                       ) -> Tuple[AgentSoA, torch.Tensor]:
-        """Sweep, pointwise update, clamp and re-binning of one device's
-        block (its aura filled).  Returns the binned block and the agents
-        dropped for cell overflow."""
+    def _device_update(self, blk: AgentSoA, origin: torch.Tensor,
+                       key: torch.Tensor, lrank: int, gidc: torch.Tensor
+                       ) -> Tuple[AgentSoA, torch.Tensor, torch.Tensor]:
+        """Sweep, pointwise update, spawn, clamp and re-binning of one
+        device's block (its aura filled) with the step key ``key``, rank
+        ``lrank`` and spawn counter ``gidc``.  Returns the binned block, the
+        agents dropped for cell overflow and the advanced counter."""
         geom = self.geom
         beh = self.behavior
         nd = geom.ndim
@@ -266,8 +276,8 @@ class Engine:
         isl = tuple(slice(1, h - 1) for h in geom.local_shape)
         int_attrs = {n: a[isl] for n, a in blk.attrs.items()}
         int_valid = blk.valid[isl]
-        new_attrs, alive, _, _ = beh.update_fn(
-            int_attrs, int_valid, acc, None, beh.params, self.dt)
+        new_attrs, alive, spawn, child_attrs = beh.update_fn(
+            int_attrs, int_valid, acc, key, beh.params, self.dt)
         new_valid = int_valid & alive
 
         # Per-axis boundary condition on positions: closed axes clamp to
@@ -283,16 +293,47 @@ class Engine:
                 new_attrs[POS], min=torch.from_numpy(lo).to(dev),
                 max=torch.from_numpy(hi).to(dev))
 
-        # 4. Flatten the interior for re-binning.
+        # 4. Flatten the interior (+ children) for re-binning.  Children
+        # go after the interior; their ids count on from the device's
+        # counter in slot order.
         n_int = math.prod(geom.interior) * geom.cap
-        flat = {n: a.reshape((n_int,) + tuple(a.shape[nd + 1:]))
-                for n, a in new_attrs.items()}
-        return bin_agents(geom, flat, new_valid.reshape((n_int,)), origin)
 
-    def local_step(self, state: SimState, comm: Comm, full_halo: bool
-                   ) -> SimState:
+        def flatten(attrs):
+            return {n: a.reshape((n_int,) + tuple(a.shape[nd + 1:]))
+                    for n, a in attrs.items()}
+
+        flat = flatten(new_attrs)
+        fvalid = new_valid.reshape((n_int,))
+        if beh.can_spawn:
+            sflat = spawn.reshape((n_int,)) & fvalid
+            child = flatten(child_attrs)
+            order = torch.cumsum(sflat, dim=0, dtype=torch.int32) - 1
+            child[GID_RANK] = torch.full((n_int,), lrank, dtype=torch.int32,
+                                         device=dev)
+            child[GID_COUNT] = gidc + order
+            gidc = gidc + sflat.sum(dtype=torch.int32)
+            flat = {n: torch.cat([flat[n], child[n]]) for n in flat}
+            fvalid = torch.cat([fvalid, sflat])
+        soa, dropped = bin_agents(geom, flat, fvalid, origin)
+        return soa, dropped, gidc
+
+    def step_keys(self, state: SimState, n: int = 1) -> torch.Tensor:
+        """Every device's step key for the ``n`` iterations from
+        ``state.it`` on, ``(n, *mesh, 2)``: ``fold_in(fold_in(key, it),
+        rank)`` as two batched hashes on the device."""
+        dev = state.key.device
+        mesh = self.geom.mesh_shape
+        its = state.it + torch.arange(n, dtype=torch.int32, device=dev
+                                      ).reshape((n,) + (1,) * len(mesh))
+        ranks = torch.arange(self.geom.n_devices, dtype=torch.int32,
+                             device=dev).reshape(mesh)
+        return prng.fold_in(prng.fold_in(state.key, its), ranks)
+
+    def local_step(self, state: SimState, comm: Comm, full_halo: bool,
+                   step_keys: torch.Tensor = None) -> SimState:
         """One iteration of every device of the mesh (``comm`` is the
-        engine's :class:`VirtualMeshComm`)."""
+        engine's :class:`VirtualMeshComm`), with the devices' step keys
+        ``step_keys`` (``(*mesh, 2)``; derived here when not given)."""
         geom = self.geom
         nd = geom.ndim
         mesh = geom.mesh_shape
@@ -311,13 +352,21 @@ class Engine:
             self.delta_cfg, full_halo)
         coflow = state.codec_overflow + oflow
 
-        # 2.-4. Per device: sweep, update, clamp, re-bin.
+        # 2.-4. Per device: sweep, update (drawing from the device's step
+        # key), spawn, clamp, re-bin.
         binned = _MeshSoA(mesh)
         drops: List[torch.Tensor] = []
+        gidcs: List[torch.Tensor] = []
+        if step_keys is None:
+            step_keys = self.step_keys(state)[0]
         for c in np.ndindex(*mesh):
-            blk, d1 = self._device_update(device_block(soa, c), origins[c])
+            lrank = int(np.ravel_multi_index(c, mesh))
+            blk, d1, gidc = self._device_update(
+                device_block(soa, c), origins[c], step_keys[c], lrank,
+                state.gid_counter[c])
             binned.put(c, blk)
             drops.append(d1)
+            gidcs.append(gidc)
             del blk
         del soa   # the aura-filled SoA is dead: free it before migration
         dropped = state.dropped + torch.stack(drops).reshape(mesh)
@@ -330,7 +379,7 @@ class Engine:
             refs=refs,
             it=state.it + 1,
             key=state.key,
-            gid_counter=state.gid_counter,
+            gid_counter=torch.stack(gidcs).reshape(mesh),
             dropped=dropped + d2,
             halo_bytes=torch.full(mesh, hbytes, dtype=torch.int32,
                                   device=dev),
@@ -378,15 +427,32 @@ class Engine:
             half_rng = half_ext + 2.0 * np.float32(geom.cell_size)
             center = origins + torch.from_numpy(half_ext).to(dev)
 
+        # The per-axis mask, for mixed boundaries only (one host copy).
+        tor_t = torch.tensor(tor, device=dev) \
+            if any(tor) and not all(tor) else None
+
+        def seam(slab: Slab) -> Slab:
+            """Wrapped (``mod L``) positions lie in [0, L], not [0, L): one
+            within half an ulp of L below 0 rounds to exactly L, which bins
+            into the halo ring, and the next aura rebuild would destroy
+            the agent uncounted - as the reference does (ROADMAP C).  Such
+            a position is put at 0, its nearest point of [0, L)."""
+            if not any(tor):
+                return slab
+            p = slab[POS]
+            at_l = p == lsz
+            if tor_t is not None:
+                at_l &= tor_t
+            return {**slab, POS: torch.where(at_l, torch.zeros_like(p), p)}
+
         def wrap_pos(slab: Slab) -> Slab:
             if not any(tor):
                 return slab
             out = dict(slab)
             p = slab[POS]
             wrapped = _jnp_mod(p, lsz)
-            out[POS] = wrapped if all(tor) else torch.where(
-                torch.tensor(tor, device=p.device), wrapped, p)
-            return out
+            out[POS] = wrapped if all(tor) else torch.where(tor_t, wrapped, p)
+            return seam(out)
 
         def ship(slab: Slab, axis: int, dirn: int):
             """One ring hop of a widened face, through the position codec
@@ -396,9 +462,9 @@ class Engine:
             enc, oflow = encode_migration(
                 slab, POS, center, half_rng, cfg, lsz=lsz_np, toroidal=tor,
                 lead=lead)
-            return decode_migration(
+            return seam(decode_migration(
                 comm.shift(enc, axis, dirn), POS, half_rng, cfg,
-                lsz=lsz_np, toroidal=tor, lead=lead), oflow
+                lsz=lsz_np, toroidal=tor, lead=lead)), oflow
 
         # Received slabs still carrying cells that need later-axis hops:
         # (slab, axis it arrived along, its fixed cell index on that axis).
@@ -505,9 +571,12 @@ class Engine:
 
         def seg(state: SimState, n_steps: int, full_first: bool = True
                 ) -> SimState:
+            # The segment's step keys at once: two hashes a segment, not
+            # two a step.
+            keys = self.step_keys(state, int(n_steps))
             for i in range(int(n_steps)):
                 full = (not delta_on) or (full_first and i == 0)
-                state = self.local_step(state, comm, full)
+                state = self.local_step(state, comm, full, keys[i])
             return state
 
         return seg

@@ -12,8 +12,9 @@ runs on the CUDA device unless ``device="cpu"`` is passed.  A geometry with
 ``core.engine`` (the whole mesh on one card).  Not ported in this slice,
 and raising ``NotImplementedError`` when asked for: an explicit ``mesh=``
 object (ROADMAP A7), ``rebalance`` (A8), ``checkpoint`` (A6), ``guards``,
-``supervised`` runs and fault plans (A9), ``compose`` of several
-behaviours (with the ``sir_mechanics`` slice).  Of the construction-time
+``supervised`` runs and fault plans (A9).  A list of several behaviours
+is composed (:func:`~repro_torch.core.behaviors.compose`), as the
+reference does.  Of the construction-time
 contracts only stencil soundness (``radius <= cell_size``) is ported; the
 rest of the contract checker waits for A11.
 """
@@ -26,7 +27,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
-from repro_torch.core.behaviors import Behavior
+from repro_torch.core.behaviors import Behavior, compose
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain
 from repro_torch.core.engine import (
@@ -75,7 +76,8 @@ class Operation:
     ``pre`` operations run before the step on ticks with
     ``tick % every == 0``, post operations after it on ticks with
     ``(tick + 1) % every == 0``.  (The reference keeps this class in
-    ``core/operations.py``, which comes with ROADMAP A6.)"""
+    ``core/operations.py``, whose reducers are ported; the class moves
+    there with ROADMAP A6.)"""
 
     fn: Callable[[Any], Any]
     every: int = 1
@@ -97,7 +99,7 @@ class Simulation:
       geom: a :class:`Domain`, or a dict of Domain kwargs (defaults:
         ``cell_size=2.0, interior=(8, 8), mesh_shape=(1, 1), cap=24,
         boundary="closed"``).
-      behaviors: one :class:`Behavior` (or a one-element sequence).
+      behaviors: one :class:`Behavior`, or a sequence of them, composed.
       delta: a :class:`DeltaConfig`, or ``None`` (full refresh every
         step; ``sims.common.resolve_delta`` turns the int8 codec on for
         meshes).  With the codec on, the aura exchange is a full refresh
@@ -128,11 +130,7 @@ class Simulation:
             behavior = behaviors
         else:
             behs = tuple(behaviors)
-            if len(behs) != 1:
-                raise NotImplementedError(
-                    "compose() of several behaviours comes with the "
-                    "sir_mechanics slice (ROADMAP A5); pass one Behavior")
-            behavior = behs[0]
+            behavior = behs[0] if len(behs) == 1 else compose(*behs)
         self.engine: Engine = Engine(
             geom=geom, behavior=behavior,
             delta_cfg=delta or DeltaConfig(enabled=False), dt=dt,

@@ -9,7 +9,13 @@
 // dist2 <= radius^2 (displacement taken as the minimum image on toroidal
 // axes); the pair law's contributions are summed over j, offset-major (the
 // offsets row-major over (-1, 0, 1)^D, last axis fastest), then slot.
-// Only D = 2 is instantiated.
+// Only D = 2 is instantiated.  The laws are device functions (below): the
+// soft-sphere force (law 0), the same-type counts of the clustering
+// metric (1), the infected-neighbour count of epidemiology (2), oncology's
+// force plus neighbour count (3), and the compose() stack of the force and
+// the infected count, each part gated to its own radius, in one sweep over
+// one neighbourhood (16, sir_mechanics).  Their outputs may differ in
+// width (oncology: force (D), crowd (1)); counts are exact.
 //
 // What bounds it on an H100.  Bytes: each slot's valid flag (1 B), the
 // law's columns of the occupied slots only (pos 8 B, gids 8 B, up to 8 B
@@ -37,7 +43,8 @@
 //     occupied slots get consecutive numbers, rows first, in slot order;
 //  3. a thread a staged cell lists where its occupied slots go;
 //  4. a thread an occupied slot stages its columns (pos and gids as one
-//     16-byte entry, the law's columns as an 8-byte one);
+//     16-byte entry, the law's float and first int column as an 8-byte
+//     one, a second int column, where the law reads one, as 4 bytes);
 //  5. a thread an occupied slot i of the strip (a warp per cell would
 //     idle 28 of 32 lanes at the main path's 4 agents a cell) walks its
 //     three neighbour rows, each a run of three cells' slots in order:
@@ -58,6 +65,7 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 
@@ -68,8 +76,20 @@ struct Box {
   int wrap[3];   // 1 on toroidal axes
 };
 
+constexpr int kMaxParams = 8;   // float parameters of a law (or stack)
+constexpr int kMaxParts = 4;    // output tensors of a law (or stack)
+
+// A law's float parameters, and for a stack the r^2 gate of each part
+// (+inf where a part runs at the sweep's full radius).
 struct LawParams {
-  float v[3];
+  float v[kMaxParams];
+  float gate[kMaxParts];
+};
+
+// The output tensors, in the law's order; part q holds width(q) floats a
+// slot.
+struct Outputs {
+  float* p[kMaxParts];
 };
 
 // Resident SoA columns, each contiguous with layout (*local_grid, K, *t).
@@ -79,28 +99,41 @@ struct Columns {
   const int* gid_count;        // (..., K)
   const unsigned char* valid;  // (..., K) bool
   const float* fcol;           // (..., K) the law's float column, or null
-  const int* icol;             // (..., K) the law's int column, or null
+  const int* icol[2];          // (..., K) its int columns, or null
 };
 
+// One slot's law columns as the pair loop reads them.
+struct Cols {
+  float f;
+  int i[2];
+};
+
+// The laws.  Each has kParts output tensors of width(q) floats a slot
+// (kAcc floats in all, in that order), reads kParams floats of `p` and
+// int columns 0 .. kInts - 1, and adds one pair's contributions to acc
+// with the float32 operations of its plain version, in the same order.
+
 // Law 0: repro_torch.core.behaviors.soft_repulsion_adhesion.
-// Columns: fcol = diameter, icol = ctype.  Params: repulsion, adhesion,
+// Columns: f = diameter, i[0] = ctype.  Params: repulsion, adhesion,
 // same_type_only.  Output: force (D floats a slot).
 template <int D>
 struct SoftRepulsionAdhesion {
+  static constexpr int kParts = 1;
   static constexpr int kAcc = D;
-  static constexpr int kParts = 1;  // output tensors
-  static constexpr int kOut = D;    // floats a slot over all of them
+  static constexpr int kParams = 3;
+  static constexpr int kInts = 1;
+  __host__ __device__ static constexpr int width(int) { return D; }
 
-  __device__ static void add(float* acc, const float* disp, float dist2,
-                             float fi, float fj, int ti, int tj,
-                             const LawParams& p) {
+  __device__ __forceinline__ static void add(
+      float* acc, const float* disp, float dist2, const Cols& ci,
+      const Cols& cj, const float* p, const float*) {
     const float dist = sqrtf(dist2 + 1e-6f);
-    const float r_sum = 0.5f * (fi + fj);
+    const float r_sum = 0.5f * (ci.f + cj.f);
     const float overlap = r_sum - dist;
-    const float rep = overlap > 0.f ? p.v[0] * overlap : 0.f;
-    const float same = ti == tj ? 1.f : 0.f;
-    const float gate = p.v[2] > 0.f ? same : 1.f;
-    const float adh = overlap <= 0.f ? p.v[1] * gate : 0.f;
+    const float rep = overlap > 0.f ? p[0] * overlap : 0.f;
+    const float same = ci.i[0] == cj.i[0] ? 1.f : 0.f;
+    const float gate = p[2] > 0.f ? same : 1.f;
+    const float adh = overlap <= 0.f ? p[1] * gate : 0.f;
     const float f = rep - adh;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
@@ -108,52 +141,120 @@ struct SoftRepulsionAdhesion {
       acc[d] += -(f * unit);
     }
   }
-
-  __device__ static void store(const float* acc, float* out0, float*,
-                               long long slot) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) out0[slot * D + d] = acc[d];
-  }
 };
 
 // Law 1: repro_torch.sims.cell_clustering._same_type_pair.
-// Columns: icol = ctype.  Outputs: same, cnt (one float a slot each).
+// Columns: i[0] = ctype.  Outputs: same, cnt (one float a slot each).
 template <int D>
 struct SameType {
-  static constexpr int kAcc = 2;
   static constexpr int kParts = 2;
-  static constexpr int kOut = 2;
+  static constexpr int kAcc = 2;
+  static constexpr int kParams = 0;
+  static constexpr int kInts = 1;
+  __host__ __device__ static constexpr int width(int) { return 1; }
 
-  __device__ static void add(float* acc, const float*, float, float, float,
-                             int ti, int tj, const LawParams&) {
-    acc[0] += ti == tj ? 1.f : 0.f;
+  __device__ __forceinline__ static void add(
+      float* acc, const float*, float, const Cols& ci, const Cols& cj,
+      const float*, const float*) {
+    acc[0] += ci.i[0] == cj.i[0] ? 1.f : 0.f;
     acc[1] += 1.f;
   }
+};
 
-  __device__ static void store(const float* acc, float* out0, float* out1,
-                               long long slot) {
-    out0[slot] = acc[0];
-    out1[slot] = acc[1];
+// Law 2: repro_torch.sims.epidemiology._pair, reading int column S.
+// Columns: i[S] = state.  Output: n_inf, the neighbours with state 1
+// (infected), a count.
+template <int D, int S>
+struct Epidemiology {
+  static constexpr int kParts = 1;
+  static constexpr int kAcc = 1;
+  static constexpr int kParams = 0;
+  static constexpr int kInts = S + 1;
+  __host__ __device__ static constexpr int width(int) { return 1; }
+
+  __device__ __forceinline__ static void add(
+      float* acc, const float*, float, const Cols&, const Cols& cj,
+      const float*, const float*) {
+    acc[0] += cj.i[S] == 1 ? 1.f : 0.f;
   }
 };
+
+// Law 3: repro_torch.sims.oncology._pair: law 0's force, then crowd, the
+// neighbours in range (a count).  Outputs: force (D floats), crowd (1).
+template <int D>
+struct Oncology {
+  static constexpr int kParts = 2;
+  static constexpr int kAcc = D + 1;
+  static constexpr int kParams = 3;
+  static constexpr int kInts = 1;
+  __host__ __device__ static constexpr int width(int q) {
+    return q == 0 ? D : 1;
+  }
+
+  __device__ __forceinline__ static void add(
+      float* acc, const float* disp, float dist2, const Cols& ci,
+      const Cols& cj, const float* p, const float* gate) {
+    SoftRepulsionAdhesion<D>::add(acc, disp, dist2, ci, cj, p, gate);
+    acc[D] += 1.f;
+  }
+};
+
+// A compose() stack of two laws over one neighbourhood: A's outputs, then
+// B's (the b0. and b1. accumulators), A's params, then B's.  Part q runs
+// on the pairs with dist2 <= gate[q] (its own radius^2; +inf at the
+// sweep's radius): the plain version zeroes its contributions elsewhere.
+template <class A, class B>
+struct Stack {
+  static constexpr int kParts = A::kParts + B::kParts;
+  static constexpr int kAcc = A::kAcc + B::kAcc;
+  static constexpr int kParams = A::kParams + B::kParams;
+  static constexpr int kInts = A::kInts > B::kInts ? A::kInts : B::kInts;
+  __host__ __device__ static constexpr int width(int q) {
+    return q < A::kParts ? A::width(q) : B::width(q - A::kParts);
+  }
+
+  __device__ __forceinline__ static void add(
+      float* acc, const float* disp, float dist2, const Cols& ci,
+      const Cols& cj, const float* p, const float* gate) {
+    if (dist2 <= gate[0]) A::add(acc, disp, dist2, ci, cj, p, gate);
+    if (dist2 <= gate[1])
+      B::add(acc + A::kAcc, disp, dist2, ci, cj, p + A::kParams, gate);
+  }
+};
+
+// Writes a slot's sums to the law's outputs, part after part (part Q's
+// floats start at acc[A]; every index is a compile-time constant, so acc
+// stays in registers).
+template <class Law, int Q = 0, int A = 0>
+__device__ __forceinline__ void store(const float* acc, const Outputs& out,
+                                      long long slot) {
+  if constexpr (Q < Law::kParts) {
+    constexpr int kW = Law::width(Q);
+#pragma unroll
+    for (int x = 0; x < kW; ++x) out.p[Q][slot * kW + x] = acc[A + x];
+    store<Law, Q + 1, A + kW>(acc, out, slot);
+  }
+}
 
 constexpr int kSweepThreads = 256;
 constexpr int kMaxStrip = 32;         // cells a strip
 constexpr int kMinEntries = 1024;     // compacted slots a block holds
 constexpr size_t kStripBudget = 48 * 1024;   // shared memory a block
 
-// Shared memory of a block (byte offsets) for strip width w, capacity k
-// and room for `entries` compacted slots.
+// Shared memory of a block (byte offsets) for strip width w, capacity k,
+// room for `entries` compacted slots and `ints` int columns of the law.
 struct StripLayout {
-  size_t a, b, src, own, start, flag, bytes;
+  size_t a, b, c, src, own, start, flag, bytes;
 };
 
 __host__ __device__ inline StripLayout strip_layout(int w, int k,
-                                                    int entries) {
+                                                    int entries, int ints) {
   StripLayout s;
   size_t at = 0;
   s.a = at;     at += 16 * static_cast<size_t>(entries);  // x, y, gids
-  s.b = at;     at += 8 * static_cast<size_t>(entries);   // f, t
+  s.b = at;     at += 8 * static_cast<size_t>(entries);   // f, int col 0
+  s.c = at;                                               // int col 1
+  if (ints > 1) at += 4 * static_cast<size_t>(entries);
   s.src = at;   at += 4 * static_cast<size_t>(entries);   // staged slot
   s.own = at;   at += 4 * static_cast<size_t>(entries);   // output slot
   s.start = at; at += 4 * static_cast<size_t>(3 * (w + 2) + 1);
@@ -196,12 +297,13 @@ template <int D, class Law>
 __global__ void __launch_bounds__(kSweepThreads)
     pair_sweep_kernel(Columns col, int n0, int n1, int k, int w,
                       int entries, float r2, Box box, LawParams p,
-                      float* out0, float* out1) {
+                      Outputs out) {
   static_assert(D == 2, "the strip layout is written for D = 2");
   extern __shared__ __align__(16) unsigned char smem[];
-  const StripLayout lay = strip_layout(w, k, entries);
+  const StripLayout lay = strip_layout(w, k, entries, Law::kInts);
   float4* s_a = reinterpret_cast<float4*>(smem + lay.a);
   float2* s_b = reinterpret_cast<float2*>(smem + lay.b);
+  int* s_c = reinterpret_cast<int*>(smem + lay.c);
   int* s_src = reinterpret_cast<int*>(smem + lay.src);
   int* s_own = reinterpret_cast<int*>(smem + lay.own);
   int* s_start = reinterpret_cast<int*>(smem + lay.start);
@@ -221,7 +323,6 @@ __global__ void __launch_bounds__(kSweepThreads)
   auto first_slot = [&](int dr) {   // global slot of staged cell (dr, 0)
     return ((row + dr) * l1 + c0) * k;
   };
-  constexpr int kPer = Law::kOut / Law::kParts;   // floats a slot a part
   const long long slot0 = (static_cast<long long>(row) * n1 + c0) * k;
 
   // 1. The valid flags of the three staged rows; the strip's outputs
@@ -239,8 +340,9 @@ __global__ void __launch_bounds__(kSweepThreads)
       for (int e = threadIdx.x; e < nc * k; e += blockDim.x) dst[e] = src[e];
     }
   }
-  zero_strip(out0 + slot0 * kPer, wc * k * kPer);
-  if (Law::kParts == 2) zero_strip(out1 + slot0 * kPer, wc * k * kPer);
+#pragma unroll
+  for (int q = 0; q < Law::kParts; ++q)
+    zero_strip(out.p[q] + slot0 * Law::width(q), wc * k * Law::width(q));
   __syncthreads();
 
   // 2. Occupied slots of each staged cell, then their exclusive scan (one
@@ -329,9 +431,10 @@ __global__ void __launch_bounds__(kSweepThreads)
       const float2 xy = reinterpret_cast<const float2*>(col.pos)[g];
       s_a[e] = make_float4(xy.x, xy.y, __int_as_float(col.gid_rank[g]),
                            __int_as_float(col.gid_count[g]));
-      s_b[e] = make_float2(col.fcol != nullptr ? col.fcol[g] : 0.f,
-                           __int_as_float(col.icol != nullptr ? col.icol[g]
-                                                              : 0));
+      s_b[e] = make_float2(
+          col.fcol != nullptr ? col.fcol[g] : 0.f,
+          __int_as_float(col.icol[0] != nullptr ? col.icol[0][g] : 0));
+      if (Law::kInts > 1) s_c[e] = col.icol[1][g];
       s_own[e] = (dc - 1) * k + j;
     }
     __syncthreads();
@@ -348,7 +451,8 @@ __global__ void __launch_bounds__(kSweepThreads)
       const float2 bi = s_b[e];
       const int ri = __float_as_int(ai.z);
       const int ci = __float_as_int(ai.w);
-      const int ti = __float_as_int(bi.y);
+      const Cols cols_i{bi.x, {__float_as_int(bi.y),
+                               Law::kInts > 1 ? s_c[e] : 0}};
       float acc[Law::kAcc];
 #pragma unroll
       for (int x = 0; x < Law::kAcc; ++x) acc[x] = 0.f;
@@ -370,11 +474,12 @@ __global__ void __launch_bounds__(kSweepThreads)
           }
           if (!(dist2 <= r2)) continue;
           const float2 bj = s_b[x];
-          Law::add(acc, disp, dist2, bi.x, bj.x, ti, __float_as_int(bj.y),
-                   p);
+          const Cols cols_j{bj.x, {__float_as_int(bj.y),
+                                   Law::kInts > 1 ? s_c[x] : 0}};
+          Law::add(acc, disp, dist2, cols_i, cols_j, p.v, p.gate);
         }
       }
-      Law::store(acc, out0, out1, slot0 + at);
+      store<Law>(acc, out, slot0 + at);
     }
     __syncthreads();   // the next part reuses the buffers
     a = b + 1;
@@ -383,17 +488,23 @@ __global__ void __launch_bounds__(kSweepThreads)
 
 template <int D, class Law>
 cudaError_t launch(const Columns& col, int3 interior, int k, float r2,
-                   const Box& box, const LawParams& p, float* out0,
-                   float* out1, cudaStream_t stream) {
+                   const Box& box, const LawParams& p, const Outputs& out,
+                   int n_outs, cudaStream_t stream) {
   static_assert(D == 2, "only D = 2 is instantiated");
   const int n0 = interior.x;
   const int n1 = interior.y;
   if (static_cast<long long>(n0) * n1 == 0) return cudaSuccess;
   if (k < 1 || k > (1 << 20)) return cudaErrorInvalidValue;
+  if (n_outs != Law::kParts) return cudaErrorInvalidValue;
+  for (int q = 0; q < Law::kParts; ++q)
+    if (out.p[q] == nullptr) return cudaErrorInvalidValue;
+  if (col.icol[Law::kInts - 1] == nullptr) return cudaErrorInvalidValue;
   const int entries = 9 * k > kMinEntries ? 9 * k : kMinEntries;
   int w = kMaxStrip;
-  while (w > 1 && strip_layout(w, k, entries).bytes > kStripBudget) --w;
-  const size_t smem = strip_layout(w, k, entries).bytes;
+  while (w > 1 &&
+         strip_layout(w, k, entries, Law::kInts).bytes > kStripBudget)
+    --w;
+  const size_t smem = strip_layout(w, k, entries, Law::kInts).bytes;
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   const long long blocks = static_cast<long long>(n0) * ((n1 + w - 1) / w);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
@@ -403,7 +514,7 @@ cudaError_t launch(const Columns& col, int3 interior, int k, float r2,
   if (e != cudaSuccess) return e;
   pair_sweep_kernel<D, Law>
       <<<static_cast<unsigned>(blocks), kSweepThreads, smem, stream>>>(
-          col, n0, n1, k, w, entries, r2, box, p, out0, out1);
+          col, n0, n1, k, w, entries, r2, box, p, out);
   return cudaGetLastError();
 }
 
@@ -674,8 +785,9 @@ __global__ void __launch_bounds__(kForceThreads)
           float disp[2] = {o.x - me.x, o.y - me.y};
           const float dist2 = disp[0] * disp[0] + disp[1] * disp[1];
           if (!(dist2 <= r2)) continue;
-          SoftRepulsionAdhesion<2>::add(a, disp, dist2, me.z, o.z, ti,
-                                        __float_as_int(o.w), p);
+          SoftRepulsionAdhesion<2>::add(
+              a, disp, dist2, Cols{me.z, {ti, 0}},
+              Cols{o.z, {__float_as_int(o.w), 0}}, p.v, p.gate);
         }
         sm.i_acc[e] = make_float2(a[0], a[1]);
       }
@@ -693,35 +805,57 @@ extern "C" const char* pair_sweep_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// law: 0 = soft_repulsion_adhesion, 1 = same_type.  Returns a cudaError_t
-// (0 on success); the launch is asynchronous on `stream`.
+// law: 0 = soft_repulsion_adhesion, 1 = same_type, 2 = epidemiology,
+// 3 = oncology, 16 = the stack (soft_repulsion_adhesion, epidemiology).
+// params: n_params floats, gates: n_gates floats (a stack's parts), outs:
+// n_outs device pointers, all host arrays read before the launch; fcol,
+// icol0, icol1: the law's columns (null where it reads none).  Returns a
+// cudaError_t (0 on success); the launch is asynchronous on `stream`.
 extern "C" int pair_sweep_launch(
     int law, int ndim, int device, const void* pos, const void* gid_rank,
     const void* gid_count, const void* valid, const void* fcol,
-    const void* icol, int n0, int n1, int n2, int k, float r2, float box0,
-    float box1, float box2, int wrap0, int wrap1, int wrap2, float p0,
-    float p1, float p2, void* out0, void* out1, void* stream) {
+    const void* icol0, const void* icol1, int n0, int n1, int n2, int k,
+    float r2, float box0, float box1, float box2, int wrap0, int wrap1,
+    int wrap2, const float* params, int n_params, const float* gates,
+    int n_gates, void* const* outs, int n_outs, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
+  if (n_params < 0 || n_params > kMaxParams || n_gates < 0 ||
+      n_gates > kMaxParts || n_outs < 1 || n_outs > kMaxParts)
+    return cudaErrorInvalidValue;
   const Columns col{static_cast<const float*>(pos),
                     static_cast<const int*>(gid_rank),
                     static_cast<const int*>(gid_count),
                     static_cast<const unsigned char*>(valid),
                     static_cast<const float*>(fcol),
-                    static_cast<const int*>(icol)};
+                    {static_cast<const int*>(icol0),
+                     static_cast<const int*>(icol1)}};
   const int3 interior = make_int3(n0, n1, n2);
   const Box box{{box0, box1, box2}, {wrap0, wrap1, wrap2}};
-  const LawParams p{{p0, p1, p2}};
-  float* o0 = static_cast<float*>(out0);
-  float* o1 = static_cast<float*>(out1);
+  LawParams p{};
+  for (int i = 0; i < n_params; ++i) p.v[i] = params[i];
+  for (int i = 0; i < kMaxParts; ++i)
+    p.gate[i] = i < n_gates ? gates[i] : HUGE_VALF;
+  Outputs out{};
+  for (int i = 0; i < n_outs; ++i) out.p[i] = static_cast<float*>(outs[i]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ndim != 2) return cudaErrorInvalidValue;  // only D = 2 instantiated
   switch (law) {
     case 0:
       return launch<2, SoftRepulsionAdhesion<2>>(col, interior, k, r2, box,
-                                                  p, o0, o1, s);
+                                                  p, out, n_outs, s);
     case 1:
-      return launch<2, SameType<2>>(col, interior, k, r2, box, p, o0, o1, s);
+      return launch<2, SameType<2>>(col, interior, k, r2, box, p, out,
+                                    n_outs, s);
+    case 2:
+      return launch<2, Epidemiology<2, 0>>(col, interior, k, r2, box, p, out,
+                                           n_outs, s);
+    case 3:
+      return launch<2, Oncology<2>>(col, interior, k, r2, box, p, out,
+                                    n_outs, s);
+    case 16:
+      return launch<2, Stack<SoftRepulsionAdhesion<2>, Epidemiology<2, 1>>>(
+          col, interior, k, r2, box, p, out, n_outs, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -755,7 +889,7 @@ extern "C" int neighbor_force_launch(
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const LawParams p{{repulsion, adhesion, same_type_only}};
+  const LawParams p{{repulsion, adhesion, same_type_only}, {}};
   neighbor_force_kernel<<<static_cast<unsigned>(blocks), kForceThreads,
                           smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos_i), static_cast<const float*>(diam_i),

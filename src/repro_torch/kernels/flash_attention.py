@@ -17,7 +17,12 @@ bfloat16, the output in q's type.
   ``flash_attention_kernel`` (``mma.sync`` on the tensor cores in
   3xTF32: each float32 operand split into two TF32 terms, so the products
   keep float32's accuracy).  The choice is made from the dtype and head
-  dims alone (:func:`kernel_for`).
+  dims alone (:func:`kernel_for`).  A head dim the kernels are not built
+  for is zero-padded to the next one that is (:func:`pad_head_dims`; at
+  most 128): zero columns of q and k add nothing to ``q k^T``, zero
+  columns of v give zero columns of the output, which are cut off, and
+  the scale stays the true ``hd ** -0.5``.  At hd = hdv = 80 the kernel
+  does 128 columns of work for 80 useful ones.
 * :func:`flash_attention_plain` is the port of the reference's oracle
   ``kernels/ref.flash_attention_ref``: float32 scores, the mask, a softmax,
   then the cast.
@@ -54,12 +59,39 @@ def kernel_for(dtype: torch.dtype, hd: int, hdv: int) -> str:
     return "flash_attention"
 
 
+def built_head_dim(d: int) -> int:
+    """The smallest head dim the kernels are built for that is >= ``d``;
+    raises past the largest."""
+    for h in HEAD_DIMS:
+        if h >= d:
+            return h
+    raise ValueError(f"flash_attention: head dim {d}; the kernel is built "
+                     f"for {HEAD_DIMS} and pads smaller ones up to them")
+
+
+def pad_head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q and k zero-padded along hd, v along hdv, to built head dims
+    (the tensors themselves where they are built already)."""
+    hd, hdv = q.shape[-1], v.shape[-1]
+    hd_p, hdv_p = built_head_dim(hd), built_head_dim(hdv)
+    if hd_p != hd:
+        q = torch.nn.functional.pad(q, (0, hd_p - hd))
+        k = torch.nn.functional.pad(k, (0, hd_p - hd))
+    if hdv_p != hdv:
+        v = torch.nn.functional.pad(v, (0, hdv_p - hdv))
+    return q, k, v
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
-    """q (BH, Sq, hd), k (BH, Skv, hd), v (BH, Skv, hdv) -> (BH, Sq, hdv)."""
+                          *, causal: bool = True,
+                          scale: float = None) -> torch.Tensor:
+    """q (BH, Sq, hd), k (BH, Skv, hd), v (BH, Skv, hdv) -> (BH, Sq, hdv);
+    ``scale`` defaults to ``hd ** -0.5``."""
     _, sq, hd = q.shape
     skv = k.shape[1]
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * hd ** -0.5
+    if scale is None:
+        scale = hd ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if causal:
         above = (torch.arange(sq, device=q.device)[:, None]
                  < torch.arange(skv, device=q.device)[None, :])
@@ -96,7 +128,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, causal, hd ** -0.5)
+    qp, kp, vp = pad_head_dims(q, k, v)
+    out = _launch(qp, kp, vp, causal, hd ** -0.5)
+    return out if vp is v else out[..., :hdv].contiguous()
 
 
 def _library() -> ctypes.CDLL:

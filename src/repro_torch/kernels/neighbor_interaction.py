@@ -16,7 +16,9 @@ toroidal axes) contribute the behaviour's ``pair_fn`` to per-agent sums.
   PyTorch over flattened ``(C, K)`` x ``(C, 3^D K)`` slabs, built by
   :func:`neighborhood_slabs`.  It runs any ``pair_fn``.
 * The kernel runs the pair laws registered in :data:`LAWS`, one device
-  function each.  A ``pair_fn`` with no device law raises
+  function each, and the ``compose()`` stacks of :data:`STACKS` (a
+  stack's parts over one neighbourhood, each gated to its own radius).
+  A ``pair_fn`` with no device law, or a stack with such a part, raises
   ``NotImplementedError`` on a CUDA tensor.
 
 The legacy soft-sphere entry point is here too: :func:`neighbor_force`,
@@ -55,39 +57,62 @@ Tensors = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class PairLaw:
-    """One device pair law of the kernel.
+    """One device pair law of the kernel, or a stack of them.
 
-    ``law_id`` selects the device function; ``float_col``/``int_col`` name
-    the SoA columns it reads besides pos and gids; ``params`` lists its
-    float parameters in kernel order as ``(name, default)`` (``None``: the
-    behaviour must supply it); ``outputs`` lists ``(name, per_axis)`` where
-    ``per_axis`` outputs carry a trailing ``(D,)`` dim.
+    ``law_id`` selects the device function; ``float_cols``/``int_cols``
+    name the SoA columns it reads besides pos and gids, in the kernel's
+    column slots (at most one float column and two int ones); ``params``
+    lists its float parameters in kernel order as ``(name, default)``
+    (``None``: the behaviour must supply it); ``outputs`` lists ``(name,
+    per_axis)`` where ``per_axis`` outputs carry a trailing ``(D,)`` dim.
+    A stack (``parts``: its laws' names) takes each part's params from
+    that part, in order, and namespaces the parts' outputs ``b{i}.``.
     """
 
     name: str
     law_id: int
-    float_col: Optional[str]
-    int_col: Optional[str]
+    float_cols: Tuple[str, ...]
+    int_cols: Tuple[str, ...]
     params: Tuple[Tuple[str, Optional[float]], ...]
     outputs: Tuple[Tuple[str, bool], ...]
+    parts: Tuple[str, ...] = ()
 
+
+_SOFT = PairLaw(
+    name="soft_repulsion_adhesion", law_id=0, float_cols=("diameter",),
+    int_cols=("ctype",),
+    params=(("repulsion", None), ("adhesion", None), ("same_type_only", 1.0)),
+    outputs=(("force", True),))
 
 # Port pair functions (by qualified name) -> device law.
 LAWS: Dict[str, PairLaw] = {
-    "repro_torch.core.behaviors.soft_repulsion_adhesion": PairLaw(
-        name="soft_repulsion_adhesion", law_id=0, float_col="diameter",
-        int_col="ctype",
-        params=(("repulsion", None), ("adhesion", None),
-                ("same_type_only", 1.0)),
-        outputs=(("force", True),)),
+    "repro_torch.core.behaviors.soft_repulsion_adhesion": _SOFT,
     "repro_torch.sims.cell_clustering._same_type_pair": PairLaw(
-        name="same_type", law_id=1, float_col=None, int_col="ctype",
+        name="same_type", law_id=1, float_cols=(), int_cols=("ctype",),
         params=(), outputs=(("same", False), ("cnt", False))),
+    "repro_torch.sims.epidemiology._pair": PairLaw(
+        name="epidemiology", law_id=2, float_cols=(), int_cols=("state",),
+        params=(), outputs=(("n_inf", False),)),
+    "repro_torch.sims.oncology._pair": PairLaw(
+        name="oncology", law_id=3, float_cols=("diameter",),
+        int_cols=("ctype",), params=_SOFT.params,
+        outputs=(("force", True), ("crowd", False))),
+}
+
+# compose() stacks the kernel instantiates, by their parts' law names.
+STACKS: Dict[Tuple[str, ...], PairLaw] = {
+    ("soft_repulsion_adhesion", "epidemiology"): PairLaw(
+        name="stack(soft_repulsion_adhesion,epidemiology)", law_id=16,
+        float_cols=("diameter",), int_cols=("ctype", "state"),
+        params=_SOFT.params,
+        outputs=(("b0.force", True), ("b1.n_inf", False)),
+        parts=("soft_repulsion_adhesion", "epidemiology")),
 }
 
 # Kernel launches per law since the last reset_launches(), and of the
 # legacy neighbor_force kernel.
 LAUNCHES: Dict[str, int] = {law.name: 0 for law in LAWS.values()}
+LAUNCHES.update({law.name: 0 for law in STACKS.values()})
 LAUNCHES["neighbor_force"] = 0
 
 
@@ -96,18 +121,58 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def law_for(pair_fn: Callable) -> PairLaw:
-    """The device law of a port pair function; raises
-    ``NotImplementedError`` for one the kernel does not have."""
+def _base_law(pair_fn: Callable) -> PairLaw:
     key = f"{pair_fn.__module__}.{pair_fn.__qualname__}"
     law = LAWS.get(key)
     if law is None:
         raise NotImplementedError(
             f"pair function {key} has no device law in the pair_sweep "
-            f"kernel (laws: {sorted(LAWS)}); the other bundled laws come "
-            "with ROADMAP B1 - run this behaviour with sweep_backend="
-            "'tiled' or on the CPU")
+            f"kernel (laws: {sorted(LAWS)}); the bundled laws still to "
+            "port come with ROADMAP B1 (tumor_spheroid's _crowd_pair, "
+            "sir_mechanics' ensemble _gated_sir_pair) - run this behaviour "
+            "on the CPU")
     return law
+
+
+def law_for(pair_fn: Callable) -> PairLaw:
+    """The device law of a port pair function, or of a ``compose()`` stack
+    (a pair function with ``parts``); raises ``NotImplementedError`` for
+    one the kernel does not have, a stack with such a part included."""
+    parts = getattr(pair_fn, "parts", None)
+    if parts is None:
+        return _base_law(pair_fn)
+    laws = tuple(_base_law(fn) for fn, _, _ in parts)
+    if len(laws) == 1:       # compose(b): b's law, outputs namespaced
+        law = laws[0]
+        return dataclasses.replace(
+            law, outputs=tuple((f"b0.{n}", ax) for n, ax in law.outputs),
+            parts=(law.name,))
+    names = tuple(law.name for law in laws)
+    stack = STACKS.get(names)
+    if stack is None:
+        raise NotImplementedError(
+            f"the pair_sweep kernel has no instantiation of the stack "
+            f"{names} (stacks: {sorted(STACKS)}; ROADMAP B1 b)")
+    return stack
+
+
+def _law_args(law: PairLaw, pair_fn: Callable, params: dict
+              ) -> Tuple[list, list]:
+    """The kernel's float params and, for a stack, each part's r^2 gate
+    (+inf for a part at the sweep's radius)."""
+    def values(spec, p):
+        return [float(p[n]) if d is None else float(p.get(n, d))
+                for n, d in spec]
+
+    parts = getattr(pair_fn, "parts", None)
+    if parts is None:
+        return values(law.params, params), []
+    vals, gates = [], []
+    for fn, r, p in parts:
+        vals += values(_base_law(fn).params, p)
+        gates.append(float(np.float32(r * r)) if r < pair_fn.radius
+                     else math.inf)
+    return vals, gates
 
 
 # ---------------------------------------------------------------------------
@@ -226,17 +291,20 @@ def pair_sweep(
                 for n, a in acc.items()}
     if valid.device.type != "cuda":
         raise ValueError(f"pair_sweep: unsupported device {valid.device}")
-    return _launch(law_for(pair_fn), attrs, valid, radius, params, box)
+    law = law_for(pair_fn)
+    vals, gates = _law_args(law, pair_fn, params)
+    return _launch(law, attrs, valid, radius, vals, gates, box)
 
 
 _ARGTYPES = (
     [ctypes.c_int] * 3                       # law, ndim, device
-    + [ctypes.c_void_p] * 6                  # pos, gids, valid, columns
+    + [ctypes.c_void_p] * 7                  # pos, gids, valid, columns
     + [ctypes.c_int] * 4                     # n0, n1, n2, k
     + [ctypes.c_float] * 4                   # r2, box lengths
     + [ctypes.c_int] * 3                     # wrap flags
-    + [ctypes.c_float] * 3                   # law params
-    + [ctypes.c_void_p] * 3                  # out0, out1, stream
+    + [ctypes.c_void_p, ctypes.c_int] * 2    # params, gates (host arrays)
+    + [ctypes.c_void_p, ctypes.c_int]        # outputs (host array)
+    + [ctypes.c_void_p]                      # stream
 )
 
 
@@ -266,13 +334,13 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 
 def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
-            radius: float, params: dict,
+            radius: float, params: list, gates: list,
             box: Optional[Sequence[Optional[float]]]) -> Tensors:
     nd = valid.dim() - 1
     if nd != 2:
         raise NotImplementedError(
             f"the pair_sweep kernel is instantiated for 2-D domains only; "
-            f"the {nd}-D instantiation comes with ROADMAP B1")
+            f"the {nd}-D instantiation comes with ROADMAP B1 c")
     dev = valid.device
     grid = tuple(valid.shape)
     interior = tuple(h - 2 for h in grid[:nd])
@@ -281,17 +349,14 @@ def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
     _check(_POS, attrs[_POS], torch.float32, grid + (nd,), dev)
     _check(_GID_RANK, attrs[_GID_RANK], torch.int32, grid, dev)
     _check(_GID_COUNT, attrs[_GID_COUNT], torch.int32, grid, dev)
-    fcol = icol = None
-    if law.float_col is not None:
-        fcol = attrs[law.float_col]
-        _check(law.float_col, fcol, torch.float32, grid, dev)
-    if law.int_col is not None:
-        icol = attrs[law.int_col]
-        _check(law.int_col, icol, torch.int32, grid, dev)
+    cols = []
+    for names, dtype, slots in ((law.float_cols, torch.float32, 1),
+                                (law.int_cols, torch.int32, 2)):
+        for n in names:
+            _check(n, attrs[n], dtype, grid, dev)
+        cols += [attrs[n].data_ptr() for n in names]
+        cols += [None] * (slots - len(names))
 
-    p = [float(params[n]) if d is None else float(params.get(n, d))
-         for n, d in law.params]
-    p += [0.0] * (3 - len(p))
     box = tuple(box) if box is not None else (None,) * nd
     lens = [0.0 if b is None else float(b) for b in box] + [0.0]
     wraps = [0 if b is None else 1 for b in box] + [0]
@@ -299,18 +364,21 @@ def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
     outs = {name: torch.empty(interior + (k,) + ((nd,) if per_axis else ()),
                               dtype=torch.float32, device=dev)
             for name, per_axis in law.outputs}
-    out_ptrs = [o.data_ptr() for o in outs.values()] + [None]
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    c_params = (ctypes.c_float * max(len(params), 1))(*params)
+    c_gates = (ctypes.c_float * max(len(gates), 1))(*gates)
+    c_outs = (ctypes.c_void_p * len(outs))(
+        *[o.data_ptr() for o in outs.values()])
 
     lib = _library()
     err = lib.pair_sweep_launch(
-        law.law_id, nd, dev.index, ptr(attrs[_POS]), ptr(attrs[_GID_RANK]),
-        ptr(attrs[_GID_COUNT]), ptr(valid), ptr(fcol), ptr(icol),
-        interior[0], interior[1], 1, k,
-        float(np.float32(radius * radius)), *lens, *wraps, *p,
-        out_ptrs[0], out_ptrs[1], torch.cuda.current_stream(dev).cuda_stream)
+        law.law_id, nd, dev.index, attrs[_POS].data_ptr(),
+        attrs[_GID_RANK].data_ptr(), attrs[_GID_COUNT].data_ptr(),
+        valid.data_ptr(), *cols, interior[0], interior[1], 1, k,
+        float(np.float32(radius * radius)), *lens, *wraps,
+        ctypes.cast(c_params, ctypes.c_void_p), len(params),
+        ctypes.cast(c_gates, ctypes.c_void_p), len(gates),
+        ctypes.cast(c_outs, ctypes.c_void_p), len(outs),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"pair_sweep kernel launch failed: cudaError {err} "

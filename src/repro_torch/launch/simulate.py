@@ -5,13 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.simulate \
         --sim cell_clustering --mesh 2x2 --delta int8+mig
 
-Ported: ``--sim cell_clustering`` on one device or on a virtual device
-mesh (``--mesh 2x2``: the whole mesh on one card), with the aura exchange
-delta-encoded (``--delta``).  ``--delta auto`` (default) is int8 on a mesh
-and a full refresh on one device; ``off`` forces a full refresh.  The
-other sims (ROADMAP A5) and ``--rebalance`` (A8) raise
-``NotImplementedError``.  Prints the reference's two summary lines plus
-the kernels' launch counts.
+Ported: the 2-D sims ``cell_clustering``, ``epidemiology``,
+``sir_mechanics``, ``cell_proliferation`` and ``oncology``, on one device
+or on a virtual device mesh (``--mesh 2x2``: the whole mesh on one card),
+with the aura exchange delta-encoded (``--delta``).  ``--delta auto``
+(default) is int8 on a mesh and a full refresh on one device; ``off``
+forces a full refresh.  ``--sim tumor_spheroid`` (3-D; ROADMAP A5 queue
+item 4, B1 c) and ``--rebalance`` (A8) raise ``NotImplementedError``.
+Prints the reference's two summary lines plus the kernels' launch
+counts.
 """
 
 from __future__ import annotations
@@ -44,9 +46,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    if args.sim != "cell_clustering":
+    if args.sim == "tumor_spheroid":
         raise NotImplementedError(
-            f"--sim {args.sim} is not ported yet (ROADMAP A5)")
+            "--sim tumor_spheroid (3-D) is not ported yet (ROADMAP A5 queue "
+            "item 4: the sim, and the 3-D pair_sweep kernel, B1 c)")
     mesh_shape = tuple(int(v) for v in args.mesh.split("x"))
     if len(mesh_shape) != 2:
         ap.error(f"--mesh {args.mesh} has {len(mesh_shape)} axes but "
@@ -55,12 +58,15 @@ def main(argv=None):
         raise NotImplementedError(
             "--rebalance is not ported yet (ROADMAP A8)")
 
+    import importlib
+
     import torch
 
     from repro_torch.core.engine import total_agents
     from repro_torch.kernels import delta_codec
     from repro_torch.kernels import neighbor_interaction as ni
-    from repro_torch.sims import cell_clustering as mod
+
+    mod = importlib.import_module(f"repro_torch.sims.{args.sim}")
 
     n_dev = 1
     for m in mesh_shape:
@@ -83,7 +89,11 @@ def main(argv=None):
           f"dropped={int(state.dropped.sum())} "
           f"codec_overflow={int(state.codec_overflow.max())}")
     for k, v in metrics.items():
-        print(f"  {k}: {v}")
+        if hasattr(v, "__len__") and len(str(v)) >= 120:
+            # a long series (S/I/R, agent counts): its length and last value
+            print(f"  {k}: {len(v)} values, last {v[-1]}")
+        else:
+            print(f"  {k}: {v}")
     launches = {**ni.LAUNCHES, **delta_codec.LAUNCHES}
     print("kernel launches: "
           + ", ".join(f"{k}={v}" for k, v in launches.items()))

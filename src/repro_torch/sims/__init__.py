@@ -1,4 +1,4 @@
-"""Port of ``repro.sims``.  Ported: ``cell_clustering``.  The other bundled
-sims (``cell_proliferation``, ``epidemiology``, ``oncology``,
-``sir_mechanics``, ``tumor_spheroid``) need the RNG and spawn path and
-come with ROADMAP A5."""
+"""Port of ``repro.sims``.  Ported: the 2-D sims ``cell_clustering``,
+``epidemiology``, ``sir_mechanics``, ``cell_proliferation`` and
+``oncology``.  ``tumor_spheroid`` (3-D) comes with ROADMAP A5's queue
+item 4."""

@@ -94,3 +94,21 @@ def uniform_positions(rng: np.random.Generator, n: int, geom: Domain,
     lo = [margin] * geom.ndim
     hi = [s - margin for s in size]
     return rng.uniform(lo, hi, size=(n, geom.ndim)).astype(np.float32)
+
+
+def disk_positions(rng: np.random.Generator, n: int, center, radius
+                   ) -> np.ndarray:
+    """Uniform positions inside a 2-D disk."""
+    th = rng.uniform(0, 2 * np.pi, n)
+    r = radius * np.sqrt(rng.uniform(0, 1, n))
+    return np.stack([center[0] + r * np.cos(th),
+                     center[1] + r * np.sin(th)], axis=1).astype(np.float32)
+
+
+def ball_positions(rng: np.random.Generator, n: int, center, radius
+                   ) -> np.ndarray:
+    """Uniform positions inside a 3-D ball (the spheroid seeds)."""
+    v = rng.normal(size=(n, 3))
+    v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
+    r = radius * np.cbrt(rng.uniform(0, 1, n))[:, None]
+    return (np.asarray(center)[None, :] + v * r).astype(np.float32)

@@ -25,6 +25,9 @@ SMOKE = ROOT / "chip_smoke.py"
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
+    # One OpenMP thread: beside busy test workers, torch's spinning thread
+    # pool slowed the small CLI runs here a hundredfold.
+    env["OMP_NUM_THREADS"] = "1"
     return env
 
 
@@ -147,8 +150,9 @@ def test_cli_smoke_on_cpu():
     assert lines[1].startswith("aura bytes/iter=") and "dropped=0" in lines[1]
     assert lines[-1].startswith("kernel launches: ")
     assert set(lines[-1].split(": ")[1].split(", ")) == {
-        "soft_repulsion_adhesion=0", "same_type=0", "neighbor_force=0",
-        "delta_encode=0",
+        "soft_repulsion_adhesion=0", "same_type=0", "epidemiology=0",
+        "oncology=0", "stack(soft_repulsion_adhesion,epidemiology)=0",
+        "neighbor_force=0", "delta_encode=0",
         "delta_decode=0", "migration_pos_encode=0",
         "migration_pos_decode=0"}
     mesh = _run(["-m", "repro_torch.launch.simulate", "--sim",
@@ -158,11 +162,23 @@ def test_cli_smoke_on_cpu():
     lines = mesh.stdout.splitlines()
     assert lines[0].startswith("sim=cell_clustering devices=4 agents=300 ")
     assert "dropped=0 codec_overflow=0" in lines[1]
-    for flag in (["--rebalance", "5"], ["--sim", "epidemiology"]):
+    for flag in (["--rebalance", "5"], ["--sim", "tumor_spheroid"]):
         args = ["-m", "repro_torch.launch.simulate", "--sim",
                 "cell_clustering", "--device", "cpu", *flag]
         bad = _run(args)
         assert bad.returncode != 0 and "NotImplementedError" in bad.stderr
+
+
+@pytest.mark.parametrize("sim", ["epidemiology", "sir_mechanics",
+                                 "cell_proliferation", "oncology"])
+def test_cli_runs_the_rng_sims_on_cpu(sim):
+    out = _run(["-m", "repro_torch.launch.simulate", "--sim", sim,
+                "--device", "cpu", "--agents", "60", "--steps", "3"])
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith(f"sim={sim} devices=1 agents=")
+    assert "dropped=0" in lines[1]
+    assert lines[-1].startswith("kernel launches: ")
 
 
 def _result_line(stdout: str):

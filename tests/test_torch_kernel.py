@@ -1,6 +1,7 @@
-"""The CUDA kernels (``pair_sweep``, the legacy ``neighbor_force``, the
-four delta-codec kernels and ``flash_attention``) against their plain
-PyTorch versions.
+"""The CUDA kernels (``pair_sweep`` with every pair law and ``compose()``
+stack it has, the legacy ``neighbor_force``, the four delta-codec kernels
+and ``flash_attention``, head dims it pads included) against their plain
+PyTorch versions, and the threefry RNG on the card against the CPU.
 
 This file imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -22,6 +23,7 @@ bf16, and those float32 results differ by summation order and by the
 import pytest
 import torch
 
+from repro_torch.core.behaviors import compose
 from repro_torch.core.engine import device_block
 from repro_torch.core.grid import clear_ring
 from repro_torch.core.halo import LocalComm, halo_exchange
@@ -31,6 +33,9 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import neighbor_interaction as ni
 from repro_torch.kernels import ops
 from repro_torch.sims import cell_clustering as cc
+from repro_torch.sims import epidemiology as ep
+from repro_torch.sims import oncology as onc
+from repro_torch.sims import sir_mechanics as sm
 from repro_torch.sims.common import make_sim
 
 LAWS = {
@@ -158,6 +163,105 @@ def test_kernel_crowded_strips_match_plain_on_cuda(cuda, law, boundary, cap,
     got = _wrapper(soa, law, box)
     torch.cuda.synchronize()
     _assert_match(got, _plain(soa, law, box))
+
+
+# The laws and stacks of the other bundled sims, on a SoA carrying every
+# column they read (diameter, ctype, state), each with the counts it
+# sums: exact.
+def _abm_laws():
+    mech = cc.behavior()
+    return {
+        "epidemiology": (ep._pair, ("state",), {}, ("n_inf",)),
+        "oncology": (onc._pair, ("diameter", "ctype"),
+                     dict(onc.behavior().params), ("crowd",)),
+        "stack": (sm.behavior().pair_fn, sm.behavior().pair_attrs,
+                  sm.behavior().params, ("b1.n_inf",)),
+        "compose_one": (compose(mech).pair_fn, mech.pair_attrs,
+                        compose(mech).params, ()),
+    }
+
+
+def _abm_soa(device, boundary, interior=(12, 12), cap=32, per_cell=6,
+             seed=0):
+    """An initial sir_mechanics SoA (diameters 0.6-1.4, random types and
+    SIR states) with its aura filled, as the engine's sweep sees it."""
+    sim = make_sim(sm.behavior(), interior=interior, cap=cap,
+                   boundary=boundary, device=device)
+    n = per_cell * int(torch.tensor(interior).prod())
+    g = torch.Generator().manual_seed(seed)
+    size = torch.tensor(sim.geom.domain_size)
+    pos = (0.5 + torch.rand((n, 2), generator=g) * (size - 1.0)).numpy()
+    attrs = {"diameter": (0.6 + 0.8 * torch.rand(n, generator=g)).numpy(),
+             "ctype": torch.randint(0, 2, (n,), generator=g,
+                                    dtype=torch.int32).numpy(),
+             "state": torch.randint(0, 3, (n,), generator=g,
+                                    dtype=torch.int32).numpy()}
+    sim.init(pos, attrs, seed=seed)
+    lead = (0,) * len(interior)
+    refs = {d: {f: v[lead] for f, v in s.items()}
+            for d, s in sim.state.refs.items()}
+    soa, _, _, _ = halo_exchange(
+        sim.geom, clear_ring(device_block(sim.state.soa, lead)),
+        LocalComm(toroidal=sim.geom.toroidal), refs, sim.engine.delta_cfg,
+        True)
+    return soa, minimum_image_box(sim.geom)
+
+
+def _abm_match(soa, box, law):
+    pair_fn, pattrs, params, counts = _abm_laws()[law]
+    name = ni.law_for(pair_fn).name
+    before = ni.LAUNCHES[name]
+    got = ni.pair_sweep(soa.attrs, soa.valid, pair_fn=pair_fn,
+                        pair_attrs=pattrs, radius=2.0, params=params,
+                        box=box)
+    torch.cuda.synchronize()
+    assert ni.LAUNCHES[name] == before + 1
+    ai, aj, vi, vj = ni.neighborhood_slabs(soa.attrs, soa.valid, pattrs)
+    want = ni.pair_sweep_plain(ai, aj, vi, vj, pair_fn=pair_fn, radius=2.0,
+                               params=params, box=box)
+    assert set(got) == set(want)
+    for n, w in want.items():
+        g = got[n].cpu()
+        w = w.reshape(g.shape).cpu()
+        if n in counts:
+            assert torch.equal(g, w), n
+        else:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,per_cell", [(32, 6), (48, 20)])
+@pytest.mark.parametrize("boundary", ["closed", "toroidal"])
+@pytest.mark.parametrize("law", sorted(_abm_laws()))
+def test_abm_laws_match_plain_on_cuda(cuda, law, boundary, cap, per_cell):
+    """Laws 2 (epidemiology) and 3 (oncology: outputs of width D and 1),
+    the mechanics + SIR stack (the SIR part gated to 1.5 under the sweep's
+    2.0) and compose(b) of one law, on 12 x 12 cells, and crowded enough
+    at 20 a cell that strips are swept in parts."""
+    soa, box = _abm_soa(cuda, boundary, cap=cap, per_cell=per_cell)
+    _abm_match(soa, box, law)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", sorted(_abm_laws()))
+def test_abm_laws_strips_match_plain_on_cuda(cuda, law):
+    """37 cells along the last axis: a shorter strip at each row's end."""
+    soa, box = _abm_soa(cuda, "toroidal", interior=(5, 37))
+    _abm_match(soa, box, law)
+
+
+@pytest.mark.cuda
+def test_stack_gate_and_namespaces_on_cuda(cuda):
+    """The stack's SIR part counts only neighbours within its own radius
+    (1.5): at the full radius 2.0 it would count more."""
+    soa, box = _abm_soa(cuda, "toroidal")
+    got = _abm_match(soa, box, "stack")
+    assert set(got) == {"b0.force", "b1.n_inf"}
+    wide = ni.pair_sweep(soa.attrs, soa.valid, pair_fn=ep._pair,
+                         pair_attrs=("state",), radius=2.0, params={},
+                         box=box)["n_inf"]
+    assert float(got["b1.n_inf"].sum()) < float(wide.sum())
 
 
 @pytest.mark.cuda
@@ -581,6 +685,40 @@ def test_flash_wgmma_matches_plain_on_cuda(cuda, bh, s, hd, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,hd,hdv", [
+    (2, 256, 80, 80),        # hubert-xlarge's head dim
+    (16, 1024, 80, 80),
+    (2, 128, 80, 48),
+    (2, 128, 24, 100),
+])
+def test_flash_padded_head_dims_on_cuda(cuda, bh, s, hd, hdv, causal,
+                                        dtype):
+    """Head dims the kernels are not built for run zero-padded: bf16 at
+    hd = hdv = 80 on the wgmma kernel at 128, the rest on the float32 /
+    mma.sync kernel; float32 to 2e-5, bf16 to 2e-2 and within one bf16
+    ulp + 1e-5."""
+    q, k, v = _qkv(cuda, bh, s, s, hd, hdv, dtype, seed=hd + hdv)
+    name = fa.kernel_for(dtype, fa.built_head_dim(hd),
+                         fa.built_head_dim(hdv))
+    if dtype == torch.bfloat16 and hd == hdv == 80:
+        assert name == "flash_attention_wgmma"
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[name] == before[name] + 1
+    assert sum(fa.LAUNCHES.values()) == sum(before.values()) + 1
+    assert got.shape == (bh, s, hdv) and got.is_contiguous()
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        _assert_within_bf16_ulp(got, want)
+
+
+@pytest.mark.cuda
 def test_flash_bhsd_gqa_on_cuda(cuda):
     g = torch.Generator().manual_seed(1)
     q = torch.randn((2, 8, 128, 64), generator=g).to(cuda)
@@ -616,8 +754,35 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention(q, k.to(torch.bfloat16), v)
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), k.half(), v.half())
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention(*_qkv(cuda, 1, 128, 128, 24, 24, torch.float32))
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(*_qkv(cuda, 1, 128, 128, 160, 160, torch.float32))
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                            k, v)
+
+
+# ---------------------------------------------------------------------------
+# The threefry RNG (plain PyTorch, no kernel of its own) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5,), (7, 3, 2), (4099,), (300, 24, 2)])
+def test_prng_on_cuda_equals_cpu(cuda, shape):
+    """Keys, bits and uniforms bit for bit as on the CPU (where they equal
+    jax.random's, tests/test_torch_prng.py); normals within 2 float32 ulp
+    (the card's log1p and sqrt may round differently)."""
+    from repro_torch.core import prng
+
+    for seed in (0, 7, 2**31 - 1):
+        kc = prng.PRNGKey(seed)
+        kg = prng.PRNGKey(seed, device=cuda)
+        assert torch.equal(prng.split(kg, 5).cpu(), prng.split(kc, 5))
+        kc, kg = prng.fold_in(kc, 2**31 + 3), prng.fold_in(kg, 2**31 + 3)
+        assert torch.equal(kg.cpu(), kc)
+        assert torch.equal(prng.random_bits(kg, shape).cpu(),
+                           prng.random_bits(kc, shape))
+        assert torch.equal(prng.uniform(kg, shape).cpu(),
+                           prng.uniform(kc, shape))
+        ng, nc = prng.normal(kg, shape).cpu(), prng.normal(kc, shape)
+        ulp = (ng.view(torch.int32).long() - nc.view(torch.int32).long())
+        assert int(ulp.abs().max()) <= 2

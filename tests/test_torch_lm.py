@@ -206,6 +206,32 @@ def test_flash_bhsd_gqa_matches_jax(dtype):
            j_ops.flash_attention_bhsd(qj, kj, vj, causal=True), TOL[dtype])
 
 
+@pytest.mark.parametrize("hd,hdv", [(80, 80), (80, 48), (24, 100)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_head_dim_padding_on_cpu(hd, hdv, causal, dtype):
+    """What the wrapper does on the card for a head dim the kernels are not
+    built for: zero-pad q, k along hd and v along hdv to built dims, run at
+    the true ``hd ** -0.5``, cut the output back.  Here the padded call
+    runs the plain version, against the plain version unpadded (float32 to
+    1e-6: the zero terms change only the order of the dot products' sums)
+    and the JAX kernel at hd 80 in interpret mode (its own tolerance)."""
+    qj, qt = _normal(30, (2, 128, hd), dtype)
+    kj, kt = _normal(31, (2, 128, hd), dtype)
+    vj, vt = _normal(32, (2, 128, hdv), dtype)
+    qp, kp, vp = fa.pad_head_dims(qt, kt, vt)
+    assert qp.shape[-1] == fa.built_head_dim(hd) > hd
+    assert vp.shape[-1] == fa.built_head_dim(hdv)
+    got = fa.flash_attention_plain(qp, kp, vp, causal=causal,
+                                   scale=hd ** -0.5)[..., :hdv]
+    want = fa.flash_attention_plain(qt, kt, vt, causal=causal)
+    _close(got, want, 1e-6 if dtype == "f32" else 1e-2)
+    _close(got, flash_attention_kernel(qj, kj, vj, causal=causal,
+                                       interpret=True), TOL[dtype])
+    with pytest.raises(ValueError, match="head dim"):
+        fa.built_head_dim(129)
+
+
 def test_flash_wrapper_refuses_what_the_tpu_kernel_refuses():
     q = torch.zeros((1, 192, 16))
     with pytest.raises(ValueError, match="multiple"):

@@ -166,7 +166,7 @@ def _port_run(name):
 @pytest.mark.parametrize("name", list(CASES))
 def test_mesh_init_state_matches_jax(oracle, name):
     got, _ = _port_run(name)
-    assert_dicts_close(got[0], _want(oracle, name, 0), skip=("key",))
+    assert_dicts_close(got[0], _want(oracle, name, 0))
 
 
 @pytest.mark.parametrize("name,step", [("off", 1), ("off", 3),
@@ -176,7 +176,7 @@ def test_mesh_full_refresh_matches_jax(oracle, name, step):
     ``int8+mig`` run: its aura is full, its migrants cross the seam through
     the position codec)."""
     got, _ = _port_run(name)
-    assert_dicts_close(got[step], _want(oracle, name, step), skip=("key",))
+    assert_dicts_close(got[step], _want(oracle, name, step))
 
 
 @pytest.mark.parametrize("name,step", [("int8", 2), ("mig", 2),
@@ -186,7 +186,7 @@ def test_mesh_delta_steps_match_jax(oracle, name, step):
     included, ints exactly and floats to 1e-5."""
     got, _ = _port_run(name)
     want = _want(oracle, name, step)
-    assert_dicts_close(got[step], want, skip=("key",))
+    assert_dicts_close(got[step], want)
     assert int(want["halo_bytes"].ravel()[0]) < int(
         _port_run("off")[1][0][0])     # a delta step sends fewer bytes
 

@@ -13,6 +13,12 @@ version of its kernel on a CPU tensor) is held against JAX
 ``ops.neighbor_force`` (the Pallas kernel in interpret mode) to 1e-5, the
 reference's own tolerance (tests/test_kernels.py).
 
+The laws of the other bundled sims - ``epidemiology._pair`` (an
+infected-neighbour count), ``oncology._pair`` (the force plus a neighbour
+count) - and ``compose()`` stacks - sir_mechanics' force + SIR stack, the
+SIR part gated to its own radius, and ``compose(b)`` of one law - are
+held the same way on a sir_mechanics state, counts exactly.
+
 The CUDA kernels themselves are held against their plain versions in
 tests/test_torch_kernel.py.
 """
@@ -31,7 +37,11 @@ from repro.core.grid import clear_ring
 from repro.core.halo import LocalComm, halo_exchange
 from repro.core.neighbors import sweep_accumulate as j_sweep
 from repro.kernels import ops as j_ops
+from repro.core.behaviors import compose as j_compose
 from repro.sims import cell_clustering as j_cc
+from repro.sims import epidemiology as j_ep
+from repro.sims import oncology as j_onc
+from repro.sims import sir_mechanics as j_sm
 from repro_torch.bridge import state_from_arrays
 from repro_torch.core import Domain
 from repro_torch.core.engine import device_block
@@ -44,7 +54,11 @@ from repro_torch.core.neighbors import (
 )
 from repro_torch.kernels import neighbor_interaction as ni
 from repro_torch.kernels import ops
+from repro_torch.core.behaviors import compose
 from repro_torch.sims import cell_clustering as cc
+from repro_torch.sims import epidemiology as ep
+from repro_torch.sims import oncology as onc
+from repro_torch.sims import sir_mechanics as sm
 from torch_parity import assert_dicts_close, jax_state_arrays, soa_inputs
 
 COUNT_KEYS = ("same", "cnt")
@@ -108,6 +122,61 @@ def test_port_sweep_matches_jax(law, boundary, backend):
         assert float(got["cnt"].sum()) > 0
 
 
+# law -> (JAX pair_fn, port pair_fn, pair_attrs, params, count outputs)
+ABM_LAWS = {
+    "epidemiology": (j_ep._pair, ep._pair, ("state",), {}, ("n_inf",)),
+    "oncology": (j_onc._pair, onc._pair, ("diameter", "ctype"),
+                 dict(onc.behavior().params), ("crowd",)),
+    "stack": (j_sm.behavior().pair_fn, sm.behavior().pair_fn,
+              sm.behavior().pair_attrs, sm.behavior().params,
+              ("b1.n_inf",)),
+    "compose_one": (j_compose(j_cc.behavior()).pair_fn,
+                    compose(cc.behavior()).pair_fn, ("diameter", "ctype"),
+                    compose(cc.behavior()).params, ()),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _abm_case(boundary, n=320, seed=0):
+    """A sir_mechanics state (diameters, types, S/I/R) with its ring
+    filled, in JAX and as the port's twin."""
+    kw = dict(cell_size=2.0, interior=(6, 6), cap=24, boundary=boundary)
+    geom_j = JDomain(**kw)
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.5, 11.5, (n, 2)).astype(np.float32)
+    attrs = {"diameter": rng.uniform(0.6, 1.4, n).astype(np.float32),
+             "ctype": rng.integers(0, 2, n).astype(np.int32),
+             "state": rng.integers(0, 3, n).astype(np.int32)}
+    eng = JEngine(geom=geom_j, behavior=j_sm.behavior(), dt=1.0)
+    st = eng.init_state(pos, attrs, seed=seed)
+    refs = {d: {f: v[0, 0] for f, v in s.items()}
+            for d, s in st.refs.items()}
+    soa_j, _, _, _ = halo_exchange(
+        geom_j, clear_ring(st.soa), LocalComm(toroidal=geom_j.toroidal),
+        refs, eng.delta_cfg, True)
+    st_t = state_from_arrays(
+        jax_state_arrays(dataclasses.replace(st, soa=soa_j)), device="cpu")
+    return geom_j, Domain(**kw), soa_j, device_block(st_t.soa, (0, 0))
+
+
+@pytest.mark.parametrize("backend", ["reference", "tiled", "pallas"])
+@pytest.mark.parametrize("boundary", ["closed", "toroidal"])
+@pytest.mark.parametrize("law", sorted(ABM_LAWS))
+def test_port_abm_law_sweep_matches_jax(law, boundary, backend):
+    """Laws 2 and 3 and the stacks: the port's backends (the kernel's
+    plain version for "pallas") against JAX's, the Pallas kernel in
+    interpret mode included."""
+    geom_j, geom_t, soa_j, soa_t = _abm_case(boundary)
+    pair_j, pair_t, pattrs, params, counts = ABM_LAWS[law]
+    fn = jax.jit(lambda soa: j_sweep(geom_j, soa, pair_j, pattrs, 2.0,
+                                     params, backend=backend))
+    want = {k: np.asarray(v) for k, v in fn(soa_j).items()}
+    got = PORT[backend](geom_t, soa_t, pair_t, pattrs, 2.0, params)
+    assert_dicts_close(got, want, exact_keys=counts)
+    for c in counts:
+        assert float(got[c].sum()) > 0
+
+
 @pytest.mark.parametrize("backend", ["reference", "tiled", "kernel"])
 def test_port_sweep_3d_matches_jax_tiled(backend):
     """The 3-D (27-offset) stencil on the CPU paths, against JAX tiled."""
@@ -136,6 +205,18 @@ def test_unregistered_pair_law_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP B1"):
         ni.law_for(other_pair)
     assert ni.law_for(cc._same_type_pair).name == "same_type"
+    # the registered laws of the other bundled sims
+    assert ni.law_for(ep._pair).name == "epidemiology"
+    assert ni.law_for(onc._pair).outputs == (("force", True),
+                                             ("crowd", False))
+    # a stack resolves part by part; one with an unregistered part raises
+    assert ni.law_for(sm.behavior().pair_fn).parts == (
+        "soft_repulsion_adhesion", "epidemiology")
+    other = dataclasses.replace(cc.behavior(), pair_fn=other_pair)
+    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+        ni.law_for(compose(cc.behavior(), other).pair_fn)
+    with pytest.raises(NotImplementedError, match="ROADMAP B1 b"):
+        ni.law_for(compose(ep.behavior(), cc.behavior()).pair_fn)
 
 
 def _random_cells(rng, c, k):

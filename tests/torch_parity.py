@@ -60,9 +60,9 @@ def assert_dicts_close(got: Dict, want: Dict, exact_keys=(),
         assert_close(got[k], want[k], name=k, exact=k in exact_keys)
 
 
-def assert_states_match(port_state, jax_state, skip=("key",)) -> None:
-    """Every field of the two states; ``key`` is skipped by default (the
-    port does not reproduce jax.random before the threefry slice)."""
+def assert_states_match(port_state, jax_state, skip=()) -> None:
+    """Every field of the two states, the RNG ``key`` included (the port's
+    threefry keys are JAX's bit for bit)."""
     from repro_torch.bridge import state_to_arrays
 
     assert_dicts_close(state_to_arrays(port_state),
