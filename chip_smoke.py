@@ -95,7 +95,24 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    ``oncology`` (10) on the full grid at cap 32, seeded as the reference
    does as a disk of radius L/8 at the centre, at 8 and 4 agents a cell:
    at every step live agents = initial + spawned - dropped, gids unique
-   at the end, one launch a step (law 0, law 3).
+   at the end, one launch a step (law 0, law 3);
+13. the 3-D path: (a) the D = 3 ``pair_sweep`` kernel of law 0, law 1 and
+   the spheroid's stack (force + crowd) on a uniform (128, 128, 128)-cell
+   SoA, cap 32, 8 agents a cell (16,777,216), against the plain version
+   in blocks of 2 x 32 x 128 cells (forces to 1e-5, counts exactly), timed
+   with its bound; (b) ``tumor_spheroid`` through ``Simulation`` on the
+   card on that grid, seeded as the reference's ``init`` seeds it (a ball
+   of radius L/8 at the centre) at 1/32 agent a unit^3 (4,289 agents), 20
+   steps with the counts zeroed just before and read after: live =
+   initial + spawned - dropped at every step, nothing dropped, unique
+   gids, finite positions, the spheroid diameter growing, the stack's one
+   launch a step; the stack against plain on the path's SoA, a profiled
+   step and the RNG's share of it; (c) the same grid and seed on a 2x2x2
+   virtual mesh (64^3 cells a device), int16 aura codec (refresh 8) and
+   int16 migration codec, 10 steps: the same gates, no codec overflow,
+   ``halo_bytes`` on a full and a delta step, every kernel's launches as
+   the configuration implies; (d) the spheroid's mechanics on a 2x2x2
+   mesh of 8^3 cells with a full refresh against one device (1e-4).
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -139,8 +156,9 @@ from repro_torch.sims import cell_proliferation as cp  # noqa: E402
 from repro_torch.sims import epidemiology as ep  # noqa: E402
 from repro_torch.sims import oncology as onc  # noqa: E402
 from repro_torch.sims import sir_mechanics as sm  # noqa: E402
+from repro_torch.sims import tumor_spheroid as ts  # noqa: E402
 from repro_torch.sims.common import (  # noqa: E402
-    disk_positions, init_agents, make_sim, uniform_positions)
+    ball_positions, disk_positions, init_agents, make_sim, uniform_positions)
 from repro_torch.training import steps as lm_steps  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
@@ -151,16 +169,19 @@ TF32_OPS_PER_S = 495e12          # dense, tensor cores
 PROFILE_TRIES = 3        # empty profiler traces before device_ms uses events
 
 # Float operations the kernel does per pair (see csrc/pair_sweep.cu): the
-# distance test on every pair of occupied, distinct slots (2 subtractions,
-# 2 multiplies, 2 adds, 1 compare), then the law on pairs within radius.
-# The law's own operations on a pair within the radius: the soft-sphere
-# force ~20; a count a compare and an add; oncology the force and a count;
-# the mechanics + SIR stack the force, the SIR count and two gate tests.
-OPS_DISTANCE_TEST = 7
+# distance test on every pair of occupied, distinct slots (D subtractions,
+# D multiplies, D adds, 1 compare: 3 D + 1), then the law on pairs within
+# radius.  The law's own operations on a pair within the radius: the
+# soft-sphere force ~20; a count a compare and an add; oncology the force
+# and a count; the mechanics + SIR stack the force, the SIR count and two
+# gate tests; the spheroid's stack the force, the crowd count and two gate
+# tests.
+OPS_DISTANCE_TEST = 3 * 2 + 1      # at D = 2 (phase 11's slabs)
 STACK = "stack(soft_repulsion_adhesion,epidemiology)"
+SPH_STACK = "stack(soft_repulsion_adhesion,crowd)"
 PROLIF_LAW = "soft_repulsion_adhesion@cell_proliferation"
 OPS_LAW = {"soft_repulsion_adhesion": 20, "same_type": 3, "epidemiology": 2,
-           "oncology": 21, STACK: 24, PROLIF_LAW: 20}
+           "oncology": 21, STACK: 24, PROLIF_LAW: 20, SPH_STACK: 23}
 
 LAW_ARGS = {   # law -> (pair_fn, pair_attrs, params)
     "soft_repulsion_adhesion": (
@@ -174,8 +195,10 @@ LAW_ARGS = {   # law -> (pair_fn, pair_attrs, params)
             sm.behavior().params),
     PROLIF_LAW: (cp.behavior().pair_fn, cp.behavior().pair_attrs,
                  dict(cp.behavior().params)),
+    SPH_STACK: (ts.behavior().pair_fn, ts.behavior().pair_attrs,
+                ts.behavior().params),
 }
-COUNT_OUTPUTS = ("same", "cnt", "n_inf", "crowd", "b1.n_inf")
+COUNT_OUTPUTS = ("same", "cnt", "n_inf", "crowd", "b1.n_inf", "b1.crowd")
 
 SMALL_INTERIOR = (128, 128)   # phase 3 grid, ~6 agents a cell
 MAIN_INTERIOR = (2048, 2048)  # phase 4 grid, 4 agents a cell
@@ -250,23 +273,37 @@ def kernel_call(soa, geom, law):
                          box=minimum_image_box(geom))
 
 
-def plain_call(soa, geom, law, rows_per_chunk: int):
+def plain_call(soa, geom, law, rows_per_chunk: int, cols_per_chunk=None):
     """The plain version over the whole grid, ``rows_per_chunk`` interior
-    rows at a time (its (C, K, 3^D K) temporaries would not fit at once)."""
+    rows at a time (its (C, K, 3^D K) temporaries would not fit at once);
+    with ``cols_per_chunk``, also that many interior cells of axis 1 at a
+    time (a 3-D grid's rows), each block cut from the local grid with its
+    ring of neighbour cells."""
     pair_fn, pattrs, params = LAW_ARGS[law]
-    n0 = geom.interior[0]
-    parts = []
-    for r0 in range(0, n0, rows_per_chunk):
-        ai, aj, vi, vj = ni.neighborhood_slabs(
-            soa.attrs, soa.valid, pattrs,
-            rows=(r0, min(n0, r0 + rows_per_chunk)))
-        parts.append(ni.pair_sweep_plain(
-            ai, aj, vi, vj, pair_fn=pair_fn, radius=2.0, params=params,
-            box=minimum_image_box(geom)))
+    n = geom.interior
     k = geom.cap
-    return {n: torch.cat([p[n] for p in parts]).reshape(
-        geom.interior + (k,) + tuple(parts[0][n].shape[2:]))
-        for n in parts[0]}
+    step1 = n[1] if cols_per_chunk is None else cols_per_chunk
+    out = None
+    for r0 in range(0, n[0], rows_per_chunk):
+        r1 = min(n[0], r0 + rows_per_chunk)
+        for q0 in range(0, n[1], step1):
+            q1 = min(n[1], q0 + step1)
+            blk = (slice(r0, r1 + 2), slice(q0, q1 + 2))
+            ai, aj, vi, vj = ni.neighborhood_slabs(
+                {a: t[blk] for a, t in soa.attrs.items()}, soa.valid[blk],
+                pattrs)
+            part = ni.pair_sweep_plain(
+                ai, aj, vi, vj, pair_fn=pair_fn, radius=2.0, params=params,
+                box=minimum_image_box(geom))
+            if out is None:
+                out = {a: torch.empty(n + (k,) + tuple(t.shape[2:]),
+                                      dtype=t.dtype, device=t.device)
+                       for a, t in part.items()}
+            sub = (r1 - r0, q1 - q0) + tuple(n[2:]) + (k,)
+            for a, t in part.items():
+                out[a][r0:r1, q0:q1] = t.reshape(sub + tuple(t.shape[2:]))
+            del ai, aj, vi, vj, part
+    return out
 
 
 def occupied_pairs(soa, geom) -> int:
@@ -293,7 +330,7 @@ def bound(soa, geom, law, in_radius_pairs: int):
                      for _, per_axis in pl.outputs)
     nbytes = (soa.valid.numel() + int(soa.valid.sum()) * cols
               + math.prod(geom.interior) * geom.cap * out_floats * 4)
-    ops = OPS_DISTANCE_TEST * occupied_pairs(soa, geom) \
+    ops = (3 * geom.ndim + 1) * occupied_pairs(soa, geom) \
         + OPS_LAW[law] * in_radius_pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
@@ -318,7 +355,8 @@ def compare(got, want, label):
     return worst
 
 
-def check_kernel(soa, geom, law, rows_per_chunk, reps, label):
+def check_kernel(soa, geom, law, rows_per_chunk, reps, label,
+                 cols_per_chunk=None):
     """Kernel vs plain version on ``soa``; both timed (the plain version
     once, the kernel over ``reps`` launches after a warm-up)."""
     before = sum(ni.LAUNCHES.values())
@@ -328,11 +366,12 @@ def check_kernel(soa, geom, law, rows_per_chunk, reps, label):
         fail(f"{label}: the launch counter did not move")
     want = {}
     plain_ms = cuda_ms(
-        lambda: want.update(plain_call(soa, geom, law, rows_per_chunk)), 1,
-        warmup=False)
+        lambda: want.update(plain_call(soa, geom, law, rows_per_chunk,
+                                       cols_per_chunk)), 1, warmup=False)
     err = compare(got, want, f"{label} {law}")
     in_radius = next((int(want[c].sum(dtype=torch.float64))
-                      for c in ("cnt", "crowd") if c in want), None)
+                      for c in ("cnt", "crowd", "b1.crowd") if c in want),
+                     None)
     ms = cuda_ms(lambda: kernel_call(soa, geom, law), reps)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), in_radius
 
@@ -355,22 +394,25 @@ def in_radius_pairs(soa, geom, rows_per_chunk: int) -> int:
 
 
 def aura_block(sim):
-    """Device (0, 0)'s block of a one-device sim with its aura filled, as
-    the step's sweep sees it."""
-    refs = {d: {f: v[0, 0] for f, v in s.items()}
+    """The block of a one-device sim with its aura filled, as the step's
+    sweep sees it."""
+    lead = (0,) * sim.geom.ndim
+    refs = {d: {f: v[lead] for f, v in s.items()}
             for d, s in sim.state.refs.items()}
     soa, _, _, _ = halo_exchange(
-        sim.geom, clear_ring(device_block(sim.state.soa, (0, 0))),
+        sim.geom, clear_ring(device_block(sim.state.soa, lead)),
         LocalComm(toroidal=sim.geom.toroidal), refs, sim.engine.delta_cfg,
         True)
     return soa
 
 
-def law_row(soa, geom, law, rows_per_chunk, reps, label, in_radius=None):
+def law_row(soa, geom, law, rows_per_chunk, reps, label, in_radius=None,
+            cols_per_chunk=None):
     """``law``'s kernel against its plain version on ``soa``, both timed,
     with its bound; the pairs within the radius come from the law's own
     count output, else ``in_radius``, else a counting pass."""
-    res, counted = check_kernel(soa, geom, law, rows_per_chunk, reps, label)
+    res, counted = check_kernel(soa, geom, law, rows_per_chunk, reps, label,
+                                cols_per_chunk)
     if counted is not None:
         in_radius = counted
     elif in_radius is None:
@@ -566,11 +608,13 @@ def phase_parity(seed: int):
     return errs
 
 
-def expected_mesh_launches(sim, steps: int, calls_metric: int):
-    """Kernel launches the mesh configuration implies over ``steps`` steps
-    from tick 0 with ``calls_metric`` calls of the clustering metric."""
+def codec_launches(sim, steps: int):
+    """Codec kernel launches a mesh configuration implies over ``steps``
+    steps from tick 0: one encode and one decode a float attribute a
+    directed edge on a delta step, one position encode and decode an edge
+    a step with the migration codec."""
     geom, cfg = sim.geom, sim.engine.delta_cfg
-    n_dev, nd = geom.n_devices, geom.ndim
+    nd = geom.ndim
     n_float = sum(1 for _, (_, dt) in sim.behavior.schema.all_specs(nd).items()
                   if dt.is_floating_point)
     r = max(int(cfg.refresh_interval), 1)
@@ -578,11 +622,17 @@ def expected_mesh_launches(sim, steps: int, calls_metric: int):
     halo = delta_steps * 2 * nd * n_float if cfg.enabled else 0
     mig = steps * 2 * nd if cfg.enabled and cfg.migration is not None \
         else 0
+    return dict(delta_encode=halo, delta_decode=halo,
+                migration_pos_encode=mig, migration_pos_decode=mig)
+
+
+def expected_mesh_launches(sim, steps: int, calls_metric: int):
+    """Kernel launches the mesh configuration implies over ``steps`` steps
+    from tick 0 with ``calls_metric`` calls of the clustering metric."""
+    n_dev = sim.geom.n_devices
     return dict({n: 0 for n in all_launches()},
                 soft_repulsion_adhesion=steps * n_dev,
-                same_type=calls_metric * n_dev,
-                delta_encode=halo, delta_decode=halo,
-                migration_pos_encode=mig, migration_pos_decode=mig)
+                same_type=calls_metric * n_dev, **codec_launches(sim, steps))
 
 
 def all_launches():
@@ -1663,24 +1713,26 @@ def check_launches(launches, law, steps, label):
         fail(f"{label}: kernel launches {launches} != {want}")
 
 
-def rng_row(sim):
-    """The epidemiology update's draws at the step's shapes, timed alone:
-    the normal walk (threefry bits, then the uniform transform and XLA's
-    erfinv) and the two uniforms; ms a step and ns a draw."""
-    key = prng.fold_in(sim.state.key[0, 0], 0)
+def rng_row(sim, uniforms: int = 2):
+    """An update's draws at the step's shapes, timed alone: a normal over
+    every slot and axis (threefry bits, then the uniform transform and
+    XLA's erfinv) and ``uniforms`` uniforms over every slot (epidemiology
+    draws two, tumor_spheroid one); ms a step and ns a draw."""
+    key = prng.fold_in(sim.state.key[(0,) * sim.geom.ndim], 0)
     shape_u = sim.geom.interior + (sim.geom.cap,)
-    shape_n = shape_u + (2,)
+    shape_n = shape_u + (sim.geom.ndim,)
     n_u, n_n = math.prod(shape_u), math.prod(shape_n)
     bits_ms = (cuda_ms(lambda: prng.random_bits(key, shape_n), 3)
-               + 2 * cuda_ms(lambda: prng.random_bits(key, shape_u), 3))
+               + uniforms * cuda_ms(lambda: prng.random_bits(key, shape_u),
+                                    3))
     normal_ms = cuda_ms(lambda: prng.normal(key, shape_n), 3)
     uniform_ms = cuda_ms(lambda: prng.uniform(key, shape_u), 3)
-    total = normal_ms + 2 * uniform_ms
+    total = normal_ms + uniforms * uniform_ms
     return dict(threefry_ms=bits_ms, normal_ms=normal_ms,
                 uniform_ms=uniform_ms, total_ms=total,
                 ns_per_normal=1e6 * normal_ms / n_n,
                 ns_per_uniform=1e6 * uniform_ms / n_u,
-                draws=n_n + 2 * n_u)
+                draws=n_n + uniforms * n_u)
 
 
 def phase_epidemiology(seed: int):
@@ -1768,9 +1820,34 @@ def phase_sir_mechanics(seed: int):
 
 
 def spawn_collect(sim):
+    """Live agents, the gid counters' sum, drops, one device's
+    ``halo_bytes`` and the codec's overflow count (one device tensor)."""
     st = sim.state
     return torch.stack([st.soa.valid.sum(), st.gid_counter.sum(),
-                        st.dropped.sum()])
+                        st.dropped.sum(), st.halo_bytes.reshape(-1)[0],
+                        st.codec_overflow.max()])
+
+
+def check_spawn_series(label, n0, c0, series):
+    """live = initial + spawned - dropped at every step (``c0``: the gid
+    counters' sum at the start); returns (spawned, dropped) at the end."""
+    for t, row in enumerate(series):
+        n, g, d = row[:3]
+        if n != n0 + (g - c0) - d:
+            fail(f"{label}: step {t + 1}: {n} live != {n0} + {g - c0} "
+                 f"spawned - {d} dropped")
+    return series[-1][1] - c0, series[-1][2]
+
+
+def check_gids(label, state):
+    """Unique gids and finite positions of the live agents."""
+    v = state.soa.valid
+    gid = ((state.soa.attrs["gid_rank"][v].to(torch.int64) << 32)
+           | state.soa.attrs["gid_count"][v].to(torch.int64))
+    if int(torch.unique(gid).numel()) != int(v.sum()):
+        fail(f"{label}: gids are not unique")
+    if not torch.isfinite(state.soa.pos[v]).all():
+        fail(f"{label}: non-finite positions")
 
 
 def phase_spawn(seed: int, name: str):
@@ -1799,24 +1876,13 @@ def phase_spawn(seed: int, name: str):
           f"{time.perf_counter() - t0:.2f}s", flush=True)
     c0 = tuple(int(v) for v in spawn_collect(sim).tolist())
     series, launches, stats = drive(sim, steps, name, spawn_collect)
-    spawned = series[-1][1] - c0[1]
-    dropped = series[-1][2]
+    spawned, dropped = check_spawn_series(name, n0, c0[1], series)
     print(f"[{name}] agents / gid counters / dropped by step "
-          f"{[c0] + series}; {spawned} spawned, {dropped} dropped",
-          flush=True)
-    for t, (n, g, d) in enumerate(series):
-        if n != n0 + (g - c0[1]) - d:
-            fail(f"{name}: step {t + 1}: {n} live != {n0} + "
-                 f"{g - c0[1]} spawned - {d} dropped")
+          f"{[row[:3] for row in [c0] + series]}; {spawned} spawned, "
+          f"{dropped} dropped", flush=True)
     if spawned <= 0:
         fail(f"{name}: nothing spawned in {steps} steps")
-    v = sim.state.soa.valid
-    gid = ((sim.state.soa.attrs["gid_rank"][v].to(torch.int64) << 32)
-           | sim.state.soa.attrs["gid_count"][v].to(torch.int64))
-    if int(torch.unique(gid).numel()) != int(v.sum()):
-        fail(f"{name}: gids are not unique")
-    if not torch.isfinite(sim.state.soa.pos[v]).all():
-        fail(f"{name}: non-finite positions")
+    check_gids(name, sim.state)
     check_launches(launches, law, steps, name)
     sim.run(1)
     row = law_row(aura_block(sim), sim.geom, law, 8, 5, name)
@@ -1843,6 +1909,216 @@ def phase_sims(seed: int):
         gc.collect()
         torch.cuda.empty_cache()
     return rows, stats
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the 3-D path (tumor_spheroid, the D = 3 pair sweep)
+# ---------------------------------------------------------------------------
+
+SPH_INTERIOR = (128, 128, 128)               # L = 256, 2,097,152 cells
+SPH_CAP = 32                                 # the sim's own cap
+SPH_UNIFORM_AGENTS = 8 * math.prod(SPH_INTERIOR)   # (a): 16,777,216
+# (b), (c): the reference's init geometry, a ball of radius L/8 at the
+# centre, seeded at 1/32 of an agent a unit^3.  The reference's density
+# (40 agents in a ball of radius 1.5, 2.83 a unit^3) overflows cap 32 at
+# init on this grid, and any density from 1/16 up drops agents within 20
+# steps, the adhesive ball clumping and dividing into cells of more than
+# 32 (tools/spheroid_density.py).
+SPH_DENSITY = 1.0 / 32
+SPH_STEPS = 20
+SPH_MESH = (2, 2, 2)                         # (c): 64^3 cells a device
+SPH_MESH_STEPS = 10                          # full, 7 delta, full, delta
+SPH_MESH_DELTA = DeltaConfig(enabled=True, qdtype=torch.int16,
+                             refresh_interval=8, migration=torch.int16)
+
+
+def seed_spheroid(sim, seed: int) -> int:
+    """The spheroid's ball at SPH_DENSITY, as the sim's ``init`` seeds it
+    (diameter 0.8, ctype 1, nutrient 1.0); returns the agents seeded."""
+    size = sim.geom.domain_size
+    radius = min(size) / 8
+    n0 = int(SPH_DENSITY * 4.0 / 3.0 * math.pi * radius ** 3)
+    pos = ball_positions(np.random.default_rng(seed), n0,
+                         tuple(s / 2 for s in size), radius)
+    init_agents(sim, pos, {"diameter": np.full((n0,), 0.8, np.float32),
+                           "ctype": np.ones((n0,), np.int32),
+                           "nutrient": np.ones((n0,), np.float32)},
+                seed=seed)
+    return n0
+
+
+def phase_sweep_3d(seed: int):
+    """Phase 13 (a): the D = 3 kernel of law 0, law 1 and the spheroid's
+    stack on a uniform 128^3-cell SoA, 8 agents a cell, cap 32, against
+    the plain version (in blocks of 2 x 32 x 128 cells) and the bound."""
+    t0 = time.perf_counter()
+    sim = make_sim(cc.behavior(), interior=SPH_INTERIOR, cap=SPH_CAP,
+                   device="cuda")
+    cc.init(sim, SPH_UNIFORM_AGENTS, seed=seed)
+    soa = aura_block(sim)
+    torch.cuda.synchronize()
+    print(f"[3d sweep] {SPH_UNIFORM_AGENTS} agents uniform on "
+          f"{sim.geom.local_shape} x {SPH_CAP} slots: "
+          f"{time.perf_counter() - t0:.2f}s; fullest cell "
+          f"{int(soa.valid.sum(-1).max())}", flush=True)
+    kw = dict(rows_per_chunk=2, reps=5, label="3d sweep", cols_per_chunk=32)
+    same = law_row(soa, sim.geom, "same_type", **kw)
+    rows = {
+        "same_type": same,
+        "soft_repulsion_adhesion": law_row(
+            soa, sim.geom, "soft_repulsion_adhesion",
+            in_radius=same["in_radius_pairs"], **kw),
+        SPH_STACK: law_row(soa, sim.geom, SPH_STACK, **kw),
+    }
+    return rows
+
+
+def phase_spheroid(seed: int):
+    """Phase 13 (b): tumor_spheroid on one device, 128^3 cells, 20 steps."""
+    t0 = time.perf_counter()
+    sim = make_sim(ts.behavior(), interior=SPH_INTERIOR, cap=SPH_CAP,
+                   sweep_backend="auto", device="cuda")
+    n0 = seed_spheroid(sim, seed)
+    torch.cuda.synchronize()
+    d0 = ts.spheroid_diameter(sim.state)
+    print(f"[spheroid] init {n0} agents in a ball of radius "
+          f"{min(sim.geom.domain_size) / 8:g} on {sim.geom.local_shape} x "
+          f"{SPH_CAP} slots: {time.perf_counter() - t0:.2f}s; diameter "
+          f"{d0:.4f}", flush=True)
+    c0 = int(sim.state.gid_counter.sum())
+    series, launches, stats = drive(sim, SPH_STEPS, "spheroid",
+                                    spawn_collect)
+    spawned, dropped = check_spawn_series("spheroid", n0, c0, series)
+    d1 = ts.spheroid_diameter(sim.state)
+    print(f"[spheroid] agents / gid counters / dropped by step "
+          f"{[row[:3] for row in series]}; {spawned} spawned, {dropped} "
+          f"dropped; diameter {d0:.4f} -> {d1:.4f}", flush=True)
+    if spawned <= 0:
+        fail("spheroid: nothing spawned")
+    if dropped != 0:
+        fail(f"spheroid: {dropped} agents dropped at cap {SPH_CAP}")
+    if not d1 > d0:
+        fail(f"spheroid: the diameter did not grow ({d0} -> {d1})")
+    check_gids("spheroid", sim.state)
+    check_launches(launches, SPH_STACK, SPH_STEPS, "spheroid")
+    sim.run(1)                                   # a mid-run SoA (step 21)
+    row = law_row(aura_block(sim), sim.geom, SPH_STACK, 2, 5, "spheroid",
+                  cols_per_chunk=32)
+    rng = rng_row(sim, uniforms=1)
+    times = profile(lambda: sim.run(1), "spheroid profile", "one step")
+    step_dev = sum(times.values()) / 1e3 if times else stats["step_ms"]
+    print(f"[spheroid] RNG of a step, timed alone at its shapes: "
+          f"{rng['total_ms']:.3f} ms = {100 * rng['total_ms'] / step_dev:.1f}"
+          f"% of a step's {step_dev:.3f} ms of device time (threefry "
+          f"{rng['threefry_ms']:.3f} ms; normal {rng['normal_ms']:.3f} ms, "
+          f"{rng['ns_per_normal']:.4f} ns a draw; uniform "
+          f"{rng['uniform_ms']:.3f} ms; {rng['draws']} draws); the sweep "
+          f"{row['ms']:.3f} ms", flush=True)
+    return row, dict(stats, agents_initial=n0, spawned=spawned,
+                     dropped=dropped, diameter=[d0, d1], rng=rng,
+                     step_device_ms=step_dev,
+                     launches=launches[SPH_STACK])
+
+
+def phase_spheroid_mesh(seed: int):
+    """Phase 13 (c): the same global grid on a 2x2x2 virtual mesh, int16
+    aura codec (refresh interval 8) and int16 migration codec."""
+    interior = tuple(n // m for n, m in zip(SPH_INTERIOR, SPH_MESH))
+    sim = make_sim(ts.behavior(), interior=interior, mesh_shape=SPH_MESH,
+                   cap=SPH_CAP, delta=SPH_MESH_DELTA, sweep_backend="auto",
+                   device="cuda")
+    n0 = seed_spheroid(sim, seed)
+    c0 = int(sim.state.gid_counter.sum())
+    series, launches, stats = drive(sim, SPH_MESH_STEPS, "spheroid mesh",
+                                    spawn_collect)
+    spawned, dropped = check_spawn_series("spheroid mesh", n0, c0, series)
+    overflow = series[-1][4]
+    bytes_full, bytes_delta = series[0][3], series[1][3]
+    print(f"[spheroid mesh] {SPH_MESH} x {sim.geom.local_shape} x "
+          f"{SPH_CAP} slots, {n0} agents: agents / gid counters / dropped / "
+          f"halo_bytes by step {[row[:4] for row in series]}; {spawned} "
+          f"spawned, {dropped} dropped, codec_overflow {overflow}; "
+          f"halo_bytes a device: full step {bytes_full}, delta step "
+          f"{bytes_delta}", flush=True)
+    if overflow != 0:
+        fail(f"spheroid mesh: codec overflow {overflow}")
+    if dropped != 0:
+        fail(f"spheroid mesh: {dropped} agents dropped")
+    if spawned <= 0:
+        fail("spheroid mesh: nothing spawned")
+    if not bytes_full > bytes_delta > 0:
+        fail(f"spheroid mesh: halo bytes full {bytes_full} / delta "
+             f"{bytes_delta}")
+    check_gids("spheroid mesh", sim.state)
+    n_dev = sim.geom.n_devices
+    want = dict(codec_launches(sim, SPH_MESH_STEPS),
+                **{SPH_STACK: SPH_MESH_STEPS * n_dev})
+    want = {k: v for k, v in want.items() if v}
+    if launches != want:
+        fail(f"spheroid mesh: kernel launches {launches} != {want}")
+    return dict(stats, agents_initial=n0, spawned=spawned, dropped=dropped,
+                codec_overflow=overflow, bytes_full=bytes_full,
+                bytes_delta=bytes_delta, launches=launches)
+
+
+def phase_spheroid_parity(seed: int):
+    """Phase 13 (d): the spheroid's mechanics (law 0 at D = 3, no draws) on
+    a 2x2x2 mesh of 8^3 cells with a full refresh against one device of
+    16^3 cells, 8 steps.  Agents carry no key-dependent state, so the two
+    runs hold the same agents; a migrant joins its cell's slots in another
+    order on the mesh than on one device, so the force sums may differ in
+    the last bits (phase 8's limit, 1e-4)."""
+    mech = ts.behavior().children[0]
+    out = {}
+    runs = {}
+    for name, mesh, interior in (("one", (1, 1, 1), (16, 16, 16)),
+                                 ("mesh", SPH_MESH, (8, 8, 8))):
+        sim = make_sim(mech, interior=interior, mesh_shape=mesh, cap=SPH_CAP,
+                       delta="off", device="cuda")
+        size = sim.geom.domain_size
+        pos = ball_positions(np.random.default_rng(seed), 600,
+                             tuple(s / 2 for s in size), min(size) / 4)
+        init_agents(sim, pos, {"diameter": np.full((600,), 0.8, np.float32),
+                               "ctype": np.ones((600,), np.int32)},
+                    seed=seed)
+        sim.run(8)
+        runs[name] = sim
+    a, b = runs["one"].state, runs["mesh"].state
+    if not total_agents(a) == total_agents(b) == 600:
+        fail(f"spheroid parity: agents {total_agents(a)} / "
+             f"{total_agents(b)}")
+    if int(a.dropped.sum()) or int(b.dropped.sum()):
+        fail("spheroid parity: agents dropped")
+
+    def sorted_pos(st):
+        v = st.soa.valid.reshape(-1)
+        p = st.soa.pos.reshape(-1, 3)[v].cpu().numpy()
+        return p[np.lexsort(p.T)]
+
+    err = float(np.abs(sorted_pos(a) - sorted_pos(b)).max())
+    out["off_vs_one_device"] = err
+    print(f"[spheroid parity] 2x2x2 full refresh vs one device, 8 steps, "
+          f"600 agents: max |sorted pos| diff {err:.3g} (limit 1e-4)",
+          flush=True)
+    if err > 1e-4:
+        fail(f"spheroid parity: 2x2x2 vs 1x1x1 positions differ by {err}")
+    return out
+
+
+def phase_3d(seed: int):
+    """Phase 13: the D = 3 kernel, tumor_spheroid on one device and on the
+    2x2x2 mesh, and the mesh against one device."""
+    rows = phase_sweep_3d(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_row, one = phase_spheroid(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase_spheroid_mesh(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = phase_spheroid_parity(seed)
+    return rows, path_row, dict(one_device=one, mesh=mesh, parity=parity)
 
 
 def main(argv=None) -> int:
@@ -1902,6 +2178,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sim_rows, sim_stats = phase_sims(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows_3d, spheroid_row, spheroid = phase_3d(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     kernels = [{
@@ -1919,10 +2198,18 @@ def main(argv=None) -> int:
         "ms": soft["ms"], "plain_ms": soft["plain_ms"],
         "bound_ms": soft["bound_ms"], "bound_by": soft["bound_by"],
         "library_ms": None,
-        # every law it ran: the main path's two, then phase 12's
+        # every law it ran: the main path's two, then phase 12's, then
+        # phase 13's D = 3 rows: the uniform 128^3 SoA (launches: none on a
+        # driven path but the stack's) and the spheroid path's own SoA
         "laws": {**{law: dict(r, launches=launches[law])
-                    for law, r in rows.items()}, **sim_rows},
-        "sims": sim_stats,
+                    for law, r in rows.items()}, **sim_rows,
+                 **{f"{law}@d3": dict(r, launches=spheroid["one_device"][
+                     "launches"] if law == SPH_STACK else 0)
+                    for law, r in rows_3d.items()},
+                 f"{SPH_STACK}@spheroid": dict(
+                     spheroid_row,
+                     launches=spheroid["one_device"]["launches"])},
+        "sims": dict(sim_stats, tumor_spheroid=spheroid),
         "small_128x128": small,
         "step_ms": main_stats["step_ms"],
         "peak_device_bytes": main_stats["peak_bytes"],

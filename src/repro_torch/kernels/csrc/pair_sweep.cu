@@ -9,13 +9,15 @@
 // dist2 <= radius^2 (displacement taken as the minimum image on toroidal
 // axes); the pair law's contributions are summed over j, offset-major (the
 // offsets row-major over (-1, 0, 1)^D, last axis fastest), then slot.
-// Only D = 2 is instantiated.  The laws are device functions (below): the
-// soft-sphere force (law 0), the same-type counts of the clustering
-// metric (1), the infected-neighbour count of epidemiology (2), oncology's
-// force plus neighbour count (3), and the compose() stack of the force and
-// the infected count, each part gated to its own radius, in one sweep over
-// one neighbourhood (16, sir_mechanics).  Their outputs may differ in
-// width (oncology: force (D), crowd (1)); counts are exact.
+// Every law is instantiated at D = 2 and D = 3.  The laws are device
+// functions (below): the soft-sphere force (law 0), the same-type counts
+// of the clustering metric (1), the infected-neighbour count of
+// epidemiology (2), oncology's force plus neighbour count (3), the crowd
+// count of tumor_spheroid (4, no columns), and two compose() stacks, each
+// part gated to its own radius, in one sweep over one neighbourhood: the
+// force and the infected count (16, sir_mechanics), the force and the
+// crowd count (17, tumor_spheroid).  Their outputs may differ in width
+// (oncology: force (D), crowd (1)); counts are exact.
 //
 // What bounds it on an H100.  Bytes: each slot's valid flag (1 B), the
 // law's columns of the occupied slots only (pos 8 B, gids 8 B, up to 8 B
@@ -61,6 +63,29 @@
 // bound by instruction issue (an IEEE sqrt and two IEEE divisions a pair
 // within the radius, many instructions each, and lanes of one warp
 // walking the lists of different cells), not by bytes.
+//
+// At D = 3 the same design runs on 3 x 3 = 9 staged rows of w + 2 cells
+// (the strip's line of cells along the last axis and the eight lines
+// around it in the first two axes), in the offsets' order: the rows by
+// (first, second) axis offset row-major, each a run of three consecutive
+// cells along the last axis.  A 3-D position and two gids do not fit one
+// 16-byte entry, so an entry is (x, y, z, the float column) in 16 bytes,
+// the two gids in 8 (read first: the self test needs both, and on one
+// device every gid_rank is equal) and each int column in 4: 36 bytes an
+// entry with one int column, against 32 at D = 2.  A block holds 1024
+// staged slots (27 K if that is more), and the 48 KB budget still admits
+// a strip of 32 cells at K = 32 (36,864 B of entries, 9,792 B of flags):
+// four blocks on an SM.  At 8 agents a cell a strip's 9 x 34 staged cells
+// hold ~2,450 slots, so it is swept in about three parts of ~11 cells,
+// each re-staging its two edge columns; that costs threads (~90 own slots
+// a part for 256 threads; a budget of 80-116 KB, which spares such a
+// strip its parts, was no faster there and slower on a sparse SoA, with
+// fewer blocks on an SM), not order: the sums are the D = 2 design's,
+// one thread a slot over the 27 cells in order.  At D = 3 the bound is
+// the operations (~27 x 8 distance tests an agent): on a uniform 128^3
+// cells at 8 agents a cell (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
+// phase 13) the force law takes ~26 ms against 0.71 ms, the pair loop
+// waiting on its shared-memory loads with ~90 threads of a block busy.
 
 #include <cuda_runtime.h>
 
@@ -199,6 +224,23 @@ struct Oncology {
   }
 };
 
+// Law 4: repro_torch.sims.tumor_spheroid._crowd_pair: crowd, the
+// neighbours in range (a count).  Reads no column.
+template <int D>
+struct Crowd {
+  static constexpr int kParts = 1;
+  static constexpr int kAcc = 1;
+  static constexpr int kParams = 0;
+  static constexpr int kInts = 0;
+  __host__ __device__ static constexpr int width(int) { return 1; }
+
+  __device__ __forceinline__ static void add(
+      float* acc, const float*, float, const Cols&, const Cols&,
+      const float*, const float*) {
+    acc[0] += 1.f;
+  }
+};
+
 // A compose() stack of two laws over one neighbourhood: A's outputs, then
 // B's (the b0. and b1. accumulators), A's params, then B's.  Part q runs
 // on the pairs with dist2 <= gate[q] (its own radius^2; +inf at the
@@ -241,25 +283,36 @@ constexpr int kMaxStrip = 32;         // cells a strip
 constexpr int kMinEntries = 1024;     // compacted slots a block holds
 constexpr size_t kStripBudget = 48 * 1024;   // shared memory a block
 
-// Shared memory of a block (byte offsets) for strip width w, capacity k,
-// room for `entries` compacted slots and `ints` int columns of the law.
+// Staged rows of a strip: its own line of cells along the last axis and
+// the lines next to it in the other axes, 3^(D - 1).
+__host__ __device__ constexpr int staged_rows(int d) {
+  return d == 2 ? 3 : 9;
+}
+
+// Shared memory of a block (byte offsets) at dimension d for strip width
+// w, capacity k, room for `entries` compacted slots and `ints` int columns
+// of the law.  D = 2: a = (x, y, gid_rank, gid_count), b = (float column,
+// int column 0), c = int column 1.  D = 3: a = (x, y, z, float column),
+// b = (gid_rank, gid_count), d = int column 0, c = int column 1.
 struct StripLayout {
-  size_t a, b, c, src, own, start, flag, bytes;
+  size_t a, b, c, d, src, own, start, flag, bytes;
 };
 
-__host__ __device__ inline StripLayout strip_layout(int w, int k,
+__host__ __device__ inline StripLayout strip_layout(int dim, int w, int k,
                                                     int entries, int ints) {
+  const size_t e = static_cast<size_t>(entries);
+  const size_t cells = static_cast<size_t>(staged_rows(dim)) * (w + 2);
   StripLayout s;
   size_t at = 0;
-  s.a = at;     at += 16 * static_cast<size_t>(entries);  // x, y, gids
-  s.b = at;     at += 8 * static_cast<size_t>(entries);   // f, int col 0
-  s.c = at;                                               // int col 1
-  if (ints > 1) at += 4 * static_cast<size_t>(entries);
-  s.src = at;   at += 4 * static_cast<size_t>(entries);   // staged slot
-  s.own = at;   at += 4 * static_cast<size_t>(entries);   // output slot
-  s.start = at; at += 4 * static_cast<size_t>(3 * (w + 2) + 1);
+  s.a = at;     at += 16 * e;
+  s.b = at;     at += 8 * e;
+  s.c = at;     if (ints > 1) at += 4 * e;
+  s.d = at;     if (dim == 3 && ints > 0) at += 4 * e;
+  s.src = at;   at += 4 * e;                              // staged slot
+  s.own = at;   at += 4 * e;                              // output slot
+  s.start = at; at += 4 * (cells + 1);
   at = (at + 15) & ~static_cast<size_t>(15);
-  s.flag = at;  at += 3 * static_cast<size_t>(w + 2) * k;
+  s.flag = at;  at += cells * k;
   s.bytes = (at + 15) & ~static_cast<size_t>(15);
   return s;
 }
@@ -293,45 +346,61 @@ __device__ __forceinline__ int count_flags(const unsigned char* f, int k,
   return c;
 }
 
+// n: the interior cells along each axis (n.z unused at D = 2).
 template <int D, class Law>
 __global__ void __launch_bounds__(kSweepThreads)
-    pair_sweep_kernel(Columns col, int n0, int n1, int k, int w,
-                      int entries, float r2, Box box, LawParams p,
-                      Outputs out) {
-  static_assert(D == 2, "the strip layout is written for D = 2");
+    pair_sweep_kernel(Columns col, int3 n, int k, int w, int entries,
+                      float r2, Box box, LawParams p, Outputs out) {
+  static_assert(D == 2 || D == 3, "the strip layout is written for D = 2, 3");
+  constexpr int kRows = staged_rows(D);
+  constexpr int kMid = kRows / 2;       // the strip's own row
   extern __shared__ __align__(16) unsigned char smem[];
-  const StripLayout lay = strip_layout(w, k, entries, Law::kInts);
+  const StripLayout lay = strip_layout(D, w, k, entries, Law::kInts);
   float4* s_a = reinterpret_cast<float4*>(smem + lay.a);
-  float2* s_b = reinterpret_cast<float2*>(smem + lay.b);
+  float2* s_b = reinterpret_cast<float2*>(smem + lay.b);   // D = 2
+  int2* s_g = reinterpret_cast<int2*>(smem + lay.b);       // D = 3
   int* s_c = reinterpret_cast<int*>(smem + lay.c);
+  int* s_d = reinterpret_cast<int*>(smem + lay.d);         // D = 3
   int* s_src = reinterpret_cast<int*>(smem + lay.src);
   int* s_own = reinterpret_cast<int*>(smem + lay.own);
   int* s_start = reinterpret_cast<int*>(smem + lay.start);
   unsigned char* s_flag = smem + lay.flag;
 
-  // This block's strip: interior row `row`, interior columns c0 .. c0 +
-  // wc - 1.  Staged cell (dr, dc) is local-grid cell (row + dr, c0 + dc)
-  // (the local grid is the interior plus one ring); staged cells are
-  // numbered row-major, dr * nc + dc.
-  const int strips = (n1 + w - 1) / w;
-  const int row = blockIdx.x / strips;
+  // This block's strip: interior line `line` (a row at D = 2; at D = 3 the
+  // line (line / n1, line % n1) of the first two axes), interior cells c0
+  // .. c0 + wc - 1 along the last axis.  Staged cell (r, dc) is local-grid
+  // cell dc + c0 of the line at offset r in the other axes (r - 1 at D = 2;
+  // (r / 3 - 1, r % 3 - 1) at D = 3; the local grid is the interior plus
+  // one ring); staged cells are numbered row-major, r * nc + dc.
+  const int nl = D == 2 ? n.y : n.z;    // interior cells of a line
+  const int strips = (nl + w - 1) / w;
+  const int line = blockIdx.x / strips;
   const int c0 = (blockIdx.x % strips) * w;
-  const int wc = min(w, n1 - c0);
+  const int wc = min(w, nl - c0);
   const int nc = wc + 2;
-  const int n_cells = 3 * nc;
-  const long long l1 = n1 + 2;
-  auto first_slot = [&](int dr) {   // global slot of staged cell (dr, 0)
-    return ((row + dr) * l1 + c0) * k;
+  const int n_cells = kRows * nc;
+  const long long ll = nl + 2;
+  auto first_slot = [&](int r) {   // global slot of staged cell (r, 0)
+    long long cell;
+    if constexpr (D == 2) {
+      cell = (line + r) * ll + c0;
+    } else {
+      const int i0 = line / n.y;
+      const int i1 = line - i0 * n.y;
+      cell = (static_cast<long long>(i0 + r / 3) * (n.y + 2) + i1 + r % 3) *
+                 ll + c0;
+    }
+    return cell * k;
   };
-  const long long slot0 = (static_cast<long long>(row) * n1 + c0) * k;
+  const long long slot0 = (static_cast<long long>(line) * nl + c0) * k;
 
-  // 1. The valid flags of the three staged rows; the strip's outputs
-  // zeroed (the occupied slots' sums overwrite theirs in step 5).
+  // 1. The valid flags of the staged rows; the strip's outputs zeroed (the
+  // occupied slots' sums overwrite theirs in step 5).
   const bool vec = k % 16 == 0 &&
                    (reinterpret_cast<uintptr_t>(col.valid) & 15) == 0;
-  for (int dr = 0; dr < 3; ++dr) {
-    const unsigned char* src = col.valid + first_slot(dr);
-    unsigned char* dst = s_flag + dr * nc * k;
+  for (int r = 0; r < kRows; ++r) {
+    const unsigned char* src = col.valid + first_slot(r);
+    unsigned char* dst = s_flag + r * nc * k;
     if (vec) {
       for (int e = threadIdx.x; e < nc * k / 16; e += blockDim.x)
         reinterpret_cast<uint4*>(dst)[e] =
@@ -366,47 +435,46 @@ __global__ void __launch_bounds__(kSweepThreads)
     }
     int run = incl - sum;
     for (int c = lo; c < hi; ++c) {
-      const int n = s_start[c];
+      const int m = s_start[c];
       s_start[c] = run;
-      run += n;
+      run += m;
     }
     if (lane == 31) s_start[n_cells] = incl;
   }
   __syncthreads();
 
   // The strip in parts of consecutive cells a .. b (staged columns a + 1
-  // .. b + 1) whose staged slots, columns a .. b + 2 of the three rows,
-  // fit `entries` (one cell's 9 K always do): at 4 agents a cell one part
-  // is the whole strip.  A part's slots are its three rows' runs of the
-  // compacted numbering, one after the other: slot s of row dr sits at
-  // s + shift[dr].
+  // .. b + 1) whose staged slots, columns a .. b + 2 of the staged rows,
+  // fit `entries` (one cell's 3^D K always do).  A part's slots are its
+  // rows' runs of the compacted numbering, one after the other: slot s of
+  // row r sits at s + shift[r].
   for (int a = 0; a < wc;) {
     auto staged = [&](int b) {
-      int n = 0;
-      for (int dr = 0; dr < 3; ++dr)
-        n += s_start[dr * nc + b + 3] - s_start[dr * nc + a];
-      return n;
+      int m = 0;
+      for (int r = 0; r < kRows; ++r)
+        m += s_start[r * nc + b + 3] - s_start[r * nc + a];
+      return m;
     };
     int b = wc - 1;   // the whole rest of the strip, as a rule
     if (staged(b) > entries) {
       b = a;
       while (staged(b + 1) <= entries) ++b;
     }
-    int shift[3];
+    int shift[kRows];
     int total = 0;
-    for (int dr = 0; dr < 3; ++dr) {
-      shift[dr] = total - s_start[dr * nc + a];
-      total += s_start[dr * nc + b + 3] - s_start[dr * nc + a];
+    for (int r = 0; r < kRows; ++r) {
+      shift[r] = total - s_start[r * nc + a];
+      total += s_start[r * nc + b + 3] - s_start[r * nc + a];
     }
     const int cols = b - a + 3;
 
     // 3. Where each occupied slot of the part goes (shared memory only):
     // a thread a staged cell lists its occupied slots in slot order.
-    for (int u = threadIdx.x; u < 3 * cols; u += blockDim.x) {
-      const int dr = u / cols;
-      const int c = dr * nc + a + (u - dr * cols);
+    for (int u = threadIdx.x; u < kRows * cols; u += blockDim.x) {
+      const int r = u / cols;
+      const int c = r * nc + a + (u - r * cols);
       const unsigned char* f = s_flag + c * k;
-      int* dst = s_src + s_start[c] + shift[dr];
+      int* dst = s_src + s_start[c] + shift[r];
       int x = 0;
       if (words) {   // flags are 0/1 bytes: a set byte is bit 8 i of its word
         const unsigned* fw = reinterpret_cast<const unsigned*>(f);
@@ -419,51 +487,81 @@ __global__ void __launch_bounds__(kSweepThreads)
     }
     __syncthreads();
 
-    // 4. Their columns, a thread a slot; the strip's own slots (row 1,
-    // staged columns a + 1 .. b + 1) also keep their output slot.
+    // 4. Their columns, a thread a slot; the strip's own slots (the middle
+    // row, staged columns a + 1 .. b + 1) also keep their output slot.
     for (int e = threadIdx.x; e < total; e += blockDim.x) {
       const int s = s_src[e];
       const int c = s / k;
       const int j = s - c * k;
-      const int dr = c / nc;
-      const int dc = c - dr * nc;
-      const long long g = first_slot(dr) + static_cast<long long>(dc) * k + j;
-      const float2 xy = reinterpret_cast<const float2*>(col.pos)[g];
-      s_a[e] = make_float4(xy.x, xy.y, __int_as_float(col.gid_rank[g]),
-                           __int_as_float(col.gid_count[g]));
-      s_b[e] = make_float2(
-          col.fcol != nullptr ? col.fcol[g] : 0.f,
-          __int_as_float(col.icol[0] != nullptr ? col.icol[0][g] : 0));
+      const int r = c / nc;
+      const int dc = c - r * nc;
+      const long long g = first_slot(r) + static_cast<long long>(dc) * k + j;
+      const float fv = col.fcol != nullptr ? col.fcol[g] : 0.f;
+      const int iv = col.icol[0] != nullptr ? col.icol[0][g] : 0;
+      if constexpr (D == 2) {
+        const float2 xy = reinterpret_cast<const float2*>(col.pos)[g];
+        s_a[e] = make_float4(xy.x, xy.y, __int_as_float(col.gid_rank[g]),
+                             __int_as_float(col.gid_count[g]));
+        s_b[e] = make_float2(fv, __int_as_float(iv));
+      } else {
+        const float* q = col.pos + 3 * g;
+        s_a[e] = make_float4(q[0], q[1], q[2], fv);
+        s_g[e] = make_int2(col.gid_rank[g], col.gid_count[g]);
+        if (Law::kInts > 0) s_d[e] = iv;
+      }
       if (Law::kInts > 1) s_c[e] = col.icol[1][g];
       s_own[e] = (dc - 1) * k + j;
     }
     __syncthreads();
 
     // 5. A thread an occupied slot i of the part's cells: its pairs over
-    // the three rows, each row's three cells in order and their slots in
+    // the staged rows, each row's three cells in order and their slots in
     // order (offset-major, then slot), summed in registers.
-    const int i0 = s_start[nc + a + 1] + shift[1];
-    const int i1 = s_start[nc + b + 2] + shift[1];
+    const int i0 = s_start[kMid * nc + a + 1] + shift[kMid];
+    const int i1 = s_start[kMid * nc + b + 2] + shift[kMid];
     for (int e = i0 + threadIdx.x; e < i1; e += blockDim.x) {
       const int at = s_own[e];
       const int dc = at / k + 1;
       const float4 ai = s_a[e];
-      const float2 bi = s_b[e];
-      const int ri = __float_as_int(ai.z);
-      const int ci = __float_as_int(ai.w);
-      const Cols cols_i{bi.x, {__float_as_int(bi.y),
-                               Law::kInts > 1 ? s_c[e] : 0}};
+      int ri, ci;
+      Cols cols_i;
+      if constexpr (D == 2) {
+        const float2 bi = s_b[e];
+        ri = __float_as_int(ai.z);
+        ci = __float_as_int(ai.w);
+        cols_i = Cols{bi.x, {__float_as_int(bi.y),
+                             Law::kInts > 1 ? s_c[e] : 0}};
+      } else {
+        const int2 gi = s_g[e];
+        ri = gi.x;
+        ci = gi.y;
+        cols_i = Cols{ai.w, {Law::kInts > 0 ? s_d[e] : 0,
+                             Law::kInts > 1 ? s_c[e] : 0}};
+      }
       float acc[Law::kAcc];
 #pragma unroll
       for (int x = 0; x < Law::kAcc; ++x) acc[x] = 0.f;
-      for (int dr = 0; dr < 3; ++dr) {
-        const int lo = s_start[dr * nc + dc - 1] + shift[dr];
-        const int hi = s_start[dr * nc + dc + 2] + shift[dr];
+      for (int r = 0; r < kRows; ++r) {
+        const int lo = s_start[r * nc + dc - 1] + shift[r];
+        const int hi = s_start[r * nc + dc + 2] + shift[r];
         for (int x = lo; x < hi; ++x) {
-          const float4 aj = s_a[x];
-          if (__float_as_int(aj.z) == ri && __float_as_int(aj.w) == ci)
-            continue;
-          float disp[D] = {aj.x - ai.x, aj.y - ai.y};
+          float disp[D];
+          float fj = 0.f;
+          if constexpr (D == 2) {
+            const float4 aj = s_a[x];
+            if (__float_as_int(aj.z) == ri && __float_as_int(aj.w) == ci)
+              continue;
+            disp[0] = aj.x - ai.x;
+            disp[1] = aj.y - ai.y;
+          } else {
+            const int2 gj = s_g[x];
+            if (gj.x == ri && gj.y == ci) continue;
+            const float4 aj = s_a[x];
+            disp[0] = aj.x - ai.x;
+            disp[1] = aj.y - ai.y;
+            disp[2] = aj.z - ai.z;
+            fj = aj.w;
+          }
           float dist2 = 0.f;
 #pragma unroll
           for (int d = 0; d < D; ++d) {
@@ -473,9 +571,15 @@ __global__ void __launch_bounds__(kSweepThreads)
             dist2 += dd * dd;
           }
           if (!(dist2 <= r2)) continue;
-          const float2 bj = s_b[x];
-          const Cols cols_j{bj.x, {__float_as_int(bj.y),
-                                   Law::kInts > 1 ? s_c[x] : 0}};
+          Cols cols_j;
+          if constexpr (D == 2) {
+            const float2 bj = s_b[x];
+            cols_j = Cols{bj.x, {__float_as_int(bj.y),
+                                 Law::kInts > 1 ? s_c[x] : 0}};
+          } else {
+            cols_j = Cols{fj, {Law::kInts > 0 ? s_d[x] : 0,
+                               Law::kInts > 1 ? s_c[x] : 0}};
+          }
           Law::add(acc, disp, dist2, cols_i, cols_j, p.v, p.gate);
         }
       }
@@ -487,26 +591,28 @@ __global__ void __launch_bounds__(kSweepThreads)
 }
 
 template <int D, class Law>
-cudaError_t launch(const Columns& col, int3 interior, int k, float r2,
+cudaError_t launch(const Columns& col, int3 n, int k, float r2,
                    const Box& box, const LawParams& p, const Outputs& out,
                    int n_outs, cudaStream_t stream) {
-  static_assert(D == 2, "only D = 2 is instantiated");
-  const int n0 = interior.x;
-  const int n1 = interior.y;
-  if (static_cast<long long>(n0) * n1 == 0) return cudaSuccess;
+  const long long lines = D == 2 ? n.x : static_cast<long long>(n.x) * n.y;
+  const int nl = D == 2 ? n.y : n.z;
+  if (lines * nl == 0) return cudaSuccess;
   if (k < 1 || k > (1 << 20)) return cudaErrorInvalidValue;
   if (n_outs != Law::kParts) return cudaErrorInvalidValue;
   for (int q = 0; q < Law::kParts; ++q)
     if (out.p[q] == nullptr) return cudaErrorInvalidValue;
-  if (col.icol[Law::kInts - 1] == nullptr) return cudaErrorInvalidValue;
-  const int entries = 9 * k > kMinEntries ? 9 * k : kMinEntries;
+  if constexpr (Law::kInts > 0) {
+    if (col.icol[Law::kInts - 1] == nullptr) return cudaErrorInvalidValue;
+  }
+  const int nbr = staged_rows(D) * 3 * k;   // one cell's 3^D K
+  const int entries = nbr > kMinEntries ? nbr : kMinEntries;
   int w = kMaxStrip;
   while (w > 1 &&
-         strip_layout(w, k, entries, Law::kInts).bytes > kStripBudget)
+         strip_layout(D, w, k, entries, Law::kInts).bytes > kStripBudget)
     --w;
-  const size_t smem = strip_layout(w, k, entries, Law::kInts).bytes;
+  const size_t smem = strip_layout(D, w, k, entries, Law::kInts).bytes;
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  const long long blocks = static_cast<long long>(n0) * ((n1 + w - 1) / w);
+  const long long blocks = lines * ((nl + w - 1) / w);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       pair_sweep_kernel<D, Law>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -514,8 +620,37 @@ cudaError_t launch(const Columns& col, int3 interior, int k, float r2,
   if (e != cudaSuccess) return e;
   pair_sweep_kernel<D, Law>
       <<<static_cast<unsigned>(blocks), kSweepThreads, smem, stream>>>(
-          col, n0, n1, k, w, entries, r2, box, p, out);
+          col, n, k, w, entries, r2, box, p, out);
   return cudaGetLastError();
+}
+
+// The launch of law `law` at dimension D.
+template <int D>
+cudaError_t dispatch(int law, const Columns& col, int3 n, int k, float r2,
+                     const Box& box, const LawParams& p, const Outputs& out,
+                     int n_outs, cudaStream_t s) {
+  switch (law) {
+    case 0:
+      return launch<D, SoftRepulsionAdhesion<D>>(col, n, k, r2, box, p, out,
+                                                 n_outs, s);
+    case 1:
+      return launch<D, SameType<D>>(col, n, k, r2, box, p, out, n_outs, s);
+    case 2:
+      return launch<D, Epidemiology<D, 0>>(col, n, k, r2, box, p, out,
+                                           n_outs, s);
+    case 3:
+      return launch<D, Oncology<D>>(col, n, k, r2, box, p, out, n_outs, s);
+    case 4:
+      return launch<D, Crowd<D>>(col, n, k, r2, box, p, out, n_outs, s);
+    case 16:
+      return launch<D, Stack<SoftRepulsionAdhesion<D>, Epidemiology<D, 1>>>(
+          col, n, k, r2, box, p, out, n_outs, s);
+    case 17:
+      return launch<D, Stack<SoftRepulsionAdhesion<D>, Crowd<D>>>(
+          col, n, k, r2, box, p, out, n_outs, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The legacy soft-sphere force on gathered slabs.
@@ -806,11 +941,14 @@ extern "C" const char* pair_sweep_error_string(int err) {
 }
 
 // law: 0 = soft_repulsion_adhesion, 1 = same_type, 2 = epidemiology,
-// 3 = oncology, 16 = the stack (soft_repulsion_adhesion, epidemiology).
-// params: n_params floats, gates: n_gates floats (a stack's parts), outs:
-// n_outs device pointers, all host arrays read before the launch; fcol,
-// icol0, icol1: the law's columns (null where it reads none).  Returns a
-// cudaError_t (0 on success); the launch is asynchronous on `stream`.
+// 3 = oncology, 4 = crowd, 16 = the stack (soft_repulsion_adhesion,
+// epidemiology), 17 = the stack (soft_repulsion_adhesion, crowd); ndim 2
+// or 3, n0, n1, n2 the interior cells along each axis (n2 unused at
+// ndim 2).  params: n_params floats, gates: n_gates floats (a stack's
+// parts), outs: n_outs device pointers, all host arrays read before the
+// launch; fcol, icol0, icol1: the law's columns (null where it reads
+// none).  Returns a cudaError_t (0 on success); the launch is asynchronous
+// on `stream`.
 extern "C" int pair_sweep_launch(
     int law, int ndim, int device, const void* pos, const void* gid_rank,
     const void* gid_count, const void* valid, const void* fcol,
@@ -830,7 +968,7 @@ extern "C" int pair_sweep_launch(
                     static_cast<const float*>(fcol),
                     {static_cast<const int*>(icol0),
                      static_cast<const int*>(icol1)}};
-  const int3 interior = make_int3(n0, n1, n2);
+  const int3 n = make_int3(n0, n1, n2);
   const Box box{{box0, box1, box2}, {wrap0, wrap1, wrap2}};
   LawParams p{};
   for (int i = 0; i < n_params; ++i) p.v[i] = params[i];
@@ -839,26 +977,9 @@ extern "C" int pair_sweep_launch(
   Outputs out{};
   for (int i = 0; i < n_outs; ++i) out.p[i] = static_cast<float*>(outs[i]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ndim != 2) return cudaErrorInvalidValue;  // only D = 2 instantiated
-  switch (law) {
-    case 0:
-      return launch<2, SoftRepulsionAdhesion<2>>(col, interior, k, r2, box,
-                                                  p, out, n_outs, s);
-    case 1:
-      return launch<2, SameType<2>>(col, interior, k, r2, box, p, out,
-                                    n_outs, s);
-    case 2:
-      return launch<2, Epidemiology<2, 0>>(col, interior, k, r2, box, p, out,
-                                           n_outs, s);
-    case 3:
-      return launch<2, Oncology<2>>(col, interior, k, r2, box, p, out,
-                                    n_outs, s);
-    case 16:
-      return launch<2, Stack<SoftRepulsionAdhesion<2>, Epidemiology<2, 1>>>(
-          col, interior, k, r2, box, p, out, n_outs, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (ndim == 2) return dispatch<2>(law, col, n, k, r2, box, p, out, n_outs, s);
+  if (ndim == 3) return dispatch<3>(law, col, n, k, r2, box, p, out, n_outs, s);
+  return cudaErrorInvalidValue;
 }
 
 // Self slabs (c, k), neighbourhood slabs (c, nk), each contiguous: pos

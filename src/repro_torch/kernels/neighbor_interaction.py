@@ -97,6 +97,9 @@ LAWS: Dict[str, PairLaw] = {
         name="oncology", law_id=3, float_cols=("diameter",),
         int_cols=("ctype",), params=_SOFT.params,
         outputs=(("force", True), ("crowd", False))),
+    "repro_torch.sims.tumor_spheroid._crowd_pair": PairLaw(
+        name="crowd", law_id=4, float_cols=(), int_cols=(), params=(),
+        outputs=(("crowd", False),)),
 }
 
 # compose() stacks the kernel instantiates, by their parts' law names.
@@ -107,6 +110,11 @@ STACKS: Dict[Tuple[str, ...], PairLaw] = {
         params=_SOFT.params,
         outputs=(("b0.force", True), ("b1.n_inf", False)),
         parts=("soft_repulsion_adhesion", "epidemiology")),
+    ("soft_repulsion_adhesion", "crowd"): PairLaw(
+        name="stack(soft_repulsion_adhesion,crowd)", law_id=17,
+        float_cols=("diameter",), int_cols=("ctype",), params=_SOFT.params,
+        outputs=(("b0.force", True), ("b1.crowd", False)),
+        parts=("soft_repulsion_adhesion", "crowd")),
 }
 
 # Kernel launches per law since the last reset_launches(), and of the
@@ -127,10 +135,9 @@ def _base_law(pair_fn: Callable) -> PairLaw:
     if law is None:
         raise NotImplementedError(
             f"pair function {key} has no device law in the pair_sweep "
-            f"kernel (laws: {sorted(LAWS)}); the bundled laws still to "
-            "port come with ROADMAP B1 (tumor_spheroid's _crowd_pair, "
-            "sir_mechanics' ensemble _gated_sir_pair) - run this behaviour "
-            "on the CPU")
+            f"kernel (laws: {sorted(LAWS)}); the one bundled law still to "
+            "port, sir_mechanics' ensemble _gated_sir_pair, comes with the "
+            "ensembles (ROADMAP B1 d, A10) - run this behaviour on the CPU")
     return law
 
 
@@ -152,7 +159,9 @@ def law_for(pair_fn: Callable) -> PairLaw:
     if stack is None:
         raise NotImplementedError(
             f"the pair_sweep kernel has no instantiation of the stack "
-            f"{names} (stacks: {sorted(STACKS)}; ROADMAP B1 b)")
+            f"{names} (stacks: {sorted(STACKS)}); a stack of bundled laws "
+            "is one line of STACKS and one case of csrc/pair_sweep.cu "
+            "(ROADMAP B1 a)")
     return stack
 
 
@@ -244,7 +253,9 @@ def pair_sweep_plain(
                 b = torch.tensor(box[axis], dtype=torch.float32, device=dev)
                 comps.append(d - b * torch.round(d / b))
         disp = torch.stack(comps, dim=-1)
-    dist2 = (disp * disp).sum(dim=-1)                        # (C, K, NK)
+    dist2 = disp[..., 0] * disp[..., 0]                      # (C, K, NK)
+    for axis in range(1, disp.shape[-1]):   # the kernel's order, axis by axis
+        dist2 = dist2 + disp[..., axis] * disp[..., axis]
 
     same = (ai[_GID_RANK] == aj[_GID_RANK]) & (
         ai[_GID_COUNT] == aj[_GID_COUNT])
@@ -337,10 +348,9 @@ def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
             radius: float, params: list, gates: list,
             box: Optional[Sequence[Optional[float]]]) -> Tensors:
     nd = valid.dim() - 1
-    if nd != 2:
-        raise NotImplementedError(
-            f"the pair_sweep kernel is instantiated for 2-D domains only; "
-            f"the {nd}-D instantiation comes with ROADMAP B1 c")
+    if nd not in (2, 3):
+        raise ValueError(f"pair_sweep: a {nd}-D grid; the kernel takes "
+                         "2-D and 3-D domains")
     dev = valid.device
     grid = tuple(valid.shape)
     interior = tuple(h - 2 for h in grid[:nd])
@@ -358,8 +368,9 @@ def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
         cols += [None] * (slots - len(names))
 
     box = tuple(box) if box is not None else (None,) * nd
-    lens = [0.0 if b is None else float(b) for b in box] + [0.0]
-    wraps = [0 if b is None else 1 for b in box] + [0]
+    lens = [0.0 if b is None else float(b) for b in box] + [0.0] * (3 - nd)
+    wraps = [0 if b is None else 1 for b in box] + [0] * (3 - nd)
+    n = list(interior) + [1] * (3 - nd)
 
     outs = {name: torch.empty(interior + (k,) + ((nd,) if per_axis else ()),
                               dtype=torch.float32, device=dev)
@@ -373,7 +384,7 @@ def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
     err = lib.pair_sweep_launch(
         law.law_id, nd, dev.index, attrs[_POS].data_ptr(),
         attrs[_GID_RANK].data_ptr(), attrs[_GID_COUNT].data_ptr(),
-        valid.data_ptr(), *cols, interior[0], interior[1], 1, k,
+        valid.data_ptr(), *cols, *n, k,
         float(np.float32(radius * radius)), *lens, *wraps,
         ctypes.cast(c_params, ctypes.c_void_p), len(params),
         ctypes.cast(c_gates, ctypes.c_void_p), len(gates),

@@ -4,14 +4,18 @@
         --sim cell_clustering --agents 4000 --steps 50 --device cuda
     PYTHONPATH=src python -m repro_torch.launch.simulate \
         --sim cell_clustering --mesh 2x2 --delta int8+mig
+    PYTHONPATH=src python -m repro_torch.launch.simulate \
+        --sim tumor_spheroid --mesh 2x2x2 --interior 8 --device cpu
 
-Ported: the 2-D sims ``cell_clustering``, ``epidemiology``,
-``sir_mechanics``, ``cell_proliferation`` and ``oncology``, on one device
-or on a virtual device mesh (``--mesh 2x2``: the whole mesh on one card),
-with the aura exchange delta-encoded (``--delta``).  ``--delta auto``
-(default) is int8 on a mesh and a full refresh on one device; ``off``
-forces a full refresh.  ``--sim tumor_spheroid`` (3-D; ROADMAP A5 queue
-item 4, B1 c) and ``--rebalance`` (A8) raise ``NotImplementedError``.
+Every bundled sim is ported: the 2-D ``cell_clustering``,
+``epidemiology``, ``sir_mechanics``, ``cell_proliferation`` and
+``oncology``, and the 3-D ``tumor_spheroid``, on one device or on a
+virtual device mesh (``--mesh 2x2``, ``--mesh 2x2x2``: the whole mesh on
+one card), with the aura exchange delta-encoded (``--delta``).  A sim's
+``NDIM`` (3-D sims only) sets the mesh's axis count; an all-ones
+``--mesh`` broadcasts to it.  ``--delta auto`` (default) is int8 on a mesh
+and a full refresh on one device; ``off`` forces a full refresh.
+``--rebalance`` (A8) raises ``NotImplementedError``.
 Prints the reference's two summary lines plus the kernels' launch
 counts.
 """
@@ -46,14 +50,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    if args.sim == "tumor_spheroid":
-        raise NotImplementedError(
-            "--sim tumor_spheroid (3-D) is not ported yet (ROADMAP A5 queue "
-            "item 4: the sim, and the 3-D pair_sweep kernel, B1 c)")
-    mesh_shape = tuple(int(v) for v in args.mesh.split("x"))
-    if len(mesh_shape) != 2:
-        ap.error(f"--mesh {args.mesh} has {len(mesh_shape)} axes but "
-                 f"{args.sim} is 2-D")
     if args.rebalance > 0:
         raise NotImplementedError(
             "--rebalance is not ported yet (ROADMAP A8)")
@@ -67,6 +63,17 @@ def main(argv=None):
     from repro_torch.kernels import neighbor_interaction as ni
 
     mod = importlib.import_module(f"repro_torch.sims.{args.sim}")
+    # a sim declares its dimensionality with a module-level NDIM (3-D sims
+    # only; 2-D is the default); an all-ones --mesh broadcasts to it, and a
+    # real mesh must match the sim's axis count
+    sim_ndim = getattr(mod, "NDIM", 2)
+    mesh_shape = tuple(int(v) for v in args.mesh.split("x"))
+    if len(mesh_shape) != sim_ndim:
+        if all(m == 1 for m in mesh_shape):
+            mesh_shape = (1,) * sim_ndim
+        else:
+            ap.error(f"--mesh {args.mesh} has {len(mesh_shape)} axes but "
+                     f"{args.sim} is {sim_ndim}-D")
 
     n_dev = 1
     for m in mesh_shape:

@@ -1,4 +1,3 @@
-"""Port of ``repro.sims``.  Ported: the 2-D sims ``cell_clustering``,
+"""Port of ``repro.sims``: every bundled sim - the 2-D ``cell_clustering``,
 ``epidemiology``, ``sir_mechanics``, ``cell_proliferation`` and
-``oncology``.  ``tumor_spheroid`` (3-D) comes with ROADMAP A5's queue
-item 4."""
+``oncology``, and the 3-D ``tumor_spheroid``."""

@@ -151,7 +151,9 @@ def test_cli_smoke_on_cpu():
     assert lines[-1].startswith("kernel launches: ")
     assert set(lines[-1].split(": ")[1].split(", ")) == {
         "soft_repulsion_adhesion=0", "same_type=0", "epidemiology=0",
-        "oncology=0", "stack(soft_repulsion_adhesion,epidemiology)=0",
+        "oncology=0", "crowd=0",
+        "stack(soft_repulsion_adhesion,epidemiology)=0",
+        "stack(soft_repulsion_adhesion,crowd)=0",
         "neighbor_force=0", "delta_encode=0",
         "delta_decode=0", "migration_pos_encode=0",
         "migration_pos_decode=0"}
@@ -162,11 +164,28 @@ def test_cli_smoke_on_cpu():
     lines = mesh.stdout.splitlines()
     assert lines[0].startswith("sim=cell_clustering devices=4 agents=300 ")
     assert "dropped=0 codec_overflow=0" in lines[1]
-    for flag in (["--rebalance", "5"], ["--sim", "tumor_spheroid"]):
-        args = ["-m", "repro_torch.launch.simulate", "--sim",
-                "cell_clustering", "--device", "cpu", *flag]
-        bad = _run(args)
-        assert bad.returncode != 0 and "NotImplementedError" in bad.stderr
+    bad = _run(["-m", "repro_torch.launch.simulate", "--sim",
+                "cell_clustering", "--device", "cpu", "--rebalance", "5"])
+    assert bad.returncode != 0 and "NotImplementedError" in bad.stderr
+    # a mesh must have the sim's axis count (an all-ones one broadcasts)
+    bad = _run(["-m", "repro_torch.launch.simulate", "--sim",
+                "tumor_spheroid", "--device", "cpu", "--mesh", "2x2"])
+    assert bad.returncode != 0 and "is 3-D" in bad.stderr
+
+
+@pytest.mark.parametrize("mesh", ["1x1", "2x2x2"])
+def test_cli_runs_tumor_spheroid_on_cpu(mesh):
+    """The 3-D sim through the CLI: on one device (``--mesh 1x1``
+    broadcasts to three axes) and on the 2x2x2 virtual mesh."""
+    out = _run(["-m", "repro_torch.launch.simulate", "--sim",
+                "tumor_spheroid", "--device", "cpu", "--agents", "40",
+                "--steps", "3", "--interior", "8", "--mesh", mesh])
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    n_dev = 8 if mesh == "2x2x2" else 1
+    assert lines[0].startswith(f"sim=tumor_spheroid devices={n_dev} ")
+    assert "dropped=0 codec_overflow=0" in lines[1]
+    assert lines[-1].startswith("kernel launches: ")
 
 
 @pytest.mark.parametrize("sim", ["epidemiology", "sir_mechanics",

@@ -20,6 +20,8 @@ bf16, and those float32 results differ by summation order and by the
 ~16 bits that p keeps.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -36,6 +38,7 @@ from repro_torch.sims import cell_clustering as cc
 from repro_torch.sims import epidemiology as ep
 from repro_torch.sims import oncology as onc
 from repro_torch.sims import sir_mechanics as sm
+from repro_torch.sims import tumor_spheroid as ts
 from repro_torch.sims.common import make_sim
 
 LAWS = {
@@ -178,19 +181,24 @@ def _abm_laws():
                   sm.behavior().params, ("b1.n_inf",)),
         "compose_one": (compose(mech).pair_fn, mech.pair_attrs,
                         compose(mech).params, ()),
+        "crowd": (ts._crowd_pair, (), {}, ("crowd",)),
+        "spheroid_stack": (ts.behavior().pair_fn, ts.behavior().pair_attrs,
+                           ts.behavior().params, ("b1.crowd",)),
     }
 
 
 def _abm_soa(device, boundary, interior=(12, 12), cap=32, per_cell=6,
              seed=0):
     """An initial sir_mechanics SoA (diameters 0.6-1.4, random types and
-    SIR states) with its aura filled, as the engine's sweep sees it."""
+    SIR states; 2-D or 3-D as ``interior``) with its aura filled, as the
+    engine's sweep sees it."""
     sim = make_sim(sm.behavior(), interior=interior, cap=cap,
                    boundary=boundary, device=device)
     n = per_cell * int(torch.tensor(interior).prod())
     g = torch.Generator().manual_seed(seed)
     size = torch.tensor(sim.geom.domain_size)
-    pos = (0.5 + torch.rand((n, 2), generator=g) * (size - 1.0)).numpy()
+    pos = (0.5 + torch.rand((n, len(interior)), generator=g)
+           * (size - 1.0)).numpy()
     attrs = {"diameter": (0.6 + 0.8 * torch.rand(n, generator=g)).numpy(),
              "ctype": torch.randint(0, 2, (n,), generator=g,
                                     dtype=torch.int32).numpy(),
@@ -251,6 +259,59 @@ def test_abm_laws_strips_match_plain_on_cuda(cuda, law):
     _abm_match(soa, box, law)
 
 
+# Every law and stack at D = 3, with the clustering laws beside them.
+def _laws_3d():
+    mech = cc.behavior()
+    return dict(_abm_laws(), **{
+        "soft_repulsion_adhesion": (mech.pair_fn, mech.pair_attrs,
+                                    dict(mech.params), ()),
+        "same_type": (cc._same_type_pair, ("ctype",), {}, ("same", "cnt"))})
+
+
+def _match_3d(soa, box, law):
+    pair_fn, pattrs, params, counts = _laws_3d()[law]
+    name = ni.law_for(pair_fn).name
+    before = ni.LAUNCHES[name]
+    got = ni.pair_sweep(soa.attrs, soa.valid, pair_fn=pair_fn,
+                        pair_attrs=pattrs, radius=2.0, params=params,
+                        box=box)
+    torch.cuda.synchronize()
+    assert ni.LAUNCHES[name] == before + 1
+    ai, aj, vi, vj = ni.neighborhood_slabs(soa.attrs, soa.valid, pattrs)
+    want = ni.pair_sweep_plain(ai, aj, vi, vj, pair_fn=pair_fn, radius=2.0,
+                               params=params, box=box)
+    assert set(got) == set(want)
+    for n, w in want.items():
+        g = got[n].cpu()
+        w = w.reshape(g.shape).cpu()
+        if n in counts:
+            assert torch.equal(g, w), n
+        else:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interior,cap,per_cell", [
+    ((4, 4, 5), 32, 8),       # K a multiple of 16: flags as 16-byte vectors
+    ((3, 3, 37), 20, 6),      # K not one (words), a short strip at 37
+    ((3, 2, 12), 18, 8),      # K not a multiple of 4 (bytes)
+    ((3, 2, 40), 48, 20),     # crowded: each strip swept in parts
+], ids=["k32", "k20_strips", "k18", "crowded"])
+@pytest.mark.parametrize("boundary", ["closed", "toroidal"])
+@pytest.mark.parametrize("law", sorted(_laws_3d()))
+def test_kernel_3d_matches_plain_on_cuda(cuda, law, boundary, interior, cap,
+                                         per_cell):
+    """The D = 3 instantiation (9 staged rows of a strip, 27 cells a
+    neighbourhood) of every law and stack against the plain version."""
+    soa, box = _abm_soa(cuda, boundary, interior=interior, cap=cap,
+                        per_cell=per_cell)
+    if law == "same_type" and interior == (3, 2, 40):
+        # interior line (1, 1): its 9 x 34 staged cells pass the 27 x 48
+        # slots a block holds, so its first strip is swept in parts
+        assert int(soa.valid[1:4, 1:4, :34].sum()) > 27 * 48
+    _match_3d(soa, box, law)
+
+
 @pytest.mark.cuda
 def test_stack_gate_and_namespaces_on_cuda(cuda):
     """The stack's SIR part counts only neighbours within its own radius
@@ -274,11 +335,18 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP B1"):
         ni.pair_sweep(soa.attrs, soa.valid, pair_fn=other_pair,
                       pair_attrs=(), radius=2.0, params={}, box=box)
-    # the 3-D state is stepped with the tiled sweep: the kernel is 2-D only
-    soa3, box3 = _soa(cuda, "closed", interior=(4, 4, 3),
-                      sweep_backend="tiled")
-    with pytest.raises(NotImplementedError, match="2-D"):
-        _wrapper(soa3, "same_type", box3)
+    # a stack with a part that has no device law (as sir_mechanics'
+    # ensemble _gated_sir_pair) raises at D = 3 as at D = 2, and so does a
+    # stack of device laws that is not instantiated
+    soa3, box3 = _abm_soa(cuda, "closed", interior=(4, 4, 3))
+    mech = cc.behavior()
+    other = dataclasses.replace(mech, pair_fn=other_pair, pair_attrs=())
+    for stack, match in ((compose(mech, other), "ROADMAP B1"),
+                         (compose(ep.behavior(), mech), "ROADMAP B1 a")):
+        with pytest.raises(NotImplementedError, match=match):
+            ni.pair_sweep(soa3.attrs, soa3.valid, pair_fn=stack.pair_fn,
+                          pair_attrs=stack.pair_attrs, radius=2.0,
+                          params=stack.params, box=box3)
     bad = dict(soa.attrs, ctype=soa.attrs["ctype"].to(torch.int64))
     with pytest.raises(TypeError):
         ni.pair_sweep(bad, soa.valid, pair_fn=cc._same_type_pair,

@@ -18,6 +18,12 @@ import torch
 
 FLOAT_TOL = 1e-5
 
+# torch 2.13's CPU build now and then computes the first multithreaded
+# ``torch.sqrt`` of a process wrongly (errors up to ~2e-2 on large
+# tensors; every later call is right): its vectorized kernel is set up
+# lazily, racing its own threads.  One small call first sets it up.
+torch.sqrt(torch.ones(8))
+
 
 def jax_state_arrays(state) -> Dict[str, np.ndarray]:
     """A JAX ``SimState`` as the field-path dict of ``repro_torch.bridge``."""
