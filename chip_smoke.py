@@ -112,7 +112,30 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    int16 migration codec, 10 steps: the same gates, no codec overflow,
    ``halo_bytes`` on a full and a delta step, every kernel's launches as
    the configuration implies; (d) the spheroid's mechanics on a 2x2x2
-   mesh of 8^3 cells with a full refresh against one device (1e-4).
+   mesh of 8^3 cells with a full refresh against one device (1e-4);
+14. the ensemble path: ``sir_mechanics``' ensemble family (cap 32,
+   toroidal, dt 1.0) on (512, 512) cells, 8 lanes of 1,048,576 agents
+   (5 % infected, each lane seeded from ``--seed`` and its index) at 8
+   parameter points, every knob varying, ``sir_radius`` in {0.75, 1.0,
+   1.25, 1.5}.  (b) ``Ensemble.run`` on one device, 10 steps with the
+   counts zeroed before and read after: S+I+R = N in every lane at every
+   step, nothing dropped, finite positions, exactly 10 launches of stack
+   18 (the force and the per-lane gated SIR count) and none of any other
+   law, the lanes' I-curves not all equal, every lane bit-equal (every
+   column) to the solo engine at its point; ms a step, agent-updates/s,
+   peak memory, a profiled step, and the 8 solo runs' ms a step summed;
+   (a) on step 1's aura-filled SoA of the 8 lanes, one lane launch of
+   stack 18 and of law 5 alone against the plain version lane by lane
+   (forces 1e-5, counts exactly) and bit-equal to 8 B = 1 launches, timed
+   against them, the plain version and the bound; (c) the first 4 points
+   on the 2x2 virtual mesh (the same domain, codec off), 10 steps: one
+   lane launch a device a step (40), every lane bit-equal to its solo
+   mesh run; (d) the scenario server at that size (cap 48), slot 8: 12
+   requests (budgets 8, 12, 16; streaming every 0 or 4 steps) and three
+   rejected at submit (unknown family, unknown parameter, a factory that
+   concretizes a parameter), drained in 2 batches at occupancy 0.75, the
+   second a runner-cache hit, every frame at its cadence summing to N
+   and equal to the request's solo run; requests/s, latencies.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -122,6 +145,7 @@ when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -136,9 +160,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.core.agent_soa import AgentSoA  # noqa: E402
 from repro_torch.core.behaviors import Behavior  # noqa: E402
 from repro_torch.core.delta import DeltaConfig  # noqa: E402
 from repro_torch.core.engine import device_block, total_agents  # noqa: E402
+from repro_torch.core.ensemble import replica_state  # noqa: E402
 from repro_torch.core.grid import clear_ring  # noqa: E402
 from repro_torch.core.halo import LocalComm, halo_exchange  # noqa: E402
 from repro_torch.core.neighbors import minimum_image_box  # noqa: E402
@@ -180,9 +206,15 @@ OPS_DISTANCE_TEST = 3 * 2 + 1      # at D = 2 (phase 11's slabs)
 STACK = "stack(soft_repulsion_adhesion,epidemiology)"
 SPH_STACK = "stack(soft_repulsion_adhesion,crowd)"
 PROLIF_LAW = "soft_repulsion_adhesion@cell_proliferation"
+ENS_STACK = "stack(soft_repulsion_adhesion,gated_epidemiology)"
+ENS_LAW5 = "gated_epidemiology"
+# law 5: the lane's r * r, the gate test, the state test and the add; stack
+# 18: the force, law 5 and the structural gate test
 OPS_LAW = {"soft_repulsion_adhesion": 20, "same_type": 3, "epidemiology": 2,
-           "oncology": 21, STACK: 24, PROLIF_LAW: 20, SPH_STACK: 23}
+           "oncology": 21, STACK: 24, PROLIF_LAW: 20, SPH_STACK: 23,
+           ENS_LAW5: 4, ENS_STACK: 25}
 
+ENS_BEHAVIOR = sm.ensemble_behavior(sm.ensemble_defaults())
 LAW_ARGS = {   # law -> (pair_fn, pair_attrs, params)
     "soft_repulsion_adhesion": (
         cc.behavior().pair_fn, cc.behavior().pair_attrs,
@@ -197,6 +229,9 @@ LAW_ARGS = {   # law -> (pair_fn, pair_attrs, params)
                  dict(cp.behavior().params)),
     SPH_STACK: (ts.behavior().pair_fn, ts.behavior().pair_attrs,
                 ts.behavior().params),
+    ENS_LAW5: (sm._gated_sir_pair, ("state",), {"sir_radius": 1.5}),
+    ENS_STACK: (ENS_BEHAVIOR.pair_fn, ENS_BEHAVIOR.pair_attrs,
+                ENS_BEHAVIOR.params),
 }
 COUNT_OUTPUTS = ("same", "cnt", "n_inf", "crowd", "b1.n_inf", "b1.crowd")
 
@@ -2121,6 +2156,486 @@ def phase_3d(seed: int):
     return rows, path_row, dict(one_device=one, mesh=mesh, parity=parity)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: sir_mechanics ensembles and the scenario server (B1 a, d)
+# ---------------------------------------------------------------------------
+
+ENS_INTERIOR = (512, 512)                    # L = 1024
+ENS_CAP = 32                                 # the family's own cap
+ENS_AGENTS = 4 * math.prod(ENS_INTERIOR)     # 1,048,576 a lane
+ENS_INFECTED = round(0.05 * ENS_AGENTS)      # 52,429, as phase 12 b
+ENS_STEPS = 10
+ENS_MESH = (2, 2)                            # (c): 256^2 cells a device
+ENS_MESH_LANES = 4
+# R = 8 points (the reference server's slot_size), every knob of
+# ENSEMBLE_PARAMS varying across the lanes, sir_radius in {0.75, 1.0,
+# 1.25, 1.5}.  The mechanics stay at or below the default's clumping
+# (adhesion at most 0.5 and a quarter of repulsion, max_step at most
+# 0.35), which drops nothing at cap 32 in 12 b's 16.7M agents: a lane at
+# repulsion 1.0 and adhesion 0.7 dropped 5 agents within 7 steps, one at
+# 2.5 / 0.6 (max_step 0.35) 4 in 10 steps on the 2x2 mesh (NVIDIA H100
+# 80GB HBM3, 700 W), clumping past the cap.
+ENS_POINTS = [
+    dict(repulsion=2.0, adhesion=0.5, max_step=0.3, beta=0.05, gamma=0.1,
+         sigma=0.3, sir_radius=1.5),
+    dict(repulsion=2.4, adhesion=0.4, max_step=0.25, beta=0.03, gamma=0.08,
+         sigma=0.2, sir_radius=1.25),
+    dict(repulsion=2.6, adhesion=0.5, max_step=0.35, beta=0.08, gamma=0.12,
+         sigma=0.4, sir_radius=1.0),
+    dict(repulsion=3.0, adhesion=0.3, max_step=0.2, beta=0.1, gamma=0.15,
+         sigma=0.25, sir_radius=0.75),
+    dict(repulsion=2.2, adhesion=0.45, max_step=0.3, beta=0.02, gamma=0.05,
+         sigma=0.35, sir_radius=1.5),
+    dict(repulsion=2.2, adhesion=0.2, max_step=0.3, beta=0.06, gamma=0.2,
+         sigma=0.15, sir_radius=1.25),
+    dict(repulsion=2.0, adhesion=0.35, max_step=0.15, beta=0.12, gamma=0.06,
+         sigma=0.45, sir_radius=1.0),
+    dict(repulsion=2.8, adhesion=0.45, max_step=0.25, beta=0.04, gamma=0.3,
+         sigma=0.3, sir_radius=0.75),
+]
+SERVE_BUDGETS = (8, 12, 16)
+# The server's cap: at the family's 32 the default point drops agents
+# past 10 steps (17 of 1,048,576 by step 16 on an NVIDIA H100 80GB HBM3,
+# 700 W: its clusters outgrow 32 slots), so the 16-step budgets run at
+# 48, as phase 12 b raises its cap when 32 drops.
+SERVE_CAP = 48
+SERVE_REQUESTS = 12
+
+
+def lane_seed(seed: int, r: int) -> int:
+    """The placement and RNG seed of lane ``r``, from ``--seed``."""
+    return 1000 * seed + r
+
+
+def ens_family(mesh_shape=(1, 1)):
+    interior = tuple(n // m for n, m in zip(ENS_INTERIOR, mesh_shape))
+    return sm.ensemble_family(interior=interior, mesh_shape=mesh_shape,
+                              cap=ENS_CAP, device="cuda")
+
+
+def ens_init(ens, points, seed):
+    return sm.ensemble_init(
+        ens, [dict(p, seed=lane_seed(seed, r)) for r, p in enumerate(points)],
+        n_agents=ENS_AGENTS, initial_infected=ENS_INFECTED)
+
+
+def state_leaves(state):
+    """(path, tensor) of every leaf of a SimState."""
+    for n, a in state.soa.attrs.items():
+        yield f"soa.attrs.{n}", a
+    yield "soa.valid", state.soa.valid
+    for e, slab in state.refs.items():
+        for f, a in slab.items():
+            yield f"refs.{e}.{f}", a
+    for name in ("it", "key", "gid_counter", "dropped", "halo_bytes",
+                 "codec_overflow", "health"):
+        yield name, getattr(state, name)
+
+
+def check_lane_equals_solo(label, lane, solo):
+    for (path, a), (_, b) in zip(state_leaves(lane), state_leaves(solo)):
+        if not torch.equal(a, b):
+            fail(f"{label}: {path} of the lane differs from its solo run")
+
+
+def solo_runs(ens, estate, marks, collect=None):
+    """Each lane's solo engine at its point from the lane's initial state,
+    stepped to each of ``marks``; returns the final states, the frames of
+    ``collect`` at each mark and the summed ms a step (CUDA events over
+    steps 2.. of each lane)."""
+    finals, frames, ms = [], [], 0.0
+    host = {n: estate.params[n].tolist() for n in ens.param_names}
+    for r in range(estate.replicas):
+        eng = ens.solo_engine({n: host[n][r] for n in host})
+        seg = eng.make_segment_runner()
+        st = replica_state(estate.state, r)
+        st = seg(st, 1)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        st = seg(st, marks[0] - 1)
+        end.record()
+        torch.cuda.synchronize()
+        ms += start.elapsed_time(end) / (marks[0] - 1)
+        fr = [collect(st)] if collect else []
+        done = marks[0]
+        for m in marks[1:]:
+            st = seg(st, m - done)
+            done = m
+            if collect:
+                fr.append(collect(st))
+        finals.append(st)
+        frames.append(fr)
+    return finals, frames, ms
+
+
+def lane_aura(ens, estate):
+    """The stacked aura-filled SoA of every lane, as step 1's sweep sees
+    it, and the run's lanes (engines and table)."""
+    lanes = ens.lanes(estate.params)
+    comm = lanes.engines[0]._comm()
+    st = estate.state
+    aura = AgentSoA(attrs={n: torch.empty_like(a)
+                           for n, a in st.soa.attrs.items()},
+                    valid=torch.empty_like(st.soa.valid))
+    for r, eng in enumerate(lanes.engines):
+        eng._aura(replica_state(st, r), comm, True, out=AgentSoA(
+            attrs={n: a[r] for n, a in aura.attrs.items()},
+            valid=aura.valid[r]))
+    return aura, lanes
+
+
+def lane_plain(soa, geom, pair_fn, pattrs, params, rows_per_chunk):
+    """The plain version of one lane over the whole grid, in chunks of
+    ``rows_per_chunk`` interior rows."""
+    n, k = geom.interior, geom.cap
+    out = None
+    for r0 in range(0, n[0], rows_per_chunk):
+        r1 = min(n[0], r0 + rows_per_chunk)
+        ai, aj, vi, vj = ni.neighborhood_slabs(soa.attrs, soa.valid, pattrs,
+                                               rows=(r0, r1))
+        part = ni.pair_sweep_plain(ai, aj, vi, vj, pair_fn=pair_fn,
+                                   radius=2.0, params=params,
+                                   box=minimum_image_box(geom))
+        if out is None:
+            out = {a: torch.empty(n + (k,) + tuple(t.shape[2:]),
+                                  dtype=t.dtype, device=t.device)
+                   for a, t in part.items()}
+        for a, t in part.items():
+            out[a][r0:r1] = t.reshape((r1 - r0,) + n[1:] + (k,)
+                                      + tuple(t.shape[2:]))
+        del ai, aj, vi, vj, part
+    return out
+
+
+def lane_row(aura, geom, label, law_label, fns, params, pattrs, table,
+             rows_per_chunk=16, reps=5):
+    """One lane launch of ``fns``' law over every lane of ``aura`` (device
+    (0, 0) of each lane, read in place): against the plain version lane by
+    lane (forces 1e-5, counts exactly) and bit-equal to one B = 1 launch a
+    lane at its params; times of the lane launch, the B = 1 launches
+    summed, the plain version, and the bound summed over the lanes."""
+    at = (slice(None), 0, 0)
+    attrs = {n: a[at] for n, a in aura.attrs.items()}
+    valid = aura.valid[at]
+    blocks = [AgentSoA(attrs={n: a[r] for n, a in attrs.items()},
+                       valid=valid[r]) for r in range(valid.shape[0])]
+
+    def lane_launch():
+        return ni.pair_sweep_lanes(attrs, valid, pair_fns=fns,
+                                   pair_attrs=pattrs, radius=2.0,
+                                   params=params, box=minimum_image_box(geom),
+                                   table=table)
+
+    def solo(r):
+        return ni.pair_sweep(blocks[r].attrs, blocks[r].valid,
+                             pair_fn=fns[r], pair_attrs=pattrs, radius=2.0,
+                             params=params[r], box=minimum_image_box(geom))
+
+    before = ni.LAUNCHES[law_label]
+    got = lane_launch()
+    torch.cuda.synchronize()
+    if ni.LAUNCHES[law_label] != before + 1:
+        fail(f"{label}: a lane launch did not count one launch")
+    worst = 0.0
+    plain_ms = 0.0
+    nbytes = ops = 0
+    for r, blk in enumerate(blocks):
+        one = solo(r)
+        for n, g in got.items():
+            if not torch.equal(g[r], one[n]):
+                fail(f"{label}: lane {r} {n} differs from its B = 1 launch")
+        want = {}
+        plain_ms += cuda_ms(lambda: want.update(lane_plain(
+            blk, geom, fns[r], pattrs, params[r], rows_per_chunk)), 1,
+            warmup=False)
+        worst = max(worst, compare({n: g[r] for n, g in got.items()}, want,
+                                   f"{label} lane {r}"))
+        in_radius = in_radius_pairs(blk, geom, rows_per_chunk)
+        _, _, b, o = bound(blk, geom, law_label, in_radius)
+        nbytes += b
+        ops += o
+        del one, want
+    ms = cuda_ms(lane_launch, reps)
+    singles_ms = cuda_ms(lambda: [solo(r) for r in range(len(blocks))], reps)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    b_ms = 1e3 * max(t_bytes, t_ops)
+    b_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[{label}] {law_label}: {len(blocks)} lanes in one launch, "
+          f"max_abs_err={worst:.3g}, bit-equal to B = 1; lane launch "
+          f"{ms:.4f} ms, {len(blocks)} B = 1 launches {singles_ms:.4f} ms, "
+          f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes} "
+          f"B, {ops} ops)", flush=True)
+    return dict(max_abs_err=worst, ms=ms, singles_ms=singles_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, ops=ops, library_ms=None)
+
+
+def ensemble_kernel_rows(ens, estate):
+    """Phase 14 (a): stack 18 and law 5 alone, one lane launch over the 8
+    lanes' aura-filled SoA of step 1."""
+    aura, lanes = lane_aura(ens, estate)
+    engines = lanes.engines
+    beh = engines[0].behavior
+    rows = {ENS_STACK: lane_row(
+        aura, ens.geom, "ensemble kernel", ENS_STACK,
+        [e.behavior.pair_fn for e in engines],
+        [e.behavior.params for e in engines], beh.pair_attrs, lanes.table)}
+    radii = [{"sir_radius": float(r)}
+             for r in estate.params["sir_radius"].tolist()]
+    fns = [sm._gated_sir_pair] * len(radii)
+    rows[ENS_LAW5] = lane_row(
+        aura, ens.geom, "ensemble kernel", ENS_LAW5, fns, radii, ("state",),
+        ni.lane_table(fns, radii, aura.valid.device))
+    return rows
+
+
+def ens_collect(estate):
+    """Each lane's S, I, R and dropped agents, (R, 4), as a device tensor
+    (read after the run, so the steps do not wait on the host)."""
+    st = estate.state
+    r = st.soa.valid.shape[0]
+    s, v = st.soa.attrs["state"].reshape(r, -1), st.soa.valid.reshape(r, -1)
+    return torch.stack([((s == c) & v).sum(1) for c in (sm.S, sm.I, sm.R)]
+                       + [st.dropped.reshape(r, -1).sum(1)], dim=1)
+
+
+def phase_ensemble(seed: int):
+    """Phase 14 (b): Ensemble.run on one device, 10 steps, 8 lanes."""
+    t0 = time.perf_counter()
+    ens = ens_family()
+    e0 = ens_init(ens, ENS_POINTS, seed)
+    torch.cuda.synchronize()
+    print(f"[ensemble] init {len(ENS_POINTS)} lanes of {ENS_AGENTS} agents "
+          f"({ENS_INFECTED} infected) on {ens.geom.local_shape} x {ENS_CAP} "
+          f"slots: {time.perf_counter() - t0:.2f}s", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    est, _ = ens.run(e0, 1)
+    collected = [ens_collect(est)]
+    windows = []
+    for _ in range(ENS_STEPS - 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        est, _ = ens.run(est, 1)
+        end.record()
+        windows.append((start, end))
+        collected.append(ens_collect(est))
+    torch.cuda.synchronize()
+    series = [c[:, :3].cpu().numpy() for c in collected]
+    drops = [c[:, 3].tolist() for c in collected]
+    launches = {k: v for k, v in all_launches().items() if v}
+    step_ms = sum(a.elapsed_time(b) for a, b in windows) / (ENS_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    n_all = len(ENS_POINTS) * ENS_AGENTS
+    print(f"[ensemble] steps 2-{ENS_STEPS}: {step_ms:.3f} ms/step (CUDA "
+          f"events), {n_all / (step_ms / 1e3):.4g} agent-updates/s over "
+          f"{len(ENS_POINTS)} lanes; peak device memory {peak / 2**30:.2f} "
+          f"GiB; launches {launches}", flush=True)
+    curves = np.stack([c[:, 1] for c in series], axis=1)    # (R, steps)
+    print(f"[ensemble] I by lane and step {curves.tolist()}; dropped by "
+          f"step and lane {drops}", flush=True)
+    for t, c in enumerate(series):
+        if not (c.sum(axis=1) == ENS_AGENTS).all():
+            fail(f"ensemble: S+I+R {c.sum(axis=1).tolist()} != {ENS_AGENTS} "
+                 f"at step {t + 1}")
+    if all(np.array_equal(curves[0], c) for c in curves[1:]):
+        fail("ensemble: every lane's I-curve is the same")
+    if any(drops[-1]):
+        fail(f"ensemble: agents dropped by lane {drops[-1]}")
+    if not torch.isfinite(est.state.soa.pos).all():
+        fail("ensemble: non-finite positions")
+    if launches != {ENS_STACK: ENS_STEPS}:
+        fail(f"ensemble: kernel launches {launches} != "
+             f"{ {ENS_STACK: ENS_STEPS} }")
+    finals, _, solo_ms = solo_runs(ens, e0, [ENS_STEPS])
+    for r, st in enumerate(finals):
+        check_lane_equals_solo(f"ensemble lane {r}",
+                               replica_state(est.state, r), st)
+    print(f"[ensemble] every lane bit-equal, every column, to its solo run "
+          f"on the card; the {len(ENS_POINTS)} solo runs one after another: "
+          f"{solo_ms:.3f} ms a step summed (lanes {step_ms:.3f})",
+          flush=True)
+    del finals
+    times = profile(lambda: ens.run(est, 1), "ensemble profile",
+                    "one more step")
+    step_dev = sum(times.values()) / 1e3 if times else None
+    if step_dev is not None:
+        print(f"[ensemble] a step's {step_dev:.3f} ms of device kernels in "
+              f"{step_ms:.3f} ms: the card idles "
+              f"{100 * (1 - step_dev / step_ms):.1f}% of it", flush=True)
+    del est
+    gc.collect()
+    rows = ensemble_kernel_rows(ens, e0)
+    return rows, dict(step_ms=step_ms, agent_updates_per_s=n_all / (
+        step_ms / 1e3), peak_bytes=peak, solo_ms_summed=solo_ms,
+        step_device_ms=step_dev, launches=launches,
+        i_curves=curves.tolist())
+
+
+def phase_ensemble_mesh(seed: int):
+    """Phase 14 (c): the first 4 points on a 2x2 virtual mesh (the same
+    domain), codec off, 10 steps; each lane bit-equal to its solo mesh
+    run; one lane launch a device a step."""
+    ens = ens_family(ENS_MESH)
+    e0 = ens_init(ens, ENS_POINTS[:ENS_MESH_LANES], seed)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    est, _ = ens.run(e0, ENS_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in all_launches().items() if v}
+    want = {ENS_STACK: ENS_STEPS * ens.geom.n_devices}
+    collected = ens_collect(est).cpu().numpy()
+    c, dropped = collected[:, :3], collected[:, 3].tolist()
+    print(f"[ensemble mesh] {ENS_MESH} x {ens.geom.local_shape} x {ENS_CAP}"
+          f" slots, {ENS_MESH_LANES} lanes, {ENS_STEPS} steps: "
+          f"{1e3 * wall / ENS_STEPS:.3f} ms a step (host clock); S/I/R "
+          f"{c.tolist()}; dropped by lane {dropped}; launches {launches}",
+          flush=True)
+    if launches != want:
+        fail(f"ensemble mesh: kernel launches {launches} != {want}")
+    if not (c.sum(axis=1) == ENS_AGENTS).all():
+        fail(f"ensemble mesh: S+I+R {c.sum(axis=1).tolist()}")
+    if any(dropped):
+        fail(f"ensemble mesh: agents dropped by lane {dropped}")
+    finals, _, _ = solo_runs(ens, e0, [ENS_STEPS])
+    for r, st in enumerate(finals):
+        check_lane_equals_solo(f"ensemble mesh lane {r}",
+                               replica_state(est.state, r), st)
+    print("[ensemble mesh] every lane bit-equal to its solo mesh run",
+          flush=True)
+    return dict(step_ms_host=1e3 * wall / ENS_STEPS, launches=launches)
+
+
+def phase_serve(seed: int):
+    """Phase 14 (d): the scenario server at (b)'s size, slot 8: 12
+    requests (budgets 8, 12, 16; streaming every 0 or 4 steps) in two
+    batches, the second padded, plus three rejected at submit."""
+    from repro_torch.core import Domain
+    from repro_torch.core.ensemble import Ensemble, runner_cache_stats
+    from repro_torch.core.operations import batch_attr_counts
+    from repro_torch.launch.serve import (
+        ScenarioFamily, ScenarioRequest, ScenarioServer)
+
+    # sir_mechanics_family at (b)'s size, on a grid of SERVE_CAP slots
+    fam = ScenarioFamily(
+        name="sir_mechanics",
+        ensemble=sm.ensemble_family(interior=ENS_INTERIOR, cap=SERVE_CAP,
+                                    device="cuda"),
+        init_point=lambda e, s: sm.ensemble_point_state(
+            e, seed=s, n_agents=ENS_AGENTS, initial_infected=ENS_INFECTED),
+        metric=batch_attr_counts("state", (sm.S, sm.I, sm.R)),
+        defaults=sm.ensemble_defaults())
+    server = ScenarioServer([fam], slot_size=len(ENS_POINTS))
+
+    def bad_factory(params):      # the reference smoke's bad_radius_sweep
+        return dataclasses.replace(cc.behavior(),
+                                   radius=float(params["radius"]))
+
+    server.register(ScenarioFamily(
+        name="bad_radius_sweep",
+        ensemble=Ensemble(geom=Domain(cell_size=2.0, interior=(8, 8),
+                                      mesh_shape=(1, 1), cap=24,
+                                      boundary="toroidal"),
+                          behavior_fn=bad_factory, param_names=("radius",),
+                          family="bad_radius_sweep", device="cuda"),
+        init_point=lambda e, s: None, metric=lambda s: np.zeros((1, 1))))
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        p = ENS_POINTS[i % len(ENS_POINTS)]
+        reqs.append(ScenarioRequest(
+            family="sir_mechanics", params=dict(p, beta=p["beta"] + 0.01 * i),
+            steps=SERVE_BUDGETS[i % 3], stream_every=4 * (i % 2),
+            seed=lane_seed(seed, 100 + i)))
+    t0 = time.perf_counter()
+    rids = [server.submit(r) for r in reqs]
+    bad = {
+        "serve-unknown-family": server.submit(ScenarioRequest(
+            family="nope", params={}, steps=4)),
+        "serve-unknown-param": server.submit(ScenarioRequest(
+            family="sir_mechanics", params={"not_a_knob": 1.0}, steps=4)),
+        "ensemble-factory-static": server.submit(ScenarioRequest(
+            family="bad_radius_sweep", params={"radius": 1.0}, steps=4)),
+    }
+    for contract, rid in bad.items():
+        h = server.handle(rid)
+        if h.status != "rejected" or not any(
+                d.contract == contract for d in h.diagnostics):
+            fail(f"serve: request {rid} not rejected with {contract}: "
+                 f"{h.status} {h.diagnostics}")
+    s0 = runner_cache_stats()
+    server.pump()
+    s1 = runner_cache_stats()
+    server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s2 = runner_cache_stats()
+    st = server.stats()
+    print(f"[serve] {SERVE_REQUESTS} requests in {st['batches']} batches "
+          f"at mean occupancy {st['mean_occupancy']:.2f} in {wall:.2f}s "
+          f"({SERVE_REQUESTS / wall:.3f} requests/s); runner cache "
+          f"{s2['hits']}h/{s2['misses']}m", flush=True)
+    if st["batches"] != 2 or st["mean_occupancy"] != 0.75:
+        fail(f"serve: {st['batches']} batches at occupancy "
+             f"{st['mean_occupancy']}")
+    if s2["misses"] != s1["misses"] or s2["hits"] <= s1["hits"]:
+        fail(f"serve: the second batch was not a runner-cache hit "
+             f"({s1} -> {s2})")
+    if st["requests"]["done"] != SERVE_REQUESTS or \
+            st["requests"]["rejected"] != 3:
+        fail(f"serve: requests {st['requests']}")
+    ens = fam.ensemble
+    latencies = []
+    for rid, req in zip(rids, reqs):
+        h = server.handle(rid)
+        marks = (list(range(req.stream_every, req.steps, req.stream_every))
+                 if req.stream_every else []) + [req.steps]
+        if [s for s, _ in h.frames] != marks:
+            fail(f"serve: request {rid} frames at {[s for s, _ in h.frames]}"
+                 f" != {marks}")
+        for _, f in h.frames:
+            if int(f.sum()) != ENS_AGENTS:
+                fail(f"serve: request {rid} frame sums to {int(f.sum())}")
+        point = {**fam.defaults, **req.params}
+        e1 = ens.init([fam.init_point(ens, req.seed)],
+                      [{k: point[k] for k in ens.param_names}])
+        _, frames, _ = solo_runs(
+            ens, e1, marks, collect=lambda s: np.array(
+                [int(((s.soa.attrs["state"] == c) & s.soa.valid).sum())
+                 for c in (sm.S, sm.I, sm.R)]))
+        for (step, f), g in zip(h.frames, frames[0]):
+            if not np.array_equal(f, g):
+                fail(f"serve: request {rid} frame at {step} {f.tolist()} "
+                     f"!= its solo run's {g.tolist()}")
+        latencies.append(h.latency_s)
+    print(f"[serve] every request's frames equal its solo run's; latency "
+          f"by request {[round(x, 3) for x in latencies]} s", flush=True)
+    return dict(requests_per_s=SERVE_REQUESTS / wall, wall_s=wall,
+                latency_s=latencies, batches=st["batches"],
+                mean_occupancy=st["mean_occupancy"],
+                cache={"before": s0, "after_batch1": s1, "after": s2})
+
+
+def phase_ensembles(seed: int):
+    """Phase 14: the ensemble path (B1 a, d)."""
+    t0 = time.perf_counter()
+    rows, one = phase_ensemble(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase_ensemble_mesh(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = phase_serve(seed)
+    print(f"[ensembles] phase 14 in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return rows, dict(one_device=one, mesh=mesh, serve=serve)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2133,6 +2648,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. card
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[card] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}; "
@@ -2181,6 +2697,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows_3d, spheroid_row, spheroid = phase_3d(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ens_rows, ensembles = phase_ensembles(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     kernels = [{
@@ -2240,6 +2759,16 @@ def main(argv=None) -> int:
          # the scoring forward on float32 copies of the weights
          "launches": lm["f32_launches"]["flash_attention"]},
         **flash["rows"]["flash_attention"]))
+    for law in (ENS_STACK, ENS_LAW5):
+        launched = ensembles["one_device"]["launches"].get(law, 0)
+        kernels.append(dict(
+            {"name": f"pair_sweep_lanes:{law}", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/pair_sweep.cu",
+             "replaces": "src/repro/kernels/neighbor_interaction.py:92",
+             "lanes": len(ENS_POINTS), "launches": launched},
+            **ens_rows[law]))
+    kernels[-2]["ensembles"] = ensembles
+    print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,11 @@ only reorder axes, so they are exact (the RNG ``key`` included: it is
 carried unchanged, uint32).  This module imports no JAX: a caller that
 holds a JAX state builds the dict with ``np.asarray`` on each leaf.
 Behaviour ``params`` are plain Python floats on both sides and need no
-bridge.
+bridge.  An ensemble's state (:func:`ensemble_to_arrays`,
+:func:`ensemble_from_arrays`) carries the same paths with a leading lane
+axis, each lane in that global layout, plus ``params.<name>`` (the
+``(R,)`` float32 points, host tensors in the port) and ``active``: the
+leaves of the reference's ``EnsembleState``.
 
 LM parameters (:func:`lm_params_from_arrays`, :func:`lm_params_to_arrays`)
 are keyed by the reference tree's dotted paths (``embed.w``,
@@ -29,6 +33,9 @@ import torch
 
 from repro_torch.core.agent_soa import AgentSoA
 from repro_torch.core.engine import SimState
+from repro_torch.core.ensemble import (
+    EnsembleState, replica_state, stack_states,
+)
 from repro_torch.device import DeviceLike, resolve_device
 
 _SCALARS = ("it", "key", "gid_counter", "dropped", "halo_bytes",
@@ -96,6 +103,34 @@ def state_from_arrays(arrays: Dict[str, np.ndarray],
     return SimState(
         soa=AgentSoA(attrs=attrs, valid=soa_t(arrays["soa.valid"])),
         refs=refs, **{name: t(arrays[name]) for name in _SCALARS})
+
+
+def ensemble_to_arrays(estate: EnsembleState) -> Dict[str, np.ndarray]:
+    """Every leaf of an ensemble state as numpy: the lanes' state paths
+    (leading lane axis), ``params.<name>`` and ``active``."""
+    lanes = [state_to_arrays(replica_state(estate.state, r))
+             for r in range(estate.replicas)]
+    out = {k: np.stack([lane[k] for lane in lanes]) for k in lanes[0]}
+    for name, v in estate.params.items():
+        out[f"params.{name}"] = v.cpu().numpy()
+    out["active"] = np.array(estate.active, dtype=bool)
+    return out
+
+
+def ensemble_from_arrays(arrays: Dict[str, np.ndarray],
+                         device: DeviceLike = "cuda") -> EnsembleState:
+    """The inverse of :func:`ensemble_to_arrays`, on ``device``."""
+    dev = resolve_device(device)
+    active = np.array(arrays["active"], dtype=bool)
+    paths = {k: np.asarray(a) for k, a in arrays.items()
+             if k != "active" and not k.startswith("params.")}
+    lanes = [state_from_arrays({k: a[r] for k, a in paths.items()}, dev)
+             for r in range(active.shape[0])]
+    params = {k[len("params."):]: torch.from_numpy(
+                  np.array(a, dtype=np.float32))
+              for k, a in arrays.items() if k.startswith("params.")}
+    return EnsembleState(state=stack_states(lanes), params=params,
+                         active=active)
 
 
 def _bf16_tensor(a: np.ndarray) -> torch.Tensor:

@@ -254,23 +254,29 @@ class Engine:
     # ------------------------------------------------------------------
     # One iteration
     # ------------------------------------------------------------------
-    def _device_update(self, blk: AgentSoA, origin: torch.Tensor,
-                       key: torch.Tensor, lrank: int, gidc: torch.Tensor
+    def _sweep(self, coords: Tuple[int, ...], blk: AgentSoA
+               ) -> Dict[str, torch.Tensor]:
+        """2. Local interaction of one device's block (its aura filled):
+        the backend-dispatched sweep of the behaviour's pair law."""
+        beh = self.behavior
+        return sweep_accumulate(
+            self.geom, blk, beh.pair_fn, beh.pair_attrs, beh.radius,
+            beh.params, backend=self.sweep_backend)
+
+    def _device_finish(self, blk: AgentSoA, acc: Dict[str, torch.Tensor],
+                       origin: torch.Tensor, key: torch.Tensor, lrank: int,
+                       gidc: torch.Tensor
                        ) -> Tuple[AgentSoA, torch.Tensor, torch.Tensor]:
-        """Sweep, pointwise update, spawn, clamp and re-binning of one
-        device's block (its aura filled) with the step key ``key``, rank
-        ``lrank`` and spawn counter ``gidc``.  Returns the binned block, the
-        agents dropped for cell overflow and the advanced counter."""
+        """Pointwise update, spawn, clamp and re-binning of one device's
+        block (its aura filled) from its sweep's accumulators ``acc``, with
+        the step key ``key``, rank ``lrank`` and spawn counter ``gidc``.
+        Returns the binned block, the agents dropped for cell overflow and
+        the advanced counter."""
         geom = self.geom
         beh = self.behavior
         nd = geom.ndim
         tor = geom.toroidal
         dev = blk.valid.device
-
-        # 2. Local interaction (backend-dispatched sweep).
-        acc = sweep_accumulate(
-            geom, blk, beh.pair_fn, beh.pair_attrs, beh.radius, beh.params,
-            backend=self.sweep_backend)
 
         # 3. Pointwise update on interior agents.
         isl = tuple(slice(1, h - 1) for h in geom.local_shape)
@@ -333,23 +339,41 @@ class Engine:
                    step_keys: torch.Tensor = None) -> SimState:
         """One iteration of every device of the mesh (``comm`` is the
         engine's :class:`VirtualMeshComm`), with the devices' step keys
-        ``step_keys`` (``(*mesh, 2)``; derived here when not given)."""
-        geom = self.geom
-        nd = geom.ndim
-        mesh = geom.mesh_shape
-        lead = comm.lead
-        if lead != nd:
+        ``step_keys`` (``(*mesh, 2)``; derived here when not given).  The
+        ensemble runner (``core.ensemble``) runs the same two halves,
+        :meth:`_aura` and :meth:`_advance`, with its lanes' sweep in
+        between."""
+        aura = self._aura(state, comm, full_halo)
+        return self._advance(state, aura, comm, step_keys, self._sweep)
+
+    def _aura(self, state: SimState, comm: Comm, full_halo: bool,
+              out: AgentSoA = None):
+        """1. Aura update (rebuilt from scratch each iteration, section
+        2.2.1), into ``out``'s tensors when given.  Returns
+        :func:`~repro_torch.core.halo.halo_exchange`'s four results as a
+        list, which :meth:`_advance` empties."""
+        nd = self.geom.ndim
+        if comm.lead != nd:
             raise ValueError(
                 f"local_step needs a comm with {nd} leading mesh dims "
-                f"(a VirtualMeshComm); got lead={lead}")
+                f"(a VirtualMeshComm); got lead={comm.lead}")
+        return list(halo_exchange(
+            self.geom, clear_ring(state.soa, comm.lead), comm, state.refs,
+            self.delta_cfg, full_halo, out=out))
+
+    def _advance(self, state: SimState, aura: list, comm: Comm,
+                 step_keys: torch.Tensor, sweep) -> SimState:
+        """2.-5. of an iteration from ``aura`` (:meth:`_aura`'s list):
+        per device ``sweep(coords, block)`` (the accumulators of the
+        device's aura-filled block), the update drawing from the device's
+        step key, spawn, clamp and re-binning; then migration."""
+        geom = self.geom
+        mesh = geom.mesh_shape
+        soa, refs, hbytes, oflow = aura
+        aura.clear()   # the caller's reference: the SoA dies below
         dev = state.soa.valid.device
         origins = geom.device_origins(dev)
         lsz = torch.tensor(geom.domain_size, dtype=torch.float32, device=dev)
-
-        # 1. Aura update (rebuilt from scratch each iteration, §2.2.1).
-        soa, refs, hbytes, oflow = halo_exchange(
-            geom, clear_ring(state.soa, lead), comm, state.refs,
-            self.delta_cfg, full_halo)
         coflow = state.codec_overflow + oflow
 
         # 2.-4. Per device: sweep, update (drawing from the device's step
@@ -361,9 +385,12 @@ class Engine:
             step_keys = self.step_keys(state)[0]
         for c in np.ndindex(*mesh):
             lrank = int(np.ravel_multi_index(c, mesh))
-            blk, d1, gidc = self._device_update(
-                device_block(soa, c), origins[c], step_keys[c], lrank,
+            blk = device_block(soa, c)
+            acc = sweep(c, blk)
+            blk, d1, gidc = self._device_finish(
+                blk, acc, origins[c], step_keys[c], lrank,
                 state.gid_counter[c])
+            del acc
             binned.put(c, blk)
             drops.append(d1)
             gidcs.append(gidc)
@@ -431,19 +458,29 @@ class Engine:
         tor_t = torch.tensor(tor, device=dev) \
             if any(tor) and not all(tor) else None
 
+        # Where a wrapped position is exactly L (see seam): 0 on an axis of
+        # one device; on an axis of several, the largest float32 below L.
+        # Only a step down across 0 rounds to L, and it ships the agent to
+        # the last device along the axis, which owns [L - L/M, L) and not 0.
+        at_l_pos = torch.tensor(
+            [0.0 if m == 1 else np.nextafter(np.float32(n), np.float32(0))
+             for m, n in zip(mesh, lsz_np)], dtype=torch.float32,
+            device=dev)
+
         def seam(slab: Slab) -> Slab:
             """Wrapped (``mod L``) positions lie in [0, L], not [0, L): one
             within half an ulp of L below 0 rounds to exactly L, which bins
             into the halo ring, and the next aura rebuild would destroy
             the agent uncounted - as the reference does (ROADMAP C).  Such
-            a position is put at 0, its nearest point of [0, L)."""
+            a position is put at its nearest point of [0, L) on the device
+            that received it (``at_l_pos``)."""
             if not any(tor):
                 return slab
             p = slab[POS]
             at_l = p == lsz
             if tor_t is not None:
                 at_l &= tor_t
-            return {**slab, POS: torch.where(at_l, torch.zeros_like(p), p)}
+            return {**slab, POS: torch.where(at_l, at_l_pos, p)}
 
         def wrap_pos(slab: Slab) -> Slab:
             if not any(tor):

@@ -207,13 +207,16 @@ def halo_exchange(
     refs: Dict[str, Slab],
     cfg: DeltaConfig,
     full: bool,
+    out: AgentSoA = None,
 ) -> Tuple[AgentSoA, Dict[str, Slab], int, torch.Tensor]:
     """Rebuild the aura ring from neighbour devices' boundary cells.
 
     ``soa`` and ``refs`` carry ``comm.lead`` leading mesh dims.  Returns
     (soa with ring filled, updated references, wire bytes of one device's
     sends, codec overflow count shaped like the mesh dims).  The ring is
-    written into a copy of ``soa``; the caller's tensors are not modified.
+    written into a copy of ``soa``, made into ``out``'s tensors when given
+    (an ensemble's lane of its stacked SoA) and into new ones otherwise;
+    the caller's tensors are not modified.
 
     ``refs[d + "_out"]`` holds what was last sent along directed edge
     ``d`` (receiver-reconstructed) and ``refs[d + "_in"]`` what was last
@@ -228,8 +231,14 @@ def halo_exchange(
     new_refs = dict(refs)
     nbytes = 0
     overflow = None
-    soa = AgentSoA(attrs={k: v.clone() for k, v in soa.attrs.items()},
-                   valid=soa.valid.clone())
+    if out is None:
+        soa = AgentSoA(attrs={k: v.clone() for k, v in soa.attrs.items()},
+                       valid=soa.valid.clone())
+    else:
+        for k, v in soa.attrs.items():
+            out.attrs[k].copy_(v)
+        out.valid.copy_(soa.valid)
+        soa = out
 
     def _exchange(soa, axis, src_index, dst_index, direction, out_key,
                   in_key):

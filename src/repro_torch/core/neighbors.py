@@ -18,13 +18,16 @@ over 2-D or 3-D domains (the ``3**ndim`` offset stencil):
 ``"auto"`` resolves to ``"kernel"`` on a CUDA tensor and ``"tiled"`` on a
 CPU tensor.  All backends share the masking semantics: invalid slots,
 self-pairs (by global id) and pairs beyond the radius contribute zero.
-The overlapped interior/boundary sweep waits for ROADMAP A7.
+:func:`sweep_accumulate_lanes` is the lane form an ensemble sweeps with:
+the lanes of one device block, each with its own pair function and
+params, in one kernel launch (the other backends: lane by lane).  The
+overlapped interior/boundary sweep waits for ROADMAP A7.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -223,3 +226,35 @@ def sweep_accumulate(
     """Backend-dispatched neighbourhood sweep (the engine's entry point)."""
     backend = resolve_sweep_backend(backend, soa.valid.device)
     return _BACKENDS[backend](geom, soa, pair_fn, pair_attrs, radius, params)
+
+
+def sweep_accumulate_lanes(
+    geom: Domain,
+    soa: AgentSoA,
+    pair_fns: Sequence[PairFn],
+    pair_attrs: Tuple[str, ...],
+    radius: float,
+    params: Sequence[dict],
+    *,
+    backend: str = "reference",
+    table: Optional[torch.Tensor] = None,
+) -> Tensors:
+    """The sweep of B lanes of one device block: ``soa`` holds ``(B,
+    *local_grid, K, ...)`` tensors (lane ``b`` at index ``b``, any lane
+    stride), lane ``b`` runs ``pair_fns[b]`` with ``params[b]``.  Returns
+    ``(B, *interior, K, *trailing)`` accumulators.  The ``"kernel"``
+    backend sweeps every lane in one launch, its per-lane params from
+    ``table`` (:func:`~repro_torch.kernels.neighbor_interaction.
+    lane_table`); the others sweep lane by lane."""
+    backend = resolve_sweep_backend(backend, soa.valid.device)
+    if backend == "kernel":
+        return neighbor_interaction.pair_sweep_lanes(
+            soa.attrs, soa.valid, pair_fns=pair_fns, pair_attrs=pair_attrs,
+            radius=radius, params=params, box=minimum_image_box(geom),
+            table=table)
+    per = [_BACKENDS[backend](
+        geom, AgentSoA(attrs={n: a[b] for n, a in soa.attrs.items()},
+                       valid=soa.valid[b]),
+        fn, pair_attrs, radius, p) for b, (fn, p) in enumerate(
+            zip(pair_fns, params))]
+    return {n: torch.stack([acc[n] for acc in per]) for n in per[0]}

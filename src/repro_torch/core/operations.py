@@ -6,13 +6,16 @@ An operation is a callable ``op(sim) -> value`` registered with
 ``sim.every(n, op)``; its results are appended to ``sim.series[name]``.
 The state's tensors hold every device of the (virtual) mesh, so a sum
 over a tensor is the sum over all ranks.  The ``Operation`` class itself
-stays in ``core/simulation.py`` until ROADMAP A6.
+stays in ``core/simulation.py`` until ROADMAP A6.  The ``batch_*``
+reducers take a stacked ensemble state (``core.ensemble``) and reduce
+each lane on its own, with one host read a call.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -60,3 +63,49 @@ def attr_counts(attr: str, values: Sequence[int],
 
     op.__name__ = name or f"counts_{attr}"
     return op
+
+
+# ---------------------------------------------------------------------------
+# Per-lane reducers of a stacked SimState (every leaf carrying a leading
+# (R,) lane axis, core.ensemble): each lane reduced on its own into an
+# (R, ...) array, lane r's value the solo reducer's on lane r.
+# ---------------------------------------------------------------------------
+
+def batch_agent_count(state) -> np.ndarray:
+    """Per-lane live-agent totals: (R,) int64."""
+    v = state.soa.valid
+    return v.reshape(v.shape[0], -1).sum(dim=1).cpu().numpy().astype(
+        np.int64)
+
+
+def batch_attr_sum(attr: str, name: str = "") -> Callable:
+    """Per-lane sum of a scalar attribute over live agents: (R,)."""
+
+    def reduce(state) -> np.ndarray:
+        soa = state.soa
+        r = soa.valid.shape[0]
+        a = soa.attrs[attr].reshape(r, -1)
+        v = soa.valid.reshape(r, -1)
+        return torch.where(v, a, torch.zeros_like(a)).sum(dim=1).cpu() \
+            .numpy()
+
+    reduce.__name__ = name or f"batch_sum_{attr}"
+    return reduce
+
+
+def batch_attr_counts(attr: str, values: Sequence[int],
+                      name: str = "") -> Callable:
+    """Per-lane compartment counts of an integer attribute (e.g. the SIR
+    occupation of each lane): (R, len(values)) int64."""
+    vals = tuple(values)
+
+    def reduce(state) -> np.ndarray:
+        soa = state.soa
+        r = soa.valid.shape[0]
+        a = soa.attrs[attr].reshape(r, -1)
+        v = soa.valid.reshape(r, -1)
+        cols = [((a == val) & v).sum(dim=1) for val in vals]
+        return torch.stack(cols, dim=1).cpu().numpy().astype(np.int64)
+
+    reduce.__name__ = name or f"batch_counts_{attr}"
+    return reduce

@@ -13,11 +13,27 @@
 // functions (below): the soft-sphere force (law 0), the same-type counts
 // of the clustering metric (1), the infected-neighbour count of
 // epidemiology (2), oncology's force plus neighbour count (3), the crowd
-// count of tumor_spheroid (4, no columns), and two compose() stacks, each
-// part gated to its own radius, in one sweep over one neighbourhood: the
-// force and the infected count (16, sir_mechanics), the force and the
-// crowd count (17, tumor_spheroid).  Their outputs may differ in width
-// (oncology: force (D), crowd (1)); counts are exact.
+// count of tumor_spheroid (4, no columns), the infected count behind a
+// per-lane radius gate of sir_mechanics' ensembles (5), and three compose()
+// stacks, each part gated to its own radius, in one sweep over one
+// neighbourhood: the force and the infected count (16, sir_mechanics), the
+// force and the crowd count (17, tumor_spheroid), the force and the gated
+// count (18, sir_mechanics' ensemble family).  Their outputs may differ in
+// width (oncology: force (D), crowd (1)); counts are exact.
+//
+// Lanes.  The reference batches the kernel over an ensemble's replicas
+// with jax.vmap (src/repro/core/ensemble.py:251, :269 inside shard_map),
+// each replica with its own parameters.  Here pair_sweep_lanes_kernel
+// takes B lanes on blockIdx.y: lane b reads its columns b * lane_stride
+// slots from the first lane's (so one device's block of every lane is read
+// in place from a stacked (R, *mesh, *local, K, ...) state), writes (B,
+// *interior, K, w) outputs, and takes its params and gates from row b of a
+// float32 device table, loaded once a block; its registers are held to
+// the blocks an SM holds of a strip.  Both it and the solo
+// pair_sweep_kernel (one SoA, the host's params) run one strip a block
+// through the same sweep_strip, so a lane's float32 operations are its
+// solo launch's at its params, in the same order: a lane equals its solo
+// launch bit for bit.
 //
 // What bounds it on an H100.  Bytes: each slot's valid flag (1 B), the
 // law's columns of the occupied slots only (pos 8 B, gids 8 B, up to 8 B
@@ -117,7 +133,12 @@ struct Outputs {
   float* p[kMaxParts];
 };
 
-// Resident SoA columns, each contiguous with layout (*local_grid, K, *t).
+// Floats of a lane's row in the per-lane table of a lane launch: the
+// law's params, then the parts' gates.
+constexpr int kTableWidth = kMaxParams + kMaxParts;
+
+// Resident SoA columns, each contiguous with layout (*local_grid, K, *t);
+// lane b of a lane launch starts b * lane_stride slots further on.
 struct Columns {
   const float* pos;            // (..., K, D)
   const int* gid_rank;         // (..., K)
@@ -201,6 +222,25 @@ struct Epidemiology {
       float* acc, const float*, float, const Cols&, const Cols& cj,
       const float*, const float*) {
     acc[0] += cj.i[S] == 1 ? 1.f : 0.f;
+  }
+};
+
+// Law 5: repro_torch.sims.sir_mechanics._gated_sir_pair, reading int
+// column S: law 2's count behind the lane's own radius gate, dist2 <=
+// r * r with r = p[0] (sir_radius), the square taken in float32 here as
+// the plain version takes it.  Output: n_inf (a count).
+template <int D, int S>
+struct GatedEpidemiology {
+  static constexpr int kParts = 1;
+  static constexpr int kAcc = 1;
+  static constexpr int kParams = 1;
+  static constexpr int kInts = S + 1;
+  __host__ __device__ static constexpr int width(int) { return 1; }
+
+  __device__ __forceinline__ static void add(
+      float* acc, const float*, float dist2, const Cols&, const Cols& cj,
+      const float* p, const float*) {
+    if (dist2 <= __fmul_rn(p[0], p[0])) acc[0] += cj.i[S] == 1 ? 1.f : 0.f;
   }
 };
 
@@ -346,11 +386,14 @@ __device__ __forceinline__ int count_flags(const unsigned char* f, int k,
   return c;
 }
 
-// n: the interior cells along each axis (n.z unused at D = 2).
+// One block's strip of the sweep (below), of the columns `col` into the
+// outputs `out`.  n: the interior cells along each axis (n.z unused at
+// D = 2).
 template <int D, class Law>
-__global__ void __launch_bounds__(kSweepThreads)
-    pair_sweep_kernel(Columns col, int3 n, int k, int w, int entries,
-                      float r2, Box box, LawParams p, Outputs out) {
+__device__ __forceinline__ void sweep_strip(const Columns& col, int3 n, int k,
+                                            int w, int entries, float r2,
+                                            const Box& box, const LawParams& p,
+                                            const Outputs& out) {
   static_assert(D == 2 || D == 3, "the strip layout is written for D = 2, 3");
   constexpr int kRows = staged_rows(D);
   constexpr int kMid = kRows / 2;       // the strip's own row
@@ -590,64 +633,175 @@ __global__ void __launch_bounds__(kSweepThreads)
   }
 }
 
+// Blocks an SM holds of a strip (the 48 KB budget: 5 at D = 2, 4 at D = 3).
+constexpr int lane_blocks(int d) { return d == 2 ? 5 : 4; }
+
+// The solo sweep: one SoA, the law's params from the host.  They sit in
+// the kernel's parameter bank, which the pair loop reads for free (the
+// lane kernel at one lane, its params in registers, is up to 7.8 % slower
+// on the solo paths' laws).  Its registers are left to ptxas, as the lane
+// kernel's are not: a bound on every law (a min-blocks bound, or
+// __maxnreg__) slowed law 2 on epidemiology's SoA by 3-7 %.
+template <int D, class Law>
+__global__ void __launch_bounds__(kSweepThreads)
+    pair_sweep_kernel(Columns col, int3 n, int k, int w, int entries,
+                      float r2, Box box, LawParams p, Outputs out) {
+  sweep_strip<D, Law>(col, n, k, w, entries, r2, box, p, out);
+}
+
+// SameType's alone are bounded to the blocks an SM holds: unbounded, the
+// D = 2 one takes 58 registers and 14 % more time than at 44.
+template <>
+__global__ void __launch_bounds__(kSweepThreads, lane_blocks(2))
+    pair_sweep_kernel<2, SameType<2>>(Columns col, int3 n, int k, int w,
+                                      int entries, float r2, Box box,
+                                      LawParams p, Outputs out) {
+  sweep_strip<2, SameType<2>>(col, n, k, w, entries, r2, box, p, out);
+}
+
+template <>
+__global__ void __launch_bounds__(kSweepThreads, lane_blocks(3))
+    pair_sweep_kernel<3, SameType<3>>(Columns col, int3 n, int k, int w,
+                                      int entries, float r2, Box box,
+                                      LawParams p, Outputs out) {
+  sweep_strip<3, SameType<3>>(col, n, k, w, entries, r2, box, p, out);
+}
+
+// The lanes' sweep: lane b = blockIdx.y reads its columns b * lane_stride
+// slots from `lanes`, writes its outputs b * out_stride slots from
+// `lane_out`, and takes its params and gates from row b of `table`.
+template <int D, class Law>
+__global__ void __launch_bounds__(kSweepThreads, lane_blocks(D))
+    pair_sweep_lanes_kernel(Columns lanes, long long lane_stride, int3 n,
+                            int k, int w, int entries, float r2, Box box,
+                            const float* __restrict__ table, Outputs lane_out,
+                            long long out_stride) {
+  const long long lane = blockIdx.y;
+  const long long at = lane * lane_stride;
+  Columns col = lanes;
+  col.pos += at * D;
+  col.gid_rank += at;
+  col.gid_count += at;
+  col.valid += at;
+  if (col.fcol != nullptr) col.fcol += at;
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    if (col.icol[c] != nullptr) col.icol[c] += at;
+  Outputs out = lane_out;
+#pragma unroll
+  for (int q = 0; q < Law::kParts; ++q)
+    out.p[q] += lane * out_stride * Law::width(q);
+  LawParams p;
+  const float* row = table + lane * kTableWidth;
+#pragma unroll
+  for (int i = 0; i < kMaxParams; ++i) p.v[i] = row[i];
+#pragma unroll
+  for (int i = 0; i < kMaxParts; ++i) p.gate[i] = row[kMaxParams + i];
+  sweep_strip<D, Law>(col, n, k, w, entries, r2, box, p, out);
+}
+
+// The lanes of one launch: their count, the slots between two lanes'
+// columns and between two lanes' outputs, and the per-lane table (a device
+// array of lanes x kTableWidth floats; null for the solo sweep's one
+// lane, which takes the host's params).
+struct Lanes {
+  int count;
+  long long stride;
+  long long out_stride;
+  const float* table;
+};
+
+// The strip width and shared memory of law Law's sweep at dimension D and
+// capacity k; false if they do not fit.
+template <int D, class Law>
+bool strip_shape(int k, int& w, int& entries, size_t& smem) {
+  const int nbr = staged_rows(D) * 3 * k;   // one cell's 3^D K
+  entries = nbr > kMinEntries ? nbr : kMinEntries;
+  w = kMaxStrip;
+  while (w > 1 &&
+         strip_layout(D, w, k, entries, Law::kInts).bytes > kStripBudget)
+    --w;
+  smem = strip_layout(D, w, k, entries, Law::kInts).bytes;
+  return smem <= 227 * 1024;
+}
+
 template <int D, class Law>
 cudaError_t launch(const Columns& col, int3 n, int k, float r2,
-                   const Box& box, const LawParams& p, const Outputs& out,
-                   int n_outs, cudaStream_t stream) {
+                   const Box& box, const LawParams& p, const Lanes& ln,
+                   const Outputs& out, int n_outs, cudaStream_t stream) {
   const long long lines = D == 2 ? n.x : static_cast<long long>(n.x) * n.y;
   const int nl = D == 2 ? n.y : n.z;
-  if (lines * nl == 0) return cudaSuccess;
+  if (lines * nl == 0 || ln.count == 0) return cudaSuccess;
   if (k < 1 || k > (1 << 20)) return cudaErrorInvalidValue;
+  if (ln.count < 0 || ln.count > 65535) return cudaErrorInvalidValue;
   if (n_outs != Law::kParts) return cudaErrorInvalidValue;
   for (int q = 0; q < Law::kParts; ++q)
     if (out.p[q] == nullptr) return cudaErrorInvalidValue;
   if constexpr (Law::kInts > 0) {
     if (col.icol[Law::kInts - 1] == nullptr) return cudaErrorInvalidValue;
   }
-  const int nbr = staged_rows(D) * 3 * k;   // one cell's 3^D K
-  const int entries = nbr > kMinEntries ? nbr : kMinEntries;
-  int w = kMaxStrip;
-  while (w > 1 &&
-         strip_layout(D, w, k, entries, Law::kInts).bytes > kStripBudget)
-    --w;
-  const size_t smem = strip_layout(D, w, k, entries, Law::kInts).bytes;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (ln.table == nullptr && ln.count != 1) return cudaErrorInvalidValue;
+  int w, entries;
+  size_t smem;
+  if (!strip_shape<D, Law>(k, w, entries, smem)) return cudaErrorInvalidValue;
   const long long blocks = lines * ((nl + w - 1) / w);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      pair_sweep_kernel<D, Law>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  pair_sweep_kernel<D, Law>
-      <<<static_cast<unsigned>(blocks), kSweepThreads, smem, stream>>>(
-          col, n, k, w, entries, r2, box, p, out);
+  cudaError_t e;
+  if (ln.table == nullptr) {
+    e = cudaFuncSetAttribute(pair_sweep_kernel<D, Law>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    pair_sweep_kernel<D, Law>
+        <<<static_cast<unsigned>(blocks), kSweepThreads, smem, stream>>>(
+            col, n, k, w, entries, r2, box, p, out);
+  } else {
+    e = cudaFuncSetAttribute(pair_sweep_lanes_kernel<D, Law>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    const dim3 grid(static_cast<unsigned>(blocks),
+                    static_cast<unsigned>(ln.count));
+    pair_sweep_lanes_kernel<D, Law><<<grid, kSweepThreads, smem, stream>>>(
+        col, ln.stride, n, k, w, entries, r2, box, ln.table, out,
+        ln.out_stride);
+  }
   return cudaGetLastError();
 }
 
 // The launch of law `law` at dimension D.
 template <int D>
 cudaError_t dispatch(int law, const Columns& col, int3 n, int k, float r2,
-                     const Box& box, const LawParams& p, const Outputs& out,
-                     int n_outs, cudaStream_t s) {
+                     const Box& box, const LawParams& p, const Lanes& ln,
+                     const Outputs& out, int n_outs, cudaStream_t s) {
   switch (law) {
     case 0:
-      return launch<D, SoftRepulsionAdhesion<D>>(col, n, k, r2, box, p, out,
-                                                 n_outs, s);
+      return launch<D, SoftRepulsionAdhesion<D>>(col, n, k, r2, box, p, ln,
+                                                 out, n_outs, s);
     case 1:
-      return launch<D, SameType<D>>(col, n, k, r2, box, p, out, n_outs, s);
+      return launch<D, SameType<D>>(col, n, k, r2, box, p, ln, out, n_outs,
+                                    s);
     case 2:
-      return launch<D, Epidemiology<D, 0>>(col, n, k, r2, box, p, out,
+      return launch<D, Epidemiology<D, 0>>(col, n, k, r2, box, p, ln, out,
                                            n_outs, s);
     case 3:
-      return launch<D, Oncology<D>>(col, n, k, r2, box, p, out, n_outs, s);
+      return launch<D, Oncology<D>>(col, n, k, r2, box, p, ln, out, n_outs,
+                                    s);
     case 4:
-      return launch<D, Crowd<D>>(col, n, k, r2, box, p, out, n_outs, s);
+      return launch<D, Crowd<D>>(col, n, k, r2, box, p, ln, out, n_outs, s);
+    case 5:
+      return launch<D, GatedEpidemiology<D, 0>>(col, n, k, r2, box, p, ln,
+                                                out, n_outs, s);
     case 16:
       return launch<D, Stack<SoftRepulsionAdhesion<D>, Epidemiology<D, 1>>>(
-          col, n, k, r2, box, p, out, n_outs, s);
+          col, n, k, r2, box, p, ln, out, n_outs, s);
     case 17:
       return launch<D, Stack<SoftRepulsionAdhesion<D>, Crowd<D>>>(
-          col, n, k, r2, box, p, out, n_outs, s);
+          col, n, k, r2, box, p, ln, out, n_outs, s);
+    case 18:
+      return launch<D,
+                    Stack<SoftRepulsionAdhesion<D>, GatedEpidemiology<D, 1>>>(
+          col, n, k, r2, box, p, ln, out, n_outs, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -941,21 +1095,29 @@ extern "C" const char* pair_sweep_error_string(int err) {
 }
 
 // law: 0 = soft_repulsion_adhesion, 1 = same_type, 2 = epidemiology,
-// 3 = oncology, 4 = crowd, 16 = the stack (soft_repulsion_adhesion,
-// epidemiology), 17 = the stack (soft_repulsion_adhesion, crowd); ndim 2
-// or 3, n0, n1, n2 the interior cells along each axis (n2 unused at
-// ndim 2).  params: n_params floats, gates: n_gates floats (a stack's
-// parts), outs: n_outs device pointers, all host arrays read before the
-// launch; fcol, icol0, icol1: the law's columns (null where it reads
-// none).  Returns a cudaError_t (0 on success); the launch is asynchronous
-// on `stream`.
+// 3 = oncology, 4 = crowd, 5 = gated_epidemiology, 16 = the stack
+// (soft_repulsion_adhesion, epidemiology), 17 = the stack
+// (soft_repulsion_adhesion, crowd), 18 = the stack
+// (soft_repulsion_adhesion, gated_epidemiology); ndim 2 or 3, n0, n1, n2
+// the interior cells along each axis (n2 unused at ndim 2).  params:
+// n_params floats, gates: n_gates floats (a stack's parts), outs: n_outs
+// device pointers, all host arrays read before the launch; fcol, icol0,
+// icol1: the law's columns (null where it reads none).  lanes: the lanes
+// of the launch (blockIdx.y), lane b's columns lane_stride slots after
+// lane b - 1's and its outputs out_stride slots after; table: a device
+// array of lanes x (8 params, 4 gates) floats that takes the place of
+// params and gates (pair_sweep_lanes_kernel), or null for one lane at
+// params and gates (pair_sweep_kernel).  Returns a cudaError_t (0 on
+// success); the launch is asynchronous on `stream`.
 extern "C" int pair_sweep_launch(
     int law, int ndim, int device, const void* pos, const void* gid_rank,
     const void* gid_count, const void* valid, const void* fcol,
     const void* icol0, const void* icol1, int n0, int n1, int n2, int k,
     float r2, float box0, float box1, float box2, int wrap0, int wrap1,
     int wrap2, const float* params, int n_params, const float* gates,
-    int n_gates, void* const* outs, int n_outs, void* stream) {
+    int n_gates, void* const* outs, int n_outs, int lanes,
+    long long lane_stride, long long out_stride, const float* table,
+    void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (n_params < 0 || n_params > kMaxParams || n_gates < 0 ||
@@ -976,9 +1138,12 @@ extern "C" int pair_sweep_launch(
     p.gate[i] = i < n_gates ? gates[i] : HUGE_VALF;
   Outputs out{};
   for (int i = 0; i < n_outs; ++i) out.p[i] = static_cast<float*>(outs[i]);
+  const Lanes ln{lanes, lane_stride, out_stride, table};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ndim == 2) return dispatch<2>(law, col, n, k, r2, box, p, out, n_outs, s);
-  if (ndim == 3) return dispatch<3>(law, col, n, k, r2, box, p, out, n_outs, s);
+  if (ndim == 2)
+    return dispatch<2>(law, col, n, k, r2, box, p, ln, out, n_outs, s);
+  if (ndim == 3)
+    return dispatch<3>(law, col, n, k, r2, box, p, ln, out, n_outs, s);
   return cudaErrorInvalidValue;
 }
 

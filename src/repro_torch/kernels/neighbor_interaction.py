@@ -20,6 +20,13 @@ toroidal axes) contribute the behaviour's ``pair_fn`` to per-agent sums.
   stack's parts over one neighbourhood, each gated to its own radius).
   A ``pair_fn`` with no device law, or a stack with such a part, raises
   ``NotImplementedError`` on a CUDA tensor.
+* :func:`pair_sweep_lanes` sweeps B lanes in one launch (the reference's
+  ``jax.vmap`` of the kernel over an ensemble's replicas): lane ``b`` is
+  index ``b`` of ``(B, *local_grid, K, ...)`` tensors, which may be views
+  with any lane stride (one device's block of a stacked mesh state is read
+  in place), each lane with its own pair function's params, from a
+  float32 device table (:func:`lane_table`) built once by the caller.  On
+  a CPU tensor it runs the plain version lane by lane.
 
 The legacy soft-sphere entry point is here too: :func:`neighbor_force`,
 the port of ``neighbor_force_kernel`` (``neighbor_interaction.py:201``),
@@ -29,8 +36,8 @@ slabs on its own kernel in the same source, with
 beside it.
 
 Each launch adds one to ``LAUNCHES[law]`` (``LAUNCHES["neighbor_force"]``
-for the legacy kernel); nothing else touches the counts, so a run can show
-that it went through the kernel.
+for the legacy kernel), whatever its lanes; nothing else touches the
+counts, so a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -100,6 +107,10 @@ LAWS: Dict[str, PairLaw] = {
     "repro_torch.sims.tumor_spheroid._crowd_pair": PairLaw(
         name="crowd", law_id=4, float_cols=(), int_cols=(), params=(),
         outputs=(("crowd", False),)),
+    "repro_torch.sims.sir_mechanics._gated_sir_pair": PairLaw(
+        name="gated_epidemiology", law_id=5, float_cols=(),
+        int_cols=("state",), params=(("sir_radius", None),),
+        outputs=(("n_inf", False),)),
 }
 
 # compose() stacks the kernel instantiates, by their parts' law names.
@@ -115,7 +126,17 @@ STACKS: Dict[Tuple[str, ...], PairLaw] = {
         float_cols=("diameter",), int_cols=("ctype",), params=_SOFT.params,
         outputs=(("b0.force", True), ("b1.crowd", False)),
         parts=("soft_repulsion_adhesion", "crowd")),
+    ("soft_repulsion_adhesion", "gated_epidemiology"): PairLaw(
+        name="stack(soft_repulsion_adhesion,gated_epidemiology)", law_id=18,
+        float_cols=("diameter",), int_cols=("ctype", "state"),
+        params=_SOFT.params + (("sir_radius", None),),
+        outputs=(("b0.force", True), ("b1.n_inf", False)),
+        parts=("soft_repulsion_adhesion", "gated_epidemiology")),
 }
+
+# Floats of a lane's row in a lane table: the kernel's 8 params, then its 4
+# gates (csrc/pair_sweep.cu kMaxParams, kMaxParts).
+_MAX_PARAMS, _MAX_GATES = 8, 4
 
 # Kernel launches per law since the last reset_launches(), and of the
 # legacy neighbor_force kernel.
@@ -135,9 +156,9 @@ def _base_law(pair_fn: Callable) -> PairLaw:
     if law is None:
         raise NotImplementedError(
             f"pair function {key} has no device law in the pair_sweep "
-            f"kernel (laws: {sorted(LAWS)}); the one bundled law still to "
-            "port, sir_mechanics' ensemble _gated_sir_pair, comes with the "
-            "ensembles (ROADMAP B1 d, A10) - run this behaviour on the CPU")
+            f"kernel (laws: {sorted(LAWS)}); a new law is one line of LAWS "
+            "and one device function of csrc/pair_sweep.cu (ROADMAP B1) - "
+            "run this behaviour on the CPU")
     return law
 
 
@@ -182,6 +203,29 @@ def _law_args(law: PairLaw, pair_fn: Callable, params: dict
         gates.append(float(np.float32(r * r)) if r < pair_fn.radius
                      else math.inf)
     return vals, gates
+
+
+def lane_table(pair_fns: Sequence[Callable], params: Sequence[dict],
+               device) -> torch.Tensor:
+    """The per-lane table of a lane launch: ``(B, 12)`` float32 on
+    ``device``, row ``b`` lane ``b``'s kernel params (zero-padded to 8),
+    then its gates (+inf-padded to 4).  Every lane must run one law; build
+    it once and pass it to every :func:`pair_sweep_lanes` of the lanes.
+    The copy to the card is made from pinned memory without waiting."""
+    laws = [law_for(fn) for fn in pair_fns]
+    if not laws or any(law != laws[0] for law in laws):
+        raise ValueError(
+            f"lane_table: the lanes of one launch run one law, got "
+            f"{sorted({law.name for law in laws})}")
+    rows = []
+    for law, fn, p in zip(laws, pair_fns, params):
+        vals, gates = _law_args(law, fn, p)
+        rows.append(vals + [0.0] * (_MAX_PARAMS - len(vals))
+                    + gates + [math.inf] * (_MAX_GATES - len(gates)))
+    table = torch.tensor(rows, dtype=torch.float32)
+    if torch.device(device).type == "cuda":
+        return table.pin_memory().to(device, non_blocking=True)
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +348,54 @@ def pair_sweep(
         raise ValueError(f"pair_sweep: unsupported device {valid.device}")
     law = law_for(pair_fn)
     vals, gates = _law_args(law, pair_fn, params)
-    return _launch(law, attrs, valid, radius, vals, gates, box)
+    one = {n: a.unsqueeze(0) for n, a in attrs.items()}
+    outs = _launch(law, one, valid.unsqueeze(0), radius, vals, gates, box)
+    return {n: o[0] for n, o in outs.items()}
+
+
+def pair_sweep_lanes(
+    attrs: Tensors, valid: torch.Tensor, *, pair_fns: Sequence[Callable],
+    pair_attrs: Sequence[str], radius: float, params: Sequence[dict],
+    box: Optional[Sequence[Optional[float]]] = None,
+    table: Optional[torch.Tensor] = None,
+) -> Tensors:
+    """Per-agent pair sums of B lanes in one launch.
+
+    ``attrs``/``valid`` are ``(B, *local_grid, K, ...)``: lane ``b``'s
+    resident SoA is index ``b``, each lane's block contiguous, the lanes
+    any common stride apart.  Lane ``b`` runs ``pair_fns[b]`` with
+    ``params[b]`` (one law for all lanes, params per lane).  Returns a dict
+    of ``(B, *interior, K, *t)`` float32 sums.  On a CUDA tensor this
+    launches the ``pair_sweep`` kernel once (or raises), its per-lane
+    params from ``table`` (:func:`lane_table`; built here when not given);
+    on a CPU tensor it runs the plain version lane by lane.
+    """
+    lanes = valid.shape[0]
+    if len(pair_fns) != lanes or len(params) != lanes:
+        raise ValueError(
+            f"pair_sweep_lanes: {lanes} lanes, {len(pair_fns)} pair "
+            f"functions, {len(params)} params")
+    if valid.device.type == "cpu":
+        per = [pair_sweep({n: a[b] for n, a in attrs.items()}, valid[b],
+                          pair_fn=pair_fns[b], pair_attrs=pair_attrs,
+                          radius=radius, params=params[b], box=box)
+               for b in range(lanes)]
+        return {n: torch.stack([p[n] for p in per]) for n in per[0]}
+    if valid.device.type != "cuda":
+        raise ValueError(
+            f"pair_sweep_lanes: unsupported device {valid.device}")
+    if table is None:
+        table = lane_table(pair_fns, params, valid.device)
+    if tuple(table.shape) != (lanes, _MAX_PARAMS + _MAX_GATES) or \
+            table.dtype != torch.float32 or table.device != valid.device \
+            or not table.is_contiguous():
+        raise ValueError(
+            f"pair_sweep_lanes: the lane table is {table.dtype} "
+            f"{tuple(table.shape)} on {table.device}; expected a contiguous "
+            f"float32 ({lanes}, {_MAX_PARAMS + _MAX_GATES}) on "
+            f"{valid.device}")
+    return _launch(law_for(pair_fns[0]), attrs, valid, radius, [], [], box,
+                   table=table)
 
 
 _ARGTYPES = (
@@ -315,6 +406,8 @@ _ARGTYPES = (
     + [ctypes.c_int] * 3                     # wrap flags
     + [ctypes.c_void_p, ctypes.c_int] * 2    # params, gates (host arrays)
     + [ctypes.c_void_p, ctypes.c_int]        # outputs (host array)
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]   # lanes, strides
+    + [ctypes.c_void_p]                      # lane table (device), or null
     + [ctypes.c_void_p]                      # stream
 )
 
@@ -346,33 +439,62 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
             radius: float, params: list, gates: list,
-            box: Optional[Sequence[Optional[float]]]) -> Tensors:
-    nd = valid.dim() - 1
+            box: Optional[Sequence[Optional[float]]],
+            table: Optional[torch.Tensor] = None) -> Tensors:
+    """One launch over the lanes of ``(B, *local_grid, K, ...)`` columns
+    (a solo sweep is one lane with ``params``/``gates`` from the host;
+    with ``table``, each lane's from its row).  Returns ``(B, *interior,
+    K, *t)`` outputs."""
+    nd = valid.dim() - 2
     if nd not in (2, 3):
         raise ValueError(f"pair_sweep: a {nd}-D grid; the kernel takes "
                          "2-D and 3-D domains")
     dev = valid.device
-    grid = tuple(valid.shape)
+    lanes = valid.shape[0]
+    grid = tuple(valid.shape[1:])
     interior = tuple(h - 2 for h in grid[:nd])
     k = grid[nd]
-    _check("valid", valid, torch.bool, grid, dev)
-    _check(_POS, attrs[_POS], torch.float32, grid + (nd,), dev)
-    _check(_GID_RANK, attrs[_GID_RANK], torch.int32, grid, dev)
-    _check(_GID_COUNT, attrs[_GID_COUNT], torch.int32, grid, dev)
+    strides = {}
+
+    def lane_col(name, t, dtype, trailing=()):
+        shape = (lanes,) + grid + trailing
+        if tuple(t.shape) != shape:
+            raise ValueError(f"pair_sweep: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        _check(name, t[0], dtype, grid + trailing, dev)
+        if lanes > 1:
+            width = math.prod(trailing)
+            if t.stride(0) % width:
+                raise ValueError(
+                    f"pair_sweep: the lanes of {name} are {t.stride(0)} "
+                    f"elements apart, not a whole number of slots")
+            strides[name] = t.stride(0) // width
+        return t.data_ptr()
+
+    ptrs = [lane_col("valid", valid, torch.bool),
+            lane_col(_POS, attrs[_POS], torch.float32, (nd,)),
+            lane_col(_GID_RANK, attrs[_GID_RANK], torch.int32),
+            lane_col(_GID_COUNT, attrs[_GID_COUNT], torch.int32)]
     cols = []
     for names, dtype, slots in ((law.float_cols, torch.float32, 1),
                                 (law.int_cols, torch.int32, 2)):
-        for n in names:
-            _check(n, attrs[n], dtype, grid, dev)
-        cols += [attrs[n].data_ptr() for n in names]
+        cols += [lane_col(n, attrs[n], dtype) for n in names]
         cols += [None] * (slots - len(names))
+    lane_stride = 0
+    if lanes > 1:
+        if len(set(strides.values())) != 1:
+            raise ValueError(
+                f"pair_sweep: the columns' lanes lie at different strides "
+                f"(in slots: {strides})")
+        lane_stride = next(iter(strides.values()))
 
     box = tuple(box) if box is not None else (None,) * nd
     lens = [0.0 if b is None else float(b) for b in box] + [0.0] * (3 - nd)
     wraps = [0 if b is None else 1 for b in box] + [0] * (3 - nd)
     n = list(interior) + [1] * (3 - nd)
 
-    outs = {name: torch.empty(interior + (k,) + ((nd,) if per_axis else ()),
+    outs = {name: torch.empty((lanes,) + interior + (k,)
+                              + ((nd,) if per_axis else ()),
                               dtype=torch.float32, device=dev)
             for name, per_axis in law.outputs}
     c_params = (ctypes.c_float * max(len(params), 1))(*params)
@@ -382,13 +504,13 @@ def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
 
     lib = _library()
     err = lib.pair_sweep_launch(
-        law.law_id, nd, dev.index, attrs[_POS].data_ptr(),
-        attrs[_GID_RANK].data_ptr(), attrs[_GID_COUNT].data_ptr(),
-        valid.data_ptr(), *cols, *n, k,
-        float(np.float32(radius * radius)), *lens, *wraps,
+        law.law_id, nd, dev.index, ptrs[1], ptrs[2], ptrs[3], ptrs[0], *cols,
+        *n, k, float(np.float32(radius * radius)), *lens, *wraps,
         ctypes.cast(c_params, ctypes.c_void_p), len(params),
         ctypes.cast(c_gates, ctypes.c_void_p), len(gates),
         ctypes.cast(c_outs, ctypes.c_void_p), len(outs),
+        lanes, lane_stride, math.prod(interior) * k,
+        None if table is None else table.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(

@@ -151,9 +151,10 @@ def test_cli_smoke_on_cpu():
     assert lines[-1].startswith("kernel launches: ")
     assert set(lines[-1].split(": ")[1].split(", ")) == {
         "soft_repulsion_adhesion=0", "same_type=0", "epidemiology=0",
-        "oncology=0", "crowd=0",
+        "oncology=0", "crowd=0", "gated_epidemiology=0",
         "stack(soft_repulsion_adhesion,epidemiology)=0",
         "stack(soft_repulsion_adhesion,crowd)=0",
+        "stack(soft_repulsion_adhesion,gated_epidemiology)=0",
         "neighbor_force=0", "delta_encode=0",
         "delta_decode=0", "migration_pos_encode=0",
         "migration_pos_decode=0"}
@@ -198,6 +199,50 @@ def test_cli_runs_the_rng_sims_on_cpu(sim):
     assert lines[0].startswith(f"sim={sim} devices=1 agents=")
     assert "dropped=0" in lines[1]
     assert lines[-1].startswith("kernel launches: ")
+
+
+# The reference's serve smoke (python -m repro.launch.serve --smoke) prints
+# these frames: three sir_mechanics requests of 200 agents, seeds 0-2.
+SERVE_SMOKE_FRAMES = [
+    "  req 0 beta=0.02: t=4:[174, 18, 8] t=8:[170, 13, 17] "
+    "t=12:[161, 16, 23]",
+    "  req 1 beta=0.05: t=4:[150, 38, 12] t=8:[117, 52, 31] "
+    "t=12:[89, 63, 48]",
+    "  req 2 beta=0.08: t=4:[122, 65, 13] t=8:[60, 86, 54] "
+    "t=12:[37, 68, 95]",
+]
+
+
+def test_serve_smoke_on_cpu_prints_the_reference_lines():
+    out = _run(["-m", "repro_torch.launch.serve", "--smoke", "--device",
+                "cpu"])
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0] == "rejected incompatible request with diagnostic:"
+    assert lines[1].startswith("  error: ensemble-factory-static [")
+    assert lines[2:5] == SERVE_SMOKE_FRAMES
+    assert lines[5] == ("serve smoke OK: 1 batch at occupancy 0.75, runner "
+                        "cache 2h/1m")
+
+
+def test_serve_default_device_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    out = _run(["-m", "repro_torch.launch.serve", "--smoke"])
+    assert out.returncode != 0 and "device='cpu'" in out.stderr
+    assert "serve smoke OK" not in out.stdout
+
+
+def test_ensemble_modules_leave_jax_and_repro_out():
+    mods = ["repro_torch.core.compile_cache", "repro_torch.core.ensemble",
+            "repro_torch.analysis", "repro_torch.launch.serve",
+            "repro_torch.sims.sir_mechanics", "repro_torch.bridge"]
+    code = "import sys\n" + "".join(f"import {m}\n" for m in mods) + (
+        "print(sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def _result_line(stdout: str):

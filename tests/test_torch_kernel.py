@@ -22,6 +22,7 @@ bf16, and those float32 results differ by summation order and by the
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -351,6 +352,185 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         ni.pair_sweep(bad, soa.valid, pair_fn=cc._same_type_pair,
                       pair_attrs=("ctype",), radius=2.0, params={}, box=box)
+
+
+# ---------------------------------------------------------------------------
+# Lane launches (B1 d): B lanes in one launch, read in place from a stacked
+# mesh state, each lane at its own params from the device table
+# ---------------------------------------------------------------------------
+
+# Each law or stack with three lane points (pair function, params), and the
+# counts it sums: the lanes differ in every param the law reads.
+def _lane_laws():
+    mech = cc.behavior()
+
+    def soft(rep, adh, same):
+        return dict(mech.params, repulsion=rep, adhesion=adh,
+                    same_type_only=same)
+
+    def ens(**kw):
+        b = sm.ensemble_behavior({**sm.ensemble_defaults(), **kw})
+        return b.pair_fn, b.params
+
+    plain = {
+        "same_type": (cc._same_type_pair, ("ctype",), {}, ("same", "cnt")),
+        "epidemiology": (ep._pair, ("state",), {}, ("n_inf",)),
+        "crowd": (ts._crowd_pair, (), {}, ("crowd",)),
+        "stack16": (sm.behavior().pair_fn, sm.behavior().pair_attrs,
+                    sm.behavior().params, ("b1.n_inf",)),
+        "stack17": (ts.behavior().pair_fn, ts.behavior().pair_attrs,
+                    ts.behavior().params, ("b1.crowd",)),
+    }
+    out = {name: (pattrs, [(fn, params)] * 8, counts)
+           for name, (fn, pattrs, params, counts) in plain.items()}
+    points = [(2.0, 0.5, 1.0), (3.0, 0.2, 0.0), (1.0, 0.9, 1.0),
+              (2.5, 0.1, 0.0), (0.5, 0.6, 1.0), (4.0, 0.3, 1.0),
+              (1.5, 0.0, 0.0), (2.2, 0.7, 1.0)]
+    out["soft_repulsion_adhesion"] = (
+        mech.pair_attrs, [(mech.pair_fn, soft(*q)) for q in points], ())
+    out["oncology"] = (
+        ("diameter", "ctype"), [(onc._pair, soft(*q)) for q in points],
+        ("crowd",))
+    radii = (0.5, 1.0, 1.1, 1.5, 2.0, 0.75, 1.25, 1.9)
+    out["gated_epidemiology"] = (
+        ("state",), [(sm._gated_sir_pair, {"sir_radius": r})
+                     for r in radii], ("n_inf",))
+    out["stack18"] = (
+        sm.behavior().pair_attrs,
+        [ens(sir_radius=r, repulsion=q[0], adhesion=q[1])
+         for r, q in zip(radii, points)], ("b1.n_inf",))
+    return out
+
+
+def _mesh_lanes(device, interior, lanes, cap=32, per_cell=6):
+    """``lanes`` aura-filled sir_mechanics SoAs (seeds 0..), stacked as
+    device (1, 0) of an (R, 2, 2, *local, K, ...) mesh tensor: each lane's
+    columns a strided view, lanes 4 blocks apart.  Returns the lane views,
+    the lanes' own blocks and the box."""
+    blocks = []
+    for seed in range(lanes):
+        soa, box = _abm_soa(device, "toroidal", interior=interior, cap=cap,
+                            per_cell=per_cell, seed=seed)
+        blocks.append(soa)
+
+    def stacked(get):
+        t = torch.stack([get(b) for b in blocks])
+        mesh = torch.zeros((lanes, 2, 2) + tuple(t.shape[1:]),
+                           dtype=t.dtype, device=t.device)
+        mesh[:, 1, 0] = t
+        return mesh[:, 1, 0]
+
+    attrs = {n: stacked(lambda b, n=n: b.attrs[n]) for n in blocks[0].attrs}
+    return attrs, stacked(lambda b: b.valid), blocks, box
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+@pytest.mark.parametrize("interior", [(12, 12), (3, 3, 5)], ids=["d2", "d3"])
+@pytest.mark.parametrize("law", sorted(_lane_laws()))
+def test_lane_kernel_matches_plain_on_cuda(cuda, law, interior, lanes):
+    """One launch over ``lanes`` lanes read in place (strided) from a
+    stacked 2x2 mesh tensor: each lane against the plain version at its own
+    params (forces 1e-5, counts exactly), and bit-equal to a solo (B = 1,
+    host params) launch of its own block."""
+    pattrs, points, counts = _lane_laws()[law]
+    points = points[:lanes]
+    fns = [fn for fn, _ in points]
+    params = [p for _, p in points]
+    attrs, valid, blocks, box = _mesh_lanes(cuda, interior, lanes)
+    if lanes > 1:
+        assert not valid.is_contiguous()
+        assert valid.stride(0) == 4 * valid[0].numel()
+    name = ni.law_for(fns[0]).name
+    before = ni.LAUNCHES[name]
+    got = ni.pair_sweep_lanes(attrs, valid, pair_fns=fns, pair_attrs=pattrs,
+                              radius=2.0, params=params, box=box)
+    torch.cuda.synchronize()
+    assert ni.LAUNCHES[name] == before + 1
+    for b, blk in enumerate(blocks):
+        ai, aj, vi, vj = ni.neighborhood_slabs(blk.attrs, blk.valid, pattrs)
+        want = ni.pair_sweep_plain(ai, aj, vi, vj, pair_fn=fns[b],
+                                   radius=2.0, params=params[b], box=box)
+        solo = ni.pair_sweep(blk.attrs, blk.valid, pair_fn=fns[b],
+                             pair_attrs=pattrs, radius=2.0,
+                             params=params[b], box=box)
+        assert set(got) == set(want) == set(solo)
+        for n, w in want.items():
+            g = got[n][b]
+            assert torch.equal(g, solo[n]), (b, n)
+            w = w.reshape(g.shape)
+            if n in counts:
+                assert torch.equal(g, w), (b, n)
+            else:
+                torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+def _edge_pair_soa(device, r):
+    """Two agents on a 6 x 6-cell toroidal grid, the second infected, at
+    dist2 == fl32(r) * fl32(r) exactly (x 0.5 and 0.5 + fl32(r), both
+    below 2, so their float32 difference is fl32(r))."""
+    sim = make_sim(sm.behavior(), interior=(6, 6), cap=8,
+                   boundary="toroidal", device=device)
+    x1 = np.float32(0.5) + np.float32(r)
+    pos = np.array([[0.5, 5.0], [x1, 5.0]], np.float32)
+    sim.init(pos, {"diameter": np.ones(2, np.float32),
+                   "ctype": np.zeros(2, np.int32),
+                   "state": np.array([0, 1], np.int32)})
+    lead = (0, 0)
+    refs = {d: {f: v[lead] for f, v in s.items()}
+            for d, s in sim.state.refs.items()}
+    soa, _, _, _ = halo_exchange(
+        sim.geom, clear_ring(device_block(sim.state.soa, lead)),
+        LocalComm(toroidal=sim.geom.toroidal), refs, sim.engine.delta_cfg,
+        True)
+    return soa, minimum_image_box(sim.geom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1.1, 0.75, 1.5, 2.0])
+def test_lane_gate_at_its_edge_and_above_the_stack_gate_on_cuda(cuda, r):
+    """A pair at exactly dist2 == fl32(r) * fl32(r) counts under law 5 at
+    sir_radius r (the square taken in float32 on the card) and not at the
+    next float32 below r; in stack 18 a lane with sir_radius above the
+    structural 1.5 is still cut at 1.5."""
+    soa, box = _edge_pair_soa(cuda, r)
+    lanes = {n: a.unsqueeze(0).expand((3,) + a.shape)
+             for n, a in soa.attrs.items()}
+    valid = soa.valid.unsqueeze(0).expand((3,) + soa.valid.shape)
+    below = float(np.nextafter(np.float32(r), np.float32(0)))
+    radii = [r, below, 2.0]
+    got = ni.pair_sweep_lanes(
+        lanes, valid, pair_fns=[sm._gated_sir_pair] * 3,
+        pair_attrs=("state",), radius=2.0,
+        params=[{"sir_radius": x} for x in radii], box=box)["n_inf"]
+    stack = [sm.ensemble_behavior({**sm.ensemble_defaults(),
+                                   "sir_radius": x}) for x in radii]
+    got18 = ni.pair_sweep_lanes(
+        lanes, valid, pair_fns=[b.pair_fn for b in stack],
+        pair_attrs=stack[0].pair_attrs, radius=2.0,
+        params=[b.params for b in stack], box=box)["b1.n_inf"]
+    torch.cuda.synchronize()
+    assert [float(got[b].sum()) for b in range(3)] == [1.0, 0.0, 1.0]
+    within = 1.0 if r <= sm.SIR_RADIUS_MAX else 0.0
+    assert [float(got18[b].sum()) for b in range(3)] == [within, 0.0, within]
+
+
+@pytest.mark.cuda
+def test_lane_launch_refuses_what_it_does_not_take(cuda):
+    attrs, valid, blocks, box = _mesh_lanes(cuda, (6, 6), 2)
+    b = sm.ensemble_behavior(sm.ensemble_defaults())
+    kw = dict(pair_attrs=b.pair_attrs, radius=2.0, box=box)
+    with pytest.raises(ValueError, match="one law"):
+        ni.pair_sweep_lanes(attrs, valid, pair_fns=[b.pair_fn, ep._pair],
+                            params=[b.params, {}], **kw)
+    with pytest.raises(ValueError, match="strides"):
+        bad = dict(attrs, pos=attrs["pos"].contiguous())
+        ni.pair_sweep_lanes(bad, valid, pair_fns=[b.pair_fn] * 2,
+                            params=[b.params] * 2, **kw)
+    with pytest.raises(ValueError, match="lane table"):
+        ni.pair_sweep_lanes(attrs, valid, pair_fns=[b.pair_fn] * 2,
+                            params=[b.params] * 2,
+                            table=torch.zeros((3, 12), device=cuda), **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -326,3 +326,43 @@ def test_operations_reducers_match_jax():
     assert t_ops.attr_mean("state")(sim_t) == pytest.approx(
         j_ops.attr_mean("state")(sim_j), rel=1e-12)
     assert t_ops.attr_counts("state", (1,)).__name__ == "counts_state"
+
+
+@pytest.mark.parametrize("delta", ["off", "int16+mig"])
+@pytest.mark.parametrize("mesh", [(1, 1), (2, 1), (1, 2), (2, 2)])
+def test_toroidal_seam_keeps_agents_on_a_mesh(mesh, delta):
+    """The seam repair on a mesh: an agent stepping down across 0 to within
+    half an ulp of L is shipped to the last device along that axis, which
+    owns [L - L/M, L); put at 0 it would sit in that device's halo ring and
+    be destroyed uncounted by the next aura rebuild.  Across x, across y
+    and across the corner, with and without the position codec, every
+    agent is kept inside the domain."""
+    from repro_torch.core import AgentSchema, Behavior
+    from repro_torch.sims.common import resolve_delta
+
+    shift = torch.tensor(np.float32(3e-7))    # 1e-7 - 3e-7 mod 16 -> 16
+
+    def update(attrs, valid, acc, key, params, dt):
+        return ({**attrs, "pos": attrs["pos"] - shift}, valid,
+                torch.zeros_like(valid), None)
+
+    def pair(ai, aj, disp, dist2, params):
+        return {"n": torch.ones_like(dist2)}
+
+    interior = tuple(8 // m for m in mesh)
+    eng = Engine(geom=Domain(cell_size=2.0, interior=interior,
+                             mesh_shape=mesh, cap=8, boundary="toroidal"),
+                 behavior=Behavior(schema=AgentSchema.create({}),
+                                   pair_fn=pair, pair_attrs=(),
+                                   update_fn=update, radius=1.0),
+                 delta_cfg=resolve_delta(delta, 4) or DeltaConfig(
+                     enabled=False), dt=1.0, device="cpu")
+    pos = np.array([[1e-7, 5.0], [5.0, 1e-7], [1e-7, 1e-7], [7.0, 7.0]],
+                   np.float32)
+    st = eng.init_state(pos, {}, seed=0)
+    step = eng.make_local_step()
+    for _ in range(3):
+        st = step(st)
+        assert int(st.soa.valid.sum()) == 4 and int(st.dropped.sum()) == 0
+    p = st.soa.pos[st.soa.valid]
+    assert bool(((p >= 0) & (p < 16.0)).all())
