@@ -34,10 +34,15 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    kernel launched the count the configuration implies, ``halo_bytes`` on
    a full and a delta step; then a profile of one delta step, and the
    inputs of every codec call of one more delta step recorded;
-7. codec: each of the four codec kernels against its plain version on
-   those recorded main-path inputs (quantized values, scales and counts
-   exactly, floats to 2 ulp), timed with its bound, its plain version and
-   one PyTorch call where one computes the same function;
+7. codec, in a process of its own on the saved calls: each of the four
+   codec kernels against its plain version on those recorded main-path
+   inputs (quantized values, scales and counts exactly, floats to 2 ulp),
+   timed with its bound, its plain version and one PyTorch call where one
+   computes the same function; each call enqueues exactly one device
+   operation, its kernel (no memset), counted from the profiler's traces
+   of one call each, from which its time is taken; the share of
+   zero deltas and of live rows in the calls (the same on phase 13 c's
+   recorded 3-D calls);
 8. mesh parity on the card, (16, 16) cells a device: 2x2 with a full
    refresh against one device, the int8+mig codec against a full refresh
    (drift and wire bytes), the closed-loop references bit-equal, and a 2x1
@@ -111,8 +116,10 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    virtual mesh (64^3 cells a device), int16 aura codec (refresh 8) and
    int16 migration codec, 10 steps: the same gates, no codec overflow,
    ``halo_bytes`` on a full and a delta step, every kernel's launches as
-   the configuration implies; (d) the spheroid's mechanics on a 2x2x2
-   mesh of 8^3 cells with a full refresh against one device (1e-4);
+   the configuration implies; then the inputs of every codec call of one
+   more delta step recorded, and phase 7 on them; (d) the spheroid's
+   mechanics on a 2x2x2 mesh of 8^3 cells with a full refresh against one
+   device (1e-4);
 14. the ensemble path: ``sir_mechanics``' ensemble family (cap 32,
    toroidal, dt 1.0) on (512, 512) cells, 8 lanes of 1,048,576 agents
    (5 % infected, each lane seeded from ``--seed`` and its index) at 8
@@ -193,6 +200,12 @@ FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12          # dense, tensor cores
 TF32_OPS_PER_S = 495e12          # dense, tensor cores
 PROFILE_TRIES = 3        # empty profiler traces before device_ms uses events
+# A codec kernel's time is taken from traces of one recorded call each,
+# the calls in turn, until every call has ONE_OPERATION_REPS traces that
+# hold its launch, within ONE_OPERATION_ROUNDS rounds: the profiler may
+# drop a kernel's event (see phase_codec_apart), never adds one.
+ONE_OPERATION_REPS = 5
+ONE_OPERATION_ROUNDS = 30
 
 # Float operations the kernel does per pair (see csrc/pair_sweep.cu): the
 # distance test on every pair of occupied, distinct slots (D subtractions,
@@ -256,8 +269,8 @@ CODEC_REPLACES = {          # wrapper -> line of the TPU kernel it replaces
     "migration_pos_encode": 126, "migration_pos_decode": 165,
 }
 # Device kernels of csrc/delta_codec.cu, as the profiler names them.
-CODEC_DEVICE_NAMES = ("delta_absmax_kernel", "delta_encode_kernel",
-                      "delta_decode_kernel", "migration_pos_encode_kernel",
+CODEC_DEVICE_NAMES = ("delta_encode_kernel", "delta_decode_kernel",
+                      "migration_pos_encode_kernel",
                       "migration_pos_decode_kernel")
 # Float operations a codec kernel does per element (per coordinate for the
 # position codec): encode - subtract, divide, round, two compares, clamp,
@@ -589,11 +602,11 @@ def device_ms(fn, reps: int):
     return cuda_ms(fn, reps, warmup=False)
 
 
-def profile(fn, label: str, what: str):
+def profile(fn, label: str, what: str, counts=None):
     """Device time by kernel over one call of ``fn`` (torch.profiler), e.g.
     one more step: only the device-side entries, so no time is counted
     twice.  Returns ``{kernel name: device us}`` ({} when nothing was
-    recorded)."""
+    recorded); ``counts``, a dict, receives each kernel's event count."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -603,6 +616,8 @@ def profile(fn, label: str, what: str):
         torch.cuda.synchronize()
 
     kernels = device_events(prof)
+    if counts is not None:
+        counts.update({e.key: e.count for e in kernels})
     total = sum(self_us(e) for e in kernels)
     if total <= 0:
         print(f"[{label}] no device time recorded: not measured",
@@ -789,14 +804,22 @@ def phase_mesh(seed: int):
 
     if sim.iteration % cfg.refresh_interval == 0:
         fail("mesh: the profiled step would be a full refresh")
-    times = profile(lambda: sim.run(1), "mesh profile", "one step")
-    if times:
+    before, counts = sum(dc.LAUNCHES.values()), {}
+    times = profile(lambda: sim.run(1), "mesh profile", "one step", counts)
+    codec_calls = sum(dc.LAUNCHES.values()) - before
+    codec_events = sum(c for k, c in counts.items()
+                       if any(n in k for n in CODEC_DEVICE_NAMES))
+    if times and codec_events == codec_calls:
         codec_us = sum(us for k, us in times.items()
                        if any(c in k for c in CODEC_DEVICE_NAMES))
         total = sum(times.values())
-        print(f"[mesh profile] codec kernels {codec_us / 1e3:.3f} ms = "
-              f"{100 * codec_us / total:.2f}% of the delta step's device "
-              "time", flush=True)
+        print(f"[mesh profile] codec kernels ({codec_calls} launches) "
+              f"{codec_us / 1e3:.3f} ms = {100 * codec_us / total:.2f}% of "
+              "the delta step's device time", flush=True)
+    elif times:
+        print(f"[mesh profile] codec kernels: the trace holds "
+              f"{codec_events} of the step's {codec_calls} codec launches; "
+              "their share is not measured", flush=True)
     with Capture(dc, CODEC_REPLACES) as cap:
         sim.run(1)                               # one more delta step
         torch.cuda.synchronize()
@@ -860,16 +883,80 @@ def _library(name, args, kw):
     return None
 
 
-def phase_codec(calls):
+def codec_traffic(name, recorded):
+    """``(key, share)`` of what an encoder's recorded calls hold: for the
+    delta encode the share of elements whose delta ``x - ref`` is zero
+    (unchanged slots, which skip the division), for the position encode
+    the share of live rows; None for a decoder."""
+    if name == "delta_encode":
+        zero = sum(int(((a[0] - a[1]) == 0).sum()) for a, _, _ in recorded)
+        return "zero_delta_share", zero / max(
+            sum(a[0].numel() for a, _, _ in recorded), 1)
+    if name == "migration_pos_encode":
+        rows = live = 0
+        for a, kw, _ in recorded:
+            valid = kw.get("valid")
+            rows += a[0].shape[0] * a[0].shape[1]
+            live += (a[0].shape[0] * a[0].shape[1] if valid is None
+                     else int(valid.sum()))
+        return "live_row_share", live / max(rows, 1)
+    return None
+
+
+def one_operation_ms(label, name, calls):
+    """Device ms a call of wrapper ``name`` over its recorded ``calls``
+    (``(args, kwargs)``), from the profiler's traces of one call each.
+    Fails unless every trace holds only the wrapper's own kernel, at most
+    once: a memset or a second kernel fails at once.  A trace without it
+    (the profiler dropping the event) is not used; fails unless each call
+    has ONE_OPERATION_REPS traces that hold it within ONE_OPERATION_ROUNDS
+    rounds of the calls in turn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wrapper = getattr(dc, name)
+    own, empty = f"{name}_kernel", 0
+    times = [[] for _ in calls]
+    for a, kw in calls:
+        wrapper(*a, **kw)
+    torch.cuda.synchronize()
+    for _ in range(ONE_OPERATION_ROUNDS):
+        for (a, kw), t in zip(calls, times):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wrapper(*a, **kw)
+                torch.cuda.synchronize()
+            events = device_events(prof)
+            ops = {e.key: e.count for e in events}
+            if any(own not in op for op in ops) or sum(ops.values()) > 1:
+                fail(f"{label} {name}: a call enqueued {ops}, not one "
+                     f"{own}")
+            if ops:
+                t.append(sum(self_us(e) for e in events))
+            else:
+                empty += 1
+        if min(len(t) for t in times) >= ONE_OPERATION_REPS:
+            print(f"[{label}] {name}: each of {len(calls)} calls enqueues "
+                  f"one device operation, {own} ({sum(map(len, times))} "
+                  f"traces hold it, {empty} hold nothing)", flush=True)
+            return sum(sum(t) / len(t) for t in times) / 1e3 / len(calls)
+    fail(f"{label} {name}: traces holding each call's kernel "
+         f"{[len(t) for t in times]} after {ONE_OPERATION_ROUNDS} rounds, "
+         f"fewer than {ONE_OPERATION_REPS}; {empty} held nothing")
+
+
+def phase_codec(calls, label="codec"):
     """Phase 7: every recorded main-path codec call, kernel vs plain; times
-    per call.  ``ms``, ``plain_ms`` and ``library_ms`` are device time from
-    the profiler over all recorded calls; ``event_ms`` is the CUDA-event
-    time of the same calls back to back, which at these sizes is the
-    wrapper's host time (the card waits between launches)."""
+    per call.  Every call must enqueue one device operation, its kernel
+    (an encoder's one cooperative launch), and ``ms`` is its device time
+    from traces that hold it (``one_operation_ms``); ``plain_ms`` and
+    ``library_ms`` are device time from the profiler over all recorded
+    calls; ``event_ms`` is the CUDA-event time of the same calls back to
+    back, which at these sizes is the wrapper's host time (the card waits
+    between launches)."""
     rows = {}
     for name, recorded in calls.items():
         if not recorded:
-            fail(f"codec: no {name} call was recorded on a delta step")
+            fail(f"{label}: no {name} call was recorded on a delta step")
         kernel = getattr(dc, name)
         plain = getattr(dc, name + "_plain")
         k = len(recorded)
@@ -891,7 +978,7 @@ def phase_codec(calls):
         def run(fn):
             return lambda: [fn(*a, **kw) for a, kw, _ in recorded]
 
-        ms = device_ms(run(kernel), 20) / k
+        ms = one_operation_ms(label, name, [(a, kw) for a, kw, _ in recorded])
         plain_ms = device_ms(run(plain), 5) / k
         lib_ms = None
         if all(lib is not None for lib in libs):
@@ -906,8 +993,13 @@ def phase_codec(calls):
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib_ms, event_ms=event_ms, calls_checked=k,
             bytes_per_call=nbytes_all / k, shapes=[list(s) for s in shapes])
+        traffic = codec_traffic(name, recorded)
+        if traffic is not None:
+            rows[name][traffic[0]] = traffic[1]
+            print(f"[{label}] {name}: {traffic[0]} {traffic[1]!r} over the "
+                  f"{k} recorded calls", flush=True)
         lib_txt = f"{lib_ms:.5f}" if lib_ms is not None else "none"
-        print(f"[codec] {name}: {k} main-path calls, shapes {shapes}; "
+        print(f"[{label}] {name}: {k} main-path calls, shapes {shapes}; "
               f"max_abs_err={err:.3g} kernel_ms={ms:.5f} (device; "
               f"{event_ms:.5f} by events back to back) "
               f"plain_ms={plain_ms:.5f} library_ms={lib_txt} "
@@ -915,6 +1007,35 @@ def phase_codec(calls):
               f"({rows[name]['bound_by']}; {nbytes_all / k:.0f} B a call)",
               flush=True)
     return rows
+
+
+def phase_codec_apart(calls, label="codec"):
+    """Phase 7 (``phase_codec``) in a process of its own, on the recorded
+    calls saved under ``build/`` for it; returns its rows.  The profiler of
+    this long-running process drops kernel events: on an H100, at phase
+    13 c, traces of the 18 recorded 3-D delta-encode calls held 7 of them
+    in 63 of 80 tries, and traces of one call held nothing in 479 of 540
+    (also with the window held open 20 ms before and after), while a
+    process that ran only the codec kept every event."""
+    path = ROOT / "build" / f"{label.replace(' ', '_')}_calls.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({name: [(a, kw) for a, kw, _ in rec]
+                for name, rec in calls.items()}, path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--codec-calls", str(path), "--codec-label",
+                            label], capture_output=True, text=True)
+    finally:
+        path.unlink(missing_ok=True)
+    lines = p.stdout.strip().splitlines()
+    for line in lines[:-1] if p.returncode == 0 else lines:
+        print(line, flush=True)
+    if p.returncode != 0:
+        fail(f"{label}: its process exited {p.returncode}: "
+             f"{p.stderr.strip()[-2000:]}")
+    return json.loads(lines[-1])
 
 
 def _by_gid(state):
@@ -2057,7 +2178,8 @@ def phase_spheroid(seed: int):
 
 def phase_spheroid_mesh(seed: int):
     """Phase 13 (c): the same global grid on a 2x2x2 virtual mesh, int16
-    aura codec (refresh interval 8) and int16 migration codec."""
+    aura codec (refresh interval 8) and int16 migration codec; returns its
+    stats and the recorded codec calls of one more delta step."""
     interior = tuple(n // m for n, m in zip(SPH_INTERIOR, SPH_MESH))
     sim = make_sim(ts.behavior(), interior=interior, mesh_shape=SPH_MESH,
                    cap=SPH_CAP, delta=SPH_MESH_DELTA, sweep_backend="auto",
@@ -2091,9 +2213,14 @@ def phase_spheroid_mesh(seed: int):
     want = {k: v for k, v in want.items() if v}
     if launches != want:
         fail(f"spheroid mesh: kernel launches {launches} != {want}")
+    if sim.iteration % SPH_MESH_DELTA.refresh_interval == 0:
+        fail("spheroid mesh: the recorded step would be a full refresh")
+    with Capture(dc, CODEC_REPLACES) as cap:
+        sim.run(1)                               # one more delta step
+        torch.cuda.synchronize()
     return dict(stats, agents_initial=n0, spawned=spawned, dropped=dropped,
                 codec_overflow=overflow, bytes_full=bytes_full,
-                bytes_delta=bytes_delta, launches=launches)
+                bytes_delta=bytes_delta, launches=launches), cap.calls
 
 
 def phase_spheroid_parity(seed: int):
@@ -2149,7 +2276,9 @@ def phase_3d(seed: int):
     path_row, one = phase_spheroid(seed)
     gc.collect()
     torch.cuda.empty_cache()
-    mesh = phase_spheroid_mesh(seed)
+    mesh, calls = phase_spheroid_mesh(seed)
+    phase_codec_apart(calls, "codec 3d")         # its lines only
+    del calls
     gc.collect()
     torch.cuda.empty_cache()
     parity = phase_spheroid_parity(seed)
@@ -2639,6 +2768,9 @@ def phase_ensembles(seed: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--codec-calls", help="phase 7 alone, on the calls "
+                    "phase_codec_apart saved; prints its rows as JSON")
+    ap.add_argument("--codec-label", default="codec")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2646,6 +2778,14 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.codec_calls:
+        saved = torch.load(args.codec_calls, map_location="cuda",
+                           weights_only=False)
+        rows = phase_codec({name: [(a, kw, None) for a, kw in rec]
+                            for name, rec in saved.items()},
+                           args.codec_label)
+        print(json.dumps(rows), flush=True)
+        return 0
 
     # 1. card
     t_start = time.perf_counter()
@@ -2679,7 +2819,7 @@ def main(argv=None) -> int:
     gc.collect()                 # free the single-device path's 43 GiB
     torch.cuda.empty_cache()
     mesh_launches, calls, mesh_stats = phase_mesh(args.seed)
-    codec = phase_codec(calls)
+    codec = phase_codec_apart(calls)
     mesh_parity = phase_mesh_parity(args.seed)
     del calls
     gc.collect()

@@ -33,15 +33,21 @@ difference as arguments:
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.  Each launch adds one to
-``LAUNCHES[name]`` and nothing else touches the counts.  An adaptive
-encode is two passes on the card (the per-row max, then the quantize) and
-counts as one launch of ``delta_encode``.
+``LAUNCHES[name]`` and nothing else touches the counts.  Each encoder is
+one cooperative launch and nothing else on the card: no memset, and no
+atomic but those of the grid-wide sync.  Its grid is planned here
+(:func:`plan`) from the blocks the card holds at once, asked of the
+occupancy API once per kernel and device, and its cross-block scratch
+(one int32 slot a block and row for the overflow count, one more for an
+adaptive encode's max) comes from ``torch.empty``: the kernel writes
+every slot before it reads one.  A fixed scale takes the same kernel
+with one grid sync, for its count (ROADMAP B3 gives its cost).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +55,14 @@ import torch
 from repro_torch.kernels import _build
 
 QDTYPES = {torch.int8: 8, torch.int16: 16}
+
+# The encoders' launch shape, as csrc/delta_codec.cu has it: threads a
+# block (kThreads), elements of x - ref a delta-encode thread keeps in
+# registers (kTileElems), chunks of four rows a position-encode thread
+# loads at once (kChunks).
+THREADS = 256
+TILE_ELEMS = 16
+MIG_CHUNKS = 2
 
 LAUNCHES: Dict[str, int] = {
     "delta_encode": 0, "delta_decode": 0,
@@ -174,12 +188,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
+    "delta_encode_coresident": [_I, _I, _I, _I, _IP, _IP],
+    "migration_pos_encode_coresident": [_I, _I, _I, _IP, _IP],
     "delta_encode_launch": [_I, _I, _P, _P, _L, _L, _I, _I, _F, _F, _F,
-                            _P, _P, _P, _P, _P, _P],
+                            _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "delta_decode_launch": [_I, _I, _P, _P, _P, _L, _L, _I, _P, _P],
     "migration_pos_encode_launch": [_I, _P, _P, _P, _L, _L, _I] + [_F] * 6
-    + [_I] * 4 + [_F, _F, _P, _P, _P],
+    + [_I] * 4 + [_F, _F] + [_I] * 4 + [_P, _P, _P, _P],
     "migration_pos_decode_launch": [_I, _P, _P, _L, _L, _I] + [_F] * 6
     + [_I] * 3 + [_P, _P],
 }
@@ -218,11 +235,67 @@ def _check(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{fn}: {name} is not contiguous")
 
 
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Every tensor starts at a multiple of four of its elements."""
+    return all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
+
+
 def _vec(n: int, *tensors: torch.Tensor) -> int:
     """1 when rows of ``n`` elements allow 16-byte vectors of four: every
     row start then sits at a multiple of four elements."""
-    return int(n % 4 == 0 and all(
-        t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors))
+    return int(n % 4 == 0 and _aligned(*tensors))
+
+
+class Occupancy(NamedTuple):
+    """SMs of the card and the blocks of one encode kernel an SM holds."""
+    sms: int
+    per_sm: int
+
+
+class Plan(NamedTuple):
+    """A cooperative encode launch: ``grid_x`` blocks a row, ``grid_y``
+    rows a round, ``rounds`` rounds.  A row's blocks take ``grid_x *
+    THREADS * per_thread`` of its elements at once - for the delta encode
+    the register tile; elements past it are read a second time."""
+    grid_x: int
+    grid_y: int
+    rounds: int
+
+
+def plan(rows: int, elems: int, per_thread: int, occ: Occupancy) -> Plan:
+    """Grid of an encode over ``rows`` rows of ``elems`` elements, a
+    thread taking ``per_thread`` of a row at once.  The grid never exceeds
+    the co-resident blocks (a grid-wide sync needs every block resident);
+    within that, a row gets the blocks that cover it in one pass, but at
+    least its share of one block an SM while each thread still has a
+    vector of four to do."""
+    total = occ.sms * occ.per_sm
+    if total < 1:
+        raise RuntimeError(f"the card holds {total} blocks of the encode "
+                           "kernel at once")
+    grid_y = min(rows, total)
+    rounds = -(-rows // grid_y)
+    per_row = max(1, total // grid_y)
+    need = -(-elems // (THREADS * per_thread))
+    spread = min(-(-occ.sms // grid_y), -(-elems // (THREADS * 4)))
+    grid_x = max(1, min(per_row, max(need, spread)))
+    return Plan(grid_x, grid_y, rounds)
+
+
+_OCCUPANCY: Dict[tuple, Occupancy] = {}
+
+
+def _occupancy(lib, fn: str, key: tuple, dev: torch.device) -> Occupancy:
+    """The occupancy of encode kernel ``fn(*key)`` on ``dev``, asked of
+    the card on first use."""
+    k = (fn, key, dev.index)
+    if k not in _OCCUPANCY:
+        sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+        err = getattr(lib, fn)(*key, dev.index, ctypes.byref(sms),
+                               ctypes.byref(per_sm))
+        _raise(lib, fn, err)
+        _OCCUPANCY[k] = Occupancy(sms.value, per_sm.value)
+    return _OCCUPANCY[k]
 
 
 def _raise(lib, fn: str, err: int) -> None:
@@ -262,14 +335,17 @@ def delta_encode(x: torch.Tensor, ref: torch.Tensor, *,
     new_ref = torch.empty_like(x) if with_ref else None
     s = torch.empty((b,), dtype=torch.float32, device=dev)
     oflow = torch.empty((b,), dtype=torch.int32, device=dev)
-    amax = torch.empty((b,), dtype=torch.int32, device=dev) \
-        if scale is None else None
     vec = _vec(n, x, ref, q, *([new_ref] if with_ref else []))
+    adaptive = int(scale is None)
     lib = _library()
+    p = plan(b, n, TILE_ELEMS, _occupancy(
+        lib, "delta_encode_coresident", (QDTYPES[qdtype], vec, adaptive),
+        dev))
+    part = torch.empty((2, b, p.grid_x), dtype=torch.int32, device=dev)
     err = lib.delta_encode_launch(
         QDTYPES[qdtype], dev.index, x.data_ptr(), ref.data_ptr(), b, n, vec,
-        int(scale is None), float(np.float32(scale or 0.0)), lo, hi,
-        None if amax is None else amax.data_ptr(), q.data_ptr(),
+        adaptive, float(np.float32(scale or 0.0)), lo, hi, p.grid_x,
+        p.grid_y, p.rounds, part.data_ptr(), q.data_ptr(),
         None if new_ref is None else new_ref.data_ptr(), s.data_ptr(),
         oflow.data_ptr(), _stream(dev))
     _raise(lib, "delta_encode", err)
@@ -340,12 +416,17 @@ def migration_pos_encode(pos: torch.Tensor, center: torch.Tensor,
                dev)
     q = torch.empty((b, r, d), dtype=torch.int16, device=dev)
     oflow = torch.empty((b,), dtype=torch.int32, device=dev)
+    vec = int(_aligned(pos, q, *([] if valid is None else [valid])))
     lib = _library()
+    p = plan(b, r, 4 * MIG_CHUNKS, _occupancy(
+        lib, "migration_pos_encode_coresident", (d, vec), dev))
+    part = torch.empty((b, p.grid_x), dtype=torch.int32, device=dev)
     err = lib.migration_pos_encode_launch(
         dev.index, pos.data_ptr(), center.data_ptr(),
         None if valid is None else valid.data_ptr(), b, r, d,
         *_frame_args(d, scale, lsz, toroidal), int(dead == "zero"), lo, hi,
-        q.data_ptr(), oflow.data_ptr(), _stream(dev))
+        vec, p.grid_x, p.grid_y, p.rounds, part.data_ptr(), q.data_ptr(),
+        oflow.data_ptr(), _stream(dev))
     _raise(lib, "migration_pos_encode", err)
     LAUNCHES["migration_pos_encode"] += 1
     return q, oflow

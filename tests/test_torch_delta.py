@@ -245,3 +245,176 @@ def test_cpu_codec_calls_count_no_launch():
     q, s = tops.delta_encode(torch.from_numpy(x), torch.from_numpy(r))
     tops.delta_decode(q, torch.from_numpy(r), s)
     assert tk.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# Edge shapes: empty rows, rows that are no multiple of four, D = 3 with a
+# toroidal axis, all-dead and all-live rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [0, 3, 4 * 5 + 3])
+@pytest.mark.parametrize("q", list(QDTYPES))
+def test_delta_encode_edge_rows_match_jax(q, n):
+    """(4, n) rows against ``core/delta.encode_delta`` a device at a time;
+    n = 0 at a fixed scale only (JAX's max of an empty slab raises)."""
+    rng = np.random.default_rng(7)
+    ref = rng.normal(size=(4, n)).astype(np.float32)
+    x = (ref + rng.normal(size=(4, n)) * 0.01).astype(np.float32)
+    jq, tq = QDTYPES[q]
+    for scale in ([2e-4] if n == 0 else [None, 2e-4]):
+        q_t, s_t, of_t, nref_t = tk.delta_encode_plain(
+            torch.from_numpy(x), torch.from_numpy(ref), qdtype=tq,
+            scale=scale)
+        cfg = jd.DeltaConfig(qdtype=jq, scale=scale)
+        for b in range(4):
+            pay, nref, of = jd.encode_delta({"a": jnp.asarray(x[b])},
+                                            {"a": jnp.asarray(ref[b])}, cfg)
+            assert_close(q_t[b], pay["a"], "q", exact=True)
+            assert_close(s_t[b], pay["a/scale"], "scale", exact=True)
+            assert int(of_t[b]) == int(of)
+            assert_close(nref_t[b], nref["a"], "new_ref")
+
+
+# (D, R, live rows): every R % 4, D = 2 and 3
+MIG_EDGES = [(2, 41, "mixed"), (2, 42, "dead"), (2, 43, "live"),
+             (3, 40, "mixed"), (3, 41, "dead"), (3, 42, "live"),
+             (3, 43, "mixed")]
+
+
+def _mig_edge(d, rows, live, lead=MESH, seed=8):
+    """Positions in a box of sides 32, 24, 16 with a centre a device, the
+    first and last axes toroidal; ``live`` "mixed" (a stale far-out dead
+    row, a live row out of range on the closed axis 1), "dead" or
+    "live"."""
+    rng = np.random.default_rng(seed)
+    lsz = np.asarray([32.0, 24.0, 16.0][:d], np.float32)
+    tor = (True, False, True)[:d]
+    pos = rng.uniform(0, lsz, tuple(lead) + (rows, d)).astype(np.float32)
+    valid = {"mixed": rng.random(tuple(lead) + (rows,)) < 0.6,
+             "dead": np.zeros(tuple(lead) + (rows,), bool),
+             "live": np.ones(tuple(lead) + (rows,), bool)}[live]
+    if live == "mixed":
+        pos[..., 0, :] = 1e4
+        valid[..., 0] = False
+        pos[..., 1, 1] = 90.0
+        valid[..., 1] = True
+    centers = np.broadcast_to(lsz / 2, tuple(lead) + (d,)).copy()
+    centers += (np.arange(np.prod(lead), dtype=np.float32) % 3).reshape(
+        tuple(lead) + (1,))
+    return pos, valid, centers, lsz / 2 + 4, lsz, tor
+
+
+@pytest.mark.parametrize("d, rows, live", MIG_EDGES)
+def test_migration_edge_shapes_match_jax(d, rows, live):
+    pos, valid, centers, half_rng, lsz, tor = _mig_edge(d, rows, live)
+    cfg_j = jd.DeltaConfig(migration=jnp.int16)
+    cfg_t = td.DeltaConfig(migration=torch.int16)
+    slab = {"pos": pos, "valid": valid}
+    enc_t, of_t = td.encode_migration(
+        _t(slab), "pos", torch.from_numpy(centers), half_rng, cfg_t,
+        lsz=lsz, toroidal=tor, lead=len(MESH))
+    for c in _per_device(MESH):
+        enc_j, of_j = jd.encode_migration(
+            {k: jnp.asarray(v[c]) for k, v in slab.items()}, "pos",
+            jnp.asarray(centers[c]), half_rng, cfg_j, lsz=lsz, toroidal=tor)
+        assert_close(enc_t["pos"][c], enc_j["pos"], "payload", exact=True)
+        assert int(of_t[c]) == int(of_j) == (live == "mixed")
+
+
+@pytest.mark.parametrize("d, rows, live", MIG_EDGES)
+def test_migration_edge_shapes_match_pallas(d, rows, live):
+    """The TPU wrapper's mode (dead rows zeroed, +-32767) on one device."""
+    pos, valid, centers, half_rng, lsz, tor = _mig_edge(d, rows, live,
+                                                        lead=())
+    scale = np.asarray(half_rng, np.float32) / np.float32(32767.0)
+    q_j, of_j = jk.migration_pos_encode_kernel(
+        jnp.asarray(pos), jnp.asarray(centers), jnp.asarray(scale),
+        valid=jnp.asarray(valid), lsz=lsz, toroidal=tor, interpret=True)
+    q_t, of_t = tk.migration_pos_encode(
+        torch.from_numpy(pos)[None], torch.from_numpy(centers)[None], scale,
+        valid=torch.from_numpy(valid)[None], lsz=lsz, toroidal=tor,
+        dead="zero", symmetric=True)
+    assert_close(q_t[0], q_j, "q", exact=True)
+    assert int(of_t[0]) == int(of_j) == (live == "mixed")
+
+
+# ---------------------------------------------------------------------------
+# Launch planning of the encoders (pure Python: it runs on the CPU as on the
+# card, there with the card's own occupancy)
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py phase 7's recorded calls: the 2x2 mesh's (int8 aura codec,
+# 1026 x 48 slots a face; migration payloads of one and three faces) and
+# the 2x2x2 mesh's (int16, 66^2 x 32 slots a face; one, three, nine faces)
+DELTA_2D = [(4, 49248), (4, 98496)]
+DELTA_3D = [(8, 139392), (8, 418176)]
+MIG_2D = [(4, 49248), (4, 147744)]
+MIG_3D = [(8, 139392), (8, 418176), (8, 1254528)]
+# Blocks of 256 threads an H100's SM holds, as the occupancy API gave them
+# on the card: 2 of the adaptive delta encode, 3 or 4 of the position
+# encode (by D).
+DELTA_OCC = tk.Occupancy(sms=132, per_sm=2)
+MIG_OCCS = [tk.Occupancy(sms=132, per_sm=3), tk.Occupancy(sms=132, per_sm=4)]
+
+
+def _tile(p, per_thread):
+    """Elements (positions) of a row its blocks take at once."""
+    return p.grid_x * tk.THREADS * per_thread
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize(
+    "rows, elems, per_thread",
+    [(b, n, tk.TILE_ELEMS) for b, n in DELTA_2D + DELTA_3D
+     + [(1, 0), (4, 3), (64, 4003), (1, 4_500_000), (1000, 8)]]
+    + [(b, r, 4 * tk.MIG_CHUNKS) for b, r in MIG_2D + MIG_3D + [(4, 5003)]])
+def test_plan_fits_the_card(rows, elems, per_thread, per_sm):
+    """The grid never exceeds the co-resident blocks, its rounds cover the
+    rows with none left empty, and no block is without a vector of work."""
+    occ = tk.Occupancy(132, per_sm)
+    p = tk.plan(rows, elems, per_thread, occ)
+    assert p.grid_x * p.grid_y <= occ.sms * occ.per_sm
+    assert p.grid_y * (p.rounds - 1) < rows <= p.grid_y * p.rounds
+    assert (p.grid_x - 1) * tk.THREADS * 4 < max(elems, 1)
+
+
+def test_delta_plan_at_the_mesh_shapes():
+    """At the delta encode's two blocks an SM: every 2-D call in one pass
+    (the register tile holds the row) on at least one block an SM; both
+    3-D calls past the tile (the rest read again from L2) on every
+    co-resident block; one round each."""
+    for b, n in DELTA_2D:
+        p = tk.plan(b, n, tk.TILE_ELEMS, DELTA_OCC)
+        assert _tile(p, tk.TILE_ELEMS) >= n and p.grid_x * b >= 132
+        assert p.rounds == 1
+    for b, n in DELTA_3D:
+        p = tk.plan(b, n, tk.TILE_ELEMS, DELTA_OCC)
+        assert _tile(p, tk.TILE_ELEMS) < n and p.grid_x * b == 2 * 132
+        assert p.rounds == 1
+    assert tk.plan(1000, 8, tk.TILE_ELEMS, DELTA_OCC) == (1, 264, 4)
+
+
+@pytest.mark.parametrize("occ", MIG_OCCS, ids=["3_per_sm", "4_per_sm"])
+def test_migration_plan_at_the_mesh_shapes(occ):
+    """The position encode: one round, at least one block an SM, on every
+    call of both meshes."""
+    for b, r in MIG_2D + MIG_3D:
+        p = tk.plan(b, r, 4 * tk.MIG_CHUNKS, occ)
+        assert p.rounds == 1 and p.grid_x * b >= occ.sms
+        assert p.grid_x * b <= occ.sms * occ.per_sm
+
+
+def test_vector_path_choice():
+    """16-byte vectors where every row starts on four elements; a view one
+    element in, or a row length no multiple of four, takes the scalar
+    path.  The position encode needs only aligned starts (any R)."""
+    x = torch.zeros((4, 16))
+    view = torch.zeros(4 * 16 + 1)[1:].view(4, 16)
+    assert tk._vec(16, x, x) == 1
+    assert tk._vec(15, x[:, :15].contiguous(), x[:, :15].contiguous()) == 0
+    assert tk._vec(16, x, view) == 0
+    pos, q = torch.zeros((4, 5, 3)), torch.zeros((4, 5, 3), dtype=torch.int16)
+    valid = torch.zeros(4 * 5 + 1, dtype=torch.bool)
+    assert tk._aligned(pos, q, valid[:-1].view(4, 5))
+    assert not tk._aligned(pos, q, valid[1:].view(4, 5))
+    assert not tk._aligned(torch.zeros(4 * 5 * 3 + 1)[1:], q)

@@ -538,9 +538,18 @@ def test_lane_launch_refuses_what_it_does_not_take(cuda):
 # ---------------------------------------------------------------------------
 
 def _codec_inputs(device, b, n, seed=0, eps=0.01):
+    """Half the slots changed by about ``eps``, the rest unchanged (a zero
+    delta, of either sign in row 0), and the last row unchanged throughout
+    when there are two or more (the adaptive scale's 1e-30 floor)."""
     g = torch.Generator().manual_seed(seed)
     ref = torch.randn((b, n), generator=g)
     x = ref + torch.randn((b, n), generator=g) * eps
+    x = torch.where(torch.rand((b, n), generator=g) < 0.5, ref, x)
+    if n >= 2:
+        x[0, :2] = -0.0
+        ref[0, 0], ref[0, 1] = 0.0, -0.0
+    if b > 1:
+        x[-1] = ref[-1]
     return x.to(device), ref.to(device)
 
 
@@ -576,12 +585,35 @@ def test_codec_plain_counts_clipped_deltas():
     assert torch.equal(dc.delta_decode(q, ref, s), nref)
 
 
+# (B, N) calls: empty rows, a row of 3, rows with and without 16-byte
+# vectors, and two past any register tile (a row gets at most the 132 * 8
+# blocks an H100 holds of 256 threads, shared by its B rows, and a block
+# 4096 elements: the second phase reads the rest again).
+CODEC_SHAPES = [(4, 0), (4, 3), (4, 4000), (4, 4 * 1000 + 3), (1, 4000),
+                (8, 4003), (64, 4000), (64, 3), (1, 4_500_000),
+                (8, 600_004)]
+
+
+def _codec_view(t, offset):
+    """``t`` as is, or as a contiguous view one element into a buffer (no
+    longer 16-byte aligned)."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4 * 1000, 4 * 1000 + 3])   # 16-byte or not
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("b, n", CODEC_SHAPES)
 @pytest.mark.parametrize("scale", [None, 1e-4], ids=["adaptive", "fixed"])
 @pytest.mark.parametrize("qdtype", [torch.int8, torch.int16])
-def test_delta_codec_kernels_match_plain_on_cuda(cuda, qdtype, scale, n):
-    x, ref = _codec_inputs(cuda, 4, n)
+def test_delta_codec_kernels_match_plain_on_cuda(cuda, qdtype, scale, b, n,
+                                                 offset):
+    x, ref = _codec_inputs(cuda, b, n)
+    x, ref = _codec_view(x, offset), _codec_view(ref, offset)
     for symmetric in (False, True):
         before = dict(dc.LAUNCHES)
         got, want = _encode_both(x, ref, qdtype=qdtype, scale=scale,
@@ -589,7 +621,7 @@ def test_delta_codec_kernels_match_plain_on_cuda(cuda, qdtype, scale, n):
         torch.cuda.synchronize()
         assert dc.LAUNCHES["delta_encode"] == before["delta_encode"] + 1
         _assert_codec_equal(got, want)
-        if scale is not None and qdtype == torch.int8:
+        if scale is not None and qdtype == torch.int8 and n >= 4000:
             assert int(got[2].sum()) > 0           # the fixed scale clips
         q, s = got[0], got[1]
         out = dc.delta_decode(q, ref, s)
@@ -599,23 +631,46 @@ def test_delta_codec_kernels_match_plain_on_cuda(cuda, qdtype, scale, n):
         assert torch.equal(out, got[3])          # the closed loop
 
 
+TOROIDAL = {"mixed": (True, False, True), "closed": (False, False, False)}
+
+
+def _mig_case(device, b, r, d, live, seed=1):
+    """(B, R, D) positions in a box of sides 64, 48, 32, a centre a row,
+    and the per-axis scale of a +-(L/2 + 4) range; ``live`` "mixed" (70 %,
+    with a stale far-out dead row and a live row out of range on axis 1,
+    which is closed in both patterns), "dead" or "live"."""
+    g = torch.Generator().manual_seed(seed)
+    lsz = (64.0, 48.0, 32.0)[:d]
+    pos = torch.rand((b, r, d), generator=g) * torch.tensor(lsz)
+    valid = {"mixed": torch.rand((b, r), generator=g) < 0.7,
+             "dead": torch.zeros((b, r), dtype=torch.bool),
+             "live": torch.ones((b, r), dtype=torch.bool)}[live]
+    if live == "mixed" and r > 2:
+        pos[:, 1] = 1e4                # stale, far out, on a dead row
+        valid[:, 1] = False
+        pos[:, 2, min(1, d - 1)] = 400.0   # live and out of range
+        valid[:, 2] = True
+    center = torch.tensor(lsz) / 2 + torch.arange(b, dtype=torch.float32
+                                                  )[:, None] % 3
+    scale = ((torch.tensor(lsz) / 2 + 4) / torch.tensor(32767.0)).numpy()
+    return pos.to(device), valid.to(device), center.to(device), scale, lsz
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("live", ["mixed", "dead", "live"])
 @pytest.mark.parametrize("dead", ["mask", "zero"])
-@pytest.mark.parametrize("toroidal", [(True, False), (False, False)],
-                         ids=["toroidal", "closed"])
-def test_migration_codec_kernels_match_plain_on_cuda(cuda, toroidal, dead):
-    g = torch.Generator().manual_seed(1)
-    b, r = 4, 5000
-    lsz = (64.0, 48.0)
-    pos = (torch.rand((b, r, 2), generator=g) * torch.tensor(lsz)).to(cuda)
-    valid = (torch.rand((b, r), generator=g) < 0.7).to(cuda)
-    pos[:, 1] = 1e4                    # stale, far out, on a dead row
-    valid[:, 1] = False
-    pos[:, 2, 1] = 200.0               # live and out of range
-    valid[:, 2] = True
-    center = torch.tensor([[32.0, 24.0]] * b, device=cuda)
-    scale = (torch.tensor([36.0, 28.0]) / torch.tensor(32767.0)).numpy()
-    kw = dict(valid=valid, lsz=lsz, toroidal=toroidal, dead=dead)
+@pytest.mark.parametrize("toroidal", ["mixed", "closed"])
+@pytest.mark.parametrize("r", [0, 5000, 5001, 5002, 5003])
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_migration_codec_kernels_match_plain_on_cuda(cuda, d, r, toroidal,
+                                                     dead, live, offset):
+    """Every R % 4 (rows before a row's first aligned chunk, and the tail,
+    go scalar), D = 1, 2, 3, a misaligned stack (all scalar)."""
+    pos, valid, center, scale, lsz = _mig_case(cuda, 4, r, d, live)
+    pos, valid = _codec_view(pos, offset), _codec_view(valid, offset)
+    tor = TOROIDAL[toroidal][:d]
+    kw = dict(valid=valid, lsz=lsz, toroidal=tor, dead=dead)
     before = dict(dc.LAUNCHES)
     q, oflow = dc.migration_pos_encode(pos, center, scale, **kw)
     torch.cuda.synchronize()
@@ -623,14 +678,35 @@ def test_migration_codec_kernels_match_plain_on_cuda(cuda, toroidal, dead):
         before["migration_pos_encode"] + 1
     q_p, oflow_p = dc.migration_pos_encode_plain(pos, center, scale, **kw)
     assert torch.equal(q, q_p) and torch.equal(oflow, oflow_p)
-    assert (oflow >= 1).all()
-    p = dc.migration_pos_decode(q, center, scale, lsz=lsz,
-                                toroidal=toroidal)
+    if live == "mixed" and r > 2 and not tor[min(1, d - 1)]:
+        assert (oflow >= 1).all()
+    if live == "dead":
+        assert not oflow.any()
+    p = dc.migration_pos_decode(q, center, scale, lsz=lsz, toroidal=tor)
     torch.cuda.synchronize()
     assert dc.LAUNCHES["migration_pos_decode"] == \
         before["migration_pos_decode"] + 1
     assert torch.equal(p, dc.migration_pos_decode_plain(
-        q, center, scale, lsz=lsz, toroidal=toroidal))
+        q, center, scale, lsz=lsz, toroidal=tor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, n", [(4, 4003), (8, 600_004)])
+def test_encoders_repeat_bit_for_bit_on_cuda(cuda, b, n):
+    """Three launches of each encoder on the same inputs give the same bits:
+    no state outlives a call (the scratch is fresh and written before it is
+    read)."""
+    x, ref = _codec_inputs(cuda, b, n)
+    pos, valid, center, scale, lsz = _mig_case(cuda, b, n // 2, 2, "mixed")
+    runs = [(dc.delta_encode(x, ref, qdtype=torch.int16),
+             dc.delta_encode(x, ref, scale=1e-4),
+             dc.migration_pos_encode(pos, center, scale, valid=valid,
+                                     lsz=lsz, toroidal=(True, False)))
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for got, first in zip(run, runs[0]):
+            _assert_codec_equal(got, first)
 
 
 # ---------------------------------------------------------------------------
