@@ -36,17 +36,19 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    inputs of every codec call of one more delta step recorded;
 7. codec, in a process of its own on the saved calls: each of the four
    codec kernels against its plain version on those recorded main-path
-   inputs (quantized values, scales and counts exactly, floats to 2 ulp),
-   timed with its bound, its plain version and one PyTorch call where one
-   computes the same function; each call enqueues exactly one device
-   operation, its kernel (no memset), counted from the profiler's traces
-   of one call each, from which its time is taken; the share of
-   zero deltas and of live rows in the calls (the same on phase 13 c's
-   recorded 3-D calls);
+   inputs, and the position decode on phase 8's toroidal calls (with the
+   seam's ``at_l``), every output bit for bit, timed with its bound, its
+   plain version and one PyTorch call where one computes the same
+   function; each call enqueues exactly one device operation, its kernel
+   (no memset), counted from the profiler's traces of one call each, from
+   which its time is taken; the share of zero deltas and of live rows in
+   the calls; ptxas' registers and spills of the codec kernels (the same
+   on phase 13 c's recorded 3-D calls);
 8. mesh parity on the card, (16, 16) cells a device: 2x2 with a full
    refresh against one device, the int8+mig codec against a full refresh
    (drift and wire bytes), the closed-loop references bit-equal, and a 2x1
-   toroidal mesh whose agents cross the seam;
+   toroidal mesh whose agents cross the seam, all 300 kept with x in
+   [0, L); the position decode calls of its last step recorded for 7;
 9. ``flash_attention`` against its plain version: the main shape (4 x 16
    heads, 2048 tokens, head dim 128), causal and not, in float32 on the
    3xTF32 tensor-core kernel (2e-5) and bf16 on the wgmma kernel (2e-2,
@@ -276,14 +278,14 @@ CODEC_DEVICE_NAMES = ("delta_encode_kernel", "delta_decode_kernel",
 # position codec): encode - subtract, divide, round, two compares, clamp,
 # multiply, add; decode - multiply, add; position encode - subtract,
 # divide, round, two compares, clamp (+4 for the minimum image); position
-# decode - multiply, add (+3 for the mod).
+# decode - multiply, add (+3 for the mod, +1 for the seam's compare).
 CODEC_OPS = {"delta_encode": 8, "delta_decode": 2,
              "migration_pos_encode": 6, "migration_pos_decode": 2}
-# Floats of the codec kernels agree with their plain versions to 2 ulp:
-# both do the same float32 operations in the same order (IEEE division,
-# half-to-even rounding, no fused multiply-add); only an operation that
-# PyTorch fused differently could tell them apart.
-CODEC_RTOL = 2.0 ** -22
+# Phase 8's toroidal position decode calls, gated and timed in phase 7
+# beside the mesh path's: ``wrapper@label`` names a wrapper's calls of
+# another path.
+TORUS_DECODE = "migration_pos_decode@torus"
+TORUS_STEPS = 30         # 30 * 1.5 = 45 > the domain's 32: a full wrap
 
 
 def fail(msg: str) -> None:
@@ -833,7 +835,9 @@ def _outputs(res):
 
 
 def _codec_equal(name, got, want):
-    """Integers exactly, floats to CODEC_RTOL; returns max |got - want|."""
+    """Every output bit for bit: the kernels do their plain versions'
+    float32 operations one by one (IEEE division, half-to-even rounding,
+    no fused multiply-add).  Returns max |got - want| (0.0)."""
     worst = 0.0
     for g, w in zip(_outputs(got), _outputs(want)):
         if g is None and w is None:
@@ -841,15 +845,16 @@ def _codec_equal(name, got, want):
         if g.shape != w.shape or g.dtype != w.dtype:
             fail(f"codec {name}: {g.dtype} {tuple(g.shape)} != "
                  f"{w.dtype} {tuple(w.shape)}")
-        if not w.is_floating_point():
-            if not torch.equal(g, w):
-                fail(f"codec {name}: integer outputs differ")
-            continue
-        err = float((g - w).abs().max()) if g.numel() else 0.0
+        if w.dtype == torch.float32:
+            same = torch.equal(g.view(torch.int32), w.view(torch.int32))
+            err = float((g - w).abs().max()) if g.numel() else 0.0
+        else:
+            same = torch.equal(g, w)
+            err = 0.0 if same else float((g.double() - w.double()).abs().max())
         worst = max(worst, err)
-        if not torch.allclose(g, w, rtol=CODEC_RTOL, atol=0.0):
-            fail(f"codec {name}: floats differ by {err} (rtol "
-                 f"{CODEC_RTOL:g})")
+        if not same:
+            fail(f"codec {name}: outputs differ from the plain version's "
+                 f"bits (max |diff| {err})")
     return worst
 
 
@@ -861,9 +866,11 @@ def _codec_bytes_ops(name, args, kw, out):
                if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors + outs)
     wrap = any(kw.get("toroidal", ()))
-    per = CODEC_OPS[name] + (4 if name == "migration_pos_encode" and wrap
-                             else 3 if name == "migration_pos_decode"
-                             and wrap else 0)
+    per = CODEC_OPS[name]
+    if name == "migration_pos_encode" and wrap:
+        per += 4
+    elif name == "migration_pos_decode" and wrap:
+        per += 3 + (kw.get("at_l") is not None)
     return nbytes, per * args[0].numel()
 
 
@@ -944,19 +951,42 @@ def one_operation_ms(label, name, calls):
          f"fewer than {ONE_OPERATION_REPS}; {empty} held nothing")
 
 
+def codec_registers(log: str):
+    """(kernel, registers, spill stores) of each codec kernel in a ptxas
+    report (``-Xptxas -v``), by mangled name."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], 0
+        elif name and "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used" in line and any(k in name
+                                             for k in CODEC_DEVICE_NAMES):
+            out.append((name, int(line.split("Used")[1].split()[0]), spill))
+    return out
+
+
 def phase_codec(calls, label="codec"):
     """Phase 7: every recorded main-path codec call, kernel vs plain; times
     per call.  Every call must enqueue one device operation, its kernel
-    (an encoder's one cooperative launch), and ``ms`` is its device time
-    from traces that hold it (``one_operation_ms``); ``plain_ms`` and
-    ``library_ms`` are device time from the profiler over all recorded
-    calls; ``event_ms`` is the CUDA-event time of the same calls back to
-    back, which at these sizes is the wrapper's host time (the card waits
-    between launches)."""
+    (an encoder's one cooperative launch, a decoder's one plain launch),
+    and ``ms`` is its device time from traces that hold it
+    (``one_operation_ms``); ``plain_ms`` and ``library_ms`` are device time
+    from the profiler over all recorded calls; ``event_ms`` is the
+    CUDA-event time of the same calls back to back, which at these sizes
+    is the wrapper's host time (the card waits between launches).  A key
+    ``wrapper@label`` holds that wrapper's calls of another path."""
+    _build.load("delta_codec")
+    for kernel, regs, spill in codec_registers(
+            _build.BUILDS["delta_codec"].log):
+        if "decode" in kernel:
+            print(f"[{label}] ptxas: {regs} registers, {spill} B spilled: "
+                  f"{kernel}", flush=True)
     rows = {}
-    for name, recorded in calls.items():
+    for key, recorded in calls.items():
+        name = key.split("@")[0]
         if not recorded:
-            fail(f"{label}: no {name} call was recorded on a delta step")
+            fail(f"{label}: no {key} call was recorded")
         kernel = getattr(dc, name)
         plain = getattr(dc, name + "_plain")
         k = len(recorded)
@@ -987,7 +1017,7 @@ def phase_codec(calls, label="codec"):
         t_bytes = nbytes_all / HBM_BYTES_PER_S
         t_ops = ops_all / FP32_OPS_PER_S
         shapes = sorted({tuple(a[0].shape) for a, _, _ in recorded})
-        rows[name] = dict(
+        rows[key] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=1e3 * bound_s / k,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -995,16 +1025,16 @@ def phase_codec(calls, label="codec"):
             bytes_per_call=nbytes_all / k, shapes=[list(s) for s in shapes])
         traffic = codec_traffic(name, recorded)
         if traffic is not None:
-            rows[name][traffic[0]] = traffic[1]
-            print(f"[{label}] {name}: {traffic[0]} {traffic[1]!r} over the "
+            rows[key][traffic[0]] = traffic[1]
+            print(f"[{label}] {key}: {traffic[0]} {traffic[1]!r} over the "
                   f"{k} recorded calls", flush=True)
         lib_txt = f"{lib_ms:.5f}" if lib_ms is not None else "none"
-        print(f"[{label}] {name}: {k} main-path calls, shapes {shapes}; "
+        print(f"[{label}] {key}: {k} recorded calls, shapes {shapes}; "
               f"max_abs_err={err:.3g} kernel_ms={ms:.5f} (device; "
               f"{event_ms:.5f} by events back to back) "
               f"plain_ms={plain_ms:.5f} library_ms={lib_txt} "
-              f"bound_ms={rows[name]['bound_ms']:.5f} "
-              f"({rows[name]['bound_by']}; {nbytes_all / k:.0f} B a call)",
+              f"bound_ms={rows[key]['bound_ms']:.5f} "
+              f"({rows[key]['bound_by']}; {nbytes_all / k:.0f} B a call)",
               flush=True)
     return rows
 
@@ -1132,6 +1162,30 @@ def phase_mesh_parity(seed: int):
     print("[mesh parity] closed loop: every device's xp_out/yp_out equals "
           "its +x/+y neighbour's xm_in/ym_in bit for bit", flush=True)
 
+    torus = torus_sim(seed)
+    torus.run(TORUS_STEPS - 1)
+    with Capture(dc, ["migration_pos_decode"]) as cap:
+        torus.run(1)
+        torch.cuda.synchronize()
+    st = torus.state
+    p = st.soa.pos.reshape(-1, 2)[st.soa.valid.reshape(-1)]
+    lx = torus.geom.domain_size[0]
+    inside = bool(((p[:, 0] >= 0) & (p[:, 0] < lx)).all())
+    out.update(torus_agents=total_agents(st),
+               torus_dropped=int(st.dropped.sum()))
+    print(f"[mesh parity] 2x1 toroidal, int8+mig, {TORUS_STEPS} steps of "
+          f"+1.5 in x: agents {total_agents(st)}/300, dropped "
+          f"{int(st.dropped.sum())}, codec_overflow "
+          f"{int(st.codec_overflow.max())}, x in [0, {lx}): {inside}",
+          flush=True)
+    if total_agents(st) != 300 or int(st.dropped.sum()) or not inside:
+        fail("mesh parity: agents lost or out of the domain at the seam")
+    return out, cap.calls["migration_pos_decode"]
+
+
+def torus_sim(seed: int):
+    """Phase 8's 2x1 toroidal mesh (8 x 8 cells a device, cap 16,
+    int8+mig): 300 agents that drift +1.5 in x a step, seeded."""
     base = cc.behavior()
     drift_beh = Behavior(schema=base.schema, pair_fn=base.pair_fn,
                          pair_attrs=base.pair_attrs,
@@ -1145,20 +1199,7 @@ def phase_mesh_parity(seed: int):
     attrs = {"diameter": np.full((300,), 1.0, np.float32),
              "ctype": rng.integers(0, 2, 300).astype(np.int32)}
     torus.init(pos, attrs)
-    torus.run(30)        # 30 * 1.5 = 45 > the domain's 32: a full wrap
-    st = torus.state
-    p = st.soa.pos.reshape(-1, 2)[st.soa.valid.reshape(-1)]
-    lx = torus.geom.domain_size[0]
-    inside = bool(((p[:, 0] >= 0) & (p[:, 0] <= lx)).all())
-    out.update(torus_agents=total_agents(st),
-               torus_dropped=int(st.dropped.sum()))
-    print(f"[mesh parity] 2x1 toroidal, int8+mig, 30 steps of +1.5 in x: "
-          f"agents {total_agents(st)}/300, dropped {int(st.dropped.sum())}, "
-          f"codec_overflow {int(st.codec_overflow.max())}, x in [0, {lx}]: "
-          f"{inside}", flush=True)
-    if total_agents(st) != 300 or int(st.dropped.sum()) or not inside:
-        fail("mesh parity: agents lost or out of the domain at the seam")
-    return out
+    return torus
 
 
 # ---------------------------------------------------------------------------
@@ -2819,9 +2860,10 @@ def main(argv=None) -> int:
     gc.collect()                 # free the single-device path's 43 GiB
     torch.cuda.empty_cache()
     mesh_launches, calls, mesh_stats = phase_mesh(args.seed)
-    codec = phase_codec_apart(calls)
-    mesh_parity = phase_mesh_parity(args.seed)
-    del calls
+    mesh_parity, torus_calls = phase_mesh_parity(args.seed)
+    codec = phase_codec_apart({**calls, TORUS_DECODE: torus_calls})
+    torus_row = codec.pop(TORUS_DECODE)
+    del calls, torus_calls
     gc.collect()
     torch.cuda.empty_cache()
     flash = phase_flash(args.seed)
@@ -2881,6 +2923,8 @@ def main(argv=None) -> int:
             {"name": name, "route": "cuda", "source": SOURCE_CODEC,
              "replaces": f"{TPU_CODEC}:{CODEC_REPLACES[name]}",
              "launches": mesh_launches[name]}, **r))
+        if name == "migration_pos_decode":
+            kernels[-1]["toroidal_calls"] = torus_row
     kernels[0]["mesh_path"] = dict(mesh_stats, parity=mesh_parity)
     kernels.append(dict(
         {"name": "neighbor_force", "route": "cuda",

@@ -155,9 +155,11 @@ def encode_migration(slab: Slab, pos_name: str, center: torch.Tensor,
 
 def decode_migration(payload: Slab, pos_name: str, half_range,
                      cfg: DeltaConfig, lsz=None, toroidal=(),
-                     lead: int = 0) -> Slab:
+                     lead: int = 0, at_l=None) -> Slab:
     """Receiver-side inverse of :func:`encode_migration`: positions in the
-    sender's frame, wrapped into the domain on toroidal axes."""
+    sender's frame, wrapped into the domain on toroidal axes.  ``at_l``
+    (D floats) replaces a wrapped coordinate equal to L, in the same
+    launch (the engine's seam repair; None leaves it, as the reference)."""
     out = dict(payload)
     center = out.pop(pos_name + "/center")
     q = out[pos_name]
@@ -165,7 +167,7 @@ def decode_migration(payload: Slab, pos_name: str, half_range,
     out[pos_name] = delta_codec.migration_pos_decode(
         _pos_rows(q, lead), center.reshape(b, -1),
         migration_scale(half_range, cfg.migration), lsz=lsz,
-        toroidal=toroidal).reshape(q.shape)
+        toroidal=toroidal, at_l=at_l).reshape(q.shape)
     return out
 
 

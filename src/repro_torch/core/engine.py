@@ -430,7 +430,8 @@ class Engine:
         positions cross as int16 offsets from the sender's box centre
         (:func:`~repro_torch.core.delta.encode_migration`), one kernel
         launch each way per hop for every device at once; the codec's
-        minimum image and the receiver's ``mod L`` take the place of
+        minimum image and the receiver's ``mod L`` with the seam repair
+        (``at_l``, in the decode's launch) take the place of
         ``wrap_pos``.  Returns ``(soa, dropped, codec overflow)``, the last
         two shaped like the mesh.
         """
@@ -462,10 +463,10 @@ class Engine:
         # one device; on an axis of several, the largest float32 below L.
         # Only a step down across 0 rounds to L, and it ships the agent to
         # the last device along the axis, which owns [L - L/M, L) and not 0.
-        at_l_pos = torch.tensor(
+        at_l_np = np.asarray(
             [0.0 if m == 1 else np.nextafter(np.float32(n), np.float32(0))
-             for m, n in zip(mesh, lsz_np)], dtype=torch.float32,
-            device=dev)
+             for m, n in zip(mesh, lsz_np)], np.float32)
+        at_l_pos = torch.from_numpy(at_l_np).to(dev)
 
         def seam(slab: Slab) -> Slab:
             """Wrapped (``mod L``) positions lie in [0, L], not [0, L): one
@@ -499,9 +500,9 @@ class Engine:
             enc, oflow = encode_migration(
                 slab, POS, center, half_rng, cfg, lsz=lsz_np, toroidal=tor,
                 lead=lead)
-            return seam(decode_migration(
+            return decode_migration(
                 comm.shift(enc, axis, dirn), POS, half_rng, cfg,
-                lsz=lsz_np, toroidal=tor, lead=lead)), oflow
+                lsz=lsz_np, toroidal=tor, lead=lead, at_l=at_l_np), oflow
 
         # Received slabs still carrying cells that need later-axis hops:
         # (slab, axis it arrived along, its fixed cell index on that axis).

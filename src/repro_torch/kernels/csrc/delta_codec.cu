@@ -28,7 +28,8 @@
 //     q = clip(rint(d / scale), lo, hi) in int16, overflow counts live
 //     rows' coordinates outside [lo, hi].
 //   position decode: pos = centre[b] + float(q) * scale, then jnp.mod(pos,
-//     L) on toroidal axes.
+//     L) on toroidal axes; with a seam, a wrapped pos equal to L is set to
+//     at_l[a] (core/engine's seam repair, ROADMAP C 2-3).
 //
 // What bounds it on an H100.  Bytes, and at the engine's sizes the fixed
 // cost of a call.  Each kernel reads its inputs once and writes its outputs
@@ -64,14 +65,34 @@
 //   first 16-byte aligned chunk of a row (B > 1 and R % 4 != 0), the tail
 //   (R % 4) and every row of a misaligned stack go through a scalar loop in
 //   the same kernel.  Overflow as in the delta encode, with one sync.
-// The decoders are a (blocks, rows) grid of elementwise threads with a
-// grid-stride loop, 16-byte vectors where the row length and pointers
-// allow.  The TPU's sequential grid carried nothing between blocks, so
-// nothing is lost in parallel.  Built without fast math and with
-// -fmad=false: IEEE division, rintf for jnp.round's half-to-even, and
-// ref + q * s as a multiply then an add, so the sender's new reference,
-// the receiver's reconstruction and the plain PyTorch version are the same
-// bits.
+// The decoders are one plain launch each (no memset, no grid sync), on a
+// grid sized to the card (`plan` over the blocks an SM holds, asked of the
+// occupancy API once) with a grid-stride loop, a row of the stack a block
+// row, `rounds` rounds when the rows outnumber the grid's y.  The TPU's
+// sequential grid carried nothing between blocks, so nothing is lost in
+// parallel.
+//   Both walk each row's elements (a position row's R x D coordinates as a
+//   flat run) in units of four from the first multiple of four in the
+//   stack: a unit is one float4 of output and one 4-, 8- (int8, int16 q)
+//   or 8-byte (int16 positions) vector of q, plus a float4 of ref for the
+//   delta decode; consecutive threads take consecutive units, so every
+//   warp load and store is one contiguous run, and each thread loads
+//   kUnits units before it computes any.  The elements before a row's first
+//   unit and after its last, and every element of a misaligned stack, go
+//   scalar in the same kernel.  Each thread reads its row's values (the
+//   scale; the centre) once, after its first units' loads (row_value).  The
+//   position decode holds the row's centre, scale, period, wrap flag and
+//   at_l per axis in registers and picks them by selects (the axis of a
+//   coordinate is its place in the row modulo D); with `seam`, a
+//   wrapped coordinate equal to L (a step a hair below 0 rounds to L under
+//   jnp.mod) is written as at_l[a]: the engine's seam repair, folded into
+//   the one launch.  (A layout with a thread on 16 contiguous elements,
+//   or on four rows of positions, touched each 32-byte sector only in part
+//   per warp instruction and ran slower: PERF.md §6.)
+// Built without fast math and with -fmad=false: IEEE division, rintf for
+// jnp.round's half-to-even, and ref + q * s as a multiply then an add, so
+// the sender's new reference, the receiver's reconstruction and the plain
+// PyTorch version are the same bits.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -85,13 +106,15 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr long long kMaxBlocksX = 4096;
 // Elements of x - ref (and of ref) a delta-encode thread keeps in registers
 // from the max to the quantize (kernels/delta_codec.py TILE_ELEMS).
 constexpr int kTileElems = 16;
 // Chunks of four rows a position-encode thread loads before it computes
 // (kernels/delta_codec.py MIG_CHUNKS).
 constexpr int kChunks = 2;
+// Units of four elements a decoder thread loads before it computes
+// (kernels/delta_codec.py DECODE_UNITS).
+constexpr int kUnits = 2;
 
 template <typename QT>
 struct Vec4;
@@ -302,34 +325,119 @@ __global__ void __launch_bounds__(kThreads) delta_encode_kernel(
   }
 }
 
-template <typename QT>
-__global__ void delta_decode_kernel(const QT* __restrict__ q,
-                                    const float* __restrict__ ref,
-                                    const float* __restrict__ scale,
-                                    long long n, int vec,
-                                    float* __restrict__ out) {
-  const int b = blockIdx.y;
-  const long long row = static_cast<long long>(b) * n;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long start =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const float s = scale[b];
-  if (vec) {
-    using V = typename Vec4<QT>::type;
-    const V* q4 = reinterpret_cast<const V*>(q + row);
-    const float4* r4 = reinterpret_cast<const float4*>(ref + row);
-    float4* o4 = reinterpret_cast<float4*>(out + row);
-    for (long long i = start; i < n / 4; i += stride) {
-      const V qv = q4[i];
-      const float4 r = r4[i];
-      o4[i] = make_float4(r.x + static_cast<float>(qv.x) * s,
-                          r.y + static_cast<float>(qv.y) * s,
-                          r.z + static_cast<float>(qv.z) * s,
-                          r.w + static_cast<float>(qv.w) * s);
+// A row of n elements from stack element `base` (>= 0): its units of four
+// are the stack's units [g_lo, g_hi) (elements 4 g .. 4 g + 3), those wholly
+// inside it, none without VEC; its elements [0, head) and [tail, n) go
+// scalar.  Shifts, not signed division: the first load waits on the few
+// integer operations from blockIdx to g_lo.
+struct RowSplit {
+  long long g_lo, g_hi, head, tail;
+  __device__ __forceinline__ RowSplit(long long base, long long n, bool vec) {
+    g_lo = (base + 3) >> 2;
+    g_hi = (base + n) >> 2;
+    if (!vec || g_hi <= g_lo) {
+      g_hi = g_lo;
+      head = tail = n;
+    } else {
+      head = 4 * g_lo - base;
+      tail = 4 * g_hi - base;
     }
-  } else {
-    for (long long i = start; i < n; i += stride)
-      out[row + i] = ref[row + i] + static_cast<float>(q[row + i]) * s;
+  }
+};
+
+// A value of a decoder's row (its scale, a centre coordinate), read by an
+// asm load: it stays in an ordinary register, and its latency overlaps the
+// units' loads.  As a plain load, ptxas moved the row-uniform value into a
+// uniform register (R2UR) as soon as it was loaded, and the units' loads,
+// issued after the R2UR, waited for it: two round trips to memory instead
+// of one.  (A C++ volatile read is a strong system-scope load, slower
+// still: PERF.md §6.)
+__device__ __forceinline__ float row_value(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// A decoder's pass over a row's units: kUnits a thread loaded (load(g))
+// before any is computed and stored (store(g, loaded, values)); the row's
+// values (row_values()) read once, after the first group's loads.
+// Consecutive threads take consecutive units, so every warp access is
+// contiguous.
+template <typename Load, typename RowValues, typename Store>
+__device__ __forceinline__ void unit_pass(const RowSplit& row,
+                                          long long first, long long stride,
+                                          Load load, RowValues row_values,
+                                          Store store) {
+  long long g0 = row.g_lo + first;
+  if (g0 >= row.g_hi) return;
+  decltype(load(0LL)) v[kUnits];
+  auto load_group = [&] {
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      const long long g = g0 + u * stride;
+      if (g < row.g_hi) v[u] = load(g);
+    }
+  };
+  load_group();
+  const auto values = row_values();
+  for (;;) {
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      const long long g = g0 + u * stride;
+      if (g < row.g_hi) store(g, v[u], values);
+    }
+    g0 += kUnits * stride;
+    if (g0 >= row.g_hi) return;
+    load_group();
+  }
+}
+
+template <typename QT>
+struct DeltaUnit {
+  typename Vec4<QT>::type q;
+  float4 r;
+};
+
+// The decode of `nb` rows of n elements: a (blocks, rows per round) grid,
+// `rounds` rounds.  With VEC, q is 4 sizeof(q)-byte and ref and out 16-byte
+// aligned, so a unit of four elements starting at a multiple of four in
+// the stack is one Vec4 of q and one float4 of ref and of out.
+template <typename QT, bool VEC>
+__global__ void __launch_bounds__(kThreads) delta_decode_kernel(
+    const QT* __restrict__ q, const float* __restrict__ ref,
+    const float* __restrict__ scale, long long nb, long long n, int rounds,
+    float* __restrict__ out) {
+  using V = typename Vec4<QT>::type;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  for (int round = 0; round < rounds; ++round) {
+    const long long b = blockIdx.y + static_cast<long long>(round) * gridDim.y;
+    if (b >= nb) return;
+    const long long base = b * n;     // the row's first element, in the stack
+    const RowSplit row(base, n, VEC);
+    if constexpr (VEC) {
+      const V* q4 = reinterpret_cast<const V*>(q);
+      const float4* r4 = reinterpret_cast<const float4*>(ref);
+      float4* o4 = reinterpret_cast<float4*>(out);
+      unit_pass(
+          row, first, stride,
+          [&](long long g) { return DeltaUnit<QT>{q4[g], __ldg(r4 + g)}; },
+          [&] { return row_value(scale + b); },
+          [&](long long g, const DeltaUnit<QT>& v, float s) {
+            o4[g] = make_float4(v.r.x + static_cast<float>(v.q.x) * s,
+                                v.r.y + static_cast<float>(v.q.y) * s,
+                                v.r.z + static_cast<float>(v.q.z) * s,
+                                v.r.w + static_cast<float>(v.q.w) * s);
+          });
+    }
+    if (first >= row.head && row.tail + first >= n) continue;
+    const float s = row_value(scale + b);
+    auto scalar = [&](long long i) {
+      out[base + i] = ref[base + i] + static_cast<float>(q[base + i]) * s;
+    };
+    for (long long i = first; i < row.head; i += stride) scalar(i);
+    for (long long i = row.tail + first; i < n; i += stride) scalar(i);
   }
 }
 
@@ -341,6 +449,13 @@ struct Frame {
   float scale[3];  // per-axis quantum
   float len[3];    // per-axis domain length (toroidal period)
   int wrap[3];     // 1 on toroidal axes
+};
+
+// The position decode's seam: with `on`, a wrapped coordinate equal to L on
+// axis a is written as at_l[a].
+struct Seam {
+  float at_l[3];
+  int on;
 };
 
 // jnp.mod for floats: C fmod, moved into the divisor's sign.
@@ -477,38 +592,95 @@ __global__ void __launch_bounds__(kThreads) migration_pos_encode_kernel(
   }
 }
 
-__global__ void migration_pos_decode_kernel(const int16_t* __restrict__ q,
-                                            const float* __restrict__ center,
-                                            long long rows, int d, Frame f,
-                                            float* __restrict__ pos) {
-  const int b = blockIdx.y;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       r < rows; r += stride) {
-    const long long row = static_cast<long long>(b) * rows + r;
-    for (int a = 0; a < d; ++a) {
-      float p = center[b * d + a] +
-                static_cast<float>(q[row * d + a]) * f.scale[a];
-      if (f.wrap[a]) p = jnp_mod(p, f.len[a]);
-      pos[row * d + a] = p;
+// One coordinate of one row's decode: the row's centre and the frame, an
+// axis a slot.  The axis of a coordinate is its place in the row modulo D,
+// so a thread's four coordinates may start on any axis: each field is
+// picked by selects over the D slots, never by indexing them at a runtime
+// axis (which would put them in local memory).
+template <int D>
+struct MigDecode {
+  float c[D], s[D], len[D], at[D];
+  bool wrap[D], seam[D];
+
+  __device__ __forceinline__ MigDecode(const float* __restrict__ center,
+                                       long long b, const Frame& f,
+                                       const Seam& sm) {
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      c[a] = row_value(center + b * D + a);
+      s[a] = f.scale[a];
+      len[a] = f.len[a];
+      wrap[a] = f.wrap[a] != 0;
+      seam[a] = wrap[a] && sm.on != 0;
+      at[a] = sm.at_l[a];
     }
   }
-}
 
+  template <typename T>
+  __device__ __forceinline__ static T pick(const T (&v)[D], int a) {
+    if constexpr (D == 1) return v[0];
+    else if constexpr (D == 2) return a == 0 ? v[0] : v[1];
+    else return a == 0 ? v[0] : (a == 1 ? v[1] : v[2]);
+  }
 
-// Blocks along x for `work` items a row: enough to cover them, at least one,
-// capped for the grid-stride loop.
-dim3 grid_for(long long work, long long b) {
-  long long bx = (work + kThreads - 1) / kThreads;
-  if (bx < 1) bx = 1;
-  if (bx > kMaxBlocksX) bx = kMaxBlocksX;
-  return dim3(static_cast<unsigned>(bx), static_cast<unsigned>(b));
+  __device__ __forceinline__ float operator()(int16_t qv, int a) const {
+    float p = pick(c, a) + static_cast<float>(qv) * pick(s, a);
+    if (pick(wrap, a)) {
+      const float l = pick(len, a);
+      p = jnp_mod(p, l);
+      if (pick(seam, a) && p == l) p = pick(at, a);
+    }
+    return p;
+  }
+};
+
+// The position decode of `nb` rows of R = `rows` positions, each row's
+// R x D coordinates a flat run of n = R D: a (blocks, rows per round) grid,
+// `rounds` rounds.  With VEC, q is 8-byte and pos 16-byte aligned, so a
+// unit of four coordinates starting at a multiple of four in the stack is
+// one uint2 (four int16) of q and one float4 of pos.
+template <int D, bool VEC>
+__global__ void __launch_bounds__(kThreads) migration_pos_decode_kernel(
+    const int16_t* __restrict__ q, const float* __restrict__ center,
+    long long nb, long long rows, int rounds, Frame f, Seam sm,
+    float* __restrict__ pos) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long n = rows * D;
+  for (int round = 0; round < rounds; ++round) {
+    const long long b = blockIdx.y + static_cast<long long>(round) * gridDim.y;
+    if (b >= nb) return;
+    const long long base = b * n;     // the row's first coordinate
+    const RowSplit row(base, n, VEC);
+    if constexpr (VEC) {
+      const uint2* q4 = reinterpret_cast<const uint2*>(q);
+      float4* p4 = reinterpret_cast<float4*>(pos);
+      unit_pass(
+          row, first, stride, [&](long long g) { return __ldg(q4 + g); },
+          [&] { return MigDecode<D>(center, b, f, sm); },
+          [&](long long g, const uint2& w, const MigDecode<D>& md) {
+            // the unit's first coordinate is row-local 4 g - base
+            const int a = static_cast<int>((4 * g - base) % D);
+            p4[g] = make_float4(
+                md(static_cast<int16_t>(w.x), a),
+                md(static_cast<int16_t>(w.x >> 16), (a + 1) % D),
+                md(static_cast<int16_t>(w.y), (a + 2) % D),
+                md(static_cast<int16_t>(w.y >> 16), (a + 3) % D));
+          });
+    }
+    if (first >= row.head && row.tail + first >= n) continue;
+    const MigDecode<D> md(center, b, f, sm);
+    for (long long k = first; k < row.head; k += stride)
+      pos[base + k] = md(q[base + k], static_cast<int>(k % D));
+    for (long long k = row.tail + first; k < n; k += stride)
+      pos[base + k] = md(q[base + k], static_cast<int>(k % D));
+  }
 }
 
 bool bad_rows(long long b) { return b < 1 || b > 65535; }
 
-// A cooperative grid: `rounds` rounds of grid_y rows must cover the b rows.
+// `rounds` rounds of grid_y rows must cover the b rows.
 bool bad_grid(long long b, int grid_x, int grid_y, int rounds) {
   return grid_x < 1 || grid_y < 1 || grid_y > 65535 || rounds < 1 ||
          static_cast<long long>(grid_y) * rounds < b;
@@ -547,44 +719,62 @@ const void* mig_kernel(int vec) {
                    migration_pos_encode_kernel<D, false>);
 }
 
-const void* mig_kernel(int d, int vec) {
+template <int D>
+const void* mig_decode_kernel(int vec) {
+  return vec ? reinterpret_cast<const void*>(
+                   migration_pos_decode_kernel<D, true>)
+             : reinterpret_cast<const void*>(
+                   migration_pos_decode_kernel<D, false>);
+}
+
+const void* mig_kernel(int d, int vec, bool decode) {
   switch (d) {
     case 1:
-      return mig_kernel<1>(vec);
+      return decode ? mig_decode_kernel<1>(vec) : mig_kernel<1>(vec);
     case 2:
-      return mig_kernel<2>(vec);
+      return decode ? mig_decode_kernel<2>(vec) : mig_kernel<2>(vec);
     case 3:
-      return mig_kernel<3>(vec);
+      return decode ? mig_decode_kernel<3>(vec) : mig_kernel<3>(vec);
+    default:
+      return nullptr;
+  }
+}
+
+const void* decode_kernel(int qbits, int vec) {
+  switch (qbits) {
+    case 8:
+      return vec ? reinterpret_cast<const void*>(
+                       delta_decode_kernel<int8_t, true>)
+                 : reinterpret_cast<const void*>(
+                       delta_decode_kernel<int8_t, false>);
+    case 16:
+      return vec ? reinterpret_cast<const void*>(
+                       delta_decode_kernel<int16_t, true>)
+                 : reinterpret_cast<const void*>(
+                       delta_decode_kernel<int16_t, false>);
     default:
       return nullptr;
   }
 }
 
 // SMs and the blocks of kThreads threads of `kernel` one SM holds: a
-// cooperative grid may have at most their product.
-cudaError_t coresident(const void* kernel, int device, int* sms,
-                       int* per_sm) {
+// cooperative grid may have at most their product, and a decoder's grid
+// is sized to it.
+cudaError_t occupancy(const void* kernel, int device, bool cooperative,
+                      int* sms, int* per_sm) {
   if (kernel == nullptr) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  int coop = 0;
-  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (e != cudaSuccess) return e;
-  if (!coop) return cudaErrorNotSupported;
+  if (cooperative) {
+    int coop = 0;
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+    if (e != cudaSuccess) return e;
+    if (!coop) return cudaErrorNotSupported;
+  }
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
                                                        kThreads, 0);
-}
-
-template <typename QT>
-cudaError_t decode(const QT* q, const float* ref, const float* scale,
-                   long long b, long long n, int vec, float* out,
-                   cudaStream_t s) {
-  if (n == 0) return cudaSuccess;
-  delta_decode_kernel<QT><<<grid_for(vec ? n / 4 : n, b), kThreads, 0, s>>>(
-      q, ref, scale, n, vec, out);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -598,13 +788,25 @@ extern "C" const char* delta_codec_error_string(int err) {
 // into *sms and *per_sm.  Returns a cudaError_t.
 extern "C" int delta_encode_coresident(int qbits, int vec, int adaptive,
                                        int device, int* sms, int* per_sm) {
-  return coresident(encode_kernel(qbits, vec, adaptive), device, sms,
-                    per_sm);
+  return occupancy(encode_kernel(qbits, vec, adaptive), device, true, sms,
+                   per_sm);
 }
 
 extern "C" int migration_pos_encode_coresident(int d, int vec, int device,
                                                int* sms, int* per_sm) {
-  return coresident(mig_kernel(d, vec), device, sms, per_sm);
+  return occupancy(mig_kernel(d, vec, false), device, true, sms, per_sm);
+}
+
+// The same for the decoders (plain launches), as delta_decode_launch /
+// migration_pos_decode_launch take their arguments.
+extern "C" int delta_decode_occupancy(int qbits, int vec, int device,
+                                      int* sms, int* per_sm) {
+  return occupancy(decode_kernel(qbits, vec), device, false, sms, per_sm);
+}
+
+extern "C" int migration_pos_decode_occupancy(int d, int vec, int device,
+                                              int* sms, int* per_sm) {
+  return occupancy(mig_kernel(d, vec, true), device, false, sms, per_sm);
 }
 
 // qbits: 8 or 16.  vec: 1 when n % 4 == 0 and every pointer is 16-byte
@@ -637,27 +839,26 @@ extern "C" int delta_encode_launch(int qbits, int device, const void* x,
                                      static_cast<cudaStream_t>(stream));
 }
 
+// qbits: 8 or 16.  vec: 1 when q, ref and out are 16-byte aligned (any n:
+// the elements before a row's first 16-byte q vector and after its last go
+// scalar).  The grid: grid_x blocks a row, grid_y rows a round, `rounds`
+// rounds (delta_codec.plan).  One plain launch on `stream` (none when n is
+// 0), asynchronous; returns a cudaError_t (0 on success).
 extern "C" int delta_decode_launch(int qbits, int device, const void* q,
                                    const void* ref, const void* scale,
                                    long long b, long long n, int vec,
+                                   int grid_x, int grid_y, int rounds,
                                    void* out, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  if (bad_rows(b) || n < 0) return cudaErrorInvalidValue;
-  const float* rf = static_cast<const float*>(ref);
-  const float* sc = static_cast<const float*>(scale);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (qbits) {
-    case 8:
-      return decode<int8_t>(static_cast<const int8_t*>(q), rf, sc, b, n, vec,
-                            o, s);
-    case 16:
-      return decode<int16_t>(static_cast<const int16_t*>(q), rf, sc, b, n,
-                             vec, o, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const void* kernel = decode_kernel(qbits, vec);
+  if (kernel == nullptr || bad_rows(b) || n < 0 ||
+      bad_grid(b, grid_x, grid_y, rounds))
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  void* args[] = {&q, &ref, &scale, &b, &n, &rounds, &out};
+  return cudaLaunchKernel(kernel, dim3(grid_x, grid_y), dim3(kThreads), args,
+                          0, static_cast<cudaStream_t>(stream));
 }
 
 // valid may be null.  vec: 1 when pos is 16-byte, q 8-byte and valid 4-byte
@@ -674,7 +875,7 @@ extern "C" int migration_pos_encode_launch(
     void* part, void* q, void* oflow, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const void* kernel = mig_kernel(d, vec);
+  const void* kernel = mig_kernel(d, vec, false);
   if (kernel == nullptr || bad_rows(b) || rows < 0 ||
       bad_grid(b, grid_x, grid_y, rounds))
     return cudaErrorInvalidValue;
@@ -686,18 +887,25 @@ extern "C" int migration_pos_encode_launch(
                                      static_cast<cudaStream_t>(stream));
 }
 
+// vec: 1 when pos is 16-byte aligned and q 8-byte (d = 1) or 16-byte
+// (d = 2, 3) aligned (any R, as the encode).  seam: 1 writes a wrapped
+// coordinate equal to L as a0, a1, a2 by axis.  The grid as
+// delta_decode_launch's.  One plain launch (none when rows is 0).
 extern "C" int migration_pos_decode_launch(
     int device, const void* q, const void* center, long long b,
     long long rows, int d, float s0, float s1, float s2, float l0, float l1,
-    float l2, int w0, int w1, int w2, void* pos, void* stream) {
+    float l2, int w0, int w1, int w2, int seam, float a0, float a1, float a2,
+    int vec, int grid_x, int grid_y, int rounds, void* pos, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  if (bad_rows(b) || rows < 0 || d < 1 || d > 3) return cudaErrorInvalidValue;
+  const void* kernel = mig_kernel(d, vec, true);
+  if (kernel == nullptr || bad_rows(b) || rows < 0 ||
+      bad_grid(b, grid_x, grid_y, rounds))
+    return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  const Frame f{{s0, s1, s2}, {l0, l1, l2}, {w0, w1, w2}};
-  migration_pos_decode_kernel<<<grid_for(rows, b), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(q), static_cast<const float*>(center),
-      rows, d, f, static_cast<float*>(pos));
-  return cudaGetLastError();
+  Frame f{{s0, s1, s2}, {l0, l1, l2}, {w0, w1, w2}};
+  Seam sm{{a0, a1, a2}, seam};
+  void* args[] = {&q, &center, &b, &rows, &rounds, &f, &sm, &pos};
+  return cudaLaunchKernel(kernel, dim3(grid_x, grid_y), dim3(kThreads), args,
+                          0, static_cast<cudaStream_t>(stream));
 }

@@ -41,7 +41,10 @@ occupancy API once per kernel and device, and its cross-block scratch
 (one int32 slot a block and row for the overflow count, one more for an
 adaptive encode's max) comes from ``torch.empty``: the kernel writes
 every slot before it reads one.  A fixed scale takes the same kernel
-with one grid sync, for its count (ROADMAP B3 gives its cost).
+with one grid sync, for its count (ROADMAP B3 gives its cost).  Each
+decoder is one plain launch on a grid :func:`plan` sizes to the card the
+same way, with a grid-stride loop; the position decode also does the
+engine's seam repair (``at_l``) in that launch.
 """
 
 from __future__ import annotations
@@ -56,13 +59,15 @@ from repro_torch.kernels import _build
 
 QDTYPES = {torch.int8: 8, torch.int16: 16}
 
-# The encoders' launch shape, as csrc/delta_codec.cu has it: threads a
+# The kernels' launch shape, as csrc/delta_codec.cu has it: threads a
 # block (kThreads), elements of x - ref a delta-encode thread keeps in
 # registers (kTileElems), chunks of four rows a position-encode thread
-# loads at once (kChunks).
+# loads at once (kChunks), units of four elements a decoder thread loads at
+# once (kUnits).
 THREADS = 256
 TILE_ELEMS = 16
 MIG_CHUNKS = 2
+DECODE_UNITS = 2
 
 LAUNCHES: Dict[str, int] = {
     "delta_encode": 0, "delta_decode": 0,
@@ -162,21 +167,36 @@ def migration_pos_encode_plain(pos: torch.Tensor, center: torch.Tensor,
             oob.reshape(b, -1).sum(dim=1, dtype=torch.int32))
 
 
+def _at_l(d: int, at_l) -> Optional[np.ndarray]:
+    if at_l is None:
+        return None
+    at_l = np.asarray(at_l, np.float32).reshape(-1)
+    if at_l.shape != (d,):
+        raise ValueError(f"at_l {at_l.shape} does not match {d} axes")
+    return at_l
+
+
 def migration_pos_decode_plain(q: torch.Tensor, center: torch.Tensor,
                                scale: Sequence[float], *, lsz=None,
-                               toroidal=()) -> torch.Tensor:
+                               toroidal=(), at_l=None) -> torch.Tensor:
     """``center[b] + q * scale``, then ``jnp.mod(., L)`` on toroidal
-    axes."""
+    axes; with ``at_l`` (D floats), a wrapped coordinate equal to L is
+    ``at_l[a]`` (the engine's seam repair)."""
     d = q.shape[-1]
     scale, lens, tor = _frame(d, scale, lsz, toroidal)
+    at_l = _at_l(d, at_l)
     dev = q.device
     p = center[:, None, :] + q.to(torch.float32) * torch.from_numpy(
         scale).to(dev)
     if any(tor):
         L = torch.from_numpy(lens).to(dev)
+        wrap = torch.tensor(tor, device=dev)
         r = torch.fmod(p, L)
         r = torch.where((r != 0) & ((r < 0) != (L < 0)), r + L, r)
-        p = torch.where(torch.tensor(tor, device=dev), r, p)
+        p = torch.where(wrap, r, p)
+        if at_l is not None:
+            p = torch.where(wrap & (p == L), torch.from_numpy(at_l).to(dev),
+                            p)
     return p
 
 
@@ -194,11 +214,14 @@ _SIGNATURES = {
     "migration_pos_encode_coresident": [_I, _I, _I, _IP, _IP],
     "delta_encode_launch": [_I, _I, _P, _P, _L, _L, _I, _I, _F, _F, _F,
                             _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "delta_decode_launch": [_I, _I, _P, _P, _P, _L, _L, _I, _P, _P],
+    "delta_decode_occupancy": [_I, _I, _I, _IP, _IP],
+    "migration_pos_decode_occupancy": [_I, _I, _I, _IP, _IP],
+    "delta_decode_launch": [_I, _I, _P, _P, _P, _L, _L, _I, _I, _I, _I,
+                            _P, _P],
     "migration_pos_encode_launch": [_I, _P, _P, _P, _L, _L, _I] + [_F] * 6
     + [_I] * 4 + [_F, _F] + [_I] * 4 + [_P, _P, _P, _P],
     "migration_pos_decode_launch": [_I, _P, _P, _L, _L, _I] + [_F] * 6
-    + [_I] * 3 + [_P, _P],
+    + [_I] * 4 + [_F] * 3 + [_I] * 4 + [_P, _P],
 }
 
 
@@ -247,31 +270,33 @@ def _vec(n: int, *tensors: torch.Tensor) -> int:
 
 
 class Occupancy(NamedTuple):
-    """SMs of the card and the blocks of one encode kernel an SM holds."""
+    """SMs of the card and the blocks of one codec kernel an SM holds."""
     sms: int
     per_sm: int
 
 
 class Plan(NamedTuple):
-    """A cooperative encode launch: ``grid_x`` blocks a row, ``grid_y``
-    rows a round, ``rounds`` rounds.  A row's blocks take ``grid_x *
-    THREADS * per_thread`` of its elements at once - for the delta encode
-    the register tile; elements past it are read a second time."""
+    """A codec launch: ``grid_x`` blocks a row, ``grid_y`` rows a round,
+    ``rounds`` rounds.  A row's blocks take ``grid_x * THREADS *
+    per_thread`` of its elements at once: for the delta encode the
+    register tile (elements past it are read a second time), for a
+    decoder one turn of its grid-stride loop."""
     grid_x: int
     grid_y: int
     rounds: int
 
 
 def plan(rows: int, elems: int, per_thread: int, occ: Occupancy) -> Plan:
-    """Grid of an encode over ``rows`` rows of ``elems`` elements, a
+    """Grid of a codec kernel over ``rows`` rows of ``elems`` elements, a
     thread taking ``per_thread`` of a row at once.  The grid never exceeds
-    the co-resident blocks (a grid-wide sync needs every block resident);
-    within that, a row gets the blocks that cover it in one pass, but at
-    least its share of one block an SM while each thread still has a
-    vector of four to do."""
+    the blocks the card holds at once (a grid-wide sync needs every block
+    resident; a decoder has none, and more blocks would only wait for a
+    second wave); within that, a row gets the blocks that cover it in one
+    pass, but at least its share of one block an SM while each thread
+    still has a vector of four to do."""
     total = occ.sms * occ.per_sm
     if total < 1:
-        raise RuntimeError(f"the card holds {total} blocks of the encode "
+        raise RuntimeError(f"the card holds {total} blocks of the codec "
                            "kernel at once")
     grid_y = min(rows, total)
     rounds = -(-rows // grid_y)
@@ -286,7 +311,7 @@ _OCCUPANCY: Dict[tuple, Occupancy] = {}
 
 
 def _occupancy(lib, fn: str, key: tuple, dev: torch.device) -> Occupancy:
-    """The occupancy of encode kernel ``fn(*key)`` on ``dev``, asked of
+    """The occupancy of codec kernel ``fn(*key)`` on ``dev``, asked of
     the card on first use."""
     k = (fn, key, dev.index)
     if k not in _OCCUPANCY:
@@ -367,11 +392,13 @@ def delta_decode(q: torch.Tensor, ref: torch.Tensor,
     _check("delta_decode", "ref", ref, torch.float32, (b, n), dev)
     _check("delta_decode", "scale", scale, torch.float32, (b,), dev)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    qbits, vec = QDTYPES[q.dtype], int(_aligned(q, ref, out))
     lib = _library()
+    p = plan(b, n, 4 * DECODE_UNITS, _occupancy(
+        lib, "delta_decode_occupancy", (qbits, vec), dev))
     err = lib.delta_decode_launch(
-        QDTYPES[q.dtype], dev.index, q.data_ptr(), ref.data_ptr(),
-        scale.data_ptr(), b, n, _vec(n, q, ref, out), out.data_ptr(),
-        _stream(dev))
+        qbits, dev.index, q.data_ptr(), ref.data_ptr(), scale.data_ptr(), b,
+        n, vec, p.grid_x, p.grid_y, p.rounds, out.data_ptr(), _stream(dev))
     _raise(lib, "delta_decode", err)
     LAUNCHES["delta_decode"] += 1
     return out
@@ -432,14 +459,23 @@ def migration_pos_encode(pos: torch.Tensor, center: torch.Tensor,
     return q, oflow
 
 
+def _seam_args(d: int, at_l):
+    at_l = _at_l(d, at_l)
+    if at_l is None:
+        return [0, 0.0, 0.0, 0.0]
+    return [1] + [float(v) for v in at_l] + [0.0] * (3 - d)
+
+
 def migration_pos_decode(q: torch.Tensor, center: torch.Tensor,
                          scale: Sequence[float], *, lsz=None,
-                         toroidal=()) -> torch.Tensor:
+                         toroidal=(), at_l=None) -> torch.Tensor:
     """``(B, R, D)`` float32 positions ``center[b] + q * scale``, wrapped
-    into ``[0, L)`` on toroidal axes."""
+    into ``[0, L)`` on toroidal axes: a step a hair below 0 rounds to
+    exactly L, which ``at_l`` (D floats, the engine's seam) replaces; with
+    ``at_l=None`` it stays L, as the TPU kernel's ``jnp.mod`` leaves it."""
     if _on_cpu("migration_pos_decode", q):
         return migration_pos_decode_plain(q, center, scale, lsz=lsz,
-                                          toroidal=toroidal)
+                                          toroidal=toroidal, at_l=at_l)
     dev = q.device
     if q.dim() != 3:
         raise ValueError(f"migration_pos_decode: q has shape "
@@ -449,10 +485,14 @@ def migration_pos_decode(q: torch.Tensor, center: torch.Tensor,
     _check("migration_pos_decode", "center", center, torch.float32, (b, d),
            dev)
     pos = torch.empty((b, r, d), dtype=torch.float32, device=dev)
+    vec = int(_aligned(q, pos))
     lib = _library()
+    p = plan(b, r * d, 4 * DECODE_UNITS, _occupancy(
+        lib, "migration_pos_decode_occupancy", (d, vec), dev))
     err = lib.migration_pos_decode_launch(
         dev.index, q.data_ptr(), center.data_ptr(), b, r, d,
-        *_frame_args(d, scale, lsz, toroidal), pos.data_ptr(), _stream(dev))
+        *_frame_args(d, scale, lsz, toroidal), *_seam_args(d, at_l), vec,
+        p.grid_x, p.grid_y, p.rounds, pos.data_ptr(), _stream(dev))
     _raise(lib, "migration_pos_decode", err)
     LAUNCHES["migration_pos_decode"] += 1
     return pos

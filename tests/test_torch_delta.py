@@ -418,3 +418,157 @@ def test_vector_path_choice():
     assert tk._aligned(pos, q, valid[:-1].view(4, 5))
     assert not tk._aligned(pos, q, valid[1:].view(4, 5))
     assert not tk._aligned(torch.zeros(4 * 5 * 3 + 1)[1:], q)
+
+
+# ---------------------------------------------------------------------------
+# The position decode's seam (the engine's repair, folded into the decode)
+# and the decoders' launch planning
+# ---------------------------------------------------------------------------
+
+SEAM_Q = 20000       # |q| of a step that lands a hair below 0
+
+
+def _seam_case(d, rows=12, lead=(1,), seed=9):
+    """(B, R, D) int16 offsets in a box of sides 32, 24, 16 (axes 0 and 2
+    toroidal, 1 closed), centres a row, and a per-axis scale.  Row 1 steps
+    to -1 ulp of its centre on axis 0 (and row 2 on axis 2), which jnp.mod
+    rounds to exactly L; row 3 sits at exactly L on the closed axis 1."""
+    rng = np.random.default_rng(seed)
+    lsz = np.asarray([32.0, 24.0, 16.0][:d], np.float32)
+    tor = (True, False, True)[:d]
+    scale = ((lsz / 2 + 4) / np.float32(32767.0)).astype(np.float32)
+    b = int(np.prod(lead))
+    q = rng.integers(-32767, 32768, (b, rows, d)).astype(np.int16)
+    centers = np.broadcast_to(lsz / 2, (b, d)).copy()
+    for a in [a for a in (0, 2) if a < d]:
+        # centre - fl(SEAM_Q * s) is -1 ulp of the centre (in [8, 16): below
+        # a quarter ulp of L), and jnp.mod(., L) rounds it to L
+        centers[:, a] = np.nextafter(np.float32(SEAM_Q) * scale[a],
+                                     np.float32(0))
+        q[:, 1 + a // 2, a] = -SEAM_Q
+    centers[:, 1] = lsz[1] if d > 1 else centers[:, 1]
+    if d > 1:
+        q[:, 3, 1] = 0
+    return (q.reshape(tuple(lead) + (rows, d)),
+            centers.reshape(tuple(lead) + (d,)), scale, lsz, tor)
+
+
+def _seam_at_l(lsz, several):
+    """0 on a one-device axis, the largest float32 below L on an axis of
+    several devices (the engine's ``at_l_pos``), axis 0 as ``several``
+    says and axis 2 the other way."""
+    kinds = [several, False, not several][:len(lsz)]
+    return np.asarray([np.nextafter(n, np.float32(0)) if k else 0.0
+                       for k, n in zip(kinds, lsz)], np.float32)
+
+
+def _numpy_seam(p, lsz, tor, at_l):
+    return np.where(np.asarray(tor) & (p == lsz), at_l, p).astype(np.float32)
+
+
+@pytest.mark.parametrize("several", [False, True], ids=["one", "several"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_migration_decode_seam_matches_pallas(d, several):
+    """``migration_pos_decode_plain(..., at_l)`` against JAX's Pallas
+    decode (interpret mode) followed by the seam in numpy; without
+    ``at_l`` the port leaves L as the TPU kernel does."""
+    q, centers, scale, lsz, tor = _seam_case(d)
+    at_l = _seam_at_l(lsz, several)
+    p_j = np.asarray(jk.migration_pos_decode_kernel(
+        jnp.asarray(q[0]), jnp.asarray(centers[0]), jnp.asarray(scale),
+        lsz=lsz, toroidal=tor, interpret=True))
+    assert p_j[1, 0] == lsz[0] and (d < 3 or p_j[2, 2] == lsz[2])
+    if d > 1:
+        assert p_j[3, 1] == lsz[1]               # closed: L stays L
+    args = (torch.from_numpy(q), torch.from_numpy(centers), scale)
+    got = tk.migration_pos_decode(*args, lsz=lsz, toroidal=tor, at_l=at_l)
+    assert_close(got[0], _numpy_seam(p_j, lsz, tor, at_l), "decoded")
+    assert got[0, 1, 0] == at_l[0] and (d < 3 or got[0, 2, 2] == at_l[2])
+    assert d < 2 or got[0, 3, 1] == lsz[1]
+    # without at_l the port's decode is the TPU kernel's, L included, and
+    # at_l changes nothing but the seam's coordinates, bit for bit
+    plain = tk.migration_pos_decode(*args, lsz=lsz, toroidal=tor)
+    assert_close(plain[0], p_j, "decoded without at_l")
+    assert plain[0, 1, 0] == lsz[0]
+    assert got.numpy().tobytes() == _numpy_seam(
+        plain.numpy(), lsz, tor, at_l).tobytes()
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_decode_migration_at_l_matches_decode_then_seam(d):
+    """``core/delta.decode_migration`` with ``at_l`` equals the decode
+    followed by the seam as the engine ran it before it was folded in
+    (``p == lsz`` on the toroidal axes, then ``torch.where``), bit for
+    bit, on a 2x2 stack."""
+    q, centers, scale, lsz, tor = _seam_case(d, rows=41, lead=MESH)
+    half_rng = lsz / 2 + 4
+    cfg = td.DeltaConfig(migration=torch.int16)
+    at_l = _seam_at_l(lsz, True)
+    pay = {"pos": torch.from_numpy(q),
+           "pos/center": torch.from_numpy(centers),
+           "valid": torch.ones(q.shape[:-1], dtype=torch.bool)}
+    kw = dict(lsz=lsz, toroidal=tor, lead=len(MESH))
+    got = td.decode_migration(dict(pay), "pos", half_rng, cfg, at_l=at_l,
+                              **kw)
+    before = td.decode_migration(dict(pay), "pos", half_rng, cfg, **kw)
+    p = before["pos"]
+    hit = (p == torch.from_numpy(lsz)) & torch.tensor(tor)
+    seamed = torch.where(hit, torch.from_numpy(at_l), p)
+    assert int(hit.sum()) == 4 * (1 + (d == 3))
+    assert got["pos"].numpy().tobytes() == seamed.numpy().tobytes()
+    assert set(got) == set(before) == {"pos", "valid"}
+
+
+# The decoders' calls at those shapes: the delta decode's are the delta
+# encode's, the position decode's the position encode's (R x D coordinates
+# a row).  Blocks of 256 threads an H100's SM holds of a decoder (at most
+# 61 registers, no shared memory): 8 or 4.
+DECODE_OCCS = [tk.Occupancy(sms=132, per_sm=8), tk.Occupancy(sms=132, per_sm=4)]
+
+
+def _decode_plans(occ):
+    """(plan, rows, elements a row) of every recorded decoder call."""
+    calls = DELTA_2D + DELTA_3D + [(b, 2 * r) for b, r in MIG_2D] + \
+        [(b, 3 * r) for b, r in MIG_3D]
+    return [(tk.plan(b, n, 4 * tk.DECODE_UNITS, occ), b, n)
+            for b, n in calls]
+
+
+@pytest.mark.parametrize("occ", DECODE_OCCS, ids=["8_per_sm", "4_per_sm"])
+def test_decode_plan_at_the_mesh_shapes(occ):
+    """Every recorded decoder call: one round, at most the blocks the card
+    holds at once, every block with a unit of four to do, at least one
+    block an SM, and each thread's DECODE_UNITS units in one pass of the
+    grid-stride loop unless the grid holds every block the card holds
+    (the larger calls)."""
+    full = occ.sms * occ.per_sm
+    multi = []
+    for p, b, n in _decode_plans(occ):
+        assert p.rounds == 1 and p.grid_y == b
+        assert occ.sms <= p.grid_x * b <= full
+        assert (p.grid_x - 1) * tk.THREADS * 4 < n
+        passes = -(-n // (p.grid_x * tk.THREADS * 4 * tk.DECODE_UNITS))
+        assert passes == 1 or p.grid_x * b == full
+        if passes > 1:
+            multi.append(n)
+    # 8 an SM: the 3-D delta decode of 418,176 elements and the 3-D
+    # position decodes; 4: also the 139,392-element delta decode and the
+    # 2-D position decode of 147,744 rows
+    assert multi == ([418176, 139392 * 3, 418176 * 3, 1254528 * 3]
+                     if occ.per_sm == 8 else
+                     [139392, 418176, 147744 * 2, 139392 * 3, 418176 * 3,
+                      1254528 * 3])
+
+
+def test_decoder_vector_path_choice():
+    """The decoders' units of four: q on four of its elements and ref,
+    out and pos on 16 bytes (any row length and any D; a row's elements
+    before its first unit and after its last go scalar)."""
+    q8 = torch.zeros(4 * 15 + 8, dtype=torch.int8)
+    x = torch.zeros((4, 15))
+    assert tk._aligned(q8[:60].view(4, 15), x, x)
+    assert not tk._aligned(q8[2:62].view(4, 15), x, x)
+    q16 = torch.zeros(4 * 5 * 3 + 8, dtype=torch.int16)
+    pos = torch.zeros((4, 5, 3))
+    assert tk._aligned(q16[4:64].view(4, 5, 3), pos)
+    assert not tk._aligned(q16[2:62].view(4, 5, 3), pos)

@@ -588,10 +588,12 @@ def test_codec_plain_counts_clipped_deltas():
 # (B, N) calls: empty rows, a row of 3, rows with and without 16-byte
 # vectors, and two past any register tile (a row gets at most the 132 * 8
 # blocks an H100 holds of 256 threads, shared by its B rows, and a block
-# 4096 elements: the second phase reads the rest again).
+# 4096 elements: the second phase reads the rest again).  The decode's
+# 16-byte q vectors (16 int8, 8 int16): rows of N % 16 in {0, 4, 8, 12}
+# start at every offset within a vector, so heads and tails go scalar.
 CODEC_SHAPES = [(4, 0), (4, 3), (4, 4000), (4, 4 * 1000 + 3), (1, 4000),
                 (8, 4003), (64, 4000), (64, 3), (1, 4_500_000),
-                (8, 600_004)]
+                (8, 600_004), (4, 4004), (4, 4008), (4, 4012), (3, 4016)]
 
 
 def _codec_view(t, offset):
@@ -688,20 +690,62 @@ def test_migration_codec_kernels_match_plain_on_cuda(cuda, d, r, toroidal,
         before["migration_pos_decode"] + 1
     assert torch.equal(p, dc.migration_pos_decode_plain(
         q, center, scale, lsz=lsz, toroidal=tor))
+    # the seam: row 3 steps a hair below 0 on axis 0, which wraps to L on
+    # a toroidal axis; at_l writes it as the largest float32 below L
+    q, center = _seam_step(q, center, scale)
+    at_l = [float(np.nextafter(np.float32(lsz[0]), np.float32(0)))] + \
+        [0.0] * (d - 1)
+    p = dc.migration_pos_decode(q, center, scale, lsz=lsz, toroidal=tor,
+                                at_l=at_l)
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES["migration_pos_decode"] == \
+        before["migration_pos_decode"] + 2
+    assert _bits(p) == _bits(dc.migration_pos_decode_plain(
+        q, center, scale, lsz=lsz, toroidal=tor, at_l=at_l))
+    if r > 3 and tor[0]:
+        assert (dc.migration_pos_decode_plain(
+            q, center, scale, lsz=lsz, toroidal=tor)[:, 3, 0] == lsz[0]).all()
+        assert (p[:, 3, 0] == at_l[0]).all()
+
+
+def _bits(t):
+    """The float32 tensor's bits (a signed zero, a NaN told apart)."""
+    return t.view(torch.int32).cpu().numpy().tobytes()
+
+
+def _seam_step(q, center, scale, k=20000):
+    """``(q, center)`` with row 3 of every stack row at -1 ulp of its
+    centre on axis 0: ``center - fl(k * s)`` with the centre one float
+    below ``fl(k * s)`` (22.0 at ``_mig_case``'s scale, whose ulp is a
+    quarter of L = 64's), which ``mod L`` rounds to exactly L."""
+    q, center = q.clone(), center.clone()
+    c0 = np.nextafter(np.float32(k) * np.float32(scale[0]), np.float32(0))
+    center[:, 0] = float(c0)
+    if q.shape[1] > 3:
+        q[:, 3, 0] = -k
+    return q, center
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b, n", [(4, 4003), (8, 600_004)])
 def test_encoders_repeat_bit_for_bit_on_cuda(cuda, b, n):
-    """Three launches of each encoder on the same inputs give the same bits:
-    no state outlives a call (the scratch is fresh and written before it is
-    read)."""
+    """Three launches of each encoder, and of each decoder on their
+    outputs, on the same inputs give the same bits: no state outlives a
+    call (the scratch is fresh and written before it is read)."""
     x, ref = _codec_inputs(cuda, b, n)
     pos, valid, center, scale, lsz = _mig_case(cuda, b, n // 2, 2, "mixed")
+    tor = (True, False)
+    q8, s8, _, _ = dc.delta_encode(x, ref)
+    qm, _ = dc.migration_pos_encode(pos, center, scale, valid=valid,
+                                    lsz=lsz, toroidal=tor)
+    qs, cs = _seam_step(qm, center, scale)
     runs = [(dc.delta_encode(x, ref, qdtype=torch.int16),
              dc.delta_encode(x, ref, scale=1e-4),
              dc.migration_pos_encode(pos, center, scale, valid=valid,
-                                     lsz=lsz, toroidal=(True, False)))
+                                     lsz=lsz, toroidal=tor),
+             (dc.delta_decode(q8, ref, s8),),
+             (dc.migration_pos_decode(qs, cs, scale, lsz=lsz, toroidal=tor,
+                                      at_l=(0.0, 0.0)),))
             for _ in range(3)]
     torch.cuda.synchronize()
     for run in runs[1:]:

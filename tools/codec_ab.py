@@ -1,39 +1,44 @@
-"""Device times of the delta codec's two encoders, compared between source
+"""Device times of the delta codec's four kernels, compared between source
 trees on one card, on the calls the engine really makes.
 
 First, in a process of its own, this checkout's ``chip_smoke.py`` drives
 the two mesh paths whose calls its phase 7 checks - the 2x2 mesh of
 16,777,216 ``cell_clustering`` agents (int8 aura codec, int16 migration
 codec) and ``tumor_spheroid``'s 2x2x2 mesh (int16 and int16) - from the
-same seed to the same delta step, records the inputs of every encoder
-call of that step and saves them under ``build/codec_ab/`` (gitignored).
-It prints what the calls hold: the share of zero deltas (unchanged
-slots) in the delta encode's slabs and the share of live rows in the
-position encode's payloads.
+same seed to the same delta step, records the inputs of every codec call
+of that step (both encoders, both decoders) and saves them under
+``build/codec_ab/`` (gitignored); and drives phase 8's 2x1 toroidal mesh
+to its last step and records that step's position decode calls, whose
+toroidal wrap takes the seam's ``at_l``.  It prints what the calls hold:
+the share of zero deltas (unchanged slots) in the delta encode's slabs and
+the share of live rows in the position encode's payloads.
 
 Then, for each tree given, in the order given (for an A/B: parent,
 change, change, parent), a process of its own imports that tree's
-``repro_torch``, builds its ``delta_codec`` library (printing each codec
-kernel's registers and spills from nvcc's ptxas report) and replays those
-calls a mesh at a time:
+``repro_torch``, builds its ``delta_codec`` library (each codec kernel's
+registers and spills from nvcc's ptxas report are printed) and replays
+those calls a mesh at a time:
 
 * ``delta_encode`` as recorded (the adaptive scale);
 * ``delta_encode`` on the same slabs at a fixed scale, the largest scale
   the recorded calls chose (the engine's path never fixes it; a user may,
   through ``DeltaConfig.scale``);
-* ``migration_pos_encode`` as recorded.
+* ``migration_pos_encode``, ``delta_decode`` and ``migration_pos_decode``
+  as recorded;
+* on the torus, ``migration_pos_decode`` with ``at_l``, or, in a tree
+  whose decode takes no ``at_l``, the decode followed by the engine's
+  seam repair as that tree ran it (``p == L``, ``torch.where``).
 
 Each step's calls are timed by torch.profiler's device time (every kernel
 and memset they enqueue, and their count) over TRACES traces of one
 step's calls, of which only those holding the most events are used (the
 profiler drops events now and then, never adds one), and by CUDA events
 around REPS steps back to back, both given a call.  After the trees, the
-floor of a cooperative launch: empty kernels of 256 threads with 0, 1 and
-2 ``cg::this_grid().sync()`` and a plain launch, at 4 to 528 blocks
-(source inline, built with nvcc into ``build/codec_ab/``).  Last it
-prints a JSON object with what the calls hold, every run's times and the
-floor beside the card's name and power limit.  It needs a CUDA card and
-nvcc:
+floor of a launch: empty kernels of 256 threads with 0, 1 and 2
+``cg::this_grid().sync()`` and a plain launch, at 4 to 528 blocks (source
+inline, built with nvcc into ``build/codec_ab/``).  Last it prints a JSON
+object with what the calls hold, every run's times and the floor beside
+the card's name and power limit.  It needs a CUDA card and nvcc:
 
     python3 tools/codec_ab.py PARENT_ROOT . . PARENT_ROOT
 
@@ -51,39 +56,33 @@ ROOT = Path(__file__).resolve().parents[1]
 CALLS = ROOT / "build" / "codec_ab"
 MESHES = ("2d", "3d")
 ENCODERS = ("delta_encode", "migration_pos_encode")
+CODEC = ("delta_encode", "delta_decode", "migration_pos_encode",
+         "migration_pos_decode")
 SEED = 0
 REPS = 50
 # Profiler traces of one step's calls, and how many of them must hold
 # every event for a time to be given.
 TRACES = 30
 MIN_COMPLETE = 10
-CODEC_KERNELS = ("delta_", "migration_")
 
 
-def registers(log: str):
-    """(kernel, registers, spill stores) of each codec kernel in a ptxas
-    report."""
-    out, name, spill = [], None, 0
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name, spill = line.split("'")[1], 0
-        elif name and "spill stores" in line:
-            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
-        elif name and "Used" in line and any(k in name
-                                             for k in CODEC_KERNELS):
-            out.append((name, int(line.split("Used")[1].split()[0]), spill))
-    return out
-
-
-def record(out_dir: Path) -> dict:
-    """Drives this checkout's two mesh paths to phase 7's recorded step and
-    saves the encoder calls of that step, ``calls_<mesh>.pt``: per encoder
-    a list of ``(args, kwargs)``, and the fixed scale of the replay.
-    Returns what the calls hold."""
+def chip_smoke():
+    """This checkout's ``chip_smoke.py`` as a module (it imports this
+    checkout's ``repro_torch``: never in a process that replays a tree)."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def record(out_dir: Path) -> dict:
+    """Drives this checkout's two mesh paths to phase 7's recorded step and
+    saves the codec calls of that step, ``calls_<mesh>.pt``: per wrapper a
+    list of ``(args, kwargs)``, and the fixed scale of the replay; and the
+    torus's last step's position decode calls, ``calls_torus.pt``.
+    Returns what the calls hold."""
+    cs = chip_smoke()
     torch = cs.torch
     cs._build.load_all(["pair_sweep", "delta_codec"])
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -114,22 +113,30 @@ def record(out_dir: Path) -> dict:
         if sim.iteration % sim.engine.delta_cfg.refresh_interval == 0:
             raise SystemExit(f"codec_ab: the {mesh} step would be a full "
                              "refresh")
-        with cs.Capture(cs.dc, ENCODERS) as cap:
+        with cs.Capture(cs.dc, CODEC) as cap:
             sim.run(1)
             torch.cuda.synchronize()
         del sim
         held[mesh] = dict(cs.codec_traffic(n, cap.calls[n])
                           for n in ENCODERS)
-        held[mesh]["calls"] = {n: len(cap.calls[n]) for n in ENCODERS}
+        held[mesh]["calls"] = {n: len(cap.calls[n]) for n in CODEC}
         fixed = max(float(out[1].max()) for _, _, out in
                     cap.calls["delta_encode"])
         held[mesh]["fixed_scale"] = fixed
         torch.save({"fixed_scale": fixed,
                     **{n: [(a, kw) for a, kw, _ in cap.calls[n]]
-                       for n in ENCODERS}}, out_dir / f"calls_{mesh}.pt")
+                       for n in CODEC}}, out_dir / f"calls_{mesh}.pt")
         del cap
         cs.gc.collect()
         torch.cuda.empty_cache()
+    sim = cs.torus_sim(SEED)
+    sim.run(cs.TORUS_STEPS - 1)
+    with cs.Capture(cs.dc, ["migration_pos_decode"]) as cap:
+        sim.run(1)
+        torch.cuda.synchronize()
+    rec = [(a, kw) for a, kw, _ in cap.calls["migration_pos_decode"]]
+    held["torus"] = {"calls": {"migration_pos_decode": len(rec)}}
+    torch.save({"migration_pos_decode": rec}, out_dir / "calls_torus.pt")
     return held
 
 
@@ -171,6 +178,42 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def pos_decode_calls(torch, dc, recorded):
+    """One callable a recorded position decode call, as the tree runs it:
+    as recorded, or, where the tree's decode takes no ``at_l``, without it
+    on a call with no toroidal axis (where it changes nothing) and
+    otherwise the decode followed by that tree's engine's seam repair (its
+    device tensors made here, outside the timed calls, as the engine made
+    them once a migration)."""
+    import inspect
+
+    import numpy as np
+
+    takes = "at_l" in inspect.signature(dc.migration_pos_decode).parameters
+    calls = []
+    for a, kw in recorded:
+        rest = {k: v for k, v in kw.items() if k != "at_l"}
+        tor = tuple(kw.get("toroidal", ()))
+        if takes or not any(tor) or kw.get("at_l") is None:
+            calls.append(lambda a=a, kw=(kw if takes else rest):
+                         dc.migration_pos_decode(*a, **kw))
+            continue
+        dev = a[0].device
+        lsz = torch.as_tensor(np.asarray(kw["lsz"], np.float32), device=dev)
+        tor_t = None if all(tor) else torch.tensor(tor, device=dev)
+        at = torch.as_tensor(np.asarray(kw["at_l"], np.float32), device=dev)
+
+        def call(a=a, rest=rest, lsz=lsz, tor_t=tor_t, at=at):
+            p = dc.migration_pos_decode(*a, **rest)
+            hit = p == lsz
+            if tor_t is not None:
+                hit &= tor_t
+            return torch.where(hit, at, p)
+
+        calls.append(call)
+    return calls
+
+
 def one(root: Path) -> dict:
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -180,23 +223,33 @@ def one(root: Path) -> dict:
 
     _build.load_all(["delta_codec"])
     out = {"root": str(root), "steps": [],
-           "registers": registers(_build.BUILDS["delta_codec"].log)}
-    for mesh in MESHES:
+           "ptxas": _build.BUILDS["delta_codec"].log}
+
+    def as_called(wrapper, recorded, **extra):
+        return [lambda a=a, kw=kw: wrapper(*a, **dict(kw, **extra))
+                for a, kw in recorded]
+
+    for mesh in MESHES + ("torus",):
         calls = torch.load(CALLS / f"calls_{mesh}.pt", map_location="cuda",
                            weights_only=False)
-        fixed = calls["fixed_scale"]
-        cases = (
-            ("delta_encode", calls["delta_encode"], dc.delta_encode, {}),
-            ("delta_encode:fixed", calls["delta_encode"], dc.delta_encode,
-             {"scale": fixed}),
-            ("migration_pos_encode", calls["migration_pos_encode"],
-             dc.migration_pos_encode, {}))
-        for label, recorded, wrapper, extra in cases:
-            def fn(recorded=recorded, wrapper=wrapper, extra=extra):
-                return [wrapper(*a, **dict(kw, **extra))
-                        for a, kw in recorded]
+        pos_decode = ("migration_pos_decode", pos_decode_calls(
+            torch, dc, calls["migration_pos_decode"]))
+        if mesh == "torus":
+            cases = (pos_decode,)
+        else:
+            cases = (("delta_encode", as_called(dc.delta_encode,
+                                                calls["delta_encode"])),
+                     ("delta_encode:fixed", as_called(
+                         dc.delta_encode, calls["delta_encode"],
+                         scale=calls["fixed_scale"])),
+                     *((n, as_called(getattr(dc, n), calls[n]))
+                       for n in CODEC[1:3]),
+                     pos_decode)
+        for label, fns in cases:
+            def fn(fns=fns):
+                return [f() for f in fns]
 
-            k = len(recorded)
+            k = len(fns)
             dev_ms, ops, complete = profiled(torch, fn, k)
             row = dict(kernel=label, mesh=mesh, calls=k, device_ms=dev_ms,
                        device_ops=ops, complete_traces=complete,
@@ -292,11 +345,13 @@ def main(argv) -> int:
         return 1
     held = json.loads(p.stdout.strip().splitlines()[-1])
     for mesh, h in held.items():
-        print(f"[calls] {mesh} mesh, one delta step: {h['calls']} encoder "
-              f"calls; zero deltas {h['zero_delta_share']!r} of the delta "
-              f"encode's elements, live rows {h['live_row_share']!r} of the "
-              f"position encode's; fixed scale {h['fixed_scale']!r}",
+        shares = "" if mesh == "torus" else (
+            f"; zero deltas {h['zero_delta_share']!r} of the delta "
+            f"encode's elements, live rows {h['live_row_share']!r} of the "
+            f"position encode's; fixed scale {h['fixed_scale']!r}")
+        print(f"[calls] {mesh}, one step: {h['calls']} calls{shares}",
               flush=True)
+    registers = chip_smoke().codec_registers
     runs, failed = [], []
     for root in argv:
         p = subprocess.run([sys.executable, __file__, "--one", root],
@@ -307,12 +362,13 @@ def main(argv) -> int:
             failed.append(root)
             continue
         run = json.loads(p.stdout.strip().splitlines()[-1])
+        run["registers"] = registers(run.pop("ptxas"))
         for name, regs, spill in run["registers"]:
             print(f"[registers] {run['root']}: {regs} ({spill} B spilled) "
                   f"{name}")
         for r in run["steps"]:
-            print(f"[codec_ab] {run['root']}: {r['kernel']} {r['mesh']} "
-                  f"mesh, a call of a delta step ({r['calls']} calls): "
+            print(f"[codec_ab] {run['root']}: {r['kernel']} {r['mesh']}, "
+                  f"a call of one step ({r['calls']} calls): "
                   f"device {r['device_ms']} ms, {r['device_ops']} device "
                   f"operations ({r['complete_traces']} of {TRACES} traces "
                   f"complete); events {r['event_ms']:.5f} ms", flush=True)
