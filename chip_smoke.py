@@ -144,7 +144,29 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    rejected at submit (unknown family, unknown parameter, a factory that
    concretizes a parameter), drained in 2 batches at occupancy 0.75, the
    second a runner-cache hit, every frame at its cadence summing to N
-   and equal to the request's solo run; requests/s, latencies.
+   and equal to the request's solo run; requests/s, latencies;
+15. uneven partitions and the overlapped sweep on the virtual mesh: (a)
+   the main path's 16,777,216 ``cell_clustering`` agents on the uneven
+   2x2 cut ``from_widths([(896, 1152), (1152, 896)])`` (1154^2 cells a
+   device with the ring, cap 48), ``int8+mig``, placed a quarter in each
+   device's slab (a piecewise-constant density the cut balances: each
+   device holds a quarter within 1 %), 10 steps with ``overlap="off"``
+   and again with ``"on"``, the counts zeroed before and read after each:
+   agents conserved, nothing dropped, no codec overflow at every step,
+   one full-block ``pair_sweep`` launch a device a step (on: the interior
+   pass) and, on, four face-band launches, each kind gated on its own
+   count, the codec's launches, the two final states bit-equal in every
+   field; ms a step and agent-updates/s of each, peak memory; (b) on the
+   densest device's aura: the interior pass's launch and each face band's
+   (a 3-plane band; along axis 1 a strided view, whose columns the
+   overlapped sweep copies) against the plain version on the band
+   and bit-equal to the same cells of a full-block launch, timed with the
+   band's bound and the copy's cost; (c) a count-driven drift with spawns
+   (the same-type law's pair count, tests/test_partition.py's update) on
+   (32, 24) cells, on one device, on the equal 2x2 split and on an uneven
+   one with the overlapped sweep: bit-equal; (d) 14 c's ensemble (4
+   lanes) on the cut ``from_widths([(224, 288), (288, 224)])``: one lane
+   launch a device a step, each lane bit-equal to its solo run.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -2806,6 +2828,313 @@ def phase_ensembles(seed: int):
     return rows, dict(one_device=one, mesh=mesh, serve=serve)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: uneven partitions and the overlapped sweep (the virtual mesh)
+# ---------------------------------------------------------------------------
+
+# The main grid cut unevenly: 896 and 1152 cells along x, 1152 and 896
+# along y (a padded block of 1152^2 cells a device, 1154^2 with its ring).
+PART_WIDTHS = ((896, 1152), (1152, 896))
+PART_STEPS = 10
+# The small count-driven check (c): 32 x 24 cells, x toroidal.
+DET_CELLS = (32, 24)
+DET_WIDTHS = ((13, 19), (10, 14))
+DET_AGENTS = 700
+# (d): 14 c's 512^2 domain cut in the main run's proportions.
+ENS_PART_WIDTHS = ((224, 288), (288, 224))
+
+
+def balanced_positions(geom, n, rng):
+    """``n`` agents, ``n / devices`` uniform in each device's owned slab
+    (0.5 from the domain's edges): a piecewise-constant density that the
+    partition balances, as a load balancer's cut follows a skewed one."""
+    cs, part = geom.cell_size, geom.partition
+    size = geom.domain_size
+    per = n // geom.n_devices
+    out = []
+    for c in np.ndindex(*geom.mesh_shape):
+        lo = [max(part.cuts[a][c[a]] * cs, 0.5) for a in range(geom.ndim)]
+        hi = [min(part.cuts[a][c[a] + 1] * cs, size[a] - 0.5)
+              for a in range(geom.ndim)]
+        out.append(rng.uniform(lo, hi, (per, geom.ndim)))
+    return np.concatenate(out).astype(np.float32)
+
+
+def partition_sim(seed: int, overlap: str):
+    """The main path's agents on the uneven 2x2 cut, int8+mig, cap 48."""
+    from repro_torch.core import Partition
+
+    part = Partition.from_widths(PART_WIDTHS)
+    sim = make_sim(cc.behavior(), partition=part, cap=MAIN_CAP,
+                   delta=MESH_DELTA, overlap=overlap, sweep_backend="auto",
+                   device="cuda")
+    n = 4 * math.prod(MAIN_INTERIOR)
+    rng = np.random.default_rng(seed)
+    pos = balanced_positions(sim.geom, n, rng)
+    attrs = {"diameter": np.full((n,), 1.0, np.float32),
+             "ctype": rng.integers(0, 2, n).astype(np.int32)}
+    sim.init(pos, attrs)
+    return sim
+
+
+def band_rows(sim, coords):
+    """The overlapped sweep's launches on device ``coords`` at this
+    state's aura: the interior pass over the block before the exchange
+    (a full-block launch) and each face band of the block after it, each
+    band against the plain version on the band (1e-5) and, bit for bit,
+    against the same cells of a full-block launch on the block after the
+    exchange; the kernel times, the bands' bound (the same bytes rule on
+    the band), and what the contiguous copy of a strided band costs (the
+    overlapped sweep copies the columns the law reads before a launch)."""
+    from repro_torch.core.neighbors import face_band, face_indices
+
+    law = "soft_repulsion_adhesion"
+    geom, eng = sim.geom, sim.engine
+    post, _, _, _, pre = eng._aura(sim.state, eng._comm(), True)
+    blk, pre_blk = device_block(post, coords), device_block(pre, coords)
+    del post, pre
+    whole = kernel_call(blk, geom, law)["force"]
+    interior_ms = cuda_ms(lambda: kernel_call(pre_blk, geom, law), 10)
+    owned = geom.owned_widths(coords)
+    faces, worst = [], 0.0
+    for axis in range(geom.ndim):
+        for face in face_indices(geom, axis, owned):
+            bgeom, band = face_band(geom, blk, axis, face)
+            cols = ("pos", "gid_rank", "gid_count") + LAW_ARGS[law][1]
+            copy_ms = 0.0
+            if not band.valid.is_contiguous():
+                copy_ms = cuda_ms(lambda: [band.attrs[c].contiguous()
+                                           for c in cols]
+                                  + [band.valid.contiguous()], 20)
+            band = AgentSoA(attrs={c: band.attrs[c].contiguous()
+                                   for c in cols},
+                            valid=band.valid.contiguous())
+            lengths = bgeom.local_shape
+            label = f"partition band {coords} axis {axis} face {face}"
+            res, _ = check_kernel(band, bgeom, law, rows_per_chunk=8,
+                                  reps=20, label=label)
+            got = kernel_call(band, geom, law)["force"]
+            if not torch.equal(got, whole.narrow(axis, face - 1, 1)):
+                fail(f"{label}: differs from the full-block launch's cells")
+            worst = max(worst, res["max_abs_err"])
+            in_radius = in_radius_pairs(band, bgeom, rows_per_chunk=8)
+            b_ms, b_by, nbytes, ops = bound(band, bgeom, law, in_radius)
+            faces.append(dict(res, axis=axis, face=face, shape=lengths,
+                              copy_ms=copy_ms, bound_ms=b_ms, bound_by=b_by,
+                              bytes=nbytes, ops=ops))
+            print(f"[{label}] band {lengths}: bit-equal to the full "
+                  f"block's cells; max_abs_err={res['max_abs_err']:.3g} "
+                  f"kernel_ms={res['ms']:.4f} (contiguous copy "
+                  f"{copy_ms:.4f}) plain_ms={res['plain_ms']:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, {ops} ops)",
+                  flush=True)
+    whole_ms = cuda_ms(lambda: kernel_call(blk, geom, law), 10)
+    face_ms = sum(f["ms"] for f in faces)
+    print(f"[partition] device {coords} (owned {owned}): interior pass "
+          f"{interior_ms:.4f} ms, its {len(faces)} face bands "
+          f"{face_ms:.4f} ms, the monolithic launch {whole_ms:.4f} ms",
+          flush=True)
+    return dict(coords=coords, owned=owned, interior_ms=interior_ms,
+                faces_ms=face_ms, monolithic_ms=whole_ms, faces=faces,
+                max_abs_err=worst)
+
+
+def partition_run(seed: int, overlap: str):
+    """Phase 15 (a)-(b): one run of the uneven main path, counts zeroed
+    just before and read after; gates on agents, drops, codec overflow,
+    balance and launches."""
+    t0 = time.perf_counter()
+    sim = partition_sim(seed, overlap)
+    torch.cuda.synchronize()
+    geom = sim.geom
+    n0 = 4 * math.prod(MAIN_INTERIOR)
+    held = sim.state.soa.valid.sum(
+        dim=tuple(range(geom.ndim, sim.state.soa.valid.dim())))
+    held = held.reshape(-1).tolist()
+    print(f"[partition {overlap}] init {n0} agents on cut {PART_WIDTHS}, "
+          f"mesh {geom.mesh_shape} x {geom.local_shape} x {geom.cap} slots: "
+          f"{time.perf_counter() - t0:.2f}s; agents by device {held}",
+          flush=True)
+    if any(abs(h - n0 / geom.n_devices) > 0.01 * n0 / geom.n_devices
+           for h in held):
+        fail(f"partition: devices hold {held}, not a quarter each within 1%")
+
+    def collect(s):
+        st = s.state
+        return torch.stack([st.soa.valid.sum(), st.dropped.sum(),
+                            st.codec_overflow.max()])
+
+    series, launches, stats = drive(sim, PART_STEPS, f"partition {overlap}",
+                                    collect)
+    n_dev = geom.n_devices
+    # one full-block launch a device a step (on: the interior pass), and
+    # with the overlapped sweep 2 D face bands, each counted at its launch
+    bands = 2 * geom.ndim if overlap == "on" else 0
+    want = {k: v for k, v in dict(
+        codec_launches(sim, PART_STEPS),
+        soft_repulsion_adhesion=PART_STEPS * n_dev,
+        **{"soft_repulsion_adhesion" + ni.FACE: PART_STEPS * n_dev * bands}
+    ).items() if v}
+    if launches != want:
+        fail(f"partition {overlap}: kernel launches {launches} != {want}")
+    for t, (n, dropped, overflow) in enumerate(series):
+        if n != n0 or dropped or overflow:
+            fail(f"partition {overlap}: step {t + 1}: agents {n}, dropped "
+                 f"{dropped}, codec_overflow {overflow}")
+    if not torch.isfinite(sim.state.soa.pos).all():
+        fail(f"partition {overlap}: non-finite positions")
+    fullest = int(sim.state.soa.valid.sum(dim=-1).max())
+    print(f"[partition {overlap}] agents {n0} at every step, dropped 0, "
+          f"codec_overflow 0; fullest cell {fullest}/{geom.cap}; "
+          f"pair_sweep launches a device a step: 1 full block, {bands} face "
+          f"bands", flush=True)
+    return sim, launches, dict(stats, fullest=fullest, held=held,
+                               agent_updates_per_s=n0 / (
+                                   stats["step_ms"] / 1e3))
+
+
+def _det_update(attrs, valid, acc, key, params, dt):
+    """A drift driven by the same-type law's pair count (under one cell a
+    step) and a child where the count is 3 (tests/test_partition.py's
+    deterministic update)."""
+    dev = valid.device
+    new = dict(attrs)
+    step = torch.tensor([1.25, -0.75], device=dev) * (
+        1.0 + 0.0625 * torch.clamp(acc["cnt"], max=8.0)[..., None])
+    new["pos"] = attrs["pos"] + torch.where(
+        valid[..., None], step, torch.zeros((), device=dev))
+    spawn = valid & (acc["cnt"] == 3.0) & (attrs["ctype"] == 1)
+    child = dict(new)
+    child["pos"] = new["pos"] + torch.tensor([0.1, 0.05], device=dev)
+    child["ctype"] = torch.zeros_like(attrs["ctype"])
+    return new, valid, spawn, child
+
+
+def _fingerprint(state):
+    """Live agents' (pos, ctype), sorted (gids follow device ranks)."""
+    v = state.soa.valid.reshape(-1)
+    p = state.soa.pos.reshape(-1, 2)[v].cpu().numpy()
+    c = state.soa.attrs["ctype"].reshape(-1)[v].cpu().numpy()
+    o = np.lexsort((c, p[:, 1], p[:, 0]))
+    return p[o], c[o]
+
+
+def phase_partition_parity(seed: int):
+    """Phase 15 (c): the count-driven drift with spawns on one device, the
+    equal 2x2 split and the uneven one (overlapped sweep), on the card:
+    bit-equal."""
+    from repro_torch.core import Partition
+
+    base = cc.behavior()
+    beh = Behavior(schema=base.schema, pair_fn=cc._same_type_pair,
+                   pair_attrs=("ctype",), update_fn=_det_update,
+                   radius=2.0, params={}, can_spawn=True)
+    rng = np.random.default_rng(seed)
+    size = np.asarray(DET_CELLS) * 2.0
+    pos = rng.uniform(0.5, size - 0.5, (DET_AGENTS, 2)).astype(np.float32)
+    attrs = {"diameter": np.full((DET_AGENTS,), 1.0, np.float32),
+             "ctype": rng.integers(0, 2, DET_AGENTS).astype(np.int32)}
+    runs = {}
+    for name, kw in (
+            ("one device", dict(interior=DET_CELLS)),
+            ("equal 2x2", dict(partition=Partition.equal(DET_CELLS,
+                                                         (2, 2)))),
+            ("uneven 2x2", dict(partition=Partition.from_widths(DET_WIDTHS),
+                                overlap="on"))):
+        sim = make_sim(beh, cap=MAIN_CAP, boundary=("toroidal", "closed"),
+                       dt=1.0, delta="off", device="cuda", **kw)
+        sim.init(pos, attrs)
+        sim.run(PART_STEPS)
+        if int(sim.state.dropped.sum()):
+            fail(f"partition parity {name}: agents dropped")
+        runs[name] = _fingerprint(sim.state)
+    want = runs["one device"]
+    if len(want[0]) <= DET_AGENTS:
+        fail("partition parity: the spawn path did not fire")
+    for name, got in runs.items():
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail(f"partition parity: {name} differs from one device")
+    print(f"[partition parity] {DET_CELLS} cells, {DET_AGENTS} agents -> "
+          f"{len(want[0])}, {PART_STEPS} steps of a count-driven drift with "
+          f"spawns: one device, the equal 2x2 split and the uneven cut "
+          f"{DET_WIDTHS} (overlapped sweep) bit-equal", flush=True)
+    return dict(agents=len(want[0]))
+
+
+def phase_partition_ensemble(seed: int):
+    """Phase 15 (d): 14 c's ensemble (4 lanes of 1,048,576 agents) on an
+    uneven 2x2 cut: one lane launch a device a step, each lane bit-equal
+    to its solo run on the same cut."""
+    from repro_torch.core import Partition
+
+    ens = sm.ensemble_family(partition=Partition.from_widths(
+        ENS_PART_WIDTHS), cap=ENS_CAP, device="cuda")
+    e0 = ens_init(ens, ENS_POINTS[:ENS_MESH_LANES], seed)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    est, _ = ens.run(e0, ENS_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in all_launches().items() if v}
+    want = {ENS_STACK: ENS_STEPS * ens.geom.n_devices}
+    collected = ens_collect(est).cpu().numpy()
+    c, dropped = collected[:, :3], collected[:, 3].tolist()
+    print(f"[partition ensemble] cut {ENS_PART_WIDTHS} x {ens.geom.cap} "
+          f"slots, {ENS_MESH_LANES} lanes, {ENS_STEPS} steps: "
+          f"{1e3 * wall / ENS_STEPS:.3f} ms a step (host clock); S/I/R "
+          f"{c.tolist()}; dropped by lane {dropped}; launches {launches}",
+          flush=True)
+    if launches != want:
+        fail(f"partition ensemble: kernel launches {launches} != {want}")
+    if not (c.sum(axis=1) == ENS_AGENTS).all() or any(dropped):
+        fail(f"partition ensemble: S+I+R {c.sum(axis=1).tolist()}, "
+             f"dropped {dropped}")
+    finals, _, _ = solo_runs(ens, e0, [ENS_STEPS])
+    for r, st in enumerate(finals):
+        check_lane_equals_solo(f"partition ensemble lane {r}",
+                               replica_state(est.state, r), st)
+    print("[partition ensemble] every lane bit-equal to its solo run on the "
+          "same cut", flush=True)
+    return dict(step_ms_host=1e3 * wall / ENS_STEPS, launches=launches)
+
+
+def phase_partition(seed: int):
+    """Phase 15: uneven partitions and the overlapped sweep."""
+    t0 = time.perf_counter()
+    off, _, stats_off = partition_run(seed, "off")
+    # the off run's final state waits on the host, so the on run's peak
+    # memory is its own
+    final_off = [(path, a.cpu()) for path, a in state_leaves(off.state)]
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    on, launches, stats_on = partition_run(seed, "on")
+    for (path, a), (_, b) in zip(state_leaves(on.state), final_off):
+        if not torch.equal(a.cpu(), b):
+            fail(f"partition: overlap on and off differ in {path}")
+    print(f"[partition] overlap on vs off after {PART_STEPS} steps: every "
+          f"field bit-equal; {stats_on['step_ms']:.3f} vs "
+          f"{stats_off['step_ms']:.3f} ms a step", flush=True)
+    del final_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = max(np.ndindex(*on.geom.mesh_shape),
+                key=lambda c: stats_on["held"][
+                    int(np.ravel_multi_index(c, on.geom.mesh_shape))]
+                / math.prod(on.geom.owned_widths(c)))
+    bands = band_rows(on, dense)
+    del on
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = phase_partition_parity(seed)
+    ens = phase_partition_ensemble(seed)
+    print(f"[partition] phase 15 in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return dict(on=stats_on, off=stats_off, launches=launches,
+                bands=bands, parity=parity, ensemble=ens)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2882,6 +3211,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ens_rows, ensembles = phase_ensembles(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    partition = phase_partition(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     kernels = [{
@@ -2926,6 +3258,13 @@ def main(argv=None) -> int:
         if name == "migration_pos_decode":
             kernels[-1]["toroidal_calls"] = torus_row
     kernels[0]["mesh_path"] = dict(mesh_stats, parity=mesh_parity)
+    # phase 15: the overlapped sweep's launches on the uneven cut, each
+    # kind as counted (interior passes, face bands)
+    interior = partition["launches"]["soft_repulsion_adhesion"]
+    faces = partition["launches"]["soft_repulsion_adhesion" + ni.FACE]
+    kernels[0]["partition_path"] = dict(
+        partition, launches=interior + faces, face_band_launches=faces,
+        interior_launches=interior)
     kernels.append(dict(
         {"name": "neighbor_force", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pair_sweep.cu",

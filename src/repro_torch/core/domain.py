@@ -5,8 +5,10 @@ A :class:`Domain` is the single source of spatial truth: dimensionality
 shape, per-axis boundary conditions (``"closed"`` | ``"toroidal"``), the
 NSG cell size, the per-cell slot capacity and the partitioning-box factor.
 :class:`Partition` carries per-axis cut positions for uneven ownership.
-Both are frozen and validated exactly as in the reference; the engine of
-this port runs equal splits only (uneven partitions: ROADMAP A7).
+Both are frozen and validated exactly as in the reference.  The partition
+is rectilinear, so along axis ``a`` a device's owned width depends only on
+its mesh coordinate along ``a`` (:attr:`Domain.axis_widths`): the virtual
+mesh's exchanges and migration index each mesh row by it.
 """
 
 from __future__ import annotations
@@ -302,12 +304,35 @@ class Domain:
                     for c, i in zip(coords, self.interior)]
         return torch.tensor(np.asarray(vals, np.float32), device=device)
 
+    def device_ends(self, device: torch.device) -> torch.Tensor:
+        """World-space end of every device's owned region along each axis
+        (the next device's origin; L at the last), ``mesh_shape +
+        (ndim,)`` float32, rounded from float64 as :meth:`device_origin`
+        rounds the origins."""
+        if self.partition is not None:
+            ends = [np.asarray(c[1:], np.float64) * self.cell_size
+                    for c in self.partition.cuts]
+        else:
+            ends = [(np.arange(m, dtype=np.float64) + 1) * (i * self.cell_size)
+                    for m, i in zip(self.mesh_shape, self.interior)]
+        grid = np.stack(np.meshgrid(*ends, indexing="ij"), axis=-1)
+        return torch.from_numpy(grid.astype(np.float32)).to(device)
+
     def device_origins(self, device: torch.device) -> torch.Tensor:
         """:meth:`device_origin` of every device of the mesh, stacked as
         ``mesh_shape + (ndim,)`` (float32)."""
         return torch.stack([self.device_origin(c, device)
                             for c in np.ndindex(*self.mesh_shape)]
                            ).reshape(self.mesh_shape + (self.ndim,))
+
+    @property
+    def axis_widths(self) -> Tuple[Tuple[int, ...], ...]:
+        """Per axis ``a``, the owned width of the devices at each mesh
+        coordinate along ``a`` (host ints; ``interior[a]`` everywhere on
+        an equal split)."""
+        if self.partition is not None:
+            return self.partition.widths
+        return tuple((i,) * m for i, m in zip(self.interior, self.mesh_shape))
 
     def owned_widths(self, coords: Tuple[int, ...]
                      ) -> Optional[Tuple[int, ...]]:

@@ -17,10 +17,17 @@ directed edge the slabs of every device are taken, encoded in one kernel
 launch per float attribute, shifted, decoded and put - and the per-device
 parts (sweep, update, spawn, clamp, binning) as a Python loop over the
 devices.  The segment runner is a plain Python loop over
-:meth:`Engine.local_step` (CUDA-graph capture is later work).  Options
-that need a later slice raise ``NotImplementedError`` naming its ROADMAP
-item: uneven partitions and the overlapped sweep (A7), guards (A9),
-rebalancing (A8), fault plans (A9).
+:meth:`Engine.local_step` (CUDA-graph capture is later work).
+
+Uneven partitions run as in the reference: each device's owned widths
+(host ints; a rectilinear cut varies them along one mesh axis each) mask
+the aura rebuild (``mask_unowned``), the update's residents and the
+binning clamp, and place each device's high faces and migration ring at
+its owned extent.  ``overlap="on"`` runs the interior/boundary split of
+the sweep (``sweep_accumulate_overlapped``).  Options that need a later
+slice raise ``NotImplementedError`` naming its ROADMAP item: an explicit
+device mesh across processes (A7), guards (A9), rebalancing (A8), fault
+plans (A9).
 
 RNG: the reference's ``jax.random`` lineage, bit for bit
 (:mod:`repro_torch.core.prng`).  :meth:`Engine.init_state` splits
@@ -35,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,10 +61,15 @@ from repro_torch.core.delta import (
     DeltaConfig, Slab, decode_migration, encode_migration,
 )
 from repro_torch.core.domain import Domain
-from repro_torch.core.grid import bin_agents, clear_ring, ring_index
+from repro_torch.core.grid import (
+    bin_agents, clear_ring, mask_unowned, mesh_owned_mask, set_plane,
+    take_plane,
+)
 from repro_torch.core.halo import Comm, VirtualMeshComm, halo_exchange, \
     init_refs, take_slab
-from repro_torch.core.neighbors import sweep_accumulate
+from repro_torch.core.neighbors import (
+    sweep_accumulate, sweep_accumulate_overlapped,
+)
 from repro_torch.device import resolve_device
 
 # Number of runtime guard counters in SimState.health (the reference's
@@ -83,6 +95,11 @@ class SimState:
     halo_bytes: torch.Tensor        # mesh_shape int32 wire bytes of last aura
     codec_overflow: torch.Tensor    # mesh_shape int32 cumulative clipped deltas
     health: torch.Tensor            # mesh_shape + (NUM_GUARDS,) int32
+
+
+# What an explicit ``mesh=`` asks for: one process a device, joined by a
+# torch.distributed comm (the reference's ShardComm), not yet ported.
+PROCESS_MESH = "an explicit device mesh across processes"
 
 
 def _unported(what: str, value, item: str) -> None:
@@ -127,6 +144,19 @@ class _MeshSoA:
         self.soa.valid[coords].copy_(blk.valid)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Frame:
+    """The geometry's per-device constants on one torch device: each
+    device's owned region (``origins`` and ``ends`` in world space,
+    ``widths`` in cells, each ``mesh_shape + (ndim,)``) and, on an uneven
+    cut, its owned cells (``owned``, ``mesh_shape + local_shape``; None on
+    an equal split)."""
+    origins: torch.Tensor
+    ends: torch.Tensor
+    widths: torch.Tensor
+    owned: Optional[torch.Tensor]
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Engine:
     geom: Domain
@@ -137,24 +167,19 @@ class Engine:
     # tiled sweep on the CPU; "reference" | "tiled" | "kernel" force one.
     sweep_backend: str = "auto"
     # Communication hiding needs a wire: on the virtual mesh there is none
-    # to hide, so "auto" and "off" run the monolithic sweep (which the
-    # reference pins bit-exact against its overlapped one); "on" raises
-    # (ROADMAP A7).
+    # to hide, so "auto" and "off" run the monolithic sweep; "on" runs the
+    # interior/boundary split (1 + 2 * ndim sweeps a device), bit-equal to
+    # it at every owned cell.
     overlap: str = "auto"
     device: Any = "cuda"
+    # _frame's constants, built once per torch device
+    _frames: Dict[Any, _Frame] = dataclasses.field(
+        default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
         if self.overlap not in ("auto", "on", "off"):
             raise ValueError(
                 f"overlap={self.overlap!r}; expected 'auto', 'on' or 'off'")
-        if self.overlap == "on":
-            raise NotImplementedError(
-                "the overlapped interior/boundary sweep is not ported yet "
-                "(ROADMAP A7)")
-        if self.geom.uneven:
-            raise NotImplementedError(
-                "uneven partitions (owned masks, traced face indices) are "
-                "not ported yet (ROADMAP A7)")
         object.__setattr__(self, "device", resolve_device(self.device))
 
     # ------------------------------------------------------------------
@@ -195,9 +220,19 @@ class Engine:
                 "carried gid columns (the re-shard / restore path) are not "
                 "ported yet (ROADMAP A8)")
 
-        lens = [i * geom.cell_size for i in geom.interior]
-        owner = [np.clip((positions[:, a] // lens[a]).astype(np.int64),
-                         0, mesh[a] - 1) for a in range(nd)]
+        part = geom.partition
+        if part is None:
+            lens = [i * geom.cell_size for i in geom.interior]
+            owner = [np.clip((positions[:, a] // lens[a]).astype(np.int64),
+                             0, mesh[a] - 1) for a in range(nd)]
+        else:
+            # each agent goes to the device whose cut slab holds its global
+            # cell along every axis
+            cell = [np.clip((positions[:, a] // geom.cell_size).astype(
+                np.int64), 0, geom.global_cells[a] - 1) for a in range(nd)]
+            owner = [np.clip(np.searchsorted(np.asarray(part.cuts[a]),
+                                             cell[a], side="right") - 1,
+                             0, mesh[a] - 1) for a in range(nd)]
         blocks = _MeshSoA(mesh)
         counters = np.zeros(mesh, dtype=np.int32)
         for coords in np.ndindex(*mesh):
@@ -220,7 +255,8 @@ class Engine:
                 flat[name] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             valid = torch.ones((n,), dtype=torch.bool, device=dev)
             soa, dropped = bin_agents(geom, flat, valid,
-                                      geom.device_origin(coords, dev))
+                                      geom.device_origin(coords, dev),
+                                      geom.owned_widths(coords))
             if int(dropped) != 0:
                 raise ValueError(
                     f"cell capacity overflow at init on device {coords}: "
@@ -251,27 +287,54 @@ class Engine:
                                device=dev),
         )
 
+    def _frame(self, dev: torch.device) -> _Frame:
+        """The geometry's per-device constants on ``dev`` (built at the
+        first call)."""
+        frame = self._frames.get(dev)
+        if frame is None:
+            geom = self.geom
+            mesh = geom.mesh_shape
+            widths = [[geom.axis_widths[a][c[a]] for a in range(geom.ndim)]
+                      for c in np.ndindex(*mesh)]
+            frame = _Frame(
+                origins=geom.device_origins(dev),
+                ends=geom.device_ends(dev),
+                widths=torch.tensor(widths, dtype=torch.int32, device=dev
+                                    ).reshape(mesh + (geom.ndim,)),
+                owned=mesh_owned_mask(geom, dev) if geom.uneven else None)
+            self._frames[dev] = frame
+        return frame
+
     # ------------------------------------------------------------------
     # One iteration
     # ------------------------------------------------------------------
-    def _sweep(self, coords: Tuple[int, ...], blk: AgentSoA
-               ) -> Dict[str, torch.Tensor]:
+    def _sweep(self, coords: Tuple[int, ...], blk: AgentSoA,
+               pre: AgentSoA = None) -> Dict[str, torch.Tensor]:
         """2. Local interaction of one device's block (its aura filled):
-        the backend-dispatched sweep of the behaviour's pair law."""
+        the backend-dispatched sweep of the behaviour's pair law; with
+        ``overlap="on"`` the interior pass over ``pre`` (the block before
+        the exchange) and the faces over ``blk``."""
         beh = self.behavior
+        if self.overlap == "on":
+            return sweep_accumulate_overlapped(
+                self.geom, pre, blk, beh.pair_fn, beh.pair_attrs,
+                beh.radius, beh.params, backend=self.sweep_backend,
+                owned=self.geom.owned_widths(coords))
         return sweep_accumulate(
             self.geom, blk, beh.pair_fn, beh.pair_attrs, beh.radius,
             beh.params, backend=self.sweep_backend)
 
     def _device_finish(self, blk: AgentSoA, acc: Dict[str, torch.Tensor],
                        origin: torch.Tensor, key: torch.Tensor, lrank: int,
-                       gidc: torch.Tensor
+                       gidc: torch.Tensor, owned=None,
+                       own: torch.Tensor = None
                        ) -> Tuple[AgentSoA, torch.Tensor, torch.Tensor]:
         """Pointwise update, spawn, clamp and re-binning of one device's
         block (its aura filled) from its sweep's accumulators ``acc``, with
-        the step key ``key``, rank ``lrank`` and spawn counter ``gidc``.
-        Returns the binned block, the agents dropped for cell overflow and
-        the advanced counter."""
+        the step key ``key``, rank ``lrank``, spawn counter ``gidc``, owned
+        widths ``owned`` and owned cells ``own`` (a ``local_shape`` mask;
+        both None on an equal split).  Returns the binned block, the agents
+        dropped for cell overflow and the advanced counter."""
         geom = self.geom
         beh = self.behavior
         nd = geom.ndim
@@ -282,6 +345,10 @@ class Engine:
         isl = tuple(slice(1, h - 1) for h in geom.local_shape)
         int_attrs = {n: a[isl] for n, a in blk.attrs.items()}
         int_valid = blk.valid[isl]
+        if own is not None:
+            # the padded interior holds this device's aura ring at
+            # owned[a] + 1: neighbour copies, not residents
+            int_valid = int_valid & own[isl][..., None]
         new_attrs, alive, spawn, child_attrs = beh.update_fn(
             int_attrs, int_valid, acc, key, beh.params, self.dt)
         new_valid = int_valid & alive
@@ -320,7 +387,7 @@ class Engine:
             gidc = gidc + sflat.sum(dtype=torch.int32)
             flat = {n: torch.cat([flat[n], child[n]]) for n in flat}
             fvalid = torch.cat([fvalid, sflat])
-        soa, dropped = bin_agents(geom, flat, fvalid, origin)
+        soa, dropped = bin_agents(geom, flat, fvalid, origin, owned)
         return soa, dropped, gidc
 
     def step_keys(self, state: SimState, n: int = 1) -> torch.Tensor:
@@ -350,29 +417,41 @@ class Engine:
               out: AgentSoA = None):
         """1. Aura update (rebuilt from scratch each iteration, section
         2.2.1), into ``out``'s tensors when given.  Returns
-        :func:`~repro_torch.core.halo.halo_exchange`'s four results as a
-        list, which :meth:`_advance` empties."""
-        nd = self.geom.ndim
+        :func:`~repro_torch.core.halo.halo_exchange`'s four results and
+        the SoA before the exchange (its ring and padding invalidated: the
+        overlapped sweep's interior pass reads it) as a list, which
+        :meth:`_advance` empties."""
+        geom = self.geom
+        nd = geom.ndim
         if comm.lead != nd:
             raise ValueError(
                 f"local_step needs a comm with {nd} leading mesh dims "
                 f"(a VirtualMeshComm); got lead={comm.lead}")
+        if geom.uneven:
+            pre = mask_unowned(
+                state.soa, geom, lead=comm.lead,
+                mask=self._frame(state.soa.valid.device).owned)
+            owned = geom.axis_widths
+        else:
+            pre = clear_ring(state.soa, comm.lead)
+            owned = None
         return list(halo_exchange(
-            self.geom, clear_ring(state.soa, comm.lead), comm, state.refs,
-            self.delta_cfg, full_halo, out=out))
+            geom, pre, comm, state.refs, self.delta_cfg, full_halo, out=out,
+            owned=owned)) + [pre if self.overlap == "on" else None]
 
     def _advance(self, state: SimState, aura: list, comm: Comm,
                  step_keys: torch.Tensor, sweep) -> SimState:
         """2.-5. of an iteration from ``aura`` (:meth:`_aura`'s list):
-        per device ``sweep(coords, block)`` (the accumulators of the
-        device's aura-filled block), the update drawing from the device's
-        step key, spawn, clamp and re-binning; then migration."""
+        per device ``sweep(coords, block, pre)`` (the accumulators of the
+        device's aura-filled block; ``pre`` is its block before the
+        exchange, or None), the update drawing from the device's step key,
+        spawn, clamp and re-binning; then migration."""
         geom = self.geom
         mesh = geom.mesh_shape
-        soa, refs, hbytes, oflow = aura
+        soa, refs, hbytes, oflow, pre = aura
         aura.clear()   # the caller's reference: the SoA dies below
         dev = state.soa.valid.device
-        origins = geom.device_origins(dev)
+        frame = self._frame(dev)
         lsz = torch.tensor(geom.domain_size, dtype=torch.float32, device=dev)
         coflow = state.codec_overflow + oflow
 
@@ -386,20 +465,22 @@ class Engine:
         for c in np.ndindex(*mesh):
             lrank = int(np.ravel_multi_index(c, mesh))
             blk = device_block(soa, c)
-            acc = sweep(c, blk)
+            acc = sweep(c, blk,
+                        None if pre is None else device_block(pre, c))
             blk, d1, gidc = self._device_finish(
-                blk, acc, origins[c], step_keys[c], lrank,
-                state.gid_counter[c])
+                blk, acc, frame.origins[c], step_keys[c], lrank,
+                state.gid_counter[c], geom.owned_widths(c),
+                None if frame.owned is None else frame.owned[c])
             del acc
             binned.put(c, blk)
             drops.append(d1)
             gidcs.append(gidc)
             del blk
-        del soa   # the aura-filled SoA is dead: free it before migration
+        del soa, pre   # the aura-filled SoA is dead: free it before migrating
         dropped = state.dropped + torch.stack(drops).reshape(mesh)
 
         # 5. Agent migration: dimension-ordered ring exchange over all axes.
-        soa3, d2, moflow = self._migrate(binned.soa, comm, origins, lsz)
+        soa3, d2, moflow = self._migrate(binned.soa, comm, frame, lsz)
 
         return SimState(
             soa=soa3,
@@ -414,7 +495,7 @@ class Engine:
             health=state.health,
         )
 
-    def _migrate(self, soa: AgentSoA, comm: Comm, origins: torch.Tensor,
+    def _migrate(self, soa: AgentSoA, comm: Comm, frame: _Frame,
                  lsz: torch.Tensor
                  ) -> Tuple[AgentSoA, torch.Tensor, torch.Tensor]:
         """Dimension-ordered emigrant routing with one-pass re-binning,
@@ -434,6 +515,15 @@ class Engine:
         (``at_l``, in the decode's launch) take the place of
         ``wrap_pos``.  Returns ``(soa, dropped, codec overflow)``, the last
         two shaped like the mesh.
+
+        Under uneven ownership the migration ring along axis ``a`` sits at
+        each device's owned extent ``owned[a] + 1`` (one index a device
+        along mesh axis ``a``), both for the emigrant faces taken here and
+        for the forwarded ring cells of pending slabs (a slab received
+        along another axis came from a device with the same coordinate
+        along ``a``).  A forwarded block's embedding coordinate in a
+        widened payload only places it (the final pass re-bins by
+        position), so it stays at 1 or ``h - 2``.
         """
         geom = self.geom
         nd = geom.ndim
@@ -453,7 +543,7 @@ class Engine:
             half_ext = np.asarray(
                 [(s - 2) * geom.cell_size / 2.0 for s in shape], np.float32)
             half_rng = half_ext + 2.0 * np.float32(geom.cell_size)
-            center = origins + torch.from_numpy(half_ext).to(dev)
+            center = frame.origins + torch.from_numpy(half_ext).to(dev)
 
         # The per-axis mask, for mixed boundaries only (one host copy).
         tor_t = torch.tensor(tor, device=dev) \
@@ -507,9 +597,13 @@ class Engine:
         # Received slabs still carrying cells that need later-axis hops:
         # (slab, axis it arrived along, its fixed cell index on that axis).
         pending = []
+        widths = geom.axis_widths
         for a in range(nd):
             h = shape[a]
-            hi_idx = h - 1
+            # the migration ring along a: the padded edge on an equal
+            # split, each device's owned extent + 1 on an uneven one
+            hi_idx = h - 1 if not geom.uneven \
+                else tuple(w + 1 for w in widths[a])
             grid_axes = [c for c in range(nd) if c != a]
             face_grid = tuple(shape[c] for c in grid_axes)
 
@@ -522,12 +616,12 @@ class Engine:
             for slab, b, fb in pending:
                 p_axes = [c for c in range(nd) if c != b]
                 ap = p_axes.index(a)
-                lo = {n: v[ring_index(ap, 0, lead)] for n, v in slab.items()}
-                hi = {n: v[ring_index(ap, hi_idx, lead)]
+                lo = {n: take_plane(v, ap, 0, lead) for n, v in slab.items()}
+                hi = {n: take_plane(v, ap, hi_idx, lead, mesh_axis=a)
                       for n, v in slab.items()}
                 nv = slab["valid"].clone()
-                nv[ring_index(ap, 0, lead)] = False
-                nv[ring_index(ap, hi_idx, lead)] = False
+                set_plane(nv, ap, 0, False, lead)
+                set_plane(nv, ap, hi_idx, False, lead, mesh_axis=a)
                 fwd.append(({**slab, "valid": nv}, b, fb))
                 bpos = grid_axes.index(b)
                 blocks_m.append((lo, bpos, fb))
@@ -547,7 +641,7 @@ class Engine:
                         z = torch.zeros(
                             mesh + face_grid + (v.shape[lead + g - 1],)
                             + trailing, dtype=base.dtype, device=base.device)
-                        z[ring_index(bpos, fb, lead)] = v
+                        set_plane(z, bpos, fb, v, lead)
                         parts.append(z)
                     out[n] = torch.cat(parts, dim=lead + g)
                 return out
@@ -557,12 +651,18 @@ class Engine:
             moflow = moflow + of_p + of_m
 
             v = soa.valid.clone()
-            v[ring_index(a, 0, lead)] = False
-            v[ring_index(a, hi_idx, lead)] = False
+            set_plane(v, a, 0, False, lead)
+            set_plane(v, a, hi_idx, False, lead)
             soa = soa.replace(valid=v)
             # recv_p came from the -a neighbour -> sits at my a-cell 1;
             # recv_m from the +a neighbour -> my a-cell h-2.
             pending = pending + [(recv_p, a, 1), (recv_m, a, h - 2)]
+
+        if mig_q is not None:
+            # every hop is through: what the slabs hold stays here
+            pending = [({**slab, POS: self._settle(
+                slab[POS], frame.origins, frame.ends, frame.widths, lead)},
+                        b, fb) for slab, b, fb in pending]
 
         def fl(slab: Slab, c):
             v = slab["valid"][c]
@@ -578,11 +678,45 @@ class Engine:
             cat = {n: torch.cat([base_attrs[n]] + [p[0][n] for p in parts])
                    for n in base_attrs}
             catv = torch.cat([base_valid] + [p[1] for p in parts])
-            blk, d = bin_agents(geom, cat, catv, origins[c])
+            blk, d = bin_agents(geom, cat, catv, frame.origins[c],
+                                geom.owned_widths(c))
             del cat, catv
             out.put(c, blk)
             drops.append(d)
         return out.soa, torch.stack(drops).reshape(mesh), moflow
+
+    def _settle(self, pos: torch.Tensor, starts: torch.Tensor,
+                ends: torch.Tensor, widths: torch.Tensor, lead: int
+                ) -> torch.Tensor:
+        """Received migrants' positions (``lead`` mesh dims first) moved
+        onto their receiver's owned slab (per device and axis: its
+        ``starts`` and ``ends`` in world space, ``widths`` in cells) where
+        their cell would be a ring cell.  The position codec rounds an
+        emigrant to its quantum (the sender's range / 32767) about the
+        sender's box centre, which can put one that just crossed a cut
+        back across it; binned into the receiver's ring, the next aura
+        rebuild would delete it uncounted, as the reference does (ROADMAP
+        C 6).  Such a position goes to the slab's nearest edge: its start,
+        or the largest float32 below its end (on a toroidal axis the
+        nearer one across the seam)."""
+        geom = self.geom
+        dev = pos.device
+        shape = (pos.shape[:lead] + (1,) * (pos.dim() - lead - 1)
+                 + (geom.ndim,))
+        lo, hi = starts.reshape(shape), ends.reshape(shape)
+        widths = widths.reshape(shape)
+        cs = torch.tensor(geom.cell_size, dtype=torch.float32, device=dev)
+        cell = torch.floor((pos - lo) / cs).to(torch.int32) + 1
+        out = (cell < 1) | (cell > widths)
+        to_lo = cell < 1
+        if any(geom.toroidal):
+            lsz = torch.tensor(geom.domain_size, dtype=torch.float32,
+                               device=dev)
+            nearer_lo = _jnp_mod(lo - pos, lsz) <= _jnp_mod(pos - hi, lsz)
+            tor = torch.tensor(geom.toroidal, device=dev)
+            to_lo = torch.where(tor, out & nearer_lo, to_lo)
+        below_hi = torch.nextafter(hi, torch.full_like(hi, -math.inf))
+        return torch.where(to_lo, lo, torch.where(out, below_hi, pos))
 
     # ------------------------------------------------------------------
     # Drivers
@@ -628,7 +762,7 @@ class Engine:
         ``step_fn`` call per step when a ``step_fn`` or a per-step
         ``collect`` is given.  Returns ``(engine, state, series)``."""
         _unported("dynamic load balancing", rebalancer, "A8")
-        _unported("an explicit device mesh", mesh, "A7")
+        _unported(PROCESS_MESH, mesh, "A7")
         _unported("fault plans", fault_plan, "A9")
         cfg = self.delta_cfg
         r = max(int(cfg.refresh_interval), 1)

@@ -30,9 +30,11 @@ looks at them.
 Runners are cached in a :class:`~repro_torch.core.compile_cache.
 CompiledCache` keyed by the family fingerprint (+ mesh): the scenario
 server (``launch/serve.py``) reports its hits, and CUDA graphs of a runner
-will be keyed the same way.  Not ported: uneven partitions (ROADMAP A7),
-the guards and their per-lane health words (A9), an explicit device mesh
-(A7).
+will be keyed the same way.  An uneven ``Partition`` runs as on the solo
+engine: the lanes' auras and updates are ``Engine._aura``/``_advance``,
+which mask each device's block to its owned cells.  Not ported: the
+guards and their per-lane health words (ROADMAP A9), an explicit device
+mesh across processes (A7).
 """
 
 from __future__ import annotations
@@ -47,7 +49,9 @@ from repro_torch.core.agent_soa import AgentSoA
 from repro_torch.core.compile_cache import CompiledCache
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain
-from repro_torch.core.engine import Engine, SimState, _unported
+from repro_torch.core.engine import (
+    PROCESS_MESH, Engine, SimState, _unported,
+)
 from repro_torch.core.neighbors import (
     resolve_sweep_backend, sweep_accumulate_lanes,
 )
@@ -155,10 +159,6 @@ class Ensemble:
                            tuple(sorted(self.param_names)))
         _unported("guards", None if self.guards in (None, "off")
                   else self.guards, "A9")
-        if self.geom.uneven:
-            raise NotImplementedError(
-                "an ensemble on an uneven partition is not ported yet "
-                "(ROADMAP A7)")
         object.__setattr__(self, "device", resolve_device(self.device))
 
     # -- identity ------------------------------------------------------
@@ -293,11 +293,12 @@ class Ensemble:
         for r, eng in enumerate(lanes.engines):
             out.append(eng._advance(
                 states[r], auras[r], comm, keys[r],
-                lambda c, blk, r=r: {n: a[r] for n, a in accs[c].items()}))
+                lambda c, blk, pre, r=r: {n: a[r]
+                                          for n, a in accs[c].items()}))
         return out
 
     def _build_runner(self, mesh):
-        _unported("an explicit device mesh", mesh, "A7")
+        _unported(PROCESS_MESH, mesh, "A7")
         base = self.proto_engine()
         comm = base._comm()
         delta_on = self.delta_cfg.enabled

@@ -20,21 +20,24 @@ from repro_torch.core.agent_soa import AgentSoA, POS, flat_view
 from repro_torch.core.domain import Domain
 
 
-def cell_of(geom: Domain, pos: torch.Tensor, origin: torch.Tensor
-            ) -> torch.Tensor:
+def cell_of(geom: Domain, pos: torch.Tensor, origin: torch.Tensor,
+            owned=None) -> torch.Tensor:
     """Map world positions (N, ndim) to local cell coordinates (N, ndim)
     including the halo offset: interior cells are [1, i_a] per axis, ring
-    cells (0 or i_a + 1) hold agents that must migrate."""
+    cells (0 or i_a + 1) hold agents that must migrate.  Under uneven
+    ownership ``owned`` holds the device's per-axis owned widths and the
+    clamp resolves against them: the high migration ring sits at
+    ``owned[a] + 1``, and padding cells beyond it never bin agents."""
     # float32 division by a device tensor (not a Python scalar, which CUDA
     # may turn into a multiplication by the reciprocal), as the reference's
     # (pos - origin) / float32(cell_size).
     cs = torch.tensor(geom.cell_size, dtype=torch.float32, device=pos.device)
     rel = (pos - origin[None, :]) / cs
     c = torch.floor(rel).to(torch.int32) + 1
-    shape = geom.local_shape
+    top = [h - 1 for h in geom.local_shape] if owned is None \
+        else [int(w) + 1 for w in owned]
     return torch.stack(
-        [torch.clamp(c[:, a], 0, shape[a] - 1) for a in range(geom.ndim)],
-        dim=1)
+        [torch.clamp(c[:, a], 0, top[a]) for a in range(geom.ndim)], dim=1)
 
 
 def ravel_cells(geom: Domain, cells: torch.Tensor) -> torch.Tensor:
@@ -73,19 +76,21 @@ def bin_agents(
     attrs: Dict[str, torch.Tensor],
     valid: torch.Tensor,
     origin: torch.Tensor,
+    owned=None,
 ) -> Tuple[AgentSoA, torch.Tensor]:
     """Capacity-bounded scatter of flat agents (N, ...) into the local
     cell-slot grid ``local_shape + (K, ...)``.
 
     Returns the binned SoA and the number of agents dropped for cell
-    overflow, as an int32 device tensor.
+    overflow, as an int32 device tensor.  ``owned`` (the device's per-axis
+    owned widths) switches the clamp to uneven ownership (:func:`cell_of`).
     """
     shape = geom.local_shape
     cap = geom.cap
     n = valid.shape[0]
     dev = valid.device
 
-    cell_id = ravel_cells(geom, cell_of(geom, attrs[POS], origin))
+    cell_id = ravel_cells(geom, cell_of(geom, attrs[POS], origin, owned))
     n_cells = math.prod(shape)
     # Invalid agents sort to a sentinel bucket past the last cell.
     key = torch.where(valid, cell_id, cell_id.new_tensor(n_cells))
@@ -135,10 +140,83 @@ def interior_mask(geom: Domain) -> np.ndarray:
     return m
 
 
+def owned_mask(geom: Domain, owned, device=None) -> torch.Tensor:
+    """Boolean ``local_shape`` mask of a device's owned cells under uneven
+    ownership: local cells ``[1, owned[a]]`` per axis.  Ring cells (0 and
+    ``owned[a] + 1``) and the padding beyond the ring are False."""
+    m = torch.zeros(geom.local_shape, dtype=torch.bool, device=device)
+    m[tuple(slice(1, int(w) + 1) for w in owned)] = True
+    return m
+
+
+def mesh_owned_mask(geom: Domain, device=None) -> torch.Tensor:
+    """:func:`owned_mask` of every device of the mesh, ``mesh_shape +
+    local_shape``."""
+    return torch.stack([owned_mask(geom, geom.owned_widths(c), device)
+                        for c in np.ndindex(*geom.mesh_shape)]
+                       ).reshape(geom.mesh_shape + geom.local_shape)
+
+
+def mask_unowned(soa: AgentSoA, geom: Domain, owned=None, lead: int = 0,
+                 mask: torch.Tensor = None) -> AgentSoA:
+    """Uneven-ownership analogue of :func:`clear_ring`: invalidate every
+    slot outside the owned region - the aura ring at 0 and ``owned[a] + 1``
+    and the padding cells beyond it, which never hold agents.  ``owned``
+    is one device's widths (``lead`` 0); a mesh-layout SoA (``lead`` =
+    ndim leading mesh dims) takes each device's from ``geom``.  ``mask``
+    is that region when the caller keeps it (:func:`owned_mask` /
+    :func:`mesh_owned_mask`).  Returns a new ``valid``; the input SoA is
+    untouched."""
+    if mask is None:
+        mask = owned_mask(geom, owned, soa.valid.device) if lead == 0 \
+            else mesh_owned_mask(geom, soa.valid.device)
+    return soa.replace(valid=soa.valid & mask[..., None])
+
+
 def ring_index(axis: int, index, lead: int = 0) -> Tuple:
     """Indexing tuple selecting one cell-hyperplane along a grid axis,
     behind ``lead`` leading device-mesh dims."""
     return (slice(None),) * (lead + axis) + (index,)
+
+
+def plane_index(index):
+    """A plane index as :func:`take_plane` takes it: an int, or one int a
+    device along a mesh axis, folded to an int where they agree."""
+    if isinstance(index, (int, np.integer)):
+        return int(index)
+    index = tuple(int(i) for i in index)
+    return index[0] if len(set(index)) == 1 else index
+
+
+def take_plane(t: torch.Tensor, axis: int, index, lead: int = 0,
+               mesh_axis: int = None) -> torch.Tensor:
+    """``t[ring_index(axis, index, lead)]``: one cell-hyperplane along grid
+    axis ``axis``.  ``index`` is an int, or (on a mesh-layout tensor) one
+    int a device along mesh axis ``mesh_axis`` (default ``axis``): an
+    uneven partition's owned extents, which a rectilinear cut varies along
+    that axis only.  A view for an int index, a new tensor otherwise."""
+    index = plane_index(index)
+    if isinstance(index, int):
+        return t[ring_index(axis, index, lead)]
+    ma = axis if mesh_axis is None else mesh_axis
+    return torch.cat([t.narrow(ma, i, 1)[ring_index(axis, j, lead)]
+                      for i, j in enumerate(index)], dim=ma)
+
+
+def set_plane(t: torch.Tensor, axis: int, index, value, lead: int = 0,
+              mesh_axis: int = None) -> None:
+    """``t[ring_index(axis, index, lead)] = value`` in place, ``index`` as
+    :func:`take_plane` takes it (``value`` a tensor shaped like that plane,
+    or a scalar)."""
+    index = plane_index(index)
+    if isinstance(index, int):
+        t[ring_index(axis, index, lead)] = value
+        return
+    ma = axis if mesh_axis is None else mesh_axis
+    for i, j in enumerate(index):
+        v = value.narrow(ma, i, 1) if isinstance(value, torch.Tensor) \
+            else value
+        t.narrow(ma, i, 1)[ring_index(axis, j, lead)] = v
 
 
 def clear_ring(soa: AgentSoA, lead: int = 0) -> AgentSoA:

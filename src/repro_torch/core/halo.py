@@ -16,8 +16,11 @@ Two comms stand in for the reference's:
   device has no source, as ``ppermute`` gives them.
 
 The exchange and the slab helpers work on either: a comm's ``lead`` says
-how many leading mesh dims its tensors carry.  A ``torch.distributed``
-comm across cards is later work (ROADMAP A7).
+how many leading mesh dims its tensors carry.  Under an uneven partition
+the high faces sit at each device's owned extent, so on the virtual mesh
+a slab's index along its axis is one int a device along that mesh axis
+(:func:`~repro_torch.core.grid.take_plane`).  A ``torch.distributed``
+comm across processes is later work (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from repro_torch.core.delta import (
     payload_bytes,
 )
 from repro_torch.core.domain import AXIS_CHARS, Domain
-from repro_torch.core.grid import ring_index
+from repro_torch.core.grid import ring_index, set_plane, take_plane
 
 
 class Comm:
@@ -139,27 +142,28 @@ class VirtualMeshComm(Comm):
 # Slab extraction / insertion
 # ---------------------------------------------------------------------------
 
-def take_slab(soa: AgentSoA, axis: int, index: int, lead: int = 0) -> Slab:
+def take_slab(soa: AgentSoA, axis: int, index, lead: int = 0) -> Slab:
     """Copy one cell-hyperplane (incl. valid mask) of every device out as
-    an exchange slab (``lead`` mesh dims first).
+    an exchange slab (``lead`` mesh dims first).  ``index`` is an int, or
+    on a mesh one int a device along mesh axis ``axis``
+    (:func:`~repro_torch.core.grid.take_plane`).
 
     A copy, not a view: slabs are kept as delta references and must not
     change when the SoA's ring is written later in the same exchange."""
-    idx = ring_index(axis, index, lead)
-    slab = {name: a[idx].clone() for name, a in soa.attrs.items()}
-    slab["valid"] = soa.valid[idx].clone()
+    slab = {name: take_plane(a, axis, index, lead).clone()
+            for name, a in soa.attrs.items()}
+    slab["valid"] = take_plane(soa.valid, axis, index, lead).clone()
     return slab
 
 
-def put_slab(soa: AgentSoA, axis: int, index: int, slab: Slab,
+def put_slab(soa: AgentSoA, axis: int, index, slab: Slab,
              lead: int = 0) -> AgentSoA:
     """Write ``slab`` into one hyperplane of ``soa`` **in place** (the
     reference returns a new SoA; the in-place write saves a full SoA copy
-    per edge).  Returns ``soa``."""
-    idx = ring_index(axis, index, lead)
+    per edge), ``index`` as :func:`take_slab` takes it.  Returns ``soa``."""
     for name, a in soa.attrs.items():
-        a[idx] = slab[name]
-    soa.valid[idx] = slab["valid"]
+        set_plane(a, axis, index, slab[name], lead)
+    set_plane(soa.valid, axis, index, slab["valid"], lead)
     return soa
 
 
@@ -208,6 +212,7 @@ def halo_exchange(
     cfg: DeltaConfig,
     full: bool,
     out: AgentSoA = None,
+    owned=None,
 ) -> Tuple[AgentSoA, Dict[str, Slab], int, torch.Tensor]:
     """Rebuild the aura ring from neighbour devices' boundary cells.
 
@@ -225,6 +230,16 @@ def halo_exchange(
     and not ``full`` the float attributes cross as quantized deltas
     against those references (:func:`repro_torch.core.delta.encode_delta`),
     one kernel launch per float attribute for every device at once.
+
+    Under uneven ownership (``owned``: per axis, one device's owned width
+    on a one-device comm, or the widths at each mesh coordinate along the
+    axis, ``Domain.axis_widths``, on the virtual mesh) each device sends
+    its last owned hyperplane ``owned[a]`` and receives into its ring at
+    ``owned[a] + 1``; the low side stays at 1 and 0.  Slab shapes are the
+    same on every device (full padded hyperplanes; slots beyond a sender's
+    cross-axis widths are invalid), so the per-edge references work
+    unchanged, and a rectilinear partition gives neighbours along an axis
+    the same cross-axis widths, so a slab lands aligned.
     """
     lead = comm.lead
     shape = geom.local_shape
@@ -256,9 +271,16 @@ def halo_exchange(
     for axis in range(geom.ndim):
         h = shape[axis]
         c = AXIS_CHARS[axis]
+        if owned is None:
+            hi_src, hi_dst = h - 2, h - 1
+        elif isinstance(owned[axis], (int, np.integer)):
+            hi_src, hi_dst = int(owned[axis]), int(owned[axis]) + 1
+        else:
+            hi_src = tuple(int(w) for w in owned[axis])
+            hi_dst = tuple(w + 1 for w in hi_src)
         # my high face -> +axis neighbour's low ring, and vice versa
-        soa = _exchange(soa, axis, h - 2, 0, +1, c + "p_out", c + "m_in")
-        soa = _exchange(soa, axis, 1, h - 1, -1, c + "m_out", c + "p_in")
+        soa = _exchange(soa, axis, hi_src, 0, +1, c + "p_out", c + "m_in")
+        soa = _exchange(soa, axis, 1, hi_dst, -1, c + "m_out", c + "p_in")
     return soa, new_refs, nbytes, overflow
 
 

@@ -20,12 +20,17 @@ CPU tensor.  All backends share the masking semantics: invalid slots,
 self-pairs (by global id) and pairs beyond the radius contribute zero.
 :func:`sweep_accumulate_lanes` is the lane form an ensemble sweeps with:
 the lanes of one device block, each with its own pair function and
-params, in one kernel launch (the other backends: lane by lane).  The
-overlapped interior/boundary sweep waits for ROADMAP A7.
+params, in one kernel launch (the other backends: lane by lane).
+:func:`sweep_accumulate_overlapped` is the interior/boundary split of the
+sweep (communication hiding): the whole sweep over the pre-exchange SoA,
+then each of the ``2 * ndim`` ring-adjacent faces recomputed over its
+3-plane band of the post-exchange SoA - on the kernel, one more launch a
+face.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -258,3 +263,105 @@ def sweep_accumulate_lanes(
         fn, pair_attrs, radius, p) for b, (fn, p) in enumerate(
             zip(pair_fns, params))]
     return {n: torch.stack([acc[n] for acc in per]) for n in per[0]}
+
+
+# ---------------------------------------------------------------------------
+# Overlapped interior/boundary split (communication hiding)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _SlabGeom:
+    """Domain stand-in for a face band: every backend reads exactly these
+    attributes, so the unmodified sweep runs on a sub-block of the local
+    grid (the 3-plane band around a boundary hyperplane)."""
+    local_shape: Tuple[int, ...]
+    interior: Tuple[int, ...]
+    ndim: int
+    cap: int
+    toroidal: Tuple[bool, ...]
+    domain_size: Tuple[float, ...]
+
+
+def face_band(geom: Domain, soa: AgentSoA, axis: int, face_idx: int
+              ) -> Tuple[_SlabGeom, AgentSoA]:
+    """The 3-plane band ``[face_idx - 1, face_idx + 1]`` along ``axis`` of
+    a block (the full padded extent of every other axis) and its geometry,
+    whose own interior is the one plane at ``face_idx``.  The band is a
+    view: contiguous along axis 0, strided along a later axis."""
+    band = AgentSoA(attrs={n: a.narrow(axis, face_idx - 1, 3)
+                           for n, a in soa.attrs.items()},
+                    valid=soa.valid.narrow(axis, face_idx - 1, 3))
+    lengths = tuple(3 if a == axis else h
+                    for a, h in enumerate(geom.local_shape))
+    return _SlabGeom(local_shape=lengths,
+                     interior=tuple(h - 2 for h in lengths),
+                     ndim=geom.ndim, cap=geom.cap, toroidal=geom.toroidal,
+                     domain_size=geom.domain_size), band
+
+
+def face_indices(geom: Domain, axis: int, owned=None) -> Tuple[int, int]:
+    """The two ring-adjacent faces along ``axis`` (local indices): 1, and
+    ``h - 2`` or the owned extent ``owned[axis]``."""
+    hi = geom.local_shape[axis] - 2 if owned is None else int(owned[axis])
+    return (1, hi)
+
+
+def _face_sweep(backend: str, bgeom: _SlabGeom, band: AgentSoA,
+                pair_fn: PairFn, pair_attrs: Tuple[str, ...], radius: float,
+                params: dict) -> Tensors:
+    """One face band's sweep.  The kernel reads contiguous columns, so on
+    it a band (strided along a later axis) has the columns the law reads
+    copied first, and its launch counts as a face band's."""
+    if backend != "kernel":
+        return _BACKENDS[backend](bgeom, band, pair_fn, pair_attrs, radius,
+                                  params)
+    names = dict.fromkeys((POS, GID_RANK, GID_COUNT) + tuple(pair_attrs))
+    return neighbor_interaction.pair_sweep(
+        {n: band.attrs[n].contiguous() for n in names},
+        band.valid.contiguous(), pair_fn=pair_fn, pair_attrs=pair_attrs,
+        radius=radius, params=params, box=minimum_image_box(bgeom),
+        face=True)
+
+
+def sweep_accumulate_overlapped(
+    geom: Domain,
+    soa_pre: AgentSoA,
+    soa_post: AgentSoA,
+    pair_fn: PairFn,
+    pair_attrs: Tuple[str, ...],
+    radius: float,
+    params: dict,
+    *,
+    backend: str = "reference",
+    owned=None,
+) -> Tensors:
+    """Interior/boundary split sweep for communication hiding.
+
+    ``soa_pre`` is one device's block *before* the aura exchange (ring
+    invalidated by ``clear_ring``/``mask_unowned``) and ``soa_post`` the
+    same block after it.  The interior pass sweeps ``soa_pre`` whole: it
+    does not wait for the exchange.  Deep cells never read a ring
+    hyperplane, and the exchange writes only ring hyperplanes, so their
+    sums are final already.  The boundary pass then recomputes each
+    ring-adjacent face (index 1, and ``h - 2`` or, under uneven ownership,
+    the owned extent ``owned[a]``) from ``soa_post`` and overwrites those
+    planes of the accumulators.  A cell on several faces gets its full
+    sum from each, so the overwrite is idempotent at edges and corners.
+    Per backend the result equals the monolithic sweep of ``soa_post`` bit
+    for bit at every owned cell (every interior cell on an equal split):
+    each cell's sum runs over the same stencil in the same order.
+    """
+    backend = resolve_sweep_backend(backend, soa_pre.valid.device)
+    acc = _BACKENDS[backend](geom, soa_pre, pair_fn, pair_attrs, radius,
+                             params)
+    for axis in range(geom.ndim):
+        for face_idx in face_indices(geom, axis, owned):
+            # the band is the face's whole 3^D stencil support, so the
+            # unmodified sweep over it sums each face cell as the whole
+            # sweep does
+            bgeom, band = face_band(geom, soa_post, axis, face_idx)
+            facc = _face_sweep(backend, bgeom, band, pair_fn, pair_attrs,
+                               radius, params)
+            for name, a in acc.items():
+                a.narrow(axis, face_idx - 1, 1).copy_(facc[name])
+    return acc

@@ -9,9 +9,11 @@
 The facade owns the engine, the state and the scheduled operations.  It
 runs on the CUDA device unless ``device="cpu"`` is passed.  A geometry with
 ``mesh_shape`` other than all ones runs on the virtual device mesh of
-``core.engine`` (the whole mesh on one card).  Not ported in this slice,
-and raising ``NotImplementedError`` when asked for: an explicit ``mesh=``
-object (ROADMAP A7), ``rebalance`` (A8), ``checkpoint`` (A6), ``guards``,
+``core.engine`` (the whole mesh on one card), on an equal split or an
+uneven ``Partition`` (``Domain(partition=...)``).  Not ported in this
+slice, and raising ``NotImplementedError`` when asked for: an explicit
+``mesh=`` object, one process a device joined by a ``torch.distributed``
+comm (ROADMAP A7), ``rebalance`` (A8), ``checkpoint`` (A6), ``guards``,
 ``supervised`` runs and fault plans (A9).  A list of several behaviours
 is composed (:func:`~repro_torch.core.behaviors.compose`), as the
 reference does.  Of the construction-time
@@ -31,7 +33,8 @@ from repro_torch.core.behaviors import Behavior, compose
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain
 from repro_torch.core.engine import (
-    Engine, SimState, _unported, codec_overflow_count, total_agents,
+    PROCESS_MESH, Engine, SimState, _unported, codec_overflow_count,
+    total_agents,
 )
 
 # Geometry defaults applied when the first argument is a kwargs dict.
@@ -109,7 +112,9 @@ class Simulation:
       sweep_backend: ``"auto" | "reference" | "tiled" | "kernel"``;
         ``"auto"`` is the CUDA kernel on the card, the tiled sweep on the
         CPU.
-      overlap: ``"auto"`` or ``"off"`` (``"on"`` needs ROADMAP A7).
+      overlap: ``"auto"`` and ``"off"`` run the monolithic sweep (the
+        virtual mesh has no wire to hide), ``"on"`` the interior/boundary
+        split (bit-equal at every owned cell).
       check: stencil-soundness gate, ``"error"`` | ``"warn"`` | ``"off"``.
       device: ``"cuda"`` (default; raises without a GPU) or ``"cpu"``.
     """
@@ -120,7 +125,7 @@ class Simulation:
                  dt: float = 1.0, rebalance=None, checkpoint=None,
                  sweep_backend: str = "auto", overlap: str = "auto",
                  check: str = "error", guards=None, device="cuda"):
-        _unported("an explicit device mesh", mesh, "A7")
+        _unported(PROCESS_MESH, mesh, "A7")
         _unported("rebalance", rebalance, "A8")
         _unported("checkpoint", checkpoint, "A6")
         _unported("guards", guards, "A9")

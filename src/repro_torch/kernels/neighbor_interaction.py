@@ -36,8 +36,10 @@ slabs on its own kernel in the same source, with
 beside it.
 
 Each launch adds one to ``LAUNCHES[law]`` (``LAUNCHES["neighbor_force"]``
-for the legacy kernel), whatever its lanes; nothing else touches the
-counts, so a run can show that it went through the kernel.
+for the legacy kernel), whatever its lanes, or, for a face band of the
+overlapped sweep (``pair_sweep(..., face=True)``), to
+``LAUNCHES[law + FACE]``; nothing else touches the counts, so a run can
+show that it went through the kernel, and on which blocks.
 """
 
 from __future__ import annotations
@@ -138,10 +140,12 @@ STACKS: Dict[Tuple[str, ...], PairLaw] = {
 # gates (csrc/pair_sweep.cu kMaxParams, kMaxParts).
 _MAX_PARAMS, _MAX_GATES = 8, 4
 
-# Kernel launches per law since the last reset_launches(), and of the
-# legacy neighbor_force kernel.
-LAUNCHES: Dict[str, int] = {law.name: 0 for law in LAWS.values()}
-LAUNCHES.update({law.name: 0 for law in STACKS.values()})
+# Kernel launches per law since the last reset_launches() (a face band's
+# under the law's name + FACE), and of the legacy neighbor_force kernel.
+FACE = "@face"
+LAUNCHES: Dict[str, int] = {
+    law.name + tag: 0 for law in (*LAWS.values(), *STACKS.values())
+    for tag in ("", FACE)}
 LAUNCHES["neighbor_force"] = 0
 
 
@@ -325,15 +329,16 @@ def pair_sweep_plain(
 def pair_sweep(
     attrs: Tensors, valid: torch.Tensor, *, pair_fn: Callable,
     pair_attrs: Sequence[str], radius: float, params: dict,
-    box: Optional[Sequence[Optional[float]]] = None,
+    box: Optional[Sequence[Optional[float]]] = None, face: bool = False,
 ) -> Tensors:
     """Per-agent pair sums over the resident SoA.
 
     ``attrs``/``valid`` are the resident ``(*local_grid, K, ...)`` tensors
-    (interior plus the filled halo ring).  Returns a dict of
-    ``(*interior, K, *t)`` float32 sums.  On a CUDA tensor this launches the
-    ``pair_sweep`` kernel (or raises); on a CPU tensor it runs the plain
-    version.
+    (interior plus the filled halo ring), each contiguous.  Returns a dict
+    of ``(*interior, K, *t)`` float32 sums.  On a CUDA tensor this launches
+    the ``pair_sweep`` kernel (or raises); on a CPU tensor it runs the
+    plain version.  ``face`` counts the launch as a face band's of the
+    overlapped sweep (``LAUNCHES[law + FACE]``).
     """
     nd = valid.dim() - 1
     interior = tuple(h - 2 for h in valid.shape[:nd])
@@ -349,7 +354,8 @@ def pair_sweep(
     law = law_for(pair_fn)
     vals, gates = _law_args(law, pair_fn, params)
     one = {n: a.unsqueeze(0) for n, a in attrs.items()}
-    outs = _launch(law, one, valid.unsqueeze(0), radius, vals, gates, box)
+    outs = _launch(law, one, valid.unsqueeze(0), radius, vals, gates, box,
+                   face=face)
     return {n: o[0] for n, o in outs.items()}
 
 
@@ -440,11 +446,13 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
 def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
             radius: float, params: list, gates: list,
             box: Optional[Sequence[Optional[float]]],
-            table: Optional[torch.Tensor] = None) -> Tensors:
+            table: Optional[torch.Tensor] = None, face: bool = False
+            ) -> Tensors:
     """One launch over the lanes of ``(B, *local_grid, K, ...)`` columns
     (a solo sweep is one lane with ``params``/``gates`` from the host;
-    with ``table``, each lane's from its row).  Returns ``(B, *interior,
-    K, *t)`` outputs."""
+    with ``table``, each lane's from its row), counted under ``law`` or,
+    with ``face``, ``law + FACE``.  Returns ``(B, *interior, K, *t)``
+    outputs."""
     nd = valid.dim() - 2
     if nd not in (2, 3):
         raise ValueError(f"pair_sweep: a {nd}-D grid; the kernel takes "
@@ -516,7 +524,7 @@ def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
         raise RuntimeError(
             f"pair_sweep kernel launch failed: cudaError {err} "
             f"({lib.pair_sweep_error_string(err).decode()})")
-    LAUNCHES[law.name] += 1
+    LAUNCHES[law.name + (FACE if face else "")] += 1
     return outs
 
 

@@ -131,8 +131,8 @@ class ScenarioServer:
 
     def __init__(self, families: Sequence[ScenarioFamily] = (),
                  slot_size: int = 8, mesh=None):
-        # mesh: an explicit device mesh (ROADMAP A7); the family's own
-        # virtual mesh needs none
+        # mesh: an explicit device mesh across processes (ROADMAP A7); the
+        # family's own virtual mesh needs none
         if slot_size < 1:
             raise ValueError(f"slot_size must be >= 1, got {slot_size}")
         self.slot_size = int(slot_size)

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.delta import DeltaConfig
-from repro_torch.core.domain import Domain
+from repro_torch.core.domain import Domain, Partition
 from repro_torch.core.simulation import Simulation
 
 
@@ -58,6 +58,7 @@ def make_sim(
     cap: int = 24,
     boundary: Union[str, Tuple[str, ...]] = "closed",
     domain: Optional[Domain] = None,
+    partition: Optional[Partition] = None,
     delta: Union[DeltaConfig, str, None] = None,
     dt: float = 0.1,
     mesh=None,
@@ -70,7 +71,17 @@ def make_sim(
     device="cuda",
 ) -> Simulation:
     """Facade builder with the sims' geometry defaults; ``domain=`` wins
-    over the individual geometry kwargs."""
+    over the individual geometry kwargs.  ``partition=`` starts the run on
+    an uneven ownership (cuts in cells): it sets the mesh shape and the
+    padded per-device interior, so it overrides ``interior``/
+    ``mesh_shape``."""
+    if partition is not None:
+        if domain is not None:
+            raise ValueError("pass either domain= or partition=, not both")
+        domain = Domain(
+            cell_size=cell_size, interior=partition.max_widths,
+            mesh_shape=partition.mesh_shape, cap=cap, boundary=boundary,
+            partition=partition)
     geom = domain if domain is not None else Domain(
         cell_size=cell_size, interior=interior, mesh_shape=mesh_shape,
         cap=cap, boundary=boundary)

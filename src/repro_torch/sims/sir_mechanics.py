@@ -150,16 +150,18 @@ def ensemble_family(interior=(8, 8), mesh_shape=(1, 1), cap=32,
                     partition=None, delta=None, sweep_backend="auto",
                     guards=None, device="cuda") -> Ensemble:
     """The sir_mechanics compatibility family on a given geometry (the
-    codec off unless ``delta`` is given).  Uneven partitions wait for
-    ROADMAP A7, guards for A9."""
+    codec off unless ``delta`` is given): ``interior`` x ``mesh_shape``,
+    or an uneven :class:`~repro_torch.core.domain.Partition` (which then
+    sets both).  Guards wait for ROADMAP A9."""
     from repro_torch.core.delta import DeltaConfig
     if partition is not None:
-        raise NotImplementedError(
-            "an ensemble on an uneven partition is not ported yet "
-            "(ROADMAP A7)")
-    geom = Domain(cell_size=2.0, interior=tuple(interior),
-                  mesh_shape=tuple(mesh_shape), cap=cap,
-                  boundary="toroidal")
+        geom = Domain(cell_size=2.0, interior=partition.max_widths,
+                      mesh_shape=partition.mesh_shape, cap=cap,
+                      boundary="toroidal", partition=partition)
+    else:
+        geom = Domain(cell_size=2.0, interior=tuple(interior),
+                      mesh_shape=tuple(mesh_shape), cap=cap,
+                      boundary="toroidal")
     return Ensemble(
         geom=geom, behavior_fn=ensemble_behavior,
         param_names=ENSEMBLE_PARAMS, dt=1.0,

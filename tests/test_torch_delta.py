@@ -23,7 +23,16 @@ from repro.kernels import ref as jref
 from repro_torch.core import delta as td
 from repro_torch.kernels import delta_codec as tk
 from repro_torch.kernels import ops as tops
-from torch_parity import assert_close
+from torch_parity import assert_close, torch_threads
+
+
+# Small-tensor loops: one torch thread (beside busy test workers torch's
+# thread pool slows them many times over).
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 QDTYPES = {"int8": (jnp.int8, torch.int8), "int16": (jnp.int16, torch.int16)}
 MESH = (2, 2)

@@ -24,7 +24,17 @@ from repro_torch.sims import cell_clustering as cc
 from repro_torch.sims.common import make_sim
 from torch_parity import (
     assert_dicts_close, assert_states_match, jax_state_arrays, soa_inputs,
+    torch_threads,
 )
+
+
+# Small-tensor loops: one torch thread (beside busy test workers torch's
+# thread pool slows them many times over).
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 BOUNDARIES = ["closed", "toroidal"]
 
@@ -126,14 +136,29 @@ def test_facade_scheduled_ops_and_series():
 def test_unported_options_raise():
     beh = cc.behavior()
     for kw in (dict(rebalance=5), dict(checkpoint="ckpt"),
-               dict(guards="warn"), dict(mesh=object()),
-               dict(overlap="on")):
+               dict(guards="warn")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation(dict(interior=(6, 6)), beh, device="cpu", **kw)
+    # an explicit mesh= is the cross-process half of A7
+    with pytest.raises(NotImplementedError,
+                       match="across processes .*ROADMAP A7"):
+        Simulation(dict(interior=(6, 6)), beh, device="cpu", mesh=object())
+    # the overlapped sweep and uneven partitions are ported: these build
+    # and step, the overlapped run bit-equal to the monolithic one
     uneven = Domain(cell_size=2.0, interior=(5, 4), mesh_shape=(2, 1),
                     partition=Partition.from_widths([(3, 5), (4,)]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_sim(beh, domain=uneven, device="cpu")
+    runs = []
+    for overlap in ("on", "off"):
+        sim = make_sim(beh, domain=uneven, overlap=overlap, device="cpu")
+        cc.init(sim, 60, seed=2)
+        sim.run(3)
+        assert sim.n_agents() == 60 and sim.iteration == 3
+        runs.append(state_to_arrays(sim.state))
+    assert all(np.array_equal(runs[0][k], runs[1][k]) for k in runs[0])
+    on = Simulation(dict(interior=(6, 6)), beh, device="cpu", overlap="on")
+    cc.init(on, 50, seed=2)
+    on.run(2)
+    assert on.n_agents() == 50
     # meshes and the delta codec are ported: these build
     make_sim(beh, interior=(4, 4), mesh_shape=(2, 1), device="cpu")
     make_sim(beh, delta="int8", device="cpu")

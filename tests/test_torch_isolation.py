@@ -149,12 +149,15 @@ def test_cli_smoke_on_cpu():
                                "steps=4")
     assert lines[1].startswith("aura bytes/iter=") and "dropped=0" in lines[1]
     assert lines[-1].startswith("kernel launches: ")
+    laws = ("soft_repulsion_adhesion", "same_type", "epidemiology",
+            "oncology", "crowd", "gated_epidemiology",
+            "stack(soft_repulsion_adhesion,epidemiology)",
+            "stack(soft_repulsion_adhesion,crowd)",
+            "stack(soft_repulsion_adhesion,gated_epidemiology)")
+    # each law's full-block launches and its face bands' (the overlapped
+    # sweep's), apart
     assert set(lines[-1].split(": ")[1].split(", ")) == {
-        "soft_repulsion_adhesion=0", "same_type=0", "epidemiology=0",
-        "oncology=0", "crowd=0", "gated_epidemiology=0",
-        "stack(soft_repulsion_adhesion,epidemiology)=0",
-        "stack(soft_repulsion_adhesion,crowd)=0",
-        "stack(soft_repulsion_adhesion,gated_epidemiology)=0",
+        f"{law}{tag}=0" for law in laws for tag in ("", "@face")} | {
         "neighbor_force=0", "delta_encode=0",
         "delta_decode=0", "migration_pos_encode=0",
         "migration_pos_decode=0"}

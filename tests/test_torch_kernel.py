@@ -78,11 +78,11 @@ def _plain(soa, law, box, rows=None):
                                params=params, box=box)
 
 
-def _wrapper(soa, law, box):
+def _wrapper(soa, law, box, face=False):
     pair_fn, pattrs, params = LAWS[law]
     return ni.pair_sweep(soa.attrs, soa.valid, pair_fn=pair_fn,
                          pair_attrs=pattrs, radius=2.0, params=params,
-                         box=box)
+                         box=box, face=face)
 
 
 def _assert_match(got, want):
@@ -167,6 +167,49 @@ def test_kernel_crowded_strips_match_plain_on_cuda(cuda, law, boundary, cap,
     got = _wrapper(soa, law, box)
     torch.cuda.synchronize()
     _assert_match(got, _plain(soa, law, box))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("law", sorted(LAWS))
+def test_face_band_launches_match_plain_and_full_block_on_cuda(cuda, law,
+                                                                ndim):
+    """The overlapped sweep's face bands: a 3-plane band of a larger SoA
+    around a face along each axis (past axis 0 a strided view, which the
+    wrapper refuses; the overlapped sweep copies its columns), one launch
+    each, counted as a face band's, against the plain version on the band
+    (counts exactly, forces to 1e-5) and bit-equal to the same cells of a
+    full-block launch: each cell's sum runs over the same stencil in the
+    same order."""
+    interior = (9, 37) if ndim == 2 else (5, 6, 37)
+    soa, box = _soa(cuda, "toroidal", interior=interior, cap=24)
+    whole = _wrapper(soa, law, box)
+    name = ni.law_for(LAWS[law][0]).name
+    for axis in range(ndim):
+        # the low face, an owned extent inside the block, the high face
+        for face in (1, interior[axis] // 2, interior[axis]):
+            band_attrs = {n: a.narrow(axis, face - 1, 3)
+                          for n, a in soa.attrs.items()}
+            band = dataclasses.replace(
+                soa, attrs=band_attrs,
+                valid=soa.valid.narrow(axis, face - 1, 3))
+            assert band.valid.is_contiguous() == (axis == 0)
+            if axis:
+                with pytest.raises(ValueError, match="not contiguous"):
+                    _wrapper(band, law, box, face=True)
+            band = dataclasses.replace(
+                band, attrs={n: a.contiguous()
+                             for n, a in band.attrs.items()},
+                valid=band.valid.contiguous())
+            before = dict(ni.LAUNCHES)
+            got = _wrapper(band, law, box, face=True)
+            torch.cuda.synchronize()
+            assert ni.LAUNCHES[name + ni.FACE] == before[name + ni.FACE] + 1
+            assert ni.LAUNCHES[name] == before[name]
+            _assert_match(got, _plain(band, law, box))
+            for n, g in got.items():
+                assert torch.equal(g, whole[n].narrow(axis, face - 1, 1)), \
+                    (axis, face, n)
 
 
 # The laws and stacks of the other bundled sims, on a SoA carrying every

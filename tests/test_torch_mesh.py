@@ -36,7 +36,16 @@ from repro_torch.core.halo import VirtualMeshComm
 from repro_torch.kernels import delta_codec
 from repro_torch.sims import cell_clustering as cc
 from repro_torch.sims.common import make_sim, resolve_delta
-from torch_parity import assert_dicts_close
+from torch_parity import assert_dicts_close, torch_threads
+
+
+# Small-tensor loops: one torch thread (beside busy test workers torch's
+# thread pool slows them many times over).
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_AGENTS = 300
@@ -71,7 +80,8 @@ for name, (mesh_shape, boundary, codec, refresh, steps, rec) in CASES.items():
     cfg = DeltaConfig(enabled=codec != "off", qdtype=jnp.int8,
                       refresh_interval=refresh,
                       migration=jnp.int16 if mig else None)
-    eng = Engine(geom=geom, behavior=cc.behavior(), delta_cfg=cfg, dt=0.1)
+    eng = Engine(geom=geom, behavior=cc.behavior(), delta_cfg=cfg, dt=0.1,
+                 sweep_backend="reference")
     rng = np.random.default_rng(0)
     pos = rng.uniform(0.5, np.asarray(geom.domain_size) - 0.5,
                       ({n}, 2)).astype(np.float32)

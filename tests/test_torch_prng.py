@@ -19,7 +19,16 @@ from repro.core import Engine as JEngine
 from repro.sims import cell_clustering as j_cc
 from repro_torch.core import Domain, Engine, prng
 from repro_torch.sims import cell_clustering as cc
-from torch_parity import soa_inputs
+from torch_parity import soa_inputs, torch_threads
+
+
+# Small-tensor loops: one torch thread (beside busy test workers torch's
+# thread pool slows them many times over).
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 SEEDS = [0, 1, 42, 2**31 - 1, 12345]
 SHAPES = [(), (5,), (7, 3, 2), (1001,), (3, 337)]

@@ -42,7 +42,18 @@ from repro_torch.sims import epidemiology as ep
 from repro_torch.sims import oncology as onc
 from repro_torch.sims import sir_mechanics as sm
 from repro_torch.sims.common import uniform_positions
-from torch_parity import assert_dicts_close, jax_state_arrays
+from torch_parity import (
+    assert_dicts_close, jax_state_arrays, torch_threads,
+)
+
+
+# Small-tensor loops: one torch thread (beside busy test workers torch's
+# thread pool slows them many times over).
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -59,7 +59,18 @@ from repro_torch.sims import cell_clustering as cc
 from repro_torch.sims import epidemiology as ep
 from repro_torch.sims import oncology as onc
 from repro_torch.sims import sir_mechanics as sm
-from torch_parity import assert_dicts_close, jax_state_arrays, soa_inputs
+from torch_parity import (
+    assert_dicts_close, jax_state_arrays, soa_inputs, torch_threads,
+)
+
+
+# Small-tensor loops: one torch thread (beside busy test workers torch's
+# thread pool slows them many times over).
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 COUNT_KEYS = ("same", "cnt")
 

@@ -10,6 +10,7 @@ and relative; count-valued accumulators exactly.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import jax
@@ -23,6 +24,19 @@ FLOAT_TOL = 1e-5
 # tensors; every later call is right): its vectorized kernel is set up
 # lazily, racing its own threads.  One small call first sets it up.
 torch.sqrt(torch.ones(8))
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """``n`` intra-op threads inside the block.  The port's per-device and
+    per-lane loops run many ops on small tensors, and beside busy test
+    workers torch's thread pool slows them a hundredfold."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def jax_state_arrays(state) -> Dict[str, np.ndarray]:
@@ -85,3 +99,129 @@ def soa_inputs(n: int, ndim: int, size, seed: int = 0):
         "ctype": rng.integers(0, 2, n).astype(np.int32),
     }
     return pos, attrs
+
+
+# ---------------------------------------------------------------------------
+# Bundled sims on a mesh against JAX's sharded per-step engine
+# ---------------------------------------------------------------------------
+
+# One subprocess with four XLA host devices records, for every case, JAX's
+# state after each of its steps (``make_sharded_step``, never the fused
+# runner: its sharded segments are not bit-exact under jax 0.9.0).  A case
+# is a dict: ``sim`` (a module of ``sims``), ``make`` (``make_sim``
+# keywords; ``widths`` becomes an uneven ``Partition``), ``codec`` (the
+# ``delta`` shorthand), ``init`` (the sim's ``init`` arguments after the
+# facade) and ``steps``.  With the codec off every step is a full aura
+# refresh; with it on every step is a delta step, the first one from the
+# init state's zero references.  A codec case so compiles one step, not
+# two (a full refresh through the codec is the codec-off exchange), and
+# the compiles are most of the subprocess's time: JAX's reference sweep
+# (its parity oracle) compiles faster than its tiled one.
+MESH_ORACLE = """
+import importlib
+import sys
+from concurrent.futures import ThreadPoolExecutor
+import numpy as np
+import jax
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.core import Partition
+from repro.core.domain import spatial_axis_names
+from repro.sims.common import make_sim
+sys.path.insert(0, {tests!r})
+from torch_parity import jax_state_arrays, make_kwargs
+
+
+def run(name, case):
+    out = {{}}
+    mod = importlib.import_module("repro.sims." + case["sim"])
+    sim = make_sim(mod.behavior(), sweep_backend="reference",
+                   **make_kwargs(case, Partition))
+    mod.init(sim, *case["init"])
+    s = sim.state
+    for k, v in jax_state_arrays(s).items():
+        out[f"{{name}}/0/{{k}}"] = v
+    mesh = sim.mesh
+    s = jax.device_put(s, NamedSharding(mesh, P(*spatial_axis_names(2))))
+    step = sim.engine.make_sharded_step(mesh)
+    for i in range(case["steps"]):
+        s = step(s, full_halo=case["codec"] == "off")
+        for k, v in jax_state_arrays(s).items():
+            out[f"{{name}}/{{i + 1}}/{{k}}"] = v
+    return out
+
+
+# the cases compile concurrently (XLA releases the GIL while it compiles)
+cases = {cases!r}
+out = {{}}
+with ThreadPoolExecutor({threads}) as pool:
+    for part in pool.map(run, cases, cases.values()):
+        out.update(part)
+np.savez({path!r}, **out)
+print("OK")
+"""
+
+
+def make_kwargs(case: dict, partition_cls) -> dict:
+    """``make_sim`` keywords of a mesh case (either package's, with that
+    package's ``Partition``)."""
+    kw = dict(case["make"], delta=case["codec"])
+    widths = kw.pop("widths", None)
+    if widths is not None:
+        kw["partition"] = partition_cls.from_widths(widths)
+    return kw
+
+
+def run_mesh_oracle(cases: dict, path: str, root: str, threads: int = 4
+                    ) -> dict:
+    """Run :data:`MESH_ORACLE` on ``cases`` in one subprocess (four XLA
+    host devices, ``threads`` cases at a time); returns
+    ``{"<case>/<step>/<field>": array}``."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["PYTHONPATH"] = os.path.join(root, "src")
+    code = MESH_ORACLE.format(tests=os.path.join(root, "tests"),
+                              cases=cases, path=path, threads=threads)
+    p = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                       capture_output=True, text=True, timeout=900, env=env)
+    assert p.returncode == 0, f"STDOUT:\n{p.stdout}\nSTDERR:\n{p.stderr}"
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def oracle_state(oracle: dict, name: str, step: int) -> Dict[str, np.ndarray]:
+    pre = f"{name}/{step}/"
+    return {k[len(pre):]: v for k, v in oracle.items() if k.startswith(pre)}
+
+
+def check_steps_like_oracle(oracle: dict, name: str, case: dict) -> list:
+    """The port's facade on the case (its ``init`` state against JAX's),
+    then each step from JAX's state before it against JAX's after it:
+    integers, ``valid``, gids and the slot layout exactly, floats to
+    ``FLOAT_TOL``.  Returns the live agent count after each step."""
+    import importlib
+
+    from repro_torch.bridge import state_from_arrays, state_to_arrays
+    from repro_torch.core import Partition
+    from repro_torch.sims.common import make_sim
+
+    mod = importlib.import_module("repro_torch.sims." + case["sim"])
+    sim = make_sim(mod.behavior(), sweep_backend="kernel", device="cpu",
+                   **make_kwargs(case, Partition))
+    mod.init(sim, *case["init"])
+    assert_dicts_close(state_to_arrays(sim.state),
+                       oracle_state(oracle, name, 0))
+    step = sim.engine.make_local_step()
+    counts = []
+    for i in range(case["steps"]):
+        got = step(state_from_arrays(oracle_state(oracle, name, i),
+                                     device="cpu"),
+                   full_halo=case["codec"] == "off")
+        assert_dicts_close(state_to_arrays(got),
+                           oracle_state(oracle, name, i + 1))
+        counts.append(int(got.soa.valid.sum()))
+    return counts
