@@ -166,7 +166,25 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    (32, 24) cells, on one device, on the equal 2x2 split and on an uneven
    one with the overlapped sweep: bit-equal; (d) 14 c's ensemble (4
    lanes) on the cut ``from_widths([(224, 288), (288, 224)])``: one lane
-   launch a device a step, each lane bit-equal to its solo run.
+   launch a device a step, each lane bit-equal to its solo run;
+16. the process mesh: phase 6's configuration (16,777,216 agents, 2x2,
+   cap 48, ``int8+mig``, 10 steps) through ``Simulation(mesh=
+   make_abm_mesh((2, 2)))``, one process a device: four ranks spawned on
+   the one card, joined by a gloo group over a file store under
+   ``build/`` (the wire goes through pinned host memory), with a timeout
+   on the group and on the join.  Each rank's counts are zeroed before
+   the driven run and read after it: ``pair_sweep`` a quarter of phase
+   6's, each codec kernel phase 6's count (a virtual-mesh launch encodes
+   the four devices' rows, a rank's its own); agents conserved, nothing
+   dropped, no codec overflow (global), ``halo_bytes`` phase 6's, and
+   each rank's final block bit-equal (sha256 of every field) to its
+   device's block of phase 6's run.  Then phase 8's 2x1 toroidal drift
+   (two ranks, the size-2 torus) against its virtual-mesh run, gated the
+   same way.  Each rank prints its ms a step (CUDA events and the host
+   clock between barriers, steps 2-10), its wire bytes a step (the packed
+   buffers and ``halo_bytes``), its milliseconds a step in the comm
+   (packing, staging and gloo) and its peak device memory; the parent
+   the slowest rank's agent-updates/s beside phase 6's step.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -825,6 +843,11 @@ def phase_mesh(seed: int):
         fail(f"mesh: halo bytes full {bytes_full} / delta {bytes_delta}")
     if not 0.0 < f0 < 1.0 or not 0.0 < f1 < 1.0:
         fail(f"mesh: same_type_fraction out of range: {f0}, {f1}")
+    # each device's final block, for phase 16's ranks
+    t0 = time.perf_counter()
+    block_sha = {c: state_sha(st, c) for c in np.ndindex(*MESH_SHAPE)}
+    print(f"[mesh] sha256 of each device's block: "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
 
     if sim.iteration % cfg.refresh_interval == 0:
         fail("mesh: the profiled step would be a full refresh")
@@ -848,7 +871,8 @@ def phase_mesh(seed: int):
         sim.run(1)                               # one more delta step
         torch.cuda.synchronize()
     stats = dict(step_ms=step_ms, peak_bytes=peak, bytes_full=bytes_full,
-                 bytes_delta=bytes_delta, host_ms=1e3 * host_s / (steps - 1))
+                 bytes_delta=bytes_delta, host_ms=1e3 * host_s / (steps - 1),
+                 block_sha=block_sha)
     return launches, cap.calls, stats
 
 
@@ -1205,9 +1229,10 @@ def phase_mesh_parity(seed: int):
     return out, cap.calls["migration_pos_decode"]
 
 
-def torus_sim(seed: int):
+def torus_sim(seed: int, mesh=None):
     """Phase 8's 2x1 toroidal mesh (8 x 8 cells a device, cap 16,
-    int8+mig): 300 agents that drift +1.5 in x a step, seeded."""
+    int8+mig): 300 agents that drift +1.5 in x a step, seeded (on a
+    process ``mesh``: this rank's device)."""
     base = cc.behavior()
     drift_beh = Behavior(schema=base.schema, pair_fn=base.pair_fn,
                          pair_attrs=base.pair_attrs,
@@ -1215,7 +1240,7 @@ def torus_sim(seed: int):
                          params=base.params)
     torus = make_sim(drift_beh, interior=(8, 8), mesh_shape=(2, 1), cap=16,
                      boundary="toroidal", delta=MESH_DELTA, dt=1.0,
-                     device="cuda")
+                     device="cuda", mesh=mesh)
     rng = np.random.default_rng(seed)
     pos = rng.uniform([0.5, 0.5], [31.5, 15.5], (300, 2)).astype(np.float32)
     attrs = {"diameter": np.full((300,), 1.0, np.float32),
@@ -3135,6 +3160,205 @@ def phase_partition(seed: int):
                 bands=bands, parity=parity, ensemble=ens)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the process mesh (one process a device) on the one card
+# ---------------------------------------------------------------------------
+
+PM_DIR = ROOT / "build" / "process_mesh"
+PM_TIMEOUT_S = 300.0      # the group's waits and the parent's join
+
+
+def state_sha(state, coords=None):
+    """sha256 of every field of one device's state, keyed by field path:
+    device ``coords`` of a virtual-mesh state, or a process's own."""
+    import hashlib
+
+    from repro_torch.bridge import rank_arrays, rank_state
+
+    if coords is not None:
+        state = rank_state(state, coords)
+    out = {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+           for k, v in sorted(rank_arrays(state).items())}
+    del state
+    return out
+
+
+def pm_rank(rank: int, world: int, label: str, seed: int, interior,
+            n_agents: int, out: str):
+    """One rank of phase 16: its device of the process mesh on cuda:0
+    (``interior`` and ``n_agents``: the main configuration's, as the
+    parent has them)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.engine import codec_overflow_count
+    from repro_torch.launch.mesh import make_abm_mesh
+
+    torch.cuda.set_device(0)
+    if label == "main":
+        mesh = make_abm_mesh(MESH_SHAPE)
+        sim = make_sim(cc.behavior(), interior=tuple(interior),
+                       mesh_shape=MESH_SHAPE, cap=MAIN_CAP, delta=MESH_DELTA,
+                       sweep_backend="auto", device="cuda", mesh=mesh)
+        cc.init(sim, n_agents, seed=seed)
+        steps = MAIN_STEPS
+    else:
+        mesh = make_abm_mesh((2, 1))
+        sim = torus_sim(seed, mesh=mesh)
+        steps = TORUS_STEPS
+    comm = sim.engine._comm(mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    fracs = []
+    if label == "main":
+        fracs.append(cc.same_type_fraction(sim.state, sim.engine))
+    sim.run(1)                                   # full refresh
+    torch.cuda.synchronize()
+    bytes_full = int(sim.state.halo_bytes.reshape(-1)[0])
+    dist.barrier()
+    c0 = dict(comm.stats)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    sim.run(steps - 1)
+    end.record()
+    end.synchronize()
+    host_s = time.perf_counter() - t0
+    dist.barrier()
+    wall_s = time.perf_counter() - t0
+    c1 = dict(comm.stats)
+    if label == "main":
+        fracs.append(cc.same_type_fraction(sim.state, sim.engine))
+    launches = {k: v for k, v in all_launches().items() if v}
+    st = sim.state
+    res = dict(
+        rank=rank, coords=list(comm.coords()), steps=steps,
+        step_ms=start.elapsed_time(end) / (steps - 1),
+        host_ms=1e3 * host_s / (steps - 1),
+        wall_ms=1e3 * wall_s / (steps - 1),
+        comm_ms=1e3 * (c1["seconds"] - c0["seconds"]) / (steps - 1),
+        wire_bytes=(c1["bytes"] - c0["bytes"]) / (steps - 1),
+        messages=(c1["messages"] - c0["messages"]) / (steps - 1),
+        halo_bytes_full=bytes_full,
+        halo_bytes=int(st.halo_bytes.reshape(-1)[0]),
+        agents=sim.n_agents(), local_agents=total_agents(st),
+        dropped=int(sim.sum_over_all_ranks(st.dropped.sum())),
+        overflow=codec_overflow_count(st, comm),
+        finite=bool(torch.isfinite(st.soa.pos).all()),
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        launches=launches, fractions=fracs, sha=state_sha(st))
+    with open(f"{out}/r{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def pm_spawn(label: str, world: int, seed: int):
+    """Run phase 16's ``label`` on ``world`` ranks; their results."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    PM_DIR.mkdir(parents=True, exist_ok=True)
+    out = tempfile.mkdtemp(prefix=f"{label}-", dir=PM_DIR)
+    t0 = time.perf_counter()
+    spawn_ranks(pm_rank, world, f"{out}/store",
+                args=(label, seed, MESH_INTERIOR,
+                      4 * math.prod(MAIN_INTERIOR), out),
+                timeout_s=PM_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    res = []
+    for r in range(world):
+        with open(f"{out}/r{r}.json") as f:
+            res.append(json.load(f))
+    return res, secs
+
+
+def pm_gate(label: str, ranks, want_sha, want_launches, n_agents: int,
+            want_halo: int):
+    """Phase 16's gates on one run's ranks."""
+    for r in ranks:
+        c = tuple(r["coords"])
+        tag = f"process mesh {label} rank {r['rank']} {c}"
+        if r["agents"] != n_agents:
+            fail(f"{tag}: agents {r['agents']} != {n_agents}")
+        if r["dropped"] or r["overflow"] or not r["finite"]:
+            fail(f"{tag}: dropped {r['dropped']}, codec overflow "
+                 f"{r['overflow']}, finite {r['finite']}")
+        if r["halo_bytes"] != want_halo:
+            fail(f"{tag}: halo_bytes {r['halo_bytes']} != {want_halo}")
+        if r["launches"] != want_launches:
+            fail(f"{tag}: launches {r['launches']} != {want_launches}")
+        diff = sorted(k for k, v in want_sha[c].items()
+                      if r["sha"].get(k) != v)
+        if diff or set(r["sha"]) != set(want_sha[c]):
+            fail(f"{tag}: the final block differs from the virtual mesh's "
+                 f"in {diff or 'its fields'}")
+    if sum(r["local_agents"] for r in ranks) != n_agents:
+        fail(f"process mesh {label}: ranks hold "
+             f"{sum(r['local_agents'] for r in ranks)} agents")
+
+
+def phase_process_mesh(seed: int, mesh_launches, mesh_stats):
+    """Phase 16: phase 6's path on four ranks, one process a device, and
+    phase 8's torus on two."""
+    n_agents = 4 * math.prod(MAIN_INTERIOR)
+    card_total = torch.cuda.get_device_properties(0).total_memory
+    ranks, secs = pm_spawn("main", 4, seed)
+    sim = make_sim(cc.behavior(), interior=(2, 2), mesh_shape=MESH_SHAPE,
+                   cap=MAIN_CAP, delta=MESH_DELTA, device="cuda")
+    codec = {k: v for k, v in codec_launches(sim, MAIN_STEPS).items() if v}
+    want = dict(soft_repulsion_adhesion=MAIN_STEPS, same_type=2, **codec)
+    share = {k: (v // 4 if k in ("soft_repulsion_adhesion", "same_type")
+                 else v) for k, v in mesh_launches.items() if v}
+    if share != want:
+        fail(f"process mesh: phase 6's launches {mesh_launches} give "
+             f"{share} a rank, not {want}")
+    pm_gate("main", ranks, mesh_stats["block_sha"], want, n_agents,
+            mesh_stats["bytes_delta"])
+    slowest = max(r["step_ms"] for r in ranks)
+    for r in ranks:
+        print(f"[process mesh] rank {r['rank']} {tuple(r['coords'])}: "
+              f"{r['step_ms']:.3f} ms/step (CUDA events), host "
+              f"{r['host_ms']:.3f}, between barriers {r['wall_ms']:.3f}; "
+              f"comm {r['comm_ms']:.3f} ms/step; wire "
+              f"{r['wire_bytes']:.0f} B/step in {r['messages']:.0f} "
+              f"buffers (halo_bytes {r['halo_bytes']}, full step "
+              f"{r['halo_bytes_full']}); peak device memory "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; agents here "
+              f"{r['local_agents']}; launches {r['launches']}", flush=True)
+    print(f"[process mesh] 4 ranks on one card: slowest {slowest:.3f} "
+          f"ms/step = {n_agents / (slowest / 1e3):.4g} agent-updates/s; "
+          f"the virtual mesh (phase 6) {mesh_stats['step_ms']:.3f} ms/step; "
+          f"card memory {card_total / 2**30:.2f} GiB; every rank's block "
+          f"bit-equal to phase 6's; spawn to join {secs:.1f}s", flush=True)
+
+    torus, tsecs = pm_spawn("torus", 2, seed)
+    ref = torus_sim(seed)
+    reset_all_launches()
+    ref.run(1)
+    ref.run(TORUS_STEPS - 1)
+    torch.cuda.synchronize()
+    tl = {k: v for k, v in all_launches().items() if v}
+    twant = {k: (v // 2 if k == "soft_repulsion_adhesion" else v)
+             for k, v in tl.items()}
+    shas = {c: state_sha(ref.state, c) for c in np.ndindex(2, 1)}
+    pm_gate("torus", torus, shas, twant, total_agents(ref.state),
+            int(ref.state.halo_bytes.reshape(-1)[0]))
+    print(f"[process mesh] 2x1 torus, {TORUS_STEPS} steps, 2 ranks: "
+          f"launches {torus[0]['launches']} a rank, each rank's block "
+          f"bit-equal to the virtual mesh's; comm "
+          f"{max(r['comm_ms'] for r in torus):.3f} ms/step; spawn to join "
+          f"{tsecs:.1f}s", flush=True)
+    return dict(
+        ranks=[{k: v for k, v in r.items() if k != "sha"} for r in ranks],
+        slowest_step_ms=slowest, virtual_step_ms=mesh_stats["step_ms"],
+        agent_updates_per_s=n_agents / (slowest / 1e3),
+        card_total_bytes=card_total, seconds=secs,
+        torus=dict(launches=torus[0]["launches"], seconds=tsecs,
+                   comm_ms=[r["comm_ms"] for r in torus]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3214,8 +3438,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     partition = phase_partition(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    process_mesh = phase_process_mesh(args.seed, mesh_launches, mesh_stats)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
+    # phase 16: each rank's launches of the process mesh's driven run
+    pm_launches = [r["launches"] for r in process_mesh["ranks"]]
     kernels = [{
         "name": "pair_sweep",
         "route": "cuda",
@@ -3254,10 +3483,18 @@ def main(argv=None) -> int:
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": SOURCE_CODEC,
              "replaces": f"{TPU_CODEC}:{CODEC_REPLACES[name]}",
-             "launches": mesh_launches[name]}, **r))
+             "launches": mesh_launches[name],
+             "process_mesh_path": {"launches": [
+                 lc.get(name, 0) for lc in pm_launches]}}, **r))
         if name == "migration_pos_decode":
             kernels[-1]["toroidal_calls"] = torus_row
-    kernels[0]["mesh_path"] = dict(mesh_stats, parity=mesh_parity)
+    kernels[0]["mesh_path"] = dict(
+        {k: v for k, v in mesh_stats.items() if k != "block_sha"},
+        parity=mesh_parity)
+    kernels[0]["process_mesh_path"] = dict(
+        process_mesh, launches=[
+            lc.get("soft_repulsion_adhesion", 0) + lc.get("same_type", 0)
+            for lc in pm_launches])
     # phase 15: the overlapped sweep's launches on the uneven cut, each
     # kind as counted (interior passes, face bands)
     interior = partition["launches"]["soft_repulsion_adhesion"]

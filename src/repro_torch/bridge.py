@@ -18,6 +18,13 @@ axis, each lane in that global layout, plus ``params.<name>`` (the
 ``(R,)`` float32 points, host tensors in the port) and ``active``: the
 leaves of the reference's ``EnsembleState``.
 
+A process mesh (one process a device, ``core.halo.ProcessMeshComm``)
+holds one device's block a rank, with all-ones leading mesh dims:
+:func:`rank_arrays` writes a rank's state as numpy in the port's layout,
+:func:`assemble_ranks` puts the ranks' blocks together into the virtual
+mesh's ``SimState``, and :func:`rank_state` takes one device's block out
+of a virtual-mesh state as the state its process would hold.
+
 LM parameters (:func:`lm_params_from_arrays`, :func:`lm_params_to_arrays`)
 are keyed by the reference tree's dotted paths (``embed.w``,
 ``blocks.attn.wq``, ...), the paths the port's ``models.model.Model``
@@ -26,7 +33,8 @@ keeps, so nothing is renamed.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+import math
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,16 +74,8 @@ def state_to_arrays(state: SimState) -> Dict[str, np.ndarray]:
     """Every leaf of ``state`` as a numpy array in the reference's global
     layout, keyed by field path."""
     nd = state.it.dim()
-    out: Dict[str, np.ndarray] = {}
-    for name, a in state.soa.attrs.items():
-        out[f"soa.attrs.{name}"] = mesh_to_global(a.cpu().numpy(), nd)
-    out["soa.valid"] = mesh_to_global(state.soa.valid.cpu().numpy(), nd)
-    for edge, slab in state.refs.items():
-        for field, a in slab.items():
-            out[f"refs.{edge}.{field}"] = a.cpu().numpy()
-    for name in _SCALARS:
-        out[name] = getattr(state, name).cpu().numpy()
-    return out
+    return {k: mesh_to_global(v, nd) if k.startswith("soa.") else v
+            for k, v in rank_arrays(state).items()}
 
 
 def state_from_arrays(arrays: Dict[str, np.ndarray],
@@ -84,25 +84,79 @@ def state_from_arrays(arrays: Dict[str, np.ndarray],
     dev = resolve_device(device)
     mesh = np.shape(arrays["it"])
 
-    def t(a):
+    def t(path, a):
+        if path.startswith("soa."):
+            a = global_to_mesh(np.asarray(a), mesh)
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
-    def soa_t(a):
-        return t(np.ascontiguousarray(global_to_mesh(np.asarray(a), mesh)))
+    return _from_leaves({k: t(k, a) for k, a in arrays.items()})
 
+
+def _leaves(state: SimState) -> Dict[str, torch.Tensor]:
+    """Every leaf of ``state`` in the port's layout, keyed by field path."""
+    out = {f"soa.attrs.{n}": a for n, a in state.soa.attrs.items()}
+    out["soa.valid"] = state.soa.valid
+    for edge, slab in state.refs.items():
+        for field, a in slab.items():
+            out[f"refs.{edge}.{field}"] = a
+    for name in _SCALARS:
+        out[name] = getattr(state, name)
+    return out
+
+
+def _from_leaves(leaves: Mapping[str, torch.Tensor]) -> SimState:
+    """The inverse of :func:`_leaves`."""
     attrs, refs = {}, {}
-    for path, a in arrays.items():
+    for path, a in leaves.items():
         head, _, rest = path.partition(".")
         if path.startswith("soa.attrs."):
-            attrs[path[len("soa.attrs."):]] = soa_t(a)
+            attrs[path[len("soa.attrs."):]] = a
         elif head == "refs":
             edge, _, field = rest.partition(".")
-            refs.setdefault(edge, {})[field] = t(a)
+            refs.setdefault(edge, {})[field] = a
         elif path != "soa.valid" and path not in _SCALARS:
             raise KeyError(f"unknown SimState field path {path!r}")
-    return SimState(
-        soa=AgentSoA(attrs=attrs, valid=soa_t(arrays["soa.valid"])),
-        refs=refs, **{name: t(arrays[name]) for name in _SCALARS})
+    return SimState(soa=AgentSoA(attrs=attrs, valid=leaves["soa.valid"]),
+                    refs=refs, **{n: leaves[n] for n in _SCALARS})
+
+
+def rank_arrays(state: SimState) -> Dict[str, np.ndarray]:
+    """One process's state of a process mesh (its device's block, every
+    leaf behind all-ones leading mesh dims) as numpy arrays keyed by field
+    path, in the port's layout."""
+    return {k: v.cpu().numpy() for k, v in _leaves(state).items()}
+
+
+def assemble_ranks(blocks: Mapping[Tuple[int, ...], Dict[str, np.ndarray]],
+                   device: DeviceLike = "cuda") -> SimState:
+    """The virtual mesh's ``SimState`` (``mesh_shape`` leading dims) from
+    every rank's :func:`rank_arrays`, keyed by its device's mesh
+    coordinates."""
+    dev = resolve_device(device)
+    coords = sorted(blocks)
+    nd = len(coords[0])
+    mesh = tuple(max(c[a] for c in coords) + 1 for a in range(nd))
+    if len(coords) != math.prod(mesh):
+        raise ValueError(f"{len(coords)} blocks for a mesh of {mesh}")
+    one = (0,) * nd
+    first = blocks[coords[0]]
+    leaves = {}
+    for path, a in first.items():
+        out = np.empty(mesh + a.shape[nd:], dtype=a.dtype)
+        for c in coords:
+            out[c] = blocks[c][path][one]
+        leaves[path] = torch.from_numpy(out).to(dev)
+    return _from_leaves(leaves)
+
+
+def rank_state(state: SimState, coords: Tuple[int, ...]) -> SimState:
+    """Device ``coords``' block of a virtual-mesh state as the state its
+    process holds on a process mesh (all-ones leading dims; a copy)."""
+    nd = len(coords)
+    coords = tuple(int(c) for c in coords)
+    return _from_leaves({
+        k: v[coords].reshape((1,) * nd + tuple(v.shape[nd:])).clone()
+        for k, v in _leaves(state).items()})
 
 
 def ensemble_to_arrays(estate: EnsembleState) -> Dict[str, np.ndarray]:

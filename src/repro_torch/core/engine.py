@@ -2,22 +2,35 @@
 interaction -> agent update -> agent migration (port of
 ``repro/core/engine.py``, paper Figure 1).
 
-The device mesh is virtual: all of it lives in one process on one card,
-as leading dims of every tensor (:class:`~repro_torch.core.halo.
-VirtualMeshComm`).  ``SimState.soa`` holds each device's block as
-``mesh_shape + local_shape + (K, ...)``, so ``soa.attrs[n][c]`` is device
-``c``'s contiguous ``(*local_grid, K, ...)`` block, the layout the kernels
-read; every per-device quantity carries the same leading mesh dims, as in
-the reference.  A single device is the all-ones mesh.
-``repro_torch.bridge`` converts to and from the reference's
-block-concatenated global layout.
+The device mesh runs in one of two ways, chosen by the comm:
 
-One step runs the two exchanges (aura and migration) mesh-wide - per
-directed edge the slabs of every device are taken, encoded in one kernel
-launch per float attribute, shifted, decoded and put - and the per-device
-parts (sweep, update, spawn, clamp, binning) as a Python loop over the
-devices.  The segment runner is a plain Python loop over
-:meth:`Engine.local_step` (CUDA-graph capture is later work).
+* virtual (no ``mesh``): all of it lives in one process on one card, as
+  leading dims of every tensor (:class:`~repro_torch.core.halo.
+  VirtualMeshComm`).  ``SimState.soa`` holds each device's block as
+  ``mesh_shape + local_shape + (K, ...)``, so ``soa.attrs[n][c]`` is
+  device ``c``'s contiguous ``(*local_grid, K, ...)`` block, the layout
+  the kernels read; every per-device quantity carries the same leading
+  mesh dims, as in the reference.  A single device is the all-ones mesh.
+* one process a device (``mesh=``, a ``DeviceMesh`` from
+  :func:`repro_torch.launch.mesh.make_abm_mesh`): each process holds its
+  own device's block with ``ndim`` leading dims of size 1, the layout
+  the reference's ``shard_map`` body sees, and the exchanges cross
+  between processes (:class:`~repro_torch.core.halo.ProcessMeshComm`).
+  Host reads that steer control flow (:func:`total_agents`,
+  :func:`codec_overflow_count`) are all-reduces there, so every rank
+  takes the same branch.
+
+``repro_torch.bridge`` converts to and from the reference's
+block-concatenated global layout, and assembles a process mesh's blocks.
+
+One step runs the two exchanges (aura and migration) over the comm's
+devices - per directed edge the slabs of every device are taken, encoded
+in one kernel launch per float attribute, shifted, decoded and put - and
+the per-device parts (sweep, update, spawn, clamp, binning) as a Python
+loop over the comm's blocks (:meth:`~repro_torch.core.halo.Comm.blocks`:
+every device of the virtual mesh, a process's own).  The segment runner
+is a plain Python loop over :meth:`Engine.local_step` (CUDA-graph capture
+is later work).
 
 Uneven partitions run as in the reference: each device's owned widths
 (host ints; a rectilinear cut varies them along one mesh axis each) mask
@@ -25,14 +38,14 @@ the aura rebuild (``mask_unowned``), the update's residents and the
 binning clamp, and place each device's high faces and migration ring at
 its owned extent.  ``overlap="on"`` runs the interior/boundary split of
 the sweep (``sweep_accumulate_overlapped``).  Options that need a later
-slice raise ``NotImplementedError`` naming its ROADMAP item: an explicit
-device mesh across processes (A7), guards (A9), rebalancing (A8), fault
-plans (A9).
+slice raise ``NotImplementedError`` naming its ROADMAP item: guards (A9),
+rebalancing (A8), fault plans (A9).
 
 RNG: the reference's ``jax.random`` lineage, bit for bit
 (:mod:`repro_torch.core.prng`).  :meth:`Engine.init_state` splits
 ``PRNGKey(seed)`` (or ``fold_in(base_key, it0)``) into one key a device,
-in row-major rank order, and each device's update draws from
+in row-major rank order (a process keeps its own row), and each device's
+update draws from
 ``fold_in(fold_in(key, it), rank)``.  Spawned children go after the
 interior agents into re-binning, with ``gid_rank`` the device's rank and
 ``gid_count`` counting on from the device's ``gid_counter``.
@@ -65,8 +78,10 @@ from repro_torch.core.grid import (
     bin_agents, clear_ring, mask_unowned, mesh_owned_mask, set_plane,
     take_plane,
 )
-from repro_torch.core.halo import Comm, VirtualMeshComm, halo_exchange, \
-    init_refs, take_slab
+from repro_torch.core.halo import (
+    Comm, ProcessMeshComm, VirtualMeshComm, halo_exchange, init_refs,
+    take_slab,
+)
 from repro_torch.core.neighbors import (
     sweep_accumulate, sweep_accumulate_overlapped,
 )
@@ -86,20 +101,17 @@ def _jnp_mod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class SimState:
-    soa: AgentSoA                   # mesh_shape + (*local grid, K, ...)
-    refs: Dict[str, Slab]           # mesh_shape + slab shape
-    it: torch.Tensor                # mesh_shape int32
-    key: torch.Tensor               # mesh_shape + (2,) uint32
-    gid_counter: torch.Tensor       # mesh_shape int32
-    dropped: torch.Tensor           # mesh_shape int32 cumulative overflow drops
-    halo_bytes: torch.Tensor        # mesh_shape int32 wire bytes of last aura
-    codec_overflow: torch.Tensor    # mesh_shape int32 cumulative clipped deltas
-    health: torch.Tensor            # mesh_shape + (NUM_GUARDS,) int32
-
-
-# What an explicit ``mesh=`` asks for: one process a device, joined by a
-# torch.distributed comm (the reference's ShardComm), not yet ported.
-PROCESS_MESH = "an explicit device mesh across processes"
+    # Leading dims "mesh": mesh_shape on the virtual mesh, all ones on a
+    # process of a process mesh.
+    soa: AgentSoA                   # mesh + (*local grid, K, ...)
+    refs: Dict[str, Slab]           # mesh + slab shape
+    it: torch.Tensor                # mesh int32
+    key: torch.Tensor               # mesh + (2,) uint32
+    gid_counter: torch.Tensor       # mesh int32
+    dropped: torch.Tensor           # mesh int32 cumulative overflow drops
+    halo_bytes: torch.Tensor        # mesh int32 wire bytes of last aura
+    codec_overflow: torch.Tensor    # mesh int32 cumulative clipped deltas
+    health: torch.Tensor            # mesh + (NUM_GUARDS,) int32
 
 
 def _unported(what: str, value, item: str) -> None:
@@ -112,6 +124,16 @@ def device_block(soa: AgentSoA, coords: Tuple[int, ...]) -> AgentSoA:
     """Device ``coords``' block of a mesh-layout SoA (contiguous views)."""
     return AgentSoA(attrs={n: a[coords] for n, a in soa.attrs.items()},
                     valid=soa.valid[coords])
+
+
+def _pick(t: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """The comm's blocks of a mesh-shaped tensor (``mesh_shape + rest``):
+    all of it on the virtual mesh; on a process its own device's entry,
+    behind all-ones leading dims."""
+    if tuple(t.shape[:comm.lead]) == comm.lead_shape:
+        return t
+    ((_, g),) = comm.blocks()
+    return t[g].reshape(comm.lead_shape + tuple(t.shape[comm.lead:]))
 
 
 class _MeshSoA:
@@ -172,8 +194,11 @@ class Engine:
     # it at every owned cell.
     overlap: str = "auto"
     device: Any = "cuda"
-    # _frame's constants, built once per torch device
+    # _frame's constants, built once per torch device and comm's blocks
     _frames: Dict[Any, _Frame] = dataclasses.field(
+        default_factory=dict, init=False, repr=False)
+    # _comm's process comms by mesh (their edge buffers live across steps)
+    _comms: Dict[int, Tuple[Any, ProcessMeshComm]] = dataclasses.field(
         default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
@@ -187,7 +212,7 @@ class Engine:
     # ------------------------------------------------------------------
     def init_state(self, positions: np.ndarray,
                    attrs: Dict[str, np.ndarray], seed: int = 0, *,
-                   it0: int = 0, base_key=None) -> SimState:
+                   it0: int = 0, base_key=None, mesh=None) -> SimState:
         """Create every agent directly on the device whose block holds it
         (paper section 2.4.4): per-device blocks, ``gid_rank`` = the
         device's linear rank, ``gid_count`` counting from 0 on each device.
@@ -195,10 +220,17 @@ class Engine:
         The per-device RNG keys are ``split(PRNGKey(seed), n_devices)``, or
         split from ``fold_in(base_key, it0)`` when a ``(2,)`` uint32
         ``base_key`` is given; ``it0`` starts the iteration counter.
+
+        With a process ``mesh`` every rank takes the same full
+        ``positions`` and keeps its own device's agents, its key the row
+        of its linear rank: its block is bit for bit the virtual mesh's
+        block of that device.
         """
         geom = self.geom
         nd = geom.ndim
-        mesh = geom.mesh_shape
+        mesh_shape = geom.mesh_shape
+        comm = self._comm(mesh)
+        lead_shape = comm.lead_shape
         dev = self.device
         schema = self.behavior.schema
 
@@ -224,7 +256,7 @@ class Engine:
         if part is None:
             lens = [i * geom.cell_size for i in geom.interior]
             owner = [np.clip((positions[:, a] // lens[a]).astype(np.int64),
-                             0, mesh[a] - 1) for a in range(nd)]
+                             0, mesh_shape[a] - 1) for a in range(nd)]
         else:
             # each agent goes to the device whose cut slab holds its global
             # cell along every axis
@@ -232,16 +264,16 @@ class Engine:
                 np.int64), 0, geom.global_cells[a] - 1) for a in range(nd)]
             owner = [np.clip(np.searchsorted(np.asarray(part.cuts[a]),
                                              cell[a], side="right") - 1,
-                             0, mesh[a] - 1) for a in range(nd)]
-        blocks = _MeshSoA(mesh)
-        counters = np.zeros(mesh, dtype=np.int32)
-        for coords in np.ndindex(*mesh):
+                             0, mesh_shape[a] - 1) for a in range(nd)]
+        blocks = _MeshSoA(lead_shape)
+        counters = np.zeros(lead_shape, dtype=np.int32)
+        for c, coords in comm.blocks():
             sel = np.ones(positions.shape[0], dtype=bool)
             for a in range(nd):
                 sel &= owner[a] == coords[a]
             sel = np.flatnonzero(sel)
             n = sel.size
-            lin = int(np.ravel_multi_index(coords, mesh))
+            lin = int(np.ravel_multi_index(coords, mesh_shape))
             flat: Dict[str, torch.Tensor] = {}
             for name, (shape, dtype) in schema.all_specs(nd).items():
                 if name == POS:
@@ -261,18 +293,19 @@ class Engine:
                 raise ValueError(
                     f"cell capacity overflow at init on device {coords}: "
                     f"{int(dropped)} agents dropped; raise geom.cap")
-            counters[coords] = n
-            blocks.put(coords, soa)
+            counters[c] = n
+            blocks.put(c, soa)
 
         def scalar(v):
-            return torch.full(mesh, v, dtype=torch.int32, device=dev)
+            return torch.full(lead_shape, v, dtype=torch.int32, device=dev)
 
         if base_key is not None:
             base = torch.from_numpy(np.array(base_key, np.uint32))
             root = prng.fold_in(base.to(dev), int(it0))
         else:
             root = prng.PRNGKey(seed, device=dev)
-        keys = prng.split(root, geom.n_devices).reshape(mesh + (2,))
+        keys = _pick(prng.split(root, geom.n_devices).reshape(
+            mesh_shape + (2,)), comm)
 
         return SimState(
             soa=blocks.soa,
@@ -283,27 +316,40 @@ class Engine:
             dropped=scalar(0),
             halo_bytes=scalar(0),
             codec_overflow=scalar(0),
-            health=torch.zeros(mesh + (NUM_GUARDS,), dtype=torch.int32,
-                               device=dev),
+            health=torch.zeros(lead_shape + (NUM_GUARDS,),
+                               dtype=torch.int32, device=dev),
         )
 
-    def _frame(self, dev: torch.device) -> _Frame:
-        """The geometry's per-device constants on ``dev`` (built at the
-        first call)."""
-        frame = self._frames.get(dev)
+    def _frame(self, dev: torch.device, comm: Comm) -> _Frame:
+        """The geometry's per-device constants of ``comm``'s blocks on
+        ``dev`` (built at the first call)."""
+        key = (dev, comm.blocks())
+        frame = self._frames.get(key)
         if frame is None:
             geom = self.geom
             mesh = geom.mesh_shape
             widths = [[geom.axis_widths[a][c[a]] for a in range(geom.ndim)]
                       for c in np.ndindex(*mesh)]
             frame = _Frame(
-                origins=geom.device_origins(dev),
-                ends=geom.device_ends(dev),
-                widths=torch.tensor(widths, dtype=torch.int32, device=dev
-                                    ).reshape(mesh + (geom.ndim,)),
-                owned=mesh_owned_mask(geom, dev) if geom.uneven else None)
-            self._frames[dev] = frame
+                origins=_pick(geom.device_origins(dev), comm),
+                ends=_pick(geom.device_ends(dev), comm),
+                widths=_pick(torch.tensor(
+                    widths, dtype=torch.int32, device=dev).reshape(
+                        mesh + (geom.ndim,)), comm),
+                owned=_pick(mesh_owned_mask(geom, dev), comm)
+                if geom.uneven else None)
+            self._frames[key] = frame
         return frame
+
+    def _owned(self, comm: Comm) -> Tuple[Tuple[int, ...], ...]:
+        """Per axis, the owned widths of the comm's devices along its mesh
+        axis, one int a device: ``Domain.axis_widths`` on the virtual
+        mesh, a one-element tuple of its own width on a process (whose
+        leading dims are all ones)."""
+        if comm.lead_shape == self.geom.mesh_shape:
+            return self.geom.axis_widths
+        ((_, g),) = comm.blocks()
+        return tuple((w[c],) for w, c in zip(self.geom.axis_widths, g))
 
     # ------------------------------------------------------------------
     # One iteration
@@ -390,23 +436,28 @@ class Engine:
         soa, dropped = bin_agents(geom, flat, fvalid, origin, owned)
         return soa, dropped, gidc
 
-    def step_keys(self, state: SimState, n: int = 1) -> torch.Tensor:
-        """Every device's step key for the ``n`` iterations from
-        ``state.it`` on, ``(n, *mesh, 2)``: ``fold_in(fold_in(key, it),
+    def step_keys(self, state: SimState, n: int = 1,
+                  comm: Comm = None) -> torch.Tensor:
+        """The step key of each of ``comm``'s devices (default: every
+        device of the virtual mesh) for the ``n`` iterations from
+        ``state.it`` on, ``(n, *lead, 2)``: ``fold_in(fold_in(key, it),
         rank)`` as two batched hashes on the device."""
+        if comm is None:
+            comm = self._comm()
         dev = state.key.device
         mesh = self.geom.mesh_shape
         its = state.it + torch.arange(n, dtype=torch.int32, device=dev
                                       ).reshape((n,) + (1,) * len(mesh))
-        ranks = torch.arange(self.geom.n_devices, dtype=torch.int32,
-                             device=dev).reshape(mesh)
+        ranks = _pick(torch.arange(self.geom.n_devices, dtype=torch.int32,
+                                   device=dev).reshape(mesh), comm)
         return prng.fold_in(prng.fold_in(state.key, its), ranks)
 
     def local_step(self, state: SimState, comm: Comm, full_halo: bool,
                    step_keys: torch.Tensor = None) -> SimState:
-        """One iteration of every device of the mesh (``comm`` is the
-        engine's :class:`VirtualMeshComm`), with the devices' step keys
-        ``step_keys`` (``(*mesh, 2)``; derived here when not given).  The
+        """One iteration of the comm's devices (the engine's
+        :class:`VirtualMeshComm`: every device of the mesh; a
+        :class:`ProcessMeshComm`: this process's), with their step keys
+        ``step_keys`` (``(*lead, 2)``; derived here when not given).  The
         ensemble runner (``core.ensemble``) runs the same two halves,
         :meth:`_aura` and :meth:`_advance`, with its lanes' sweep in
         between."""
@@ -426,12 +477,13 @@ class Engine:
         if comm.lead != nd:
             raise ValueError(
                 f"local_step needs a comm with {nd} leading mesh dims "
-                f"(a VirtualMeshComm); got lead={comm.lead}")
+                f"(a VirtualMeshComm or ProcessMeshComm); got "
+                f"lead={comm.lead}")
         if geom.uneven:
             pre = mask_unowned(
                 state.soa, geom, lead=comm.lead,
-                mask=self._frame(state.soa.valid.device).owned)
-            owned = geom.axis_widths
+                mask=self._frame(state.soa.valid.device, comm).owned)
+            owned = self._owned(comm)
         else:
             pre = clear_ring(state.soa, comm.lead)
             owned = None
@@ -443,33 +495,35 @@ class Engine:
                  step_keys: torch.Tensor, sweep) -> SimState:
         """2.-5. of an iteration from ``aura`` (:meth:`_aura`'s list):
         per device ``sweep(coords, block, pre)`` (the accumulators of the
-        device's aura-filled block; ``pre`` is its block before the
-        exchange, or None), the update drawing from the device's step key,
-        spawn, clamp and re-binning; then migration."""
+        aura-filled block of the device at mesh coordinates ``coords``;
+        ``pre`` is its block before the exchange, or None), the update
+        drawing from the device's step key, spawn, clamp and re-binning;
+        then migration."""
         geom = self.geom
         mesh = geom.mesh_shape
+        lead_shape = comm.lead_shape
         soa, refs, hbytes, oflow, pre = aura
         aura.clear()   # the caller's reference: the SoA dies below
         dev = state.soa.valid.device
-        frame = self._frame(dev)
+        frame = self._frame(dev, comm)
         lsz = torch.tensor(geom.domain_size, dtype=torch.float32, device=dev)
         coflow = state.codec_overflow + oflow
 
         # 2.-4. Per device: sweep, update (drawing from the device's step
         # key), spawn, clamp, re-bin.
-        binned = _MeshSoA(mesh)
+        binned = _MeshSoA(lead_shape)
         drops: List[torch.Tensor] = []
         gidcs: List[torch.Tensor] = []
         if step_keys is None:
-            step_keys = self.step_keys(state)[0]
-        for c in np.ndindex(*mesh):
-            lrank = int(np.ravel_multi_index(c, mesh))
+            step_keys = self.step_keys(state, comm=comm)[0]
+        for c, g in comm.blocks():
+            lrank = int(np.ravel_multi_index(g, mesh))
             blk = device_block(soa, c)
-            acc = sweep(c, blk,
+            acc = sweep(g, blk,
                         None if pre is None else device_block(pre, c))
             blk, d1, gidc = self._device_finish(
                 blk, acc, frame.origins[c], step_keys[c], lrank,
-                state.gid_counter[c], geom.owned_widths(c),
+                state.gid_counter[c], geom.owned_widths(g),
                 None if frame.owned is None else frame.owned[c])
             del acc
             binned.put(c, blk)
@@ -477,7 +531,7 @@ class Engine:
             gidcs.append(gidc)
             del blk
         del soa, pre   # the aura-filled SoA is dead: free it before migrating
-        dropped = state.dropped + torch.stack(drops).reshape(mesh)
+        dropped = state.dropped + torch.stack(drops).reshape(lead_shape)
 
         # 5. Agent migration: dimension-ordered ring exchange over all axes.
         soa3, d2, moflow = self._migrate(binned.soa, comm, frame, lsz)
@@ -487,9 +541,9 @@ class Engine:
             refs=refs,
             it=state.it + 1,
             key=state.key,
-            gid_counter=torch.stack(gidcs).reshape(mesh),
+            gid_counter=torch.stack(gidcs).reshape(lead_shape),
             dropped=dropped + d2,
-            halo_bytes=torch.full(mesh, hbytes, dtype=torch.int32,
+            halo_bytes=torch.full(lead_shape, hbytes, dtype=torch.int32,
                                   device=dev),
             codec_overflow=coflow + moflow,
             health=state.health,
@@ -528,13 +582,14 @@ class Engine:
         geom = self.geom
         nd = geom.ndim
         mesh = geom.mesh_shape
+        lead_shape = comm.lead_shape
         shape = geom.local_shape
         tor = geom.toroidal
         lead = comm.lead
         cfg = self.delta_cfg
         mig_q = cfg.migration if cfg.enabled else None
         dev = soa.valid.device
-        moflow = torch.zeros(mesh, dtype=torch.int32, device=dev)
+        moflow = torch.zeros(lead_shape, dtype=torch.int32, device=dev)
         lsz_np = np.asarray(geom.domain_size, np.float32)
         if mig_q is not None:
             # Static quantization frame: box centre at origin + half the
@@ -597,7 +652,7 @@ class Engine:
         # Received slabs still carrying cells that need later-axis hops:
         # (slab, axis it arrived along, its fixed cell index on that axis).
         pending = []
-        widths = geom.axis_widths
+        widths = self._owned(comm)
         for a in range(nd):
             h = shape[a]
             # the migration ring along a: the padded edge on an equal
@@ -639,7 +694,7 @@ class Engine:
                     for blk, bpos, fb in blocks:
                         v = blk[n]
                         z = torch.zeros(
-                            mesh + face_grid + (v.shape[lead + g - 1],)
+                            lead_shape + face_grid + (v.shape[lead + g - 1],)
                             + trailing, dtype=base.dtype, device=base.device)
                         set_plane(z, bpos, fb, v, lead)
                         parts.append(z)
@@ -670,20 +725,20 @@ class Engine:
                      for n, t in slab.items() if n != "valid"},
                     v.reshape((-1,)))
 
-        out = _MeshSoA(mesh)
+        out = _MeshSoA(lead_shape)
         drops: List[torch.Tensor] = []
-        for c in np.ndindex(*mesh):
+        for c, g in comm.blocks():
             base_attrs, base_valid = flat_view(device_block(soa, c))
             parts = [fl(slab, c) for slab, _, _ in pending]
             cat = {n: torch.cat([base_attrs[n]] + [p[0][n] for p in parts])
                    for n in base_attrs}
             catv = torch.cat([base_valid] + [p[1] for p in parts])
             blk, d = bin_agents(geom, cat, catv, frame.origins[c],
-                                geom.owned_widths(c))
+                                geom.owned_widths(g))
             del cat, catv
             out.put(c, blk)
             drops.append(d)
-        return out.soa, torch.stack(drops).reshape(mesh), moflow
+        return out.soa, torch.stack(drops).reshape(lead_shape), moflow
 
     def _settle(self, pos: torch.Tensor, starts: torch.Tensor,
                 ends: torch.Tensor, widths: torch.Tensor, lead: int
@@ -721,31 +776,54 @@ class Engine:
     # ------------------------------------------------------------------
     # Drivers
     # ------------------------------------------------------------------
-    def _comm(self) -> VirtualMeshComm:
-        return VirtualMeshComm(mesh_shape=self.geom.mesh_shape,
-                               toroidal=self.geom.toroidal)
+    def _comm(self, mesh=None) -> Comm:
+        """The virtual mesh's comm, or with a process ``mesh`` (a
+        ``DeviceMesh`` shaped like the Domain's ``mesh_shape``) this
+        process's :class:`ProcessMeshComm`, built once a mesh."""
+        if mesh is None:
+            return VirtualMeshComm(mesh_shape=self.geom.mesh_shape,
+                                   toroidal=self.geom.toroidal)
+        held = self._comms.get(id(mesh))
+        if held is not None and held[0] is mesh:
+            return held[1]
+        if not hasattr(mesh, "get_coordinate"):
+            raise TypeError(
+                "mesh= takes a torch.distributed DeviceMesh (see "
+                f"repro_torch.launch.mesh.make_abm_mesh); got "
+                f"{type(mesh).__name__}")
+        shape = tuple(mesh.mesh.shape)
+        if shape != self.geom.mesh_shape:
+            raise ValueError(
+                f"mesh of shape {shape} for a Domain whose mesh_shape is "
+                f"{self.geom.mesh_shape}")
+        comm = ProcessMeshComm.from_mesh(mesh, self.geom.toroidal)
+        self._comms[id(mesh)] = (mesh, comm)
+        return comm
 
-    def make_local_step(self):
-        comm = self._comm()
+    def make_local_step(self, mesh=None):
+        """``step(state, full_halo=True)``: one iteration on the virtual
+        mesh, or of this process's device of a process ``mesh``."""
+        comm = self._comm(mesh)
 
         def step(state: SimState, full_halo: bool = True) -> SimState:
             return self.local_step(state, comm, full_halo)
 
         return step
 
-    def make_segment_runner(self):
+    def make_segment_runner(self, mesh=None):
         """``seg(state, n_steps, full_first=True)`` runs ``n_steps``
-        iterations: the first a full aura refresh when ``full_first``, the
-        rest through the delta codec.  Without delta encoding every step
-        is full and ``full_first`` is ignored."""
-        comm = self._comm()
+        iterations (on the virtual mesh, or of this process's device of a
+        process ``mesh``): the first a full aura refresh when
+        ``full_first``, the rest through the delta codec.  Without delta
+        encoding every step is full and ``full_first`` is ignored."""
+        comm = self._comm(mesh)
         delta_on = self.delta_cfg.enabled
 
         def seg(state: SimState, n_steps: int, full_first: bool = True
                 ) -> SimState:
             # The segment's step keys at once: two hashes a segment, not
             # two a step.
-            keys = self.step_keys(state, int(n_steps))
+            keys = self.step_keys(state, int(n_steps), comm)
             for i in range(int(n_steps)):
                 full = (not delta_on) or (full_first and i == 0)
                 state = self.local_step(state, comm, full, keys[i])
@@ -760,29 +838,31 @@ class Engine:
         that clipped under a fixed codec scale.  ``n_steps`` run through
         the segment runner (segments end at refresh ticks), or one
         ``step_fn`` call per step when a ``step_fn`` or a per-step
-        ``collect`` is given.  Returns ``(engine, state, series)``."""
+        ``collect`` is given.  With a process ``mesh`` the state is this
+        process's block (``init_state(..., mesh=mesh)``), and every rank
+        calls ``drive`` alike.  Returns ``(engine, state, series)``."""
         _unported("dynamic load balancing", rebalancer, "A8")
-        _unported(PROCESS_MESH, mesh, "A7")
         _unported("fault plans", fault_plan, "A9")
         cfg = self.delta_cfg
         r = max(int(cfg.refresh_interval), 1)
         force_full = False
+        reduce = None if mesh is None else self._comm(mesh)
         # A fixed-scale codec can clip (the adaptive one never does): a
         # grown overflow count forces the next exchange to a full refresh.
         track_clip = cfg.enabled and cfg.scale is not None
-        clip_mark = codec_overflow_count(state) if track_clip else 0
+        clip_mark = codec_overflow_count(state, reduce) if track_clip else 0
 
         def after(state):
             nonlocal force_full, clip_mark
             force_full = False
             if track_clip:
-                cnt = codec_overflow_count(state)
+                cnt = codec_overflow_count(state, reduce)
                 if cnt > clip_mark:
                     force_full = True
                     clip_mark = cnt
 
         if step_fn is None and collect is None:
-            seg_fn = self.make_segment_runner()
+            seg_fn = self.make_segment_runner(mesh)
             i = 0
             while i < n_steps:
                 nxt = min(n_steps, (i // r + 1) * r) if cfg.enabled \
@@ -793,7 +873,7 @@ class Engine:
                 i = nxt
             return self, state, []
         if step_fn is None:
-            step_fn = self.make_local_step()
+            step_fn = self.make_local_step(mesh)
         series = []
         for i in range(n_steps):
             full = force_full or (not cfg.enabled) or i % r == 0
@@ -804,12 +884,24 @@ class Engine:
         return self, state, series
 
 
-def total_agents(state: SimState) -> int:
-    return int(state.soa.valid.sum())
+def total_agents(state: SimState, comm: ProcessMeshComm = None) -> int:
+    """Live agents of ``state``; with a process mesh's ``comm``, of every
+    rank (an all-reduce: each rank reads the same count)."""
+    n = state.soa.valid.sum()
+    if comm is not None:
+        n = comm.sum_over_all_ranks(n)
+    return int(n)
 
 
-def codec_overflow_count(state: SimState) -> int:
+def codec_overflow_count(state: SimState,
+                         comm: ProcessMeshComm = None) -> int:
     """Largest per-device cumulative clipped-delta count (a host read; each
     device counts only its own sends, so the max is the monotone 'did
-    anyone clip since the mark' signal)."""
-    return int(state.codec_overflow.max())
+    anyone clip since the mark' signal).  With a process mesh's ``comm``
+    it is the largest of every rank's (an all-reduce), so every rank
+    forces the same full refresh: ranks that branched apart would post
+    mismatched messages."""
+    m = state.codec_overflow.max()
+    if comm is not None:
+        m = comm.max_over_all_ranks(m)
+    return int(m)

@@ -32,9 +32,12 @@ CompiledCache` keyed by the family fingerprint (+ mesh): the scenario
 server (``launch/serve.py``) reports its hits, and CUDA graphs of a runner
 will be keyed the same way.  An uneven ``Partition`` runs as on the solo
 engine: the lanes' auras and updates are ``Engine._aura``/``_advance``,
-which mask each device's block to its owned cells.  Not ported: the
-guards and their per-lane health words (ROADMAP A9), an explicit device
-mesh across processes (A7).
+which mask each device's block to its owned cells.  On a process mesh
+(``run(..., mesh=)``, one process a device) each process runs its own
+device's block of every lane: the lanes' states come from
+``proto_engine().init_state(..., mesh=mesh)`` and the loops run over the
+comm's one block.  Not ported: the guards and their per-lane health words
+(ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -49,9 +52,7 @@ from repro_torch.core.agent_soa import AgentSoA
 from repro_torch.core.compile_cache import CompiledCache
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain
-from repro_torch.core.engine import (
-    PROCESS_MESH, Engine, SimState, _unported,
-)
+from repro_torch.core.engine import Engine, SimState, _unported
 from repro_torch.core.neighbors import (
     resolve_sweep_backend, sweep_accumulate_lanes,
 )
@@ -275,14 +276,15 @@ class Ensemble:
         # 1. each lane's aura, into its lane of the stacked SoA
         auras = [eng._aura(st, comm, full, out=lane(r))
                  for r, (eng, st) in enumerate(zip(lanes.engines, states))]
-        # 2. one sweep a mesh device over every lane
+        # 2. one sweep a mesh device over every lane (the comm's devices:
+        # all of the virtual mesh, a process's own), keyed by coordinates
         beh = base.behavior
         accs = {}
-        for c in np.ndindex(*geom.mesh_shape):
+        for c, g in comm.blocks():
             at = (slice(None),) + c
             blk = AgentSoA(attrs={n: a[at] for n, a in aura.attrs.items()},
                            valid=aura.valid[at])
-            accs[c] = sweep_accumulate_lanes(
+            accs[g] = sweep_accumulate_lanes(
                 geom, blk, [e.behavior.pair_fn for e in lanes.engines],
                 beh.pair_attrs, beh.radius,
                 [e.behavior.params for e in lanes.engines],
@@ -298,9 +300,8 @@ class Ensemble:
         return out
 
     def _build_runner(self, mesh):
-        _unported(PROCESS_MESH, mesh, "A7")
         base = self.proto_engine()
-        comm = base._comm()
+        comm = base._comm(mesh)
         delta_on = self.delta_cfg.enabled
 
         def run(state: SimState, lanes: _Lanes, n_steps: int,
@@ -308,7 +309,7 @@ class Ensemble:
             cur = [replica_state(state, r)
                    for r in range(len(lanes.engines))]
             # each lane's step keys of the segment at once
-            keys = [eng.step_keys(st, int(n_steps))
+            keys = [eng.step_keys(st, int(n_steps), comm)
                     for eng, st in zip(lanes.engines, cur)]
             for i in range(int(n_steps)):
                 full = (not delta_on) or (full_first and i == 0)
@@ -338,7 +339,8 @@ class Ensemble:
         segments of ``refresh_interval`` steps, each opening with a full
         aura refresh - as the reference does.  ``collect(estate)`` (if
         given) runs at every segment boundary and its non-None results
-        are returned as the frame list.
+        are returned as the frame list.  With a process ``mesh`` every rank
+        calls ``run`` alike on its own device's blocks of the lanes.
         """
         runner = self.make_runner(mesh)
         lanes = self.lanes(estate.params)

@@ -5,29 +5,37 @@ directed edges): axis-0 slabs first, then axis-1 slabs that include the
 freshly filled axis-0 ring cells, which propagates corner neighbours in at
 most ``ndim`` hops.
 
-Two comms stand in for the reference's:
+Three comms stand in for the reference's:
 
 * :class:`LocalComm` - one device, tensors without mesh dims (the
   reference's single-device oracle);
-* :class:`VirtualMeshComm` - the counterpart of ``ShardComm``: the whole
-  device mesh in one process on one card, kept as ``lead = ndim`` leading
-  dims of every tensor in the reference's row-major ``linear_rank`` order.
-  ``shift`` moves data one step along a mesh axis, with zeros where a
-  device has no source, as ``ppermute`` gives them.
+* :class:`VirtualMeshComm` - the whole device mesh in one process on one
+  card, kept as ``lead = ndim`` leading dims of every tensor in the
+  reference's row-major ``linear_rank`` order.  ``shift`` moves data one
+  step along a mesh axis, with zeros where a device has no source, as
+  ``ppermute`` gives them;
+* :class:`ProcessMeshComm` - the counterpart of ``ShardComm``: one process
+  a device of the mesh, joined by ``torch.distributed``.  Each process
+  holds its own block with ``ndim`` leading dims of size 1 (what the
+  reference's ``shard_map`` body sees), and ``shift`` sends each directed
+  edge's whole payload as one packed byte buffer (:func:`pack`), which the
+  receiver reads through dtype views into its receive buffer
+  (:func:`unpack`): the paper's zero-copy receive (section 2.1).
 
-The exchange and the slab helpers work on either: a comm's ``lead`` says
-how many leading mesh dims its tensors carry.  Under an uneven partition
-the high faces sit at each device's owned extent, so on the virtual mesh
-a slab's index along its axis is one int a device along that mesh axis
-(:func:`~repro_torch.core.grid.take_plane`).  A ``torch.distributed``
-comm across processes is later work (ROADMAP A7).
+The exchange and the slab helpers work on each: a comm's ``lead`` says
+how many leading mesh dims its tensors carry, and ``blocks()`` which
+devices of the mesh its tensors hold.  Under an uneven partition the high
+faces sit at each device's owned extent, so on the virtual mesh a slab's
+index along its axis is one int a device along that mesh axis
+(:func:`~repro_torch.core.grid.take_plane`); a process passes its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+import time
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +71,12 @@ class Comm:
         raise NotImplementedError
 
     def sum_over_all_ranks(self, x):
+        raise NotImplementedError
+
+    def blocks(self) -> Tuple[Tuple[Tuple[int, ...], Tuple[int, ...]], ...]:
+        """The mesh devices whose blocks this comm's tensors hold, as
+        ``(index in the leading dims, global mesh coordinates)`` pairs in
+        row-major order."""
         raise NotImplementedError
 
 
@@ -136,6 +150,230 @@ class VirtualMeshComm(Comm):
         lead = self.lead
         total = x.sum(dim=tuple(range(lead)), keepdim=True)
         return total.expand(x.shape)
+
+    @property
+    def lead_shape(self) -> Tuple[int, ...]:
+        return tuple(self.mesh_shape)
+
+    def blocks(self):
+        return tuple((c, c) for c in np.ndindex(*self.mesh_shape))
+
+
+# ---------------------------------------------------------------------------
+# One process a device: packed edge buffers over torch.distributed
+# ---------------------------------------------------------------------------
+
+# Byte alignment of each entry in a packed buffer: every dtype view of the
+# receive buffer starts on a multiple of its element size.
+PACK_ALIGN = 16
+
+# (name, dtype, shape, byte offset, byte count) of each entry of a payload
+Layout = Tuple[Tuple[str, torch.dtype, Tuple[int, ...], int, int], ...]
+
+
+def pack_layout(tree: Slab) -> Tuple[Layout, int]:
+    """Where each entry of ``tree`` sits in its packed buffer, and the
+    buffer's length in bytes.  Both ends of an edge compute it from their
+    own payload: slab shapes are fixed and the same on every device, so no
+    size crosses the wire."""
+    out, off = [], 0
+    for name, t in tree.items():
+        n = t.numel() * t.element_size()
+        out.append((name, t.dtype, tuple(t.shape), off, n))
+        off += -(-n // PACK_ALIGN) * PACK_ALIGN
+    return tuple(out), off
+
+
+def pack(tree: Slab, layout: Layout, buf: torch.Tensor) -> torch.Tensor:
+    """Copy every entry of ``tree`` into the uint8 ``buf`` at ``layout``'s
+    offsets; returns ``buf``."""
+    for name, dtype, shape, off, n in layout:
+        if n:
+            buf[off:off + n].view(dtype).view(shape).copy_(tree[name])
+    return buf
+
+
+def unpack(buf: torch.Tensor, layout: Layout) -> Slab:
+    """The entries of a packed buffer as dtype views into it (no copy)."""
+    return {name: buf[off:off + n].view(dtype).view(shape)
+            for name, dtype, shape, off, n in layout}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ProcessMeshComm(Comm):
+    """This process's device of a spatial mesh of processes, one device
+    each, joined by the default ``torch.distributed`` group (the
+    counterpart of the reference's ``ShardComm``).  Every tensor carries ``ndim`` leading
+    dims of size 1, the layout of the virtual mesh's one-device case.
+
+    ``shift(tree, axis, direction)`` sends this device's payload to the
+    neighbour at ``coords[axis] + direction`` and gives back the one
+    received from ``coords[axis] - direction``, wrapping on toroidal axes;
+    a device with no source gets zeros in every entry (``/scale`` and
+    ``/center`` included), and a size-1 axis is the identity when toroidal
+    and zeros when closed, with no message - :class:`VirtualMeshComm`'s
+    rules.  The payload crosses as ONE message: its tensors packed into a
+    contiguous byte buffer (:func:`pack_layout`), sent and received with
+    non-blocking ``isend``/``irecv`` under a tag of its (axis, direction)
+    - on a size-2 torus both neighbours are one rank, and the two
+    directions' messages must not cross.  The receiver's payload is views
+    into its receive buffer.  Where the group's backend takes no CUDA
+    tensor (gloo), a buffer on the card goes through a pinned host buffer
+    allocated once per edge and reused.
+
+    ``stats`` counts the messages sent, their bytes and the host seconds
+    spent in ``shift`` (packing, staging and the wire, from a synchronised
+    start) and in the all-reduces."""
+
+    mesh_shape: Tuple[int, ...]
+    toroidal: Tuple[bool, ...]
+    mesh_coords: Tuple[int, ...]       # this process's device
+    ranks: Any                         # numpy: process rank at each coord
+    backend: str = "gloo"              # the default group's
+    # (axis, direction, "send"/"recv") -> reusable buffer
+    _buffers: Dict[Any, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False)
+    stats: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: dict(messages=0, bytes=0, seconds=0.0),
+        repr=False)
+
+    @staticmethod
+    def from_mesh(mesh, toroidal: Tuple[bool, ...]) -> "ProcessMeshComm":
+        """The comm of this process's device of ``mesh``, a
+        ``torch.distributed.device_mesh.DeviceMesh`` over every rank of
+        the default group (:func:`repro_torch.launch.mesh.make_abm_mesh`)."""
+        import torch.distributed as dist
+
+        ranks = np.asarray(mesh.mesh.cpu().numpy(), dtype=np.int64)
+        if ranks.size != dist.get_world_size():
+            raise ValueError(
+                f"mesh {ranks.shape} holds {ranks.size} ranks; the process "
+                f"group has {dist.get_world_size()}: a process mesh spans "
+                "the whole group")
+        coords = mesh.get_coordinate()
+        if coords is None:
+            raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
+        return ProcessMeshComm(
+            mesh_shape=tuple(ranks.shape), toroidal=tuple(toroidal),
+            mesh_coords=tuple(int(c) for c in coords), ranks=ranks,
+            backend=str(dist.get_backend()))
+
+    @property
+    def lead(self) -> int:
+        return len(self.mesh_shape)
+
+    @property
+    def lead_shape(self) -> Tuple[int, ...]:
+        return (1,) * len(self.mesh_shape)
+
+    def blocks(self):
+        return (((0,) * self.lead, self.mesh_coords),)
+
+    def coords(self) -> Tuple[int, ...]:
+        """This device's mesh coordinates (host ints)."""
+        return self.mesh_coords
+
+    def linear_rank(self) -> int:
+        """Row-major rank of this device in the mesh."""
+        return int(np.ravel_multi_index(self.mesh_coords, self.mesh_shape))
+
+    def _peer(self, axis: int, step: int) -> Optional[int]:
+        """Process rank of the device ``step`` along ``axis``, or None off
+        a closed edge."""
+        c = list(self.mesh_coords)
+        size = self.mesh_shape[axis]
+        c[axis] += step
+        if not 0 <= c[axis] < size:
+            if not self.toroidal[axis]:
+                return None
+            c[axis] %= size
+        return int(self.ranks[tuple(c)])
+
+    def _buffer(self, key, nbytes: int, device, pinned: bool = False
+                ) -> torch.Tensor:
+        buf = self._buffers.get(key)
+        if buf is None or buf.numel() != nbytes or buf.device != device:
+            buf = torch.empty(nbytes, dtype=torch.uint8, device=device,
+                              pin_memory=pinned)
+            self._buffers[key] = buf
+        return buf
+
+    def _staged(self, device: torch.device) -> bool:
+        return device.type == "cuda" and self.backend != "nccl"
+
+    def shift(self, tree: Slab, axis: int, direction: int) -> Slab:
+        import torch.distributed as dist
+
+        if direction not in (-1, 1):
+            raise ValueError(f"shift direction {direction}; expected +-1")
+        if self.mesh_shape[axis] == 1:
+            if self.toroidal[axis]:
+                return tree
+            return {k: torch.zeros_like(v) for k, v in tree.items()}
+        dst = self._peer(axis, direction)
+        src = self._peer(axis, -direction)
+        dev = next(iter(tree.values())).device
+        staged = self._staged(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        layout, nbytes = pack_layout(tree)
+        tag = 2 * axis + (direction > 0)
+        reqs = []
+        recv = wire_in = None
+        if src is not None:
+            recv = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            wire_in = self._buffer((axis, direction, "recv"), nbytes,
+                                   torch.device("cpu"), pinned=True) \
+                if staged else recv
+            reqs.append(dist.irecv(wire_in, src=src, tag=tag))
+        if dst is not None:
+            send = pack(tree, layout, self._buffer(
+                (axis, direction, "send"), nbytes, dev))
+            if staged:
+                wire_out = self._buffer((axis, direction, "send_host"),
+                                        nbytes, torch.device("cpu"),
+                                        pinned=True)
+                wire_out.copy_(send)
+            else:
+                wire_out = send
+            reqs.append(dist.isend(wire_out, dst=dst, tag=tag))
+            self.stats["messages"] += 1
+            self.stats["bytes"] += nbytes
+        for r in reqs:
+            r.wait()
+        if recv is None:
+            out = {k: torch.zeros_like(v) for k, v in tree.items()}
+        else:
+            if staged:
+                recv.copy_(wire_in)
+            out = unpack(recv, layout)
+        self.stats["seconds"] += time.perf_counter() - t0
+        return out
+
+    def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        host = x.device.type == "cuda" and self.backend != "nccl"
+        t = x.detach().to("cpu", copy=True) if host else x.detach().clone()
+        dist.all_reduce(t, op=op)
+        self.stats["seconds"] += time.perf_counter() - t0
+        return t.to(x.device) if host else t
+
+    def sum_over_all_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over every device of the mesh, on every
+        device (an ``all_reduce``; paper section 3.4)."""
+        import torch.distributed as dist
+
+        return self._all_reduce(x, dist.ReduceOp.SUM)
+
+    def max_over_all_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The largest ``x`` over every device of the mesh, on every
+        device."""
+        import torch.distributed as dist
+
+        return self._all_reduce(x, dist.ReduceOp.MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +471,8 @@ def halo_exchange(
 
     Under uneven ownership (``owned``: per axis, one device's owned width
     on a one-device comm, or the widths at each mesh coordinate along the
-    axis, ``Domain.axis_widths``, on the virtual mesh) each device sends
+    axis, ``Domain.axis_widths``, on the virtual mesh; a process of the
+    mesh passes a one-element tuple) each device sends
     its last owned hyperplane ``owned[a]`` and receives into its ring at
     ``owned[a] + 1``; the low side stays at 1 and 0.  Slab shapes are the
     same on every device (full padded hyperplanes; slots beyond a sender's

@@ -4,8 +4,10 @@ two-line ``SumOverAllRanks`` reduction (section 3.4).
 
 An operation is a callable ``op(sim) -> value`` registered with
 ``sim.every(n, op)``; its results are appended to ``sim.series[name]``.
-The state's tensors hold every device of the (virtual) mesh, so a sum
-over a tensor is the sum over all ranks.  The ``Operation`` class itself
+Each reducer sums over the process's state and then over every process
+(``sim.sum_over_all_ranks``): on the virtual mesh the state holds every
+device and the second sum is the identity; on a process mesh it is an
+all-reduce, and every rank gets the global value.  The ``Operation`` class itself
 stays in ``core/simulation.py`` until ROADMAP A6.  The ``batch_*``
 reducers take a stacked ensemble state (``core.ensemble``) and reduce
 each lane on its own, with one host read a call.
@@ -21,7 +23,7 @@ import torch
 
 def agent_count(sim) -> int:
     """Total live agents across all ranks."""
-    return int(sim.state.soa.valid.sum())
+    return int(sim.sum_over_all_ranks(sim.state.soa.valid.sum()))
 
 
 def attr_sum(attr: str, name: str = "") -> Callable:
@@ -30,7 +32,8 @@ def attr_sum(attr: str, name: str = "") -> Callable:
     def op(sim):
         soa = sim.state.soa
         a = soa.attrs[attr]
-        return float(torch.where(soa.valid, a, torch.zeros_like(a)).sum())
+        return float(sim.sum_over_all_ranks(
+            torch.where(soa.valid, a, torch.zeros_like(a)).sum()))
 
     op.__name__ = name or f"sum_{attr}"
     return op
@@ -42,8 +45,9 @@ def attr_mean(attr: str, name: str = "") -> Callable:
     def op(sim):
         soa = sim.state.soa
         a = soa.attrs[attr]
-        n = float(soa.valid.sum())
-        s = float(torch.where(soa.valid, a, torch.zeros_like(a)).sum())
+        n = float(sim.sum_over_all_ranks(soa.valid.sum()))
+        s = float(sim.sum_over_all_ranks(
+            torch.where(soa.valid, a, torch.zeros_like(a)).sum()))
         return s / max(n, 1.0)
 
     op.__name__ = name or f"mean_{attr}"
@@ -59,7 +63,8 @@ def attr_counts(attr: str, values: Sequence[int],
     def op(sim) -> Tuple[int, ...]:
         soa = sim.state.soa
         a = soa.attrs[attr]
-        return tuple(int(((a == v) & soa.valid).sum()) for v in vals)
+        counts = torch.stack([((a == v) & soa.valid).sum() for v in vals])
+        return tuple(int(c) for c in sim.sum_over_all_ranks(counts))
 
     op.__name__ = name or f"counts_{attr}"
     return op

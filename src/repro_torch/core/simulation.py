@@ -10,11 +10,16 @@ The facade owns the engine, the state and the scheduled operations.  It
 runs on the CUDA device unless ``device="cpu"`` is passed.  A geometry with
 ``mesh_shape`` other than all ones runs on the virtual device mesh of
 ``core.engine`` (the whole mesh on one card), on an equal split or an
-uneven ``Partition`` (``Domain(partition=...)``).  Not ported in this
-slice, and raising ``NotImplementedError`` when asked for: an explicit
-``mesh=`` object, one process a device joined by a ``torch.distributed``
-comm (ROADMAP A7), ``rebalance`` (A8), ``checkpoint`` (A6), ``guards``,
-``supervised`` runs and fault plans (A9).  A list of several behaviours
+uneven ``Partition`` (``Domain(partition=...)``).  An explicit ``mesh=``
+(a ``DeviceMesh`` from :func:`repro_torch.launch.mesh.make_abm_mesh`,
+shaped like the Domain's ``mesh_shape``) runs one process a device: every
+rank builds the same facade, ``init`` keeps the rank's own agents, and
+the exchanges cross between processes (:class:`~repro_torch.core.halo.
+ProcessMeshComm`); ``n_agents`` and :meth:`Simulation.sum_over_all_ranks`
+are global.  Not ported in this slice, and raising
+``NotImplementedError`` when asked for: ``rebalance`` (A8),
+``checkpoint`` (A6), ``guards``, ``supervised`` runs and fault plans
+(A9).  A list of several behaviours
 is composed (:func:`~repro_torch.core.behaviors.compose`), as the
 reference does.  Of the construction-time
 contracts only stencil soundness (``radius <= cell_size``) is ported; the
@@ -33,8 +38,7 @@ from repro_torch.core.behaviors import Behavior, compose
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain
 from repro_torch.core.engine import (
-    PROCESS_MESH, Engine, SimState, _unported, codec_overflow_count,
-    total_agents,
+    Engine, SimState, _unported, codec_overflow_count, total_agents,
 )
 
 # Geometry defaults applied when the first argument is a kwargs dict.
@@ -103,6 +107,9 @@ class Simulation:
         ``cell_size=2.0, interior=(8, 8), mesh_shape=(1, 1), cap=24,
         boundary="closed"``).
       behaviors: one :class:`Behavior`, or a sequence of them, composed.
+      mesh: ``None`` (the virtual mesh in this process), or a
+        ``DeviceMesh`` of one process a device whose shape is the
+        Domain's ``mesh_shape``.
       delta: a :class:`DeltaConfig`, or ``None`` (full refresh every
         step; ``sims.common.resolve_delta`` turns the int8 codec on for
         meshes).  With the codec on, the aura exchange is a full refresh
@@ -125,7 +132,6 @@ class Simulation:
                  dt: float = 1.0, rebalance=None, checkpoint=None,
                  sweep_backend: str = "auto", overlap: str = "auto",
                  check: str = "error", guards=None, device="cuda"):
-        _unported(PROCESS_MESH, mesh, "A7")
         _unported("rebalance", rebalance, "A8")
         _unported("checkpoint", checkpoint, "A6")
         _unported("guards", guards, "A9")
@@ -141,6 +147,13 @@ class Simulation:
             delta_cfg=delta or DeltaConfig(enabled=False), dt=dt,
             sweep_backend=sweep_backend, overlap=overlap, device=device)
         check_stencil(geom, behavior, check)
+        self._mesh = mesh
+        # the process comm: collective host reads and SumOverAllRanks
+        self._comm = None if mesh is None else self.engine._comm(mesh)
+        if mesh is not None and mesh.device_type != self.engine.device.type:
+            raise ValueError(
+                f"a {mesh.device_type} mesh for an engine on "
+                f"{self.engine.device}")
         self.state: Optional[SimState] = None
         self.series: Dict[str, List[Any]] = {}
         self._step_fn: Optional[Callable] = None   # set -> per-step loop
@@ -161,6 +174,11 @@ class Simulation:
         return self.engine.behavior
 
     @property
+    def mesh(self):
+        """The live process mesh (None on the virtual mesh)."""
+        return self._mesh
+
+    @property
     def iteration(self) -> int:
         """The engine iteration counter."""
         if self.state is None:
@@ -168,15 +186,26 @@ class Simulation:
         return int(self.state.it.max())
 
     def n_agents(self) -> int:
-        return total_agents(self.state)
+        """Live agents of every device of the mesh."""
+        return total_agents(self.state, self._comm)
+
+    def sum_over_all_ranks(self, x):
+        """The paper's ``SumOverAllRanks`` (section 3.4): ``x`` (a tensor
+        reduced over this process's state) summed over every process of
+        the mesh; ``x`` itself on the virtual mesh, whose state holds
+        every device."""
+        return x if self._comm is None else self._comm.sum_over_all_ranks(x)
 
     # ------------------------------------------------------------------
     # Setup
     # ------------------------------------------------------------------
     def init(self, positions: np.ndarray, attrs: Dict[str, np.ndarray],
              seed: int = 0) -> "Simulation":
-        """Engine.init_state through the facade; returns self."""
-        self.state = self.engine.init_state(positions, attrs, seed=seed)
+        """Engine.init_state through the facade; returns self.  On a
+        process mesh every rank passes the same full ``positions`` and
+        keeps its own device's agents."""
+        self.state = self.engine.init_state(positions, attrs, seed=seed,
+                                            mesh=self._mesh)
         self._step_fn = None
         self._seg_fn = None
         return self
@@ -231,16 +260,18 @@ class Simulation:
                                  every=1, name="collect"))
         per_step = (self._step_fn is not None) or not fused
         if per_step and self._step_fn is None:
-            self._step_fn = self.engine.make_local_step()
+            self._step_fn = self.engine.make_local_step(self._mesh)
         if not per_step and self._seg_fn is None:
-            self._seg_fn = self.engine.make_segment_runner()
+            self._seg_fn = self.engine.make_segment_runner(self._mesh)
         delta = self.engine.delta_cfg
         refresh = max(int(delta.refresh_interval), 1)
         # Fixed-scale codec clip fallback (see Engine.drive): when any
         # device's cumulative clipped-delta count grows, force the next
-        # aura exchange to a full refresh.
+        # aura exchange to a full refresh (on a process mesh the count is
+        # every rank's, so all ranks refresh together).
         track_clip = delta.enabled and delta.scale is not None
-        clip_mark = codec_overflow_count(self.state) if track_clip else 0
+        clip_mark = codec_overflow_count(self.state, self._comm) \
+            if track_clip else 0
 
         done = 0
         while done < int(steps):
@@ -258,7 +289,7 @@ class Simulation:
             else:
                 self.state = self._seg_fn(self.state, n, full_first=full)
             if track_clip:
-                cnt = codec_overflow_count(self.state)
+                cnt = codec_overflow_count(self.state, self._comm)
                 if cnt > clip_mark:
                     self._force_full = True
                     clip_mark = cnt

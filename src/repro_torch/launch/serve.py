@@ -131,8 +131,14 @@ class ScenarioServer:
 
     def __init__(self, families: Sequence[ScenarioFamily] = (),
                  slot_size: int = 8, mesh=None):
-        # mesh: an explicit device mesh across processes (ROADMAP A7); the
-        # family's own virtual mesh needs none
+        # mesh: a process mesh (one process a device).  Ensemble.run takes
+        # one, but the server's init points and per-lane frames are still
+        # one process's (ROADMAP A7); the family's own virtual mesh needs
+        # none
+        if mesh is not None:
+            raise NotImplementedError(
+                "a scenario server over a process mesh is not ported yet "
+                "(ROADMAP A7)")
         if slot_size < 1:
             raise ValueError(f"slot_size must be >= 1, got {slot_size}")
         self.slot_size = int(slot_size)

@@ -6,6 +6,9 @@
         --sim cell_clustering --mesh 2x2 --delta int8+mig
     PYTHONPATH=src python -m repro_torch.launch.simulate \
         --sim tumor_spheroid --mesh 2x2x2 --interior 8 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m \
+        repro_torch.launch.simulate --sim cell_clustering --mesh 2x2 \
+        --device cpu --agents 300 --steps 4
 
 Every bundled sim is ported: the 2-D ``cell_clustering``,
 ``epidemiology``, ``sir_mechanics``, ``cell_proliferation`` and
@@ -18,11 +21,20 @@ and a full refresh on one device; ``off`` forces a full refresh.
 ``--rebalance`` (A8) raises ``NotImplementedError``.
 Prints the reference's two summary lines plus the kernels' launch
 counts.
+
+Under ``torchrun`` (``WORLD_SIZE`` set) with a ``--mesh`` of as many
+devices as the world has ranks, the mesh runs one process a device
+(:func:`repro_torch.launch.mesh.make_abm_mesh`, a gloo group; on the card
+every rank uses device 0 and the wire goes through host memory).  Every
+rank prints its own line (its device, agents, launches and metrics, which
+are its block's); rank 0 also prints the global agent count and the
+summary lines.  Otherwise the mesh is virtual, as without ``torchrun``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 SIMS = ["cell_clustering", "cell_proliferation", "epidemiology",
@@ -37,7 +49,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--mesh", default="1x1",
                     help="spatial device mesh, e.g. 2x2 (a virtual mesh on "
-                         "one card)")
+                         "one card; one process a device under torchrun "
+                         "with as many ranks)")
     ap.add_argument("--delta", default="auto", choices=DELTAS,
                     help="aura codec; auto = int8 on a mesh, full refresh "
                          "on one device")
@@ -79,29 +92,58 @@ def main(argv=None):
     for m in mesh_shape:
         n_dev *= m
     interior = tuple(args.interior // m for m in mesh_shape)
+
+    from repro_torch.launch.mesh import init_process_mesh, make_abm_mesh
+    mesh = None
+    if n_dev > 1 and int(os.environ.get("WORLD_SIZE", "0")) == n_dev:
+        init_process_mesh("gloo")
+        mesh = make_abm_mesh(mesh_shape, device_type=args.device)
+
     ni.reset_launches()
     delta_codec.reset_launches()
     t0 = time.time()
     state, metrics = mod.run(
         n_agents=args.agents, steps=args.steps, mesh_shape=mesh_shape,
         interior=interior, delta=None if args.delta == "auto" else args.delta,
-        sweep_backend=args.sweep_backend, device=args.device)
+        sweep_backend=args.sweep_backend, device=args.device, mesh=mesh)
     if state.soa.valid.is_cuda:
         torch.cuda.synchronize()
     dt = time.time() - t0
     n = total_agents(state)
+    dropped = int(state.dropped.sum())
+    overflow = int(state.codec_overflow.max())
+    launches = {**ni.LAUNCHES, **delta_codec.LAUNCHES}
+    if mesh is not None:
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        print(f"rank={rank} device={tuple(mesh.get_coordinate())} "
+              f"agents={n} aura bytes/iter="
+              f"{int(state.halo_bytes.reshape(-1)[0])} launches "
+              f"{ {k: v for k, v in launches.items() if v} }"
+              + "".join(f" {k}={v}" for k, v in metrics.items()
+                        if len(str(v)) < 120), flush=True)
+        tot = torch.tensor([n, dropped], dtype=torch.int64)
+        dist.all_reduce(tot)
+        top = torch.tensor([overflow], dtype=torch.int64)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX)
+        n, dropped, overflow = int(tot[0]), int(tot[1]), int(top[0])
+        dist.barrier()
+        dist.destroy_process_group()
+        if rank != 0:
+            return
     print(f"sim={args.sim} devices={n_dev} agents={n} steps={args.steps} "
-          f"wall={dt:.2f}s ({n*args.steps/dt:.0f} agent_updates/s)")
+          f"wall={dt:.2f}s ({n*args.steps/dt:.0f} agent_updates/s)"
+          + (f" ranks={n_dev}" if mesh is not None else ""))
     print(f"aura bytes/iter={int(state.halo_bytes.reshape(-1)[0])} "
-          f"dropped={int(state.dropped.sum())} "
-          f"codec_overflow={int(state.codec_overflow.max())}")
+          f"dropped={dropped} codec_overflow={overflow}")
+    if mesh is not None:
+        return        # the metrics and launches are the rank lines' own
     for k, v in metrics.items():
         if hasattr(v, "__len__") and len(str(v)) >= 120:
             # a long series (S/I/R, agent counts): its length and last value
             print(f"  {k}: {len(v)} values, last {v[-1]}")
         else:
             print(f"  {k}: {v}")
-    launches = {**ni.LAUNCHES, **delta_codec.LAUNCHES}
     print("kernel launches: "
           + ", ".join(f"{k}={v}" for k, v in launches.items()))
 

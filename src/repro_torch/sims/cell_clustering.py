@@ -4,8 +4,8 @@ paper's canonical benchmark (port of ``repro/sims/cell_clustering.py``).
 
 Both pair laws here run on the ``pair_sweep`` CUDA kernel on the card:
 ``soft_repulsion_adhesion`` every step, ``_same_type_pair`` in the
-clustering metric :func:`same_type_fraction`, once per device of the
-mesh."""
+clustering metric :func:`same_type_fraction`, once per device block the
+state holds."""
 
 from __future__ import annotations
 
@@ -65,10 +65,11 @@ def _same_type_pair(ai, aj, disp, dist2, params):
 
 def same_type_fraction(state, engine) -> float:
     """Clustering metric: fraction of neighbour pairs with equal type, over
-    every device's block as it stands (its aura ring empty, as on one
-    device: pairs across a device seam are not counted)."""
+    every device's block that ``state`` holds, as it stands (its aura ring
+    empty, as on one device: pairs across a device seam are not counted).
+    On a process mesh that is this rank's block."""
     same = cnt = 0.0
-    for c in np.ndindex(*engine.geom.mesh_shape):
+    for c in np.ndindex(*state.it.shape):
         acc = sweep_accumulate(engine.geom, device_block(state.soa, c),
                                _same_type_pair, ("ctype",),
                                float(engine.behavior.radius), {},

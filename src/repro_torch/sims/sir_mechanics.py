@@ -171,9 +171,10 @@ def ensemble_family(interior=(8, 8), mesh_shape=(1, 1), cap=32,
 
 
 def ensemble_point_state(ens: Ensemble, seed: int = 0, n_agents=400,
-                         initial_infected=20):
+                         initial_infected=20, mesh=None):
     """Solo :class:`SimState` for one lane of the family (placement and
-    RNG stream keyed by ``seed``) - the unit the scenario server stacks."""
+    RNG stream keyed by ``seed``) - the unit the scenario server stacks;
+    with a process ``mesh``, this rank's block of it."""
     eng = ens.proto_engine()
     rng = np.random.default_rng(seed)
     pos = uniform_positions(rng, n_agents, ens.geom)
@@ -184,21 +185,22 @@ def ensemble_point_state(ens: Ensemble, seed: int = 0, n_agents=400,
         "ctype": rng.integers(0, 2, n_agents).astype(np.int32),
         "state": st,
     }
-    return eng.init_state(pos, attrs, seed=seed)
+    return eng.init_state(pos, attrs, seed=seed, mesh=mesh)
 
 
 def ensemble_init(ens: Ensemble, points, n_agents=400,
-                  initial_infected=20):
+                  initial_infected=20, mesh=None):
     """Stacked :class:`EnsembleState` for R parameter points.  Each point
     dict holds the family's knobs plus an optional host-side ``seed``
     (default: the lane index) controlling initial placement and the
-    lane's RNG stream."""
+    lane's RNG stream.  With a process ``mesh``, this rank's blocks
+    (``Ensemble.run(..., mesh=mesh)`` steps them)."""
     states, pts = [], []
     for r, p in enumerate(points):
         p = dict(p)
         seed = int(p.pop("seed", r))
         states.append(ensemble_point_state(
             ens, seed=seed, n_agents=n_agents,
-            initial_infected=initial_infected))
+            initial_infected=initial_infected, mesh=mesh))
         pts.append({**ensemble_defaults(), **p})
     return ens.init(states, pts)

@@ -1,0 +1,287 @@
+"""The ranks' side of ``tests/test_torch_process_mesh.py``: functions run
+by :func:`repro_torch.launch.mesh.spawn_ranks` in each process of a CPU
+process mesh (gloo).  Each writes what it holds under ``out`` as npz or
+json for the test to assemble; nothing here imports JAX, so a rank starts
+in seconds."""
+
+from __future__ import annotations
+
+import importlib
+import json
+import os
+
+import numpy as np
+import torch
+
+from repro_torch.bridge import rank_arrays, rank_state, state_from_arrays
+from repro_torch.core import DeltaConfig, Partition
+from repro_torch.core.engine import codec_overflow_count, total_agents
+from repro_torch.core.halo import ProcessMeshComm
+from repro_torch.launch.mesh import make_abm_mesh
+from repro_torch.sims.common import make_sim, resolve_delta
+
+
+def sim_kwargs(case: dict) -> dict:
+    """``make_sim`` keywords of a case: its ``make`` dict, its codec (with
+    the case's ``refresh`` interval where it names one), its uneven cut
+    (``widths``) and its ``overlap``."""
+    kw = dict(case["make"])
+    widths = kw.pop("widths", None)
+    if widths is not None:
+        kw["partition"] = Partition.from_widths(widths)
+    delta = case["codec"]
+    if "refresh" in case:
+        cfg = resolve_delta(delta, 4)
+        delta = DeltaConfig(enabled=cfg.enabled, qdtype=cfg.qdtype,
+                            refresh_interval=case["refresh"],
+                            migration=cfg.migration)
+    kw["delta"] = delta
+    kw["overlap"] = case.get("overlap", "auto")
+    return kw
+
+
+def build_sim(case: dict, mesh=None):
+    """The case's sim on the CPU, initialised from its seed: on the
+    virtual mesh, or this rank's device of a process ``mesh``."""
+    mod = importlib.import_module("repro_torch.sims." + case["sim"])
+    sim = make_sim(mod.behavior(), device="cpu", mesh=mesh,
+                   **sim_kwargs(case))
+    mod.init(sim, *case["init"])
+    return sim
+
+
+def mesh_shape(case: dict):
+    widths = case["make"].get("widths")
+    if widths is not None:
+        return tuple(len(w) for w in widths)
+    return tuple(case["make"]["mesh_shape"])
+
+
+def _save(path: str, comm: ProcessMeshComm, arrays: dict) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, coords=np.asarray(comm.coords()), **arrays)
+
+
+def run_cases(rank: int, world: int, cases: dict, out: str) -> None:
+    """Each case through the facade (``Simulation(mesh=)``, the segment
+    runner and the refresh schedule): the rank's init and final state, and
+    the global readings each rank gets."""
+    torch.set_num_threads(1)
+    for name, case in cases.items():
+        mesh = make_abm_mesh(mesh_shape(case), device_type="cpu")
+        sim = build_sim(case, mesh)
+        comm = sim.engine._comm(mesh)
+        _save(f"{out}/{name}/0/r{rank}.npz", comm, rank_arrays(sim.state))
+        sim.run(case["steps"])
+        _save(f"{out}/{name}/final/r{rank}.npz", comm,
+              rank_arrays(sim.state))
+        facts = dict(
+            n_agents=sim.n_agents(),
+            total_agents=total_agents(sim.state, comm),
+            local_agents=total_agents(sim.state),
+            overflow=codec_overflow_count(sim.state, comm),
+            local_overflow=codec_overflow_count(sim.state),
+            stats=dict(comm.stats))
+        with open(f"{out}/{name}/final/r{rank}.json", "w") as f:
+            json.dump(facts, f)
+
+
+def steps_from_oracle(rank: int, world: int, name: str, case: dict,
+                      oracle: str, out: str) -> None:
+    """Each step of the case from the JAX state before it (``oracle``, the
+    npz of ``torch_parity.run_mesh_oracle``), this rank's block of it
+    stepped once through the process comm with the codec on."""
+    torch.set_num_threads(1)
+    mesh = make_abm_mesh(mesh_shape(case), device_type="cpu")
+    sim = build_sim(case, mesh)
+    comm = sim.engine._comm(mesh)
+    step = sim.engine.make_local_step(mesh)
+    with np.load(oracle) as z:
+        data = {k: z[k] for k in z.files}
+    for i in range(case["steps"]):
+        pre = f"{name}/{i}/"
+        arrays = {k[len(pre):]: v for k, v in data.items()
+                  if k.startswith(pre)}
+        state = rank_state(state_from_arrays(arrays, device="cpu"),
+                           comm.coords())
+        got = step(state, full_halo=case["codec"] == "off")
+        _save(f"{out}/{name}/{i + 1}/r{rank}.npz", comm, rank_arrays(got))
+
+
+def extras(rank: int, world: int, out: str) -> None:
+    """On a 2x2 process mesh: ``operations``' reducers, a Simulation whose
+    Domain's mesh is not the DeviceMesh's, the sir_mechanics ensemble on
+    the process mesh, and ``shift``'s rules (a closed 2x2 mesh)."""
+    from repro_torch.core import operations
+    from repro_torch.core.ensemble import replica_state
+    from repro_torch.core.simulation import Simulation
+    from repro_torch.sims import cell_clustering as cc
+    from repro_torch.sims import sir_mechanics as sm
+
+    torch.set_num_threads(1)
+    mesh = make_abm_mesh((2, 2), device_type="cpu")
+    res = {}
+    sim = make_sim(cc.behavior(), interior=(6, 6), mesh_shape=(2, 2),
+                   cap=16, device="cpu", mesh=mesh)
+    cc.init(sim, 200, seed=3)
+    sim.run(2)
+    res["agent_count"] = operations.agent_count(sim)
+    res["attr_sum"] = operations.attr_sum("diameter")(sim)
+    res["attr_mean"] = operations.attr_mean("diameter")(sim)
+    res["attr_counts"] = list(operations.attr_counts("ctype", (0, 1))(sim))
+    res["pos_sum"] = float(sim.sum_over_all_ranks(
+        torch.where(sim.state.soa.valid[..., None], sim.state.soa.pos,
+                    torch.zeros_like(sim.state.soa.pos)).sum()))
+    try:
+        Simulation(dict(interior=(6, 6), mesh_shape=(4, 1)), cc.behavior(),
+                   device="cpu", mesh=mesh)
+        res["refused"] = ""
+    except ValueError as e:
+        res["refused"] = str(e)
+
+    eng, state = drive_case(mesh)
+    _, state, _ = eng.drive(state, DRIVE_STEPS, mesh=mesh)
+    _save(f"{out}/drive/r{rank}.npz", eng._comm(mesh), rank_arrays(state))
+
+    ens = sm.ensemble_family(interior=(4, 4), mesh_shape=(2, 2),
+                             delta=DeltaConfig(enabled=True), device="cpu")
+    est = sm.ensemble_init(ens, ENSEMBLE_POINTS, n_agents=120,
+                           initial_infected=6, mesh=mesh)
+    est, _ = ens.run(est, ENSEMBLE_STEPS, mesh=mesh)
+    comm = ens.proto_engine()._comm(mesh)
+    for r in range(est.replicas):
+        _save(f"{out}/ensemble/{r}/r{rank}.npz", comm,
+              rank_arrays(replica_state(est.state, r)))
+
+    comm = ProcessMeshComm.from_mesh(mesh, (False, False))
+    x, y = comm.coords()
+    pay = {"q": torch.full((1, 1, 3), 10 * x + y, dtype=torch.int8),
+           "q/scale": torch.full((1, 1), 0.5 + rank, dtype=torch.float32),
+           "valid": torch.full((1, 1, 3), bool(rank % 2))}
+    for axis in (0, 1):
+        for d in (1, -1):
+            got = comm.shift(pay, axis, d)
+            res[f"shift{axis}{d:+d}"] = {k: v.flatten().tolist()
+                                         for k, v in got.items()}
+    os.makedirs(f"{out}/extras", exist_ok=True)
+    with open(f"{out}/extras/r{rank}.json", "w") as f:
+        json.dump(dict(res, coords=list(comm.coords())), f)
+
+
+DRIVE_STEPS = 6
+
+
+def drive_case(mesh=None):
+    """``(engine, state)`` for ``Engine.drive``: cell_clustering on a 2x2
+    mesh with a fixed int8 codec scale small enough to clip, so
+    ``Engine.drive`` forces full refreshes from ``codec_overflow_count``."""
+    from repro_torch.core import Engine
+    from repro_torch.sims import cell_clustering as cc
+
+    sim = make_sim(cc.behavior(), interior=(6, 6), mesh_shape=(2, 2),
+                   cap=16, device="cpu")
+    cfg = DeltaConfig(enabled=True, qdtype=torch.int8, scale=2e-4,
+                      migration=torch.int16)
+    eng = Engine(geom=sim.geom, behavior=sim.behavior, delta_cfg=cfg,
+                 dt=0.1, device="cpu")
+    rng = np.random.default_rng(5)
+    pos = rng.uniform(0.5, np.asarray(eng.geom.domain_size) - 0.5,
+                      (150, 2)).astype(np.float32)
+    attrs = {"diameter": np.full((150,), 1.0, np.float32),
+             "ctype": rng.integers(0, 2, 150).astype(np.int32)}
+    return eng, eng.init_state(pos, attrs, seed=5, mesh=mesh)
+
+
+ENSEMBLE_POINTS = [dict(beta=0.1, seed=0), dict(beta=0.3, seed=1)]
+ENSEMBLE_STEPS = 3
+
+
+def torus_shift(rank: int, world: int, out: str) -> None:
+    """``shift``'s rules on a 2x1 mesh, toroidal along the size-2 axis
+    (both neighbours are the other rank: the +1 and -1 messages must not
+    cross) and closed along the size-1 axis (zeros, no message)."""
+    mesh = make_abm_mesh((2, 1), device_type="cpu")
+    res = {}
+    for tor1 in (False, True):
+        comm = ProcessMeshComm.from_mesh(mesh, (True, tor1))
+        pay = {"a": torch.tensor([[[rank, 7]]], dtype=torch.int32),
+               "b": torch.tensor([[1.5 + rank]], dtype=torch.float32)}
+        res[str(tor1)] = {
+            f"{axis}{d:+d}": {k: v.flatten().tolist()
+                              for k, v in comm.shift(pay, axis, d).items()}
+            for axis in (0, 1) for d in (1, -1)}
+        res[str(tor1)]["messages"] = comm.stats["messages"]
+    os.makedirs(f"{out}/torus_shift", exist_ok=True)
+    with open(f"{out}/torus_shift/r{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def four_ranks(rank: int, world: int, cases: dict, jax_name: str,
+               jax_case: dict, oracle: str, out: str) -> None:
+    """Everything the test file runs on four ranks, in one spawn."""
+    run_cases(rank, world, cases, out)
+    steps_from_oracle(rank, world, jax_name, jax_case, oracle, out)
+    extras(rank, world, out)
+
+
+def two_ranks(rank: int, world: int, cases: dict, out: str) -> None:
+    """Everything the test file runs on two ranks, in one spawn."""
+    run_cases(rank, world, cases, out)
+    torus_shift(rank, world, out)
+
+
+def hang(rank: int, world: int) -> None:
+    """Rank 0 returns; every other rank sleeps past any test's timeout."""
+    if rank:
+        import time
+        time.sleep(3600)
+
+
+def staged_payload(rank: int, device) -> dict:
+    """A payload of every dtype a slab carries, seeded by ``rank``."""
+    g = torch.Generator().manual_seed(rank)
+    tree = {
+        "pos": torch.randn((1, 1, 33, 5, 2), generator=g),
+        "gid_rank": torch.randint(-2**31, 2**31 - 1, (1, 1, 33, 5),
+                                  generator=g, dtype=torch.int32),
+        "q8": torch.randint(-128, 127, (1, 1, 33, 5), generator=g,
+                            dtype=torch.int8),
+        "q16": torch.randint(-2**15, 2**15 - 1, (1, 1, 33, 5, 2),
+                             generator=g, dtype=torch.int16),
+        "pos/scale": torch.rand((1, 1), generator=g),
+        "valid": torch.rand((1, 1, 33, 5), generator=g) > 0.5,
+    }
+    return {k: v.to(device) for k, v in tree.items()}
+
+
+def staged_round_trip(rank: int, world: int, device: str, out: str) -> None:
+    """Two ranks on a 2x1 torus exchange :func:`staged_payload` both ways
+    through ``ProcessMeshComm.shift`` (on the card: packed on the device,
+    staged through pinned host buffers, unpacked on the device); each
+    writes whether what it received is the other rank's payload bit for
+    bit, on its device, as views into one buffer."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    mesh = make_abm_mesh((2, 1), device_type=dev.type)
+    comm = ProcessMeshComm.from_mesh(mesh, (True, False))
+    want = staged_payload(1 - rank, dev)
+    ok = {}
+    for d in (1, -1):
+        bad = []
+        for _ in range(2):                # the second reuses the buffers
+            got = comm.shift(staged_payload(rank, dev), 0, d)
+            if len({v.untyped_storage().data_ptr()
+                    for v in got.values()}) != 1:
+                bad.append("not one buffer")
+            bad += [k for k, v in want.items()
+                    if got[k].device.type != dev.type
+                    or got[k].dtype != v.dtype or got[k].shape != v.shape
+                    or got[k].cpu().numpy().tobytes()
+                    != v.cpu().numpy().tobytes()]
+        ok[f"{d:+d}"] = bad or True
+    ok["pinned"] = all(b.is_pinned() for k, b in comm._buffers.items()
+                       if b.device.type == "cpu") if dev.type == "cuda" \
+        else True
+    with open(f"{out}/r{rank}.json", "w") as f:
+        json.dump(ok, f)

@@ -139,9 +139,9 @@ def test_unported_options_raise():
                dict(guards="warn")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation(dict(interior=(6, 6)), beh, device="cpu", **kw)
-    # an explicit mesh= is the cross-process half of A7
-    with pytest.raises(NotImplementedError,
-                       match="across processes .*ROADMAP A7"):
+    # an explicit mesh= is ported (one process a device; its runs are in
+    # tests/test_torch_process_mesh.py): it must be a DeviceMesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Simulation(dict(interior=(6, 6)), beh, device="cpu", mesh=object())
     # the overlapped sweep and uneven partitions are ported: these build
     # and step, the overlapped run bit-equal to the monolithic one

@@ -392,7 +392,7 @@ def test_stack_and_replica_state_round_trip():
                          replica_state(est.state, 2))
     with pytest.raises(NotImplementedError, match="A9"):
         sm.ensemble_family(guards="warn", device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):   # ported (A7)
         ens.run(est, 1, mesh=object())
 
 

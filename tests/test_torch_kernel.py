@@ -1197,3 +1197,26 @@ def test_prng_on_cuda_equals_cpu(cuda, shape):
         ng, nc = prng.normal(kg, shape).cpu(), prng.normal(kc, shape)
         ulp = (ng.view(torch.int32).long() - nc.view(torch.int32).long())
         assert int(ulp.abs().max()) <= 2
+
+
+# ---------------------------------------------------------------------------
+# The process mesh's wire: a packed edge buffer staged through pinned host
+# memory (gloo takes no CUDA tensor) on the card and back
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_process_mesh_staged_buffer_on_cuda(cuda, tmp_path):
+    """Two ranks on the card (a 2x1 torus over gloo) swap a payload of
+    every slab dtype both ways, twice (the pinned buffers reused): each
+    receives the other's bit for bit, on the card, as views into one
+    receive buffer."""
+    import json
+
+    import process_mesh_ranks as pmr
+    from repro_torch.launch.mesh import spawn_ranks
+
+    spawn_ranks(pmr.staged_round_trip, 2, str(tmp_path / "store"),
+                args=("cuda", str(tmp_path)), timeout_s=180.0)
+    for r in range(2):
+        res = json.loads((tmp_path / f"r{r}.json").read_text())
+        assert res == {"+1": True, "-1": True, "pinned": True}, (r, res)

@@ -1,0 +1,304 @@
+"""The process mesh (one process a device, ``core.halo.ProcessMeshComm``
+over gloo) on the CPU, against the port's virtual mesh and the JAX
+package's sharded engine.
+
+Two spawns of ranks (``launch.mesh.spawn_ranks``; ``process_mesh_ranks``
+holds their side), each on a file store under the test's temporary
+directory, every rank on one torch thread, each spawn with a hard
+timeout that kills its ranks:
+
+* four ranks on 2x2 meshes: (a) ``cell_clustering`` closed, the codec off
+  and ``int8+mig`` across a refresh; (c) ``cell_proliferation`` with its
+  spawns (``gid_counter``, ``gid_rank`` per rank); (d) the uneven cut
+  ``from_widths([(3, 5), (4, 4)])`` with ``overlap="on"``; case (a)
+  ``int8+mig`` step by step from JAX's states; the reducers of
+  ``operations``, a mesh of the wrong shape, ``Engine.drive`` with a
+  clipping codec, the ``sir_mechanics`` ensemble, and ``shift``'s rules;
+* two ranks: (b) ``epidemiology`` on a 2x1 torus (per-rank RNG keys; the
+  size-2 torus, whose two directions go to one rank); (e)
+  ``tumor_spheroid`` on a 1x1x2 mesh (D = 3); ``shift`` on the torus.
+
+Against the virtual mesh every field is bit-equal: integers, ``valid``,
+the gids and the slot layout, and the floats' bytes (each device runs the
+same operations in the same order in either layout).  Against JAX, the
+repository's convention: integers exactly, floats to 1e-5.  The float
+sums of ``operations`` differ from the virtual mesh's one reduction only
+in their order across ranks: 1e-6 relative.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import process_mesh_ranks as pmr
+from repro_torch.bridge import assemble_ranks, state_to_arrays
+from repro_torch.core import operations
+from repro_torch.core.ensemble import replica_state
+from repro_torch.core.halo import pack, pack_layout, unpack
+from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.sims import cell_clustering as cc
+from repro_torch.sims import sir_mechanics as sm
+from repro_torch.sims.common import make_sim
+from torch_parity import (
+    assert_dicts_close, oracle_state, run_mesh_oracle, torch_threads,
+)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPAWN_TIMEOUT_S = 240.0
+
+CLUSTER = dict(interior=(8, 8), mesh_shape=(2, 2), cap=16)
+CASES4 = {
+    "a-off": dict(sim="cell_clustering", codec="off", init=(300, 0),
+                  steps=3, make=CLUSTER),
+    "a-int8+mig": dict(sim="cell_clustering", codec="int8+mig",
+                       init=(300, 0), steps=12, refresh=8, make=CLUSTER),
+    "c-proliferation": dict(sim="cell_proliferation", codec="int16+mig",
+                            init=(50, 0), steps=14,
+                            make=dict(interior=(4, 4), mesh_shape=(2, 2),
+                                      cap=32)),
+    "d-uneven-overlap": dict(sim="cell_clustering", codec="int16+mig",
+                             init=(200, 0), steps=4, overlap="on",
+                             make=dict(widths=((3, 5), (4, 4)), cap=16)),
+}
+CASES2 = {
+    "b-epidemiology-torus": dict(
+        sim="epidemiology", codec="int8+mig", init=(200, 20, 0), steps=6,
+        make=dict(interior=(5, 5), mesh_shape=(2, 1), cap=24,
+                  boundary="toroidal", dt=1.0)),
+    "e-spheroid": dict(sim="tumor_spheroid", codec="int16+mig",
+                       init=(40, 0), steps=6,
+                       make=dict(interior=(4, 4, 3), mesh_shape=(1, 1, 2),
+                                 cap=32)),
+}
+# (a) int8+mig, each step from JAX's sharded engine's state before it
+JAX_NAME = "a-jax"
+JAX_CASE = dict(sim="cell_clustering", codec="int8+mig", init=(300, 0),
+                steps=3, make=CLUSTER)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
+
+@pytest.fixture(scope="module")
+def oracle_path(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("pm_oracle") / "oracle.npz")
+    run_mesh_oracle({JAX_NAME: JAX_CASE}, path, ROOT, threads=1)
+    return path
+
+
+@pytest.fixture(scope="module")
+def four(tmp_path_factory, oracle_path):
+    out = str(tmp_path_factory.mktemp("pm_four"))
+    spawn_ranks(pmr.four_ranks, 4, os.path.join(out, "store"),
+                args=(CASES4, JAX_NAME, JAX_CASE, oracle_path, out),
+                timeout_s=SPAWN_TIMEOUT_S)
+    return out
+
+
+@pytest.fixture(scope="module")
+def two(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("pm_two"))
+    spawn_ranks(pmr.two_ranks, 2, os.path.join(out, "store"),
+                args=(CASES2, out), timeout_s=SPAWN_TIMEOUT_S)
+    return out
+
+
+def _assembled(path: str, world: int):
+    blocks = {}
+    for r in range(world):
+        with np.load(f"{path}/r{r}.npz") as z:
+            blocks[tuple(int(c) for c in z["coords"])] = {
+                k: z[k] for k in z.files if k != "coords"}
+    return state_to_arrays(assemble_ranks(blocks, device="cpu"))
+
+
+def _facts(path: str, world: int):
+    out = []
+    for r in range(world):
+        with open(f"{path}/r{r}.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def assert_bit_equal(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        assert got[k].tobytes() == v.tobytes(), k
+
+
+def _virtual(case: dict):
+    """(init arrays, final arrays, agents, codec overflow) of the case on
+    the virtual mesh, through the same facade calls as the ranks."""
+    sim = pmr.build_sim(case)
+    init = state_to_arrays(sim.state)
+    sim.run(case["steps"])
+    return (init, state_to_arrays(sim.state), sim.n_agents(),
+            int(sim.state.codec_overflow.max()))
+
+
+def _check_case(out: str, name: str, case: dict, world: int):
+    init, final, n, overflow = _virtual(case)
+    assert_bit_equal(_assembled(f"{out}/{name}/0", world), init)
+    assert_bit_equal(_assembled(f"{out}/{name}/final", world), final)
+    facts = _facts(f"{out}/{name}/final", world)
+    for f in facts:          # every rank reads the global values
+        assert f["n_agents"] == f["total_agents"] == n
+        assert f["overflow"] == overflow
+    assert sum(f["local_agents"] for f in facts) == n
+    assert max(f["local_overflow"] for f in facts) == overflow
+    return final, facts
+
+
+@pytest.mark.parametrize("name", sorted(CASES4))
+def test_four_ranks_match_virtual_mesh(four, name):
+    case = CASES4[name]
+    final, facts = _check_case(four, name, case, 4)
+    n0 = case["init"][0]
+    if case["sim"] == "cell_proliferation":       # the spawn path ran
+        assert int(final["soa.valid"].sum()) > n0
+        assert (final["gid_counter"] > 0).all()
+    else:
+        assert int(final["soa.valid"].sum()) == n0
+    if case["make"].get("mesh_shape") == (2, 2):
+        # closed 2x2: one neighbour along each axis, one aura and one
+        # migration message to it a step
+        for f in facts:
+            assert f["stats"]["messages"] == 4 * case["steps"]
+
+
+@pytest.mark.parametrize("name", sorted(CASES2))
+def test_two_ranks_match_virtual_mesh(two, name):
+    final, _ = _check_case(two, name, CASES2[name], 2)
+    assert int(final["soa.valid"].sum()) == CASES2[name]["init"][0]
+
+
+@pytest.mark.parametrize("step", range(1, JAX_CASE["steps"] + 1))
+def test_int8_mig_steps_match_jax_sharded(four, oracle_path, step):
+    with np.load(oracle_path) as z:
+        oracle = {k: z[k] for k in z.files}
+    got = _assembled(f"{four}/{JAX_NAME}/{step}", 4)
+    assert_dicts_close(got, oracle_state(oracle, JAX_NAME, step))
+
+
+def test_reducers_are_global_and_wrong_mesh_is_refused(four):
+    facts = _facts(f"{four}/extras", 4)
+    sim = make_sim(cc.behavior(), interior=(6, 6), mesh_shape=(2, 2),
+                   cap=16, device="cpu")
+    cc.init(sim, 200, seed=3)
+    sim.run(2)
+    want_sum = operations.attr_sum("diameter")(sim)
+    want_mean = operations.attr_mean("diameter")(sim)
+    soa = sim.state.soa
+    want_pos = float(torch.where(soa.valid[..., None], soa.pos,
+                                 torch.zeros_like(soa.pos)).sum())
+    for f in facts:
+        assert f["agent_count"] == operations.agent_count(sim) == 200
+        assert f["attr_counts"] == list(
+            operations.attr_counts("ctype", (0, 1))(sim))
+        assert f["attr_sum"] == pytest.approx(want_sum, rel=1e-6)
+        assert f["attr_mean"] == pytest.approx(want_mean, rel=1e-6)
+        assert f["pos_sum"] == pytest.approx(want_pos, rel=1e-6)
+        assert "mesh of shape (2, 2)" in f["refused"]
+        assert "(4, 1)" in f["refused"]
+
+
+def test_engine_drive_on_process_mesh_matches_virtual(four):
+    """``Engine.drive(..., mesh=)`` with a clipping fixed-scale codec: the
+    forced refreshes follow every rank's overflow count (an all-reduce),
+    and the final state is the virtual mesh's bit for bit."""
+    eng, state = pmr.drive_case()
+    _, state, _ = eng.drive(state, pmr.DRIVE_STEPS)
+    assert int(state.codec_overflow.max()) > 0       # the codec clipped
+    assert_bit_equal(_assembled(f"{four}/drive", 4), state_to_arrays(state))
+
+
+def test_ensemble_on_process_mesh_matches_virtual(four):
+    ens = sm.ensemble_family(interior=(4, 4), mesh_shape=(2, 2),
+                             delta=pmr.DeltaConfig(enabled=True),
+                             device="cpu")
+    est = sm.ensemble_init(ens, pmr.ENSEMBLE_POINTS, n_agents=120,
+                           initial_infected=6)
+    est, _ = ens.run(est, pmr.ENSEMBLE_STEPS)
+    for r in range(est.replicas):
+        assert_bit_equal(_assembled(f"{four}/ensemble/{r}", 4),
+                         state_to_arrays(replica_state(est.state, r)))
+
+
+def test_shift_rules_on_a_closed_2x2_mesh(four):
+    """Device (x, y) gets the payload of (x, y) - direction along the axis
+    and zeros in every entry - ``/scale`` included - where there is none."""
+    by_coords = {tuple(f["coords"]): f for f in _facts(f"{four}/extras", 4)}
+    rank = {c: 2 * c[0] + c[1] for c in by_coords}
+    for c, f in by_coords.items():
+        for axis in (0, 1):
+            for d in (1, -1):
+                src = list(c)
+                src[axis] -= d
+                got = f[f"shift{axis}{d:+d}"]
+                if 0 <= src[axis] < 2:
+                    s = tuple(src)
+                    assert got["q"] == [10 * s[0] + s[1]] * 3
+                    assert got["q/scale"] == [0.5 + rank[s]]
+                    assert got["valid"] == [bool(rank[s] % 2)] * 3
+                else:
+                    assert got == {"q": [0] * 3, "q/scale": [0.0],
+                                   "valid": [False] * 3}
+
+
+def test_shift_on_a_size_two_torus(two):
+    """Both neighbours along the size-2 toroidal axis are the other rank:
+    each direction gets its own message; the size-1 axis is zeros when
+    closed and the identity when toroidal, with no message."""
+    facts = _facts(f"{two}/torus_shift", 2)
+    for rank, f in enumerate(facts):
+        other = 1 - rank
+        for tor1, res in f.items():
+            for d in ("+1", "-1"):
+                assert res["0" + d] == {"a": [other, 7], "b": [1.5 + other]}
+                want = {"a": [rank, 7], "b": [1.5 + rank]} \
+                    if tor1 == "True" else {"a": [0, 0], "b": [0.0]}
+                assert res["1" + d] == want
+            assert res["messages"] == 2
+
+
+def test_packed_edge_buffer_round_trips_with_views():
+    """Every dtype a payload carries packs into one byte buffer and comes
+    back exactly, each entry a view into the buffer (no copy), at offsets
+    aligned to ``PACK_ALIGN``."""
+    g = torch.Generator().manual_seed(0)
+    tree = {
+        "pos": torch.randn((1, 1, 10, 3, 2), generator=g),
+        "diameter": torch.randn((1, 1, 10, 3), generator=g),
+        "gid_rank": torch.randint(-9, 9, (1, 1, 10, 3), generator=g,
+                                  dtype=torch.int32),
+        "q8": torch.randint(-128, 127, (1, 1, 7), generator=g,
+                            dtype=torch.int8),
+        "q16": torch.randint(-3000, 3000, (1, 1, 5, 2), generator=g,
+                             dtype=torch.int16),
+        "pos/scale": torch.tensor([[0.25]]),
+        "valid": torch.rand((1, 1, 10, 3), generator=g) > 0.5,
+        "empty": torch.zeros((1, 1, 0), dtype=torch.float32),
+    }
+    layout, nbytes = pack_layout(tree)
+    buf = pack(tree, layout, torch.empty(nbytes, dtype=torch.uint8))
+    back = unpack(buf, layout)
+    base = buf.untyped_storage().data_ptr()
+    for name, t in tree.items():
+        got = back[name]
+        assert got.dtype == t.dtype and got.shape == t.shape, name
+        assert torch.equal(got, t), name
+        assert got.untyped_storage().data_ptr() == base, name
+    assert all(off % 16 == 0 for _, _, _, off, _ in layout)
+    assert nbytes == sum(-(-n // 16) * 16 for *_, n in layout)
+
+
+def test_spawn_kills_ranks_past_its_timeout(tmp_path):
+    with pytest.raises(TimeoutError):
+        spawn_ranks(pmr.hang, 2, str(tmp_path / "store"), timeout_s=8.0)
