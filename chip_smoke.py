@@ -185,6 +185,29 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    buffers and ``halo_bytes``), its milliseconds a step in the comm
    (packing, staging and gloo) and its peak device memory; the parent
    the slowest rank's agent-updates/s beside phase 6's step.
+17. dynamic load balancing and logical checkpoints (after phase 16, its
+   memory freed; its own seconds printed): (a) phase 15's seeding (a
+   quarter of the 16,777,216 agents uniform in each slab of the cut
+   ``PART_WIDTHS``) on the equal 2x2 virtual mesh (1024^2 cells a device,
+   cap 48, ``int8+mig``) through ``Simulation(rebalance=Rebalance(every=5,
+   threshold=0.1, ownership="rcb"))`` for 10 steps, the counts zeroed
+   before and read after: the imbalance before in [0.22, 0.25], exactly
+   one re-shard applied (the cut's widths printed) and the imbalance
+   after at most 0.01, agents conserved at every step, nothing dropped,
+   no codec overflow, gids unique, the step after the re-shard a full
+   refresh (its ``halo_bytes`` a full aura's), ``pair_sweep`` and the
+   codec kernels launched as the new geometry implies; the histogram and
+   plan ms, the equal split's step ms before and the cut's after, peak
+   memory; (b) on that seeding ``reshard_state`` by the host and by the
+   device transport onto the planned cut, every field bit-equal, both
+   timed; (c) (a)'s final state through ``save_abm`` under ``build/``,
+   ``Simulation.restore`` onto one device and onto the 2x2 (the ownership
+   kept): agents by gid bit for bit in every column, the carry, one step
+   each with its launches counted; save and restore seconds and the
+   bytes on disk; then the directory is removed; (d) the same path at
+   128^2 cells on four ranks of a process mesh (gloo, the card shared):
+   each rank's block (sha256 of every field) equal to the virtual mesh's
+   device block after the re-shard and the steps.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -234,6 +257,9 @@ from repro_torch.sims import sir_mechanics as sm  # noqa: E402
 from repro_torch.sims import tumor_spheroid as ts  # noqa: E402
 from repro_torch.sims.common import (  # noqa: E402
     ball_positions, disk_positions, init_agents, make_sim, uniform_positions)
+from repro_torch.core import reshard as rs  # noqa: E402
+from repro_torch.core.simulation import Rebalance, Simulation  # noqa: E402
+from repro_torch.distributed import checkpoint as ckpt  # noqa: E402
 from repro_torch.training import steps as lm_steps  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
@@ -3359,6 +3385,334 @@ def phase_process_mesh(seed: int, mesh_launches, mesh_stats):
                    comm_ms=[r["comm_ms"] for r in torus]))
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: dynamic load balancing and logical checkpoints
+# ---------------------------------------------------------------------------
+
+RB_STEPS = 10
+RB_POLICY = Rebalance(every=5, threshold=0.1, ownership="rcb")
+RB_BEFORE = (0.22, 0.25)          # the equal split's imbalance, 0.2346 by hand
+RB_AFTER = 0.01
+RB_DIR = ROOT / "build" / "rebalance_ckpt"
+RB_SMALL_INTERIOR = (64, 64)      # (d): 128^2 cells on four ranks
+RB_SMALL_STEPS = 6
+
+
+def rb_sim(seed: int, interior, mesh=None):
+    """Phase 15's seeding (a quarter of the agents in each slab of the
+    cut ``PART_WIDTHS``, scaled to the grid) on the equal 2x2 split, 4 a
+    cell, cap 48, ``int8+mig``, with phase 17's rebalance policy."""
+    from repro_torch.core import Domain, Partition
+
+    g = tuple(2 * i for i in interior)
+    widths = tuple(tuple(w * g[a] // sum(ws) for w in ws)
+                   for a, ws in enumerate(PART_WIDTHS))
+    part = Partition.from_widths(widths)
+    cut = Domain(cell_size=2.0, interior=part.max_widths,
+                 mesh_shape=MESH_SHAPE, cap=MAIN_CAP, partition=part)
+    sim = make_sim(cc.behavior(), interior=tuple(interior),
+                   mesh_shape=MESH_SHAPE, cap=MAIN_CAP, delta=MESH_DELTA,
+                   sweep_backend="auto", device="cuda", mesh=mesh,
+                   rebalance=RB_POLICY)
+    n = 4 * math.prod(g)
+    rng = np.random.default_rng(seed)
+    pos = balanced_positions(cut, n, rng)
+    sim.init(pos, {"diameter": np.full((n,), 1.0, np.float32),
+                   "ctype": rng.integers(0, 2, n).astype(np.int32)})
+    return sim
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def states_bit_equal(a, b):
+    """The field paths where two states differ (bit for bit)."""
+    from repro_torch.bridge import _leaves
+
+    la, lb = _leaves(a), _leaves(b)
+    return sorted(k for k in set(la) | set(lb)
+                  if k not in la or k not in lb or not bit_equal(la[k], lb[k]))
+
+
+def by_gid(state):
+    """Every column of the live agents, sorted by gid (rank, count)."""
+    v = state.soa.valid
+    a = state.soa.attrs
+    key = (a["gid_rank"][v].long() << 32) + a["gid_count"][v].long()
+    key, order = torch.sort(key)
+    return key, {n: t[v][order] for n, t in a.items()}
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def rb_transports(sim):
+    """Phase 17 (b): the initial state re-sharded onto the planned cut by
+    each transport, timed, every field bit-equal; the histogram and the
+    plan timed; the equal split's delta step timed."""
+    eng, st = sim.engine, sim.state
+    hist, hist_s = timed(lambda: rs.occupancy_histogram(eng.geom, st))
+    plan, plan_s = timed(lambda: rs.plan_reshard(hist, eng.geom))
+    imb = rs.imbalance(rs.realized_loads(eng.geom, hist))
+    print(f"[rebalance] equal 2x2 split: imbalance {imb:.6f}; histogram "
+          f"{1e3 * hist_s:.3f} ms, plan {1e3 * plan_s:.3f} ms (cut "
+          f"{plan.partition.widths}, planned imbalance "
+          f"{plan.partition_imbalance:.6f}, rcb bound {plan.rcb_bound:.6f})",
+          flush=True)
+    if not RB_BEFORE[0] <= imb <= RB_BEFORE[1]:
+        fail(f"rebalance: imbalance before {imb} not in {RB_BEFORE}")
+    # the equal split's step before any re-shard (a step is functional:
+    # the facade's state is untouched): a full step, then three delta
+    # steps, each timed; the last two's mean (the first pays the
+    # allocator's growth)
+    step = eng.make_local_step()
+    s = step(st, full_halo=True)
+    before = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        s = step(s, full_halo=False)
+        end.record()
+        end.synchronize()
+        before.append(start.elapsed_time(end))
+    before_ms = sum(before[1:]) / 2
+    del s
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (e_host, s_host), host_s = timed(lambda: rs.reshard_state(
+        eng, st, partition=plan.partition, transport="host"))
+    (e_dev, s_dev), dev_s = timed(lambda: rs.reshard_state(
+        eng, st, partition=plan.partition, transport="device"))
+    peak = torch.cuda.max_memory_allocated()
+    diff = states_bit_equal(s_host, s_dev)
+    if diff or e_host.geom != e_dev.geom:
+        fail(f"rebalance: host and device transports differ in {diff}")
+    n = total_agents(s_dev)
+    del s_host, s_dev
+    torch.cuda.empty_cache()
+    print(f"[rebalance] transports onto the cut: host {host_s:.3f} s, "
+          f"device {dev_s:.3f} s, every field bit-equal; {n} agents; peak "
+          f"{peak / 2**30:.2f} GiB; the equal split's delta steps "
+          f"{', '.join(f'{v:.3f}' for v in before)} ms", flush=True)
+    return dict(imbalance_before=imb, histogram_ms=1e3 * hist_s,
+                plan_ms=1e3 * plan_s, widths=plan.partition.widths,
+                planned_imbalance=plan.partition_imbalance,
+                rcb_bound=plan.rcb_bound, host_s=host_s, device_s=dev_s,
+                transport_peak_bytes=peak, step_ms_before=before_ms,
+                delta_steps_ms_before=before)
+
+
+def rb_run(sim, plan_widths):
+    """Phase 17 (a): the rebalanced run, counts zeroed before and read
+    after, each step timed (CUDA events) and gated."""
+    n0 = total_agents(sim.state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    rows, halo = [], []
+    for t in range(RB_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sim.run(1)
+        end.record()
+        st = sim.state
+        rows.append(torch.stack([st.soa.valid.sum(), st.dropped.sum(),
+                                 st.codec_overflow.max()]))
+        halo.append(int(st.halo_bytes.reshape(-1)[0]))
+        rows[-1] = (rows[-1], start, end)
+    del st
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    ms = [a.elapsed_time(b) for _, a, b in rows]
+    hist = sim.rebalancer.history
+    applied = [h for h in hist if h["applied"]]
+    for t, (r, _, _) in enumerate(rows):
+        n, dropped, overflow = (int(v) for v in r.tolist())
+        if n != n0 or dropped or overflow:
+            fail(f"rebalance: step {t + 1}: agents {n}, dropped {dropped}, "
+                 f"codec_overflow {overflow}")
+    if len(applied) != 1 or applied[0]["it"] != 0:
+        fail(f"rebalance: {len(applied)} re-shards applied: {hist}")
+    rec = applied[0]
+    if rec["imbalance_after"] > RB_AFTER:
+        fail(f"rebalance: imbalance after {rec['imbalance_after']}")
+    if rec["partition_widths"] != tuple(plan_widths):
+        fail(f"rebalance: applied cut {rec['partition_widths']} is not the "
+             f"planned {plan_widths}")
+    keys, _ = by_gid(sim.state)
+    if keys.numel() != n0 or bool((keys[1:] == keys[:-1]).any()):
+        fail("rebalance: gids not unique after the re-shard")
+    eng = sim.engine
+    full = eng._aura(sim.state, eng._comm(), True)[2]
+    if halo[0] != full or not halo[1] < full:
+        fail(f"rebalance: halo_bytes {halo[:2]}; a full aura is {full}: the "
+             "step after the re-shard was not a full refresh")
+    want = {k: v for k, v in dict(
+        codec_launches(sim, RB_STEPS),
+        soft_repulsion_adhesion=RB_STEPS * sim.geom.n_devices).items() if v}
+    if launches != want:
+        fail(f"rebalance: kernel launches {launches} != {want}")
+    after_ms = sum(ms[1:]) / (RB_STEPS - 1)
+    print(f"[rebalance] {RB_STEPS} steps: re-shard at tick 0 "
+          f"({rec['transport']} transport, {rec['migration_s']:.3f} s), cut "
+          f"{rec['partition_widths']} (pad {rec['pad_fraction']:.4f}), "
+          f"imbalance {rec['imbalance_before']:.6f} -> "
+          f"{rec['imbalance_after']:.6f}; later checks "
+          f"{[(h['it'], round(h['imbalance_before'], 6)) for h in hist[1:]]};"
+          f" agents {n0} at every step, dropped 0, codec_overflow 0, gids "
+          f"unique; first step (re-shard + full refresh) {ms[0]:.3f} ms, "
+          f"steps 2-{RB_STEPS} {after_ms:.3f} ms/step on the cut; halo_bytes "
+          f"{halo[0]} (full) then {halo[1]}; peak {peak / 2**30:.2f} GiB; "
+          f"launches {launches}", flush=True)
+    return dict(history=[{k: v for k, v in h.items()} for h in hist],
+                launches=launches, step_ms_after=after_ms,
+                first_step_ms=ms[0], peak_bytes=peak,
+                migration_s=rec["migration_s"],
+                imbalance_after=rec["imbalance_after"])
+
+
+def rb_checkpoint(sim):
+    """Phase 17 (c): save_abm, then restore onto one device and onto the
+    2x2 (ownership kept); agents by gid bit for bit, the carry, one step
+    each with its launches counted."""
+    import shutil
+
+    shutil.rmtree(RB_DIR, ignore_errors=True)
+    path, save_s = timed(lambda: ckpt.save_abm(
+        str(RB_DIR), sim.iteration, sim.engine, sim.state))
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    keys, cols = by_gid(sim.state)
+    base = sim.state.key[(0,) * sim.geom.ndim]
+    floor = int(sim.state.gid_counter.max())
+    out = dict(save_s=save_s, bytes_on_disk=nbytes, restores={})
+    print(f"[checkpoint] save_abm {save_s:.3f} s, {nbytes} B on disk "
+          f"({path})", flush=True)
+    for n_dev in (1, 4):
+        back, secs = timed(lambda: Simulation.restore(
+            str(RB_DIR), cc.behavior(), n_devices=n_dev, device="cuda"))
+        label = f"checkpoint -> {back.geom.mesh_shape}"
+        if n_dev == 4 and not back.geom.uneven:
+            fail(f"{label}: the uneven ownership was not kept")
+        k2, c2 = by_gid(back.state)
+        bad = [n for n in cols if not bit_equal(cols[n], c2[n])]
+        if not torch.equal(keys, k2) or bad:
+            fail(f"{label}: agents differ by gid in {bad or 'their gids'}")
+        st = back.state
+        want_keys = prng.split(prng.fold_in(base, sim.iteration), n_dev)
+        if (back.iteration != sim.iteration or int(st.dropped.sum())
+                or not torch.equal(st.key.reshape(-1, 2), want_keys)
+                or int(st.gid_counter.min()) < floor):
+            fail(f"{label}: the carry (iteration, drops, keys, counters) "
+                 "differs")
+        reset_all_launches()
+        back.run(1)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in all_launches().items() if v}
+        want = {k: v for k, v in dict(
+            codec_launches(back, 1),
+            soft_repulsion_adhesion=n_dev).items() if v}
+        if launches != want or back.n_agents() != keys.numel():
+            fail(f"{label}: a step: launches {launches} != {want}, agents "
+                 f"{back.n_agents()}")
+        print(f"[{label}] restore {secs:.3f} s ({back.geom.partition}); "
+              f"agents by gid bit-equal in {sorted(cols)}; the carry "
+              f"(iteration {back.iteration}, keys, counters >= {floor}); "
+              f"one step: launches {launches}", flush=True)
+        out["restores"][str(n_dev)] = dict(
+            seconds=secs, mesh=back.geom.mesh_shape, launches=launches)
+        del back, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(RB_DIR, ignore_errors=True)
+    return out
+
+
+def rb_rank(rank: int, world: int, out: str, seed: int):
+    """Phase 17 (d): one rank of the small rebalanced run."""
+    torch.cuda.set_device(0)
+    from repro_torch.launch.mesh import make_abm_mesh
+
+    sim = rb_sim(seed, RB_SMALL_INTERIOR, mesh=make_abm_mesh(MESH_SHAPE))
+    reset_all_launches()
+    sim.run(RB_SMALL_STEPS)
+    torch.cuda.synchronize()
+    comm = sim.engine._comm(sim.mesh)
+    res = dict(coords=list(comm.coords()), mesh=list(sim.geom.mesh_shape),
+               sha=state_sha(sim.state), agents=sim.n_agents(),
+               applied=[h["it"] for h in sim.rebalancer.history
+                        if h["applied"]],
+               launches={k: v for k, v in all_launches().items() if v})
+    with open(f"{out}/r{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def rb_process_mesh(seed: int):
+    """Phase 17 (d): four ranks against the virtual mesh."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    PM_DIR.mkdir(parents=True, exist_ok=True)
+    out = tempfile.mkdtemp(prefix="rebalance-", dir=PM_DIR)
+    t0 = time.perf_counter()
+    spawn_ranks(rb_rank, 4, f"{out}/store", args=(out, seed),
+                timeout_s=PM_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    ref = rb_sim(seed, RB_SMALL_INTERIOR)
+    ref.run(RB_SMALL_STEPS)
+    torch.cuda.synchronize()
+    applied = [h["it"] for h in ref.rebalancer.history if h["applied"]]
+    for r in range(4):
+        with open(f"{out}/r{r}.json") as f:
+            got = json.load(f)
+        c = tuple(got["coords"])
+        want = state_sha(ref.state, c)
+        diff = sorted(k for k in want if got["sha"].get(k) != want[k])
+        if (diff or tuple(got["mesh"]) != ref.geom.mesh_shape
+                or got["applied"] != applied
+                or got["agents"] != ref.n_agents()):
+            fail(f"rebalance process mesh rank {r} {c}: differs from the "
+                 f"virtual mesh in {diff or 'its mesh, decisions or agents'}")
+    print(f"[rebalance process mesh] 4 ranks, {RB_SMALL_STEPS} steps at "
+          f"{tuple(2 * i for i in RB_SMALL_INTERIOR)} cells: re-shards at "
+          f"{applied} onto {ref.geom.partition}; every rank's block "
+          f"bit-equal to the virtual mesh's; launches a rank "
+          f"{got['launches']}; spawn to join {secs:.1f}s", flush=True)
+    return dict(seconds=secs, applied=applied, launches=got["launches"],
+                cut=ref.geom.partition.widths if ref.geom.uneven else None)
+
+
+def phase_rebalance(seed: int):
+    """Phase 17: dynamic load balancing and logical checkpoints."""
+    t0 = time.perf_counter()
+    sim = rb_sim(seed, MESH_INTERIOR)
+    torch.cuda.synchronize()
+    print(f"[rebalance] init {total_agents(sim.state)} agents on the equal "
+          f"2x2 split: {time.perf_counter() - t0:.2f}s", flush=True)
+    transports = rb_transports(sim)
+    run = rb_run(sim, transports["widths"])
+    saved = rb_checkpoint(sim)
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = rb_process_mesh(seed)
+    secs = time.perf_counter() - t0
+    print(f"[rebalance] phase 17: {secs:.1f}s", flush=True)
+    return dict(transports, **run, checkpoint=saved, process_mesh=small,
+                seconds=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3441,6 +3795,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     process_mesh = phase_process_mesh(args.seed, mesh_launches, mesh_stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rebalance = phase_rebalance(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     # phase 16: each rank's launches of the process mesh's driven run
@@ -3491,6 +3848,14 @@ def main(argv=None) -> int:
     kernels[0]["mesh_path"] = dict(
         {k: v for k, v in mesh_stats.items() if k != "block_sha"},
         parity=mesh_parity)
+    # phase 17: the rebalanced run's launches (10 steps on the cut)
+    kernels[0]["rebalance_path"] = dict(
+        rebalance, launches=rebalance["launches"].get(
+            "soft_repulsion_adhesion", 0))
+    for k in kernels[1:]:
+        if k["name"] in dc.LAUNCHES:
+            k["rebalance_path"] = {"launches": rebalance["launches"].get(
+                k["name"], 0)}
     kernels[0]["process_mesh_path"] = dict(
         process_mesh, launches=[
             lc.get("soft_repulsion_adhesion", 0) + lc.get("same_type", 0)

@@ -2,6 +2,8 @@
 
 Public API of this slice:
   Simulation               - facade: owns engine, state, scheduled ops
+  Rebalance / Checkpoint   - the facade's load-balancing and checkpoint
+                             policies; Rebalancer - the re-shard runtime
   AgentSchema / AgentSoA   - SoA agent container
   Domain / Partition       - N-D spatial spec
   Behavior / compose       - model definition (pair kernel + update) and
@@ -17,11 +19,12 @@ from repro_torch.core.behaviors import Behavior, compose
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain, Partition
 from repro_torch.core.engine import Engine, SimState, total_agents
-from repro_torch.core.simulation import Simulation
+from repro_torch.core.reshard import Rebalancer
+from repro_torch.core.simulation import Checkpoint, Rebalance, Simulation
 
 __all__ = [
     "AgentSchema", "AgentSoA", "GID_COUNT", "GID_RANK", "POS", "Behavior",
-    "compose",
-    "DeltaConfig", "Domain", "Engine", "Partition", "SimState", "Simulation",
-    "total_agents",
+    "Checkpoint", "compose",
+    "DeltaConfig", "Domain", "Engine", "Partition", "Rebalance",
+    "Rebalancer", "SimState", "Simulation", "total_agents",
 ]

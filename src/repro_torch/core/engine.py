@@ -37,9 +37,12 @@ Uneven partitions run as in the reference: each device's owned widths
 the aura rebuild (``mask_unowned``), the update's residents and the
 binning clamp, and place each device's high faces and migration ring at
 its owned extent.  ``overlap="on"`` runs the interior/boundary split of
-the sweep (``sweep_accumulate_overlapped``).  Options that need a later
-slice raise ``NotImplementedError`` naming its ROADMAP item: guards (A9),
-rebalancing (A8), fault plans (A9).
+the sweep (``sweep_accumulate_overlapped``).  :meth:`Engine.drive` runs
+the dynamic load balancer (``core.reshard``): a re-shard re-enters
+:meth:`Engine.init_state`'s carry (gid columns, spawn-counter floors, the
+iteration and the RNG lineage), or moves the agents on the devices.
+Guards and fault plans need a later slice and raise
+``NotImplementedError`` naming ROADMAP A9.
 
 RNG: the reference's ``jax.random`` lineage, bit for bit
 (:mod:`repro_torch.core.prng`).  :meth:`Engine.init_state` splits
@@ -185,6 +188,11 @@ class Engine:
     behavior: Behavior
     delta_cfg: DeltaConfig = DeltaConfig(enabled=False)
     dt: float = 1.0
+    # Dynamic load balancing (paper section 2.4.5, core.reshard): with
+    # rebalance_every > 0, Engine.drive checks the occupancy imbalance at
+    # that cadence and re-shards past imbalance_threshold.
+    rebalance_every: int = 0
+    imbalance_threshold: float = 0.5
     # "auto" resolves per SoA device: the CUDA kernel on the card, the
     # tiled sweep on the CPU; "reference" | "tiled" | "kernel" force one.
     sweep_backend: str = "auto"
@@ -212,14 +220,22 @@ class Engine:
     # ------------------------------------------------------------------
     def init_state(self, positions: np.ndarray,
                    attrs: Dict[str, np.ndarray], seed: int = 0, *,
-                   it0: int = 0, base_key=None, mesh=None) -> SimState:
+                   gid_counters=None, it0: int = 0, base_key=None,
+                   mesh=None) -> SimState:
         """Create every agent directly on the device whose block holds it
         (paper section 2.4.4): per-device blocks, ``gid_rank`` = the
         device's linear rank, ``gid_count`` counting from 0 on each device.
 
-        The per-device RNG keys are ``split(PRNGKey(seed), n_devices)``, or
-        split from ``fold_in(base_key, it0)`` when a ``(2,)`` uint32
-        ``base_key`` is given; ``it0`` starts the iteration counter.
+        The re-shard and restore paths (``core.reshard``,
+        ``distributed.elastic``) re-enter here with the carry: ``attrs``
+        holding ``gid_rank``/``gid_count`` columns keeps them as they are,
+        and each rank's spawn counter resumes past the largest carried id
+        of that rank and past the largest of the ``gid_counters`` floors
+        (a floor without carried columns raises: fresh ids would collide
+        with the ids it protects).  The per-device RNG keys are
+        ``split(PRNGKey(seed), n_devices)``, or split from
+        ``fold_in(base_key, it0)`` when a ``(2,)`` uint32 ``base_key`` is
+        given; ``it0`` starts the iteration counter.
 
         With a process ``mesh`` every rank takes the same full
         ``positions`` and keeps its own device's agents, its key the row
@@ -247,10 +263,26 @@ class Engine:
                 f"{'x'.join(f'[0,{g})' for g in gsz)} - out-of-domain "
                 "agents would land in the halo ring and be destroyed by "
                 "the first aura rebuild")
-        if GID_RANK in attrs or GID_COUNT in attrs:
-            raise NotImplementedError(
-                "carried gid columns (the re-shard / restore path) are not "
-                "ported yet (ROADMAP A8)")
+        carried = GID_RANK in attrs and GID_COUNT in attrs
+        if gid_counters is not None and not carried:
+            raise ValueError(
+                "gid_counters floors require carried gid_rank/gid_count "
+                "columns in attrs - fresh ids would start at 0 and collide "
+                "with the historical ids the floors protect")
+        counters_next = np.zeros((geom.n_devices,), dtype=np.int64)
+        if carried:
+            g_rank = np.asarray(attrs[GID_RANK], np.int64)
+            g_count = np.asarray(attrs[GID_COUNT], np.int64)
+            in_range = (g_rank >= 0) & (g_rank < geom.n_devices)
+            np.maximum.at(counters_next, g_rank[in_range],
+                          g_count[in_range] + 1)
+        if gid_counters is not None:
+            floors = np.asarray(gid_counters, np.int64).ravel()
+            if floors.size:
+                # a counter exceeds every id its rank ever issued, so the
+                # largest floor bounds them all: applied to every new rank
+                # it keeps ids unique across any change of mesh
+                counters_next = np.maximum(counters_next, floors.max())
 
         part = geom.partition
         if part is None:
@@ -278,9 +310,9 @@ class Engine:
             for name, (shape, dtype) in schema.all_specs(nd).items():
                 if name == POS:
                     a = positions[sel].astype(np.float32)
-                elif name == GID_RANK:
+                elif name == GID_RANK and not carried:
                     a = np.full((n,), lin, dtype=np.int32)
-                elif name == GID_COUNT:
+                elif name == GID_COUNT and not carried:
                     a = np.arange(n, dtype=np.int32)
                 else:
                     a = np.asarray(attrs[name], dtype=numpy_dtype(dtype))[sel]
@@ -293,7 +325,7 @@ class Engine:
                 raise ValueError(
                     f"cell capacity overflow at init on device {coords}: "
                     f"{int(dropped)} agents dropped; raise geom.cap")
-            counters[c] = n
+            counters[c] = max(counters_next[lin], 0 if carried else n)
             blocks.put(c, soa)
 
         def scalar(v):
@@ -833,23 +865,39 @@ class Engine:
 
     def drive(self, state: SimState, n_steps: int, step_fn=None,
               rebalancer=None, collect=None, mesh=None, fault_plan=None):
-        """Low-level driver with the delta refresh schedule: a full aura
-        refresh at every ``i % refresh_interval == 0`` and after any step
-        that clipped under a fixed codec scale.  ``n_steps`` run through
-        the segment runner (segments end at refresh ticks), or one
-        ``step_fn`` call per step when a ``step_fn`` or a per-step
-        ``collect`` is given.  With a process ``mesh`` the state is this
-        process's block (``init_state(..., mesh=mesh)``), and every rank
-        calls ``drive`` alike.  Returns ``(engine, state, series)``."""
-        _unported("dynamic load balancing", rebalancer, "A8")
+        """Low-level driver with the delta refresh schedule and dynamic
+        load balancing: a full aura refresh at every ``i % refresh_interval
+        == 0`` and after any step that clipped under a fixed codec scale.
+        ``n_steps`` run through the segment runner (segments end at
+        refresh ticks and at the rebalancer's cadence), or one ``step_fn``
+        call per step when a ``step_fn`` or a per-step ``collect`` is
+        given.  With a process ``mesh`` the state is this process's block
+        (``init_state(..., mesh=mesh)``), and every rank calls ``drive``
+        alike.
+
+        At the ``rebalancer``'s due ticks (a :class:`~repro_torch.core.
+        reshard.Rebalancer`; an engine with ``rebalance_every > 0`` builds
+        its own) the occupancy imbalance is checked and, past the
+        threshold, the state is mass-migrated onto a better mesh: the step
+        is rebuilt for the new geometry (``rebalancer.make_step``) and the
+        next aura exchange is a full refresh (the re-shard zeroed the
+        references).  Returns ``(engine, state, series)``: the engine
+        differs from ``self`` after a re-shard, and on a process mesh the
+        new ``DeviceMesh`` is ``rebalancer.mesh``."""
         _unported("fault plans", fault_plan, "A9")
-        cfg = self.delta_cfg
-        r = max(int(cfg.refresh_interval), 1)
+        eng = self
+        if rebalancer is None and self.rebalance_every > 0:
+            from repro_torch.core.reshard import Rebalancer
+            rebalancer = Rebalancer(every=self.rebalance_every,
+                                    threshold=self.imbalance_threshold)
+        if rebalancer is not None:
+            rebalancer.mesh = mesh
+        r = max(int(self.delta_cfg.refresh_interval), 1)
         force_full = False
         reduce = None if mesh is None else self._comm(mesh)
         # A fixed-scale codec can clip (the adaptive one never does): a
         # grown overflow count forces the next exchange to a full refresh.
-        track_clip = cfg.enabled and cfg.scale is not None
+        track_clip = self.delta_cfg.enabled and self.delta_cfg.scale is not None
         clip_mark = codec_overflow_count(state, reduce) if track_clip else 0
 
         def after(state):
@@ -861,27 +909,55 @@ class Engine:
                     force_full = True
                     clip_mark = cnt
 
+        def check(i, state):
+            """The rebalancer's check at tick ``i``: True on a re-shard."""
+            nonlocal eng, mesh, reduce
+            if rebalancer is None or not rebalancer.due(i):
+                return state, False
+            eng, state, resharded = rebalancer.maybe_reshard(eng, state)
+            if resharded:
+                mesh = rebalancer.mesh
+                reduce = None if mesh is None else eng._comm(mesh)
+            return state, resharded
+
         if step_fn is None and collect is None:
-            seg_fn = self.make_segment_runner(mesh)
+            seg_fn = eng.make_segment_runner(mesh)
             i = 0
             while i < n_steps:
-                nxt = min(n_steps, (i // r + 1) * r) if cfg.enabled \
-                    else n_steps
-                full = force_full or (not cfg.enabled) or i % r == 0
+                state, resharded = check(i, state)
+                if resharded:
+                    seg_fn = eng.make_segment_runner(mesh)
+                    force_full = True
+                nxt = n_steps
+                if rebalancer is not None and rebalancer.every > 0:
+                    e = rebalancer.every
+                    nxt = min(nxt, (i // e + 1) * e)
+                    if rebalancer.pending:
+                        # a deferred snapshot lands on the next tick
+                        nxt = min(nxt, i + 1)
+                if eng.delta_cfg.enabled:
+                    nxt = min(nxt, (i // r + 1) * r)
+                full = force_full or (not eng.delta_cfg.enabled) \
+                    or i % r == 0
                 state = seg_fn(state, nxt - i, full_first=full)
                 after(state)
                 i = nxt
-            return self, state, []
+            return eng, state, []
         if step_fn is None:
-            step_fn = self.make_local_step(mesh)
+            step_fn = eng.make_local_step(mesh)
         series = []
         for i in range(n_steps):
-            full = force_full or (not cfg.enabled) or i % r == 0
+            state, resharded = check(i, state)
+            if resharded:
+                step_fn = rebalancer.make_step(eng) if mesh is None \
+                    else rebalancer.make_step(eng, mesh)
+                force_full = True
+            full = force_full or (not self.delta_cfg.enabled) or i % r == 0
             state = step_fn(state, full_halo=full)
             after(state)
             if collect is not None:
                 series.append(collect(state))
-        return self, state, series
+        return eng, state, series
 
 
 def total_agents(state: SimState, comm: ProcessMeshComm = None) -> int:

@@ -1,24 +1,47 @@
-"""Scheduled-operation reducers (port of the reducers of
-``repro/core/operations.py``): the facade's analogue of the paper's
-two-line ``SumOverAllRanks`` reduction (section 3.4).
+"""Scheduled operations and reducers (port of
+``repro/core/operations.py``): the facade's analogue of BioDynaMo's
+operation list and of the paper's two-line ``SumOverAllRanks`` reduction
+(section 3.4).
 
-An operation is a callable ``op(sim) -> value`` registered with
+An :class:`Operation` is a callable ``op(sim) -> value`` registered with
 ``sim.every(n, op)``; its results are appended to ``sim.series[name]``.
 Each reducer sums over the process's state and then over every process
 (``sim.sum_over_all_ranks``): on the virtual mesh the state holds every
 device and the second sum is the identity; on a process mesh it is an
-all-reduce, and every rank gets the global value.  The ``Operation`` class itself
-stays in ``core/simulation.py`` until ROADMAP A6.  The ``batch_*``
-reducers take a stacked ensemble state (``core.ensemble``) and reduce
-each lane on its own, with one host read a call.
+all-reduce, and every rank gets the global value.  :func:`checkpoint_op`
+saves a logical ABM checkpoint.  The ``batch_*`` reducers take a stacked
+ensemble state (``core.ensemble``) and reduce each lane on its own, with
+one host read a call.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+import dataclasses
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class Operation:
+    """One scheduled operation: ``fn(sim)`` every ``every`` iterations.
+    ``pre`` operations run before the step on ticks with
+    ``tick % every == 0`` (like the re-shard check), post operations after
+    it on ticks with ``(tick + 1) % every == 0``; ``record`` appends
+    non-None results to ``sim.series[name]``."""
+
+    fn: Callable[[Any], Any]
+    every: int = 1
+    name: str = ""
+    pre: bool = False
+    record: bool = True
+
+    def due(self, tick: int) -> bool:
+        if self.every <= 0:
+            return False
+        return (tick % self.every == 0) if self.pre \
+            else ((tick + 1) % self.every == 0)
 
 
 def agent_count(sim) -> int:
@@ -67,6 +90,21 @@ def attr_counts(attr: str, values: Sequence[int],
         return tuple(int(c) for c in sim.sum_over_all_ranks(counts))
 
     op.__name__ = name or f"counts_{attr}"
+    return op
+
+
+def checkpoint_op(ckpt_dir: str, keep: int = 3) -> Callable:
+    """Operation wrapping ``distributed.checkpoint.save_abm``: a logical,
+    mesh-independent checkpoint of the facade's engine and state, labelled
+    with the live iteration counter (on a process mesh every rank takes
+    part; rank 0 writes)."""
+
+    def op(sim) -> Optional[str]:
+        from repro_torch.distributed.checkpoint import save_abm
+        return save_abm(ckpt_dir, sim.iteration, sim.engine, sim.state,
+                        keep=keep, mesh=sim.mesh)
+
+    op.__name__ = "checkpoint"
     return op
 
 

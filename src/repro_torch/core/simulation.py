@@ -16,10 +16,15 @@ shaped like the Domain's ``mesh_shape``) runs one process a device: every
 rank builds the same facade, ``init`` keeps the rank's own agents, and
 the exchanges cross between processes (:class:`~repro_torch.core.halo.
 ProcessMeshComm`); ``n_agents`` and :meth:`Simulation.sum_over_all_ranks`
-are global.  Not ported in this slice, and raising
-``NotImplementedError`` when asked for: ``rebalance`` (A8),
-``checkpoint`` (A6), ``guards``, ``supervised`` runs and fault plans
-(A9).  A list of several behaviours
+are global.  ``rebalance=`` (a :class:`Rebalance`) runs the dynamic load
+balancer (``core.reshard``) as a scheduled operation: a re-shard swaps the
+facade's engine, state, step and process mesh in place, so ``sim.engine``
+and ``sim.state`` always match.  ``checkpoint=`` saves logical ABM
+checkpoints (``distributed.checkpoint.save_abm``), and
+:meth:`Simulation.restore` restores one onto any device count.  Not
+ported in this slice, and raising ``NotImplementedError`` when asked for:
+``guards``, ``supervised`` runs and fault plans (A9), and ``validate``
+(A11).  A list of several behaviours
 is composed (:func:`~repro_torch.core.behaviors.compose`), as the
 reference does.  Of the construction-time
 contracts only stencil soundness (``radius <= cell_size``) is ported; the
@@ -29,10 +34,12 @@ rest of the contract checker waits for A11.
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.behaviors import Behavior, compose
 from repro_torch.core.delta import DeltaConfig
@@ -40,6 +47,8 @@ from repro_torch.core.domain import Domain
 from repro_torch.core.engine import (
     Engine, SimState, _unported, codec_overflow_count, total_agents,
 )
+from repro_torch.core.operations import Operation, checkpoint_op
+from repro_torch.core.reshard import Rebalancer, estimate_device_runtimes
 
 # Geometry defaults applied when the first argument is a kwargs dict.
 _GEOM_DEFAULTS = dict(cell_size=2.0, interior=(8, 8), mesh_shape=(1, 1),
@@ -77,26 +86,53 @@ def check_stencil(geom: Domain, behavior: Behavior, mode: str = "error"
     return errors
 
 
-@dataclasses.dataclass
-class Operation:
-    """One scheduled operation: ``fn(sim)`` every ``every`` iterations.
-    ``pre`` operations run before the step on ticks with
-    ``tick % every == 0``, post operations after it on ticks with
-    ``(tick + 1) % every == 0``.  (The reference keeps this class in
-    ``core/operations.py``, whose reducers are ported; the class moves
-    there with ROADMAP A6.)"""
+@dataclasses.dataclass(frozen=True)
+class Rebalance:
+    """Dynamic load balancing policy of the facade (paper section 2.4.5).
 
-    fn: Callable[[Any], Any]
-    every: int = 1
-    name: str = ""
-    pre: bool = False
-    record: bool = True
+    ``weighted=True`` feeds ``Rebalancer.runtimes`` from a measurement:
+    the facade times the step right before each due tick (host clock,
+    after a device synchronise; on a process mesh the slowest rank's) and
+    splits it per device by measured pair work
+    (``reshard.estimate_device_runtimes``); weighted checks wait for a
+    measurement, so the first runs at iteration ``every``.
+    ``ownership``: ``"equal"`` (equal-split meshes) or ``"rcb"``
+    (box-granular uneven partitions).  ``transport``: the migration path
+    of an applied re-shard (``"auto"``, ``"host"``, ``"device"``).
+    ``defer=True`` plans one step after the snapshot (see
+    ``Rebalancer``)."""
+
+    every: int = 10
+    threshold: float = 0.5
+    min_gain: float = 1.5
+    weighted: bool = False
+    ownership: str = "equal"
+    transport: str = "auto"
+    defer: bool = False
+
+
+@dataclasses.dataclass
+class _RebalanceOp(Operation):
+    """The scheduled rebalance check.  With a deferred plan pending it is
+    due on every tick, so the plan lands one step after its snapshot and
+    the segment scheduler breaks there."""
+
+    rb: Optional[Rebalancer] = None
 
     def due(self, tick: int) -> bool:
-        if self.every <= 0:
-            return False
-        return (tick % self.every == 0) if self.pre \
-            else ((tick + 1) % self.every == 0)
+        if self.rb is not None and self.rb.pending:
+            return True
+        return super().due(tick)
+
+
+@dataclasses.dataclass(frozen=True)
+class Checkpoint:
+    """Scheduled logical ABM checkpoints (``checkpoint.save_abm``), each
+    restorable onto any device count (:meth:`Simulation.restore`)."""
+
+    dir: str
+    every: int = 100
+    keep: int = 3
 
 
 class Simulation:
@@ -122,7 +158,12 @@ class Simulation:
       overlap: ``"auto"`` and ``"off"`` run the monolithic sweep (the
         virtual mesh has no wire to hide), ``"on"`` the interior/boundary
         split (bit-equal at every owned cell).
-      check: stencil-soundness gate, ``"error"`` | ``"warn"`` | ``"off"``.
+      rebalance: a :class:`Rebalance`, an int shorthand for
+        ``Rebalance(every=n)``, or None.
+      checkpoint: a :class:`Checkpoint`, a directory shorthand for
+        ``Checkpoint(dir)``, or None.
+      check: stencil-soundness gate, ``"error"`` | ``"warn"`` | ``"off"``
+        (re-run on the new geometry after every re-shard).
       device: ``"cuda"`` (default; raises without a GPU) or ``"cpu"``.
     """
 
@@ -132,9 +173,8 @@ class Simulation:
                  dt: float = 1.0, rebalance=None, checkpoint=None,
                  sweep_backend: str = "auto", overlap: str = "auto",
                  check: str = "error", guards=None, device="cuda"):
-        _unported("rebalance", rebalance, "A8")
-        _unported("checkpoint", checkpoint, "A6")
-        _unported("guards", guards, "A9")
+        _unported("guards", None if guards in (None, "off") else guards,
+                  "A9")
         if isinstance(geom, dict):
             geom = Domain(**{**_GEOM_DEFAULTS, **geom})
         if isinstance(behaviors, Behavior):
@@ -147,6 +187,7 @@ class Simulation:
             delta_cfg=delta or DeltaConfig(enabled=False), dt=dt,
             sweep_backend=sweep_backend, overlap=overlap, device=device)
         check_stencil(geom, behavior, check)
+        self._check = check
         self._mesh = mesh
         # the process comm: collective host reads and SumOverAllRanks
         self._comm = None if mesh is None else self.engine._comm(mesh)
@@ -160,7 +201,30 @@ class Simulation:
         self._seg_fn: Optional[Callable] = None    # segment runner
         self._ticks = 0          # step counter across run() calls
         self._force_full = False  # next aura exchange must be a full refresh
+        self._last_step_s: Optional[float] = None  # weighted-rebalance sample
         self._ops: List[Operation] = []
+
+        if isinstance(rebalance, int):
+            rebalance = Rebalance(every=rebalance)
+        self._weighted = bool(rebalance and rebalance.weighted)
+        self.rebalancer: Optional[Rebalancer] = None
+        if rebalance is not None and rebalance.every > 0:
+            self.rebalancer = Rebalancer(
+                every=rebalance.every, threshold=rebalance.threshold,
+                min_gain=rebalance.min_gain, ownership=rebalance.ownership,
+                transport=rebalance.transport, defer=rebalance.defer,
+                mesh=mesh)
+            self._ops.append(_RebalanceOp(
+                fn=Simulation._maybe_rebalance, every=rebalance.every,
+                name="rebalance", pre=True, record=False,
+                rb=self.rebalancer))
+
+        if isinstance(checkpoint, str):
+            checkpoint = Checkpoint(dir=checkpoint)
+        if checkpoint is not None:
+            self._ops.append(Operation(
+                fn=checkpoint_op(checkpoint.dir, keep=checkpoint.keep),
+                every=checkpoint.every, name="checkpoint", record=False))
 
     # ------------------------------------------------------------------
     # Introspection
@@ -175,7 +239,8 @@ class Simulation:
 
     @property
     def mesh(self):
-        """The live process mesh (None on the virtual mesh)."""
+        """The live process mesh (None on the virtual mesh); after a
+        re-shard that changed the mesh's shape, the new one."""
         return self._mesh
 
     @property
@@ -196,6 +261,12 @@ class Simulation:
         every device."""
         return x if self._comm is None else self._comm.sum_over_all_ranks(x)
 
+    def validate(self, *, jaxpr: bool = True):
+        """The full contract suite of the reference (stencil, one-hop
+        migration, aura, codec headroom, partition, lint, step audit)."""
+        raise NotImplementedError(
+            "Simulation.validate is not ported yet (ROADMAP A11)")
+
     # ------------------------------------------------------------------
     # Setup
     # ------------------------------------------------------------------
@@ -210,6 +281,19 @@ class Simulation:
         self._seg_fn = None
         return self
 
+    def with_state(self, engine: Engine, state: SimState) -> "Simulation":
+        """Adopt an existing ``(engine, state)`` pair (e.g. from
+        ``elastic.elastic_restore_abm``), keeping the facade's step and
+        scheduled operations; the next exchange is a full refresh."""
+        self.engine = engine
+        self.state = state
+        if self._mesh is not None:
+            self._comm = engine._comm(self._mesh)
+        self._step_fn = None
+        self._seg_fn = None
+        self._force_full = True
+        return self
+
     def every(self, n: int, op: Callable, *, name: Optional[str] = None,
               pre: bool = False, record: bool = True) -> "Simulation":
         """Schedule ``op(sim)`` every ``n`` iterations; non-None results
@@ -222,12 +306,41 @@ class Simulation:
     # ------------------------------------------------------------------
     # Running
     # ------------------------------------------------------------------
+    def _maybe_rebalance(self) -> None:
+        rb = self.rebalancer
+        if self._weighted:
+            if self._last_step_s is None:
+                # weighted checks run on a fresh measurement only
+                return
+            rb.runtimes = estimate_device_runtimes(
+                self.engine.geom, self.state, self._last_step_s, self._comm)
+        eng, state, resharded = rb.maybe_reshard(self.engine, self.state)
+        if resharded:
+            # the one place a re-shard surfaces: the facade swaps its own
+            # engine, state, step and mesh (the old state is freed here)
+            self.engine, self.state = eng, state
+            self._mesh = rb.mesh
+            self._comm = None if rb.mesh is None else eng._comm(rb.mesh)
+            self._step_fn = self.engine.make_local_step(self._mesh) \
+                if self._step_fn else None
+            self._seg_fn = None
+            self._force_full = True
+            # a narrower uneven slab can break the stencil contract: gate
+            # the new geometry at the caller's mode
+            check_stencil(self.engine.geom, self.engine.behavior,
+                          self._check)
+
     def _fused_span(self, tick: int, remaining: int, ops) -> int:
         """Longest segment starting at ``tick`` with no scheduled
-        operation due inside it and no delta full-refresh tick past its
-        first step."""
+        operation due inside it, no delta full-refresh tick past its
+        first step, and no weighted-rebalance timing sample (which needs
+        a step of its own)."""
         delta = self.engine.delta_cfg
         r = max(int(delta.refresh_interval), 1)
+        rb = self.rebalancer
+        weighted = self._weighted and rb is not None
+        if weighted and rb.due(tick + 1):
+            return 1  # this step is the timing sample: run it alone
         n = 1
         while n < remaining:
             t = tick + n
@@ -236,6 +349,8 @@ class Simulation:
             if any((not op.pre) and op.due(t - 1) for op in ops):
                 break
             if delta.enabled and t % r == 0:
+                break
+            if weighted and rb.due(t + 1):
                 break
             n += 1
         return n
@@ -265,6 +380,7 @@ class Simulation:
             self._seg_fn = self.engine.make_segment_runner(self._mesh)
         delta = self.engine.delta_cfg
         refresh = max(int(delta.refresh_interval), 1)
+        rb = self.rebalancer
         # Fixed-scale codec clip fallback (see Engine.drive): when any
         # device's cumulative clipped-delta count grows, force the next
         # aura exchange to a full refresh (on a process mesh the count is
@@ -279,15 +395,32 @@ class Simulation:
             for op in ops:
                 if op.pre and op.due(tick):
                     self._run_op(op)
+            if not per_step and self._seg_fn is None:
+                # a pre-op re-sharded
+                self._seg_fn = self.engine.make_segment_runner(self._mesh)
             n = 1 if per_step else self._fused_span(
                 tick, int(steps) - done, ops)
             full = (self._force_full or not delta.enabled
                     or tick % refresh == 0)
             self._force_full = False
+            # time the step right before a weighted rebalance check, so
+            # its runtimes signal is one step fresh
+            sample = (self._weighted and rb is not None and n == 1
+                      and rb.due(tick + 1))
+            t0 = time.perf_counter() if sample else 0.0
             if per_step:
                 self.state = self._step_fn(self.state, full_halo=full)
             else:
                 self.state = self._seg_fn(self.state, n, full_first=full)
+            if sample:
+                if self.state.soa.valid.is_cuda:
+                    torch.cuda.synchronize(self.state.soa.valid.device)
+                wall = time.perf_counter() - t0
+                if self._comm is not None:
+                    # every rank must plan from the same histogram
+                    wall = float(self._comm.max_over_all_ranks(
+                        torch.tensor(wall, dtype=torch.float64)))
+                self._last_step_s = wall
             if track_clip:
                 cnt = codec_overflow_count(self.state, self._comm)
                 if cnt > clip_mark:
@@ -309,3 +442,50 @@ class Simulation:
     def step(self) -> "Simulation":
         """Single iteration through the full scheduled pipeline."""
         return self.run(1)
+
+    # ------------------------------------------------------------------
+    # Checkpointing (on demand; scheduled saves go through Checkpoint)
+    # ------------------------------------------------------------------
+    def save(self, ckpt_dir: str, keep: int = 3) -> str:
+        """One logical ABM checkpoint of the current engine and state (on
+        a process mesh every rank calls it; rank 0 writes)."""
+        from repro_torch.distributed.checkpoint import save_abm
+        return save_abm(ckpt_dir, self.iteration, self.engine, self.state,
+                        keep=keep, mesh=self._mesh)
+
+    @classmethod
+    def restore(cls, ckpt_dir: str,
+                behaviors: Union[Behavior, Sequence[Behavior]], *,
+                step: Optional[int] = None,
+                n_devices: Optional[int] = None,
+                delta: Optional[DeltaConfig] = None,
+                dt: Optional[float] = None,
+                rebalance: Union[Rebalance, int, None] = None,
+                checkpoint: Union[Checkpoint, str, None] = None,
+                ownership: Optional[str] = None,
+                check: str = "error", guards=None, mesh=None,
+                device="cuda") -> "Simulation":
+        """Elastic restore: a facade rebuilt from a logical checkpoint onto
+        ``n_devices`` (default: one device, or the process ``mesh``'s
+        size; on the virtual mesh any count).  ``ownership`` selects how
+        the count is cut (``"equal"`` | ``"rcb"``); None keeps the
+        checkpointed run's mode.  With a process ``mesh`` every rank calls
+        it and holds its own block (``sim.mesh`` is the plan's shape)."""
+        from repro_torch.core.reshard import process_mesh
+        from repro_torch.distributed.elastic import elastic_restore_abm
+
+        _unported("guards", None if guards in (None, "off") else guards,
+                  "A9")
+        if not isinstance(behaviors, Behavior):
+            behs = tuple(behaviors)
+            behaviors = behs[0] if len(behs) == 1 else compose(*behs)
+        engine, state, _ = elastic_restore_abm(
+            ckpt_dir, behaviors, step=step, n_devices=n_devices,
+            delta_cfg=delta, dt=dt, ownership=ownership, mesh=mesh,
+            device=device)
+        if mesh is not None:
+            mesh = process_mesh(engine.geom.mesh_shape, mesh)
+        sim = cls(engine.geom, behaviors, delta=delta or engine.delta_cfg,
+                  dt=engine.dt, rebalance=rebalance, checkpoint=checkpoint,
+                  check=check, mesh=mesh, device=device)
+        return sim.with_state(engine, state)

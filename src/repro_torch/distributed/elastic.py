@@ -1,0 +1,115 @@
+"""Elastic restore, the ABM half (port of ``repro/distributed/elastic.py``,
+lines 41-137).
+
+A logical ABM checkpoint (``checkpoint.save_abm``) holds mesh-independent
+flattened agents and the occupancy histogram.  :func:`elastic_restore_abm`
+cuts a fresh plan for the current device count from that histogram with
+the load-balance planners, re-derives the :class:`Domain` and
+re-initialises through ``Engine.init_state`` with the carry, the mid-run
+re-shard's own path: a run resumes on whatever device count survives.
+The language-model half (``choose_lm_mesh``, ``elastic_restore``) needs
+the sharded training stack of ROADMAP A12 and raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.distributed import checkpoint as ckpt_lib
+
+
+def choose_lm_mesh(n_devices: int, model_parallel: int = 16):
+    raise NotImplementedError(
+        "the language-model mesh is not ported yet (ROADMAP A12)")
+
+
+def elastic_restore(ckpt_dir: str, model, **kwargs):
+    raise NotImplementedError(
+        "the language-model elastic restore is not ported yet "
+        "(ROADMAP A12)")
+
+
+def elastic_restore_abm(ckpt_dir: str, behavior, *,
+                        n_devices: Optional[int] = None,
+                        step: Optional[int] = None,
+                        delta_cfg=None, dt: Optional[float] = None,
+                        rebalance_every: int = 0,
+                        imbalance_threshold: float = 0.5,
+                        ownership: Optional[str] = None,
+                        mesh=None, device="cuda"):
+    """Restore an ABM checkpoint onto the current device population.
+
+    ``choose_partition`` cuts a fresh plan for ``n_devices`` (default: one
+    device, or the process ``mesh``'s size) over the stored histogram: the
+    least imbalanced equal-split factorization for ``ownership="equal"``,
+    a box-granular uneven rectilinear partition for ``"rcb"``; ``None``
+    keeps the checkpointed run's mode.  The stored codec config is
+    re-applied unless ``delta_cfg`` is given.  Global agent ids, the spawn
+    counters' floors, the iteration counter, the RNG lineage and the
+    cumulative drops carry over.
+
+    With a process ``mesh`` every rank calls this and bins only its own
+    block; the plan's mesh shape may differ from ``mesh``'s (the state's
+    mesh is then ``core.reshard.process_mesh(engine.geom.mesh_shape,
+    mesh)``).  Returns ``(engine, state, step)``."""
+    from repro_torch.core.delta import DeltaConfig
+    from repro_torch.core.domain import Domain
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.load_balance import choose_partition
+    from repro_torch.core.reshard import _add_dropped, process_mesh
+
+    if n_devices is None:
+        n_devices = 1 if mesh is None else int(mesh.mesh.numel())
+    step_, flat, extras = ckpt_lib.restore(ckpt_dir, step=step)
+    meta = extras["abm"]
+    hist = np.asarray(flat["histogram"])
+    if ownership is None:
+        ownership = meta.get("ownership", "equal")
+    global_cells = tuple(meta["global_cells"])
+    boundary = meta["boundary"]   # str (older checkpoints) or per axis
+    geom_kw = dict(
+        cell_size=meta["cell_size"],
+        cap=meta["cap"],
+        boundary=boundary if isinstance(boundary, str) else tuple(boundary),
+        box_factor=meta["box_factor"],
+    )
+    if ownership == "rcb":
+        plan = choose_partition(hist, n_devices, ownership="rcb")
+        part = plan.partition.scale(meta["box_factor"])
+        geom = Domain(interior=part.max_widths, mesh_shape=part.mesh_shape,
+                      partition=part, **geom_kw)
+    else:
+        mesh_shape = choose_partition(hist, n_devices,
+                                      ownership="equal").mesh_shape
+        geom = Domain(
+            interior=tuple(g // m for g, m in zip(global_cells, mesh_shape)),
+            mesh_shape=mesh_shape, **geom_kw)
+    if delta_cfg is None:
+        # the quantized closed loop is part of the dynamics: a replay
+        # restores with the checkpointed codec (none stored: codec off)
+        dmeta = meta.get("delta")
+        if dmeta is not None:
+            delta_cfg = DeltaConfig(
+                enabled=bool(dmeta["enabled"]),
+                qdtype=getattr(torch, dmeta["qdtype"]),
+                refresh_interval=int(dmeta["refresh_interval"]),
+                scale=dmeta["scale"])
+    engine = Engine(
+        geom=geom, behavior=behavior,
+        delta_cfg=delta_cfg or DeltaConfig(enabled=False),
+        dt=meta["dt"] if dt is None else dt,
+        rebalance_every=rebalance_every,
+        imbalance_threshold=imbalance_threshold, device=device)
+    if mesh is not None:
+        mesh = process_mesh(geom.mesh_shape, mesh)
+    attrs = {k.split("/", 1)[1]: v for k, v in flat.items()
+             if k.startswith("attrs/")}
+    state = engine.init_state(
+        flat["positions"], attrs, gid_counters=flat["gid_counters"],
+        it0=meta["it"], base_key=flat["base_key"], mesh=mesh)
+    _add_dropped(state, int(meta["dropped_total"]),
+                 None if mesh is None else engine._comm(mesh))
+    return engine, state, step_

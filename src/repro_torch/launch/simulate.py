@@ -18,7 +18,12 @@ one card), with the aura exchange delta-encoded (``--delta``).  A sim's
 ``NDIM`` (3-D sims only) sets the mesh's axis count; an all-ones
 ``--mesh`` broadcasts to it.  ``--delta auto`` (default) is int8 on a mesh
 and a full refresh on one device; ``off`` forces a full refresh.
-``--rebalance`` (A8) raises ``NotImplementedError``.
+``--rebalance N`` arms the dynamic load balancer (paper section 2.4.5):
+every N iterations the occupancy imbalance is checked and past
+``--imbalance`` the state is re-sharded (``--ownership rcb``: onto an
+uneven cut; ``--weighted``: boxes weighted by the measured step time);
+the facade keeps its engine and state consistent across it, on a process
+mesh too.
 Prints the reference's two summary lines plus the kernels' launch
 counts.
 
@@ -56,22 +61,39 @@ def main(argv=None):
                          "on one device")
     ap.add_argument("--interior", type=int, default=16,
                     help="global NSG cells per axis")
-    ap.add_argument("--rebalance", type=int, default=0, metavar="N")
+    ap.add_argument("--rebalance", type=int, default=0, metavar="N",
+                    help="check occupancy imbalance every N iterations "
+                         "and re-shard past --imbalance")
+    ap.add_argument("--imbalance", type=float, default=0.5,
+                    help="re-shard threshold for --rebalance")
+    ap.add_argument("--weighted", action="store_true",
+                    help="weight the rebalance histogram by measured "
+                         "per-device step times")
+    ap.add_argument("--ownership", default="equal",
+                    choices=["equal", "rcb"],
+                    help="what a triggered re-shard may realize: equal-"
+                         "split meshes, or box-granular uneven partitions")
     ap.add_argument("--sweep-backend", default="auto",
                     choices=["auto", "reference", "tiled", "kernel"],
                     help="auto = the CUDA kernel on the card, tiled on CPU")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    if args.rebalance > 0:
-        raise NotImplementedError(
-            "--rebalance is not ported yet (ROADMAP A8)")
-
     import importlib
 
     import torch
 
     from repro_torch.core.engine import total_agents
+    from repro_torch.core.simulation import Rebalance
+
+    rebalance = None
+    if args.rebalance > 0:
+        rebalance = Rebalance(every=args.rebalance, threshold=args.imbalance,
+                              weighted=args.weighted,
+                              ownership=args.ownership)
+    elif args.ownership != "equal":
+        ap.error("--ownership rcb needs --rebalance N (the re-shard "
+                 "runtime is what realizes uneven partitions)")
     from repro_torch.kernels import delta_codec
     from repro_torch.kernels import neighbor_interaction as ni
 
@@ -105,7 +127,8 @@ def main(argv=None):
     state, metrics = mod.run(
         n_agents=args.agents, steps=args.steps, mesh_shape=mesh_shape,
         interior=interior, delta=None if args.delta == "auto" else args.delta,
-        sweep_backend=args.sweep_backend, device=args.device, mesh=mesh)
+        rebalance=rebalance, sweep_backend=args.sweep_backend,
+        device=args.device, mesh=mesh)
     if state.soa.valid.is_cuda:
         torch.cuda.synchronize()
     dt = time.time() - t0

@@ -285,3 +285,65 @@ def staged_round_trip(rank: int, world: int, device: str, out: str) -> None:
         else True
     with open(f"{out}/r{rank}.json", "w") as f:
         json.dump(ok, f)
+
+
+# ---------------------------------------------------------------------------
+# Dynamic load balancing and checkpoints on the process mesh
+# ---------------------------------------------------------------------------
+
+REBALANCE_STEPS = 6
+
+
+def rebalance_sim(mesh=None):
+    """cell_clustering on a 2x2 mesh of 16 x 16 cells (int8+mig) seeded
+    with two diagonal clusters, rebalanced onto an uneven cut at tick 0
+    (``Rebalance(every=3, threshold=0.1, ownership="rcb")``)."""
+    from repro_torch.core.simulation import Rebalance
+    from repro_torch.sims import cell_clustering as cc
+
+    sim = make_sim(cc.behavior(adhesion=0.4), interior=(8, 8),
+                   mesh_shape=(2, 2), cap=32, delta="int8+mig",
+                   device="cpu", mesh=mesh,
+                   rebalance=Rebalance(every=3, threshold=0.1,
+                                       ownership="rcb", min_gain=1.05))
+    rng = np.random.default_rng(7)
+    n = 400
+    c = np.asarray([(8.0, 8.0), (24.0, 24.0)])[rng.integers(0, 2, n)]
+    pos = np.clip(c + rng.normal(0.0, 3.0, (n, 2)), 0.5,
+                  31.5).astype(np.float32)
+    sim.init(pos, {"diameter": np.full((n,), 1.0, np.float32),
+                   "ctype": rng.integers(0, 2, n).astype(np.int32)}, seed=7)
+    return sim
+
+
+def rebalance_ranks(rank: int, world: int, out: str) -> None:
+    """On four ranks: the rebalanced run, its history and final block; a
+    checkpoint of it (gathered to rank 0); then a re-shard onto a 4x1 mesh
+    (a new ``DeviceMesh``) by each transport, each rank's block kept."""
+    from repro_torch.core.reshard import process_mesh, reshard_state
+
+    torch.set_num_threads(1)
+    mesh = make_abm_mesh((2, 2), device_type="cpu")
+    sim = rebalance_sim(mesh)
+    sim.run(REBALANCE_STEPS)
+    comm = sim.engine._comm(sim.mesh)
+    _save(f"{out}/final/r{rank}.npz", comm, rank_arrays(sim.state))
+    hist = [{k: v for k, v in h.items() if k != "migration_s"}
+            for h in sim.rebalancer.history]
+    with open(f"{out}/final/r{rank}.json", "w") as f:
+        json.dump(dict(history=repr(hist), n_agents=sim.n_agents(),
+                       mesh=list(sim.mesh.mesh.shape)), f)
+    sim.save(f"{out}/ckpt")
+    # the elastic restore onto this 2x2 process mesh: each rank bins its
+    # own block of the plan (an uneven cut may change the mesh's shape)
+    from repro_torch.core.simulation import Simulation
+    back = Simulation.restore(f"{out}/ckpt", sim.behavior, mesh=mesh,
+                              device="cpu")
+    _save(f"{out}/restored/r{rank}.npz", back.engine._comm(back.mesh),
+          rank_arrays(back.state))
+    for transport in ("device", "host"):
+        eng, st = reshard_state(sim.engine, sim.state, mesh_shape=(4, 1),
+                                transport=transport, mesh=sim.mesh)
+        new = process_mesh((4, 1), sim.mesh)
+        _save(f"{out}/{transport}/r{rank}.npz", eng._comm(new),
+              rank_arrays(st))

@@ -135,10 +135,15 @@ def test_facade_scheduled_ops_and_series():
 
 def test_unported_options_raise():
     beh = cc.behavior()
-    for kw in (dict(rebalance=5), dict(checkpoint="ckpt"),
-               dict(guards="warn")):
+    for kw in (dict(guards="warn"),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation(dict(interior=(6, 6)), beh, device="cpu", **kw)
+    # rebalance= and checkpoint= are ported (tests/test_torch_reshard.py,
+    # tests/test_torch_checkpoint.py): they build
+    sim = Simulation(dict(interior=(6, 6)), beh, device="cpu", rebalance=5,
+                     checkpoint="ckpt")
+    assert sim.rebalancer.every == 5
+    assert [op.name for op in sim._ops] == ["rebalance", "checkpoint"]
     # an explicit mesh= is ported (one process a device; its runs are in
     # tests/test_torch_process_mesh.py): it must be a DeviceMesh
     with pytest.raises(TypeError, match="DeviceMesh"):

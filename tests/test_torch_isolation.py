@@ -168,9 +168,13 @@ def test_cli_smoke_on_cpu():
     lines = mesh.stdout.splitlines()
     assert lines[0].startswith("sim=cell_clustering devices=4 agents=300 ")
     assert "dropped=0 codec_overflow=0" in lines[1]
-    bad = _run(["-m", "repro_torch.launch.simulate", "--sim",
-                "cell_clustering", "--device", "cpu", "--rebalance", "5"])
-    assert bad.returncode != 0 and "NotImplementedError" in bad.stderr
+    # --rebalance is ported (tests/test_torch_reshard.py runs it on a
+    # mesh): on one device every check finds nothing to balance
+    one = _run(["-m", "repro_torch.launch.simulate", "--sim",
+                "cell_clustering", "--device", "cpu", "--agents", "100",
+                "--steps", "3", "--rebalance", "2"])
+    assert one.returncode == 0, one.stderr
+    assert one.stdout.startswith("sim=cell_clustering devices=1 agents=100 ")
     # a mesh must have the sim's axis count (an all-ones one broadcasts)
     bad = _run(["-m", "repro_torch.launch.simulate", "--sim",
                 "tumor_spheroid", "--device", "cpu", "--mesh", "2x2"])

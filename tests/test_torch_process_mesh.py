@@ -302,3 +302,70 @@ def test_packed_edge_buffer_round_trips_with_views():
 def test_spawn_kills_ranks_past_its_timeout(tmp_path):
     with pytest.raises(TimeoutError):
         spawn_ranks(pmr.hang, 2, str(tmp_path / "store"), timeout_s=8.0)
+
+
+# ---------------------------------------------------------------------------
+# Dynamic load balancing and checkpoints on the process mesh
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def rebalanced(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("pm_rebalance"))
+    spawn_ranks(pmr.rebalance_ranks, 4, os.path.join(out, "store"),
+                args=(out,), timeout_s=SPAWN_TIMEOUT_S)
+    return out
+
+
+def test_rebalanced_run_matches_virtual_mesh(rebalanced, tmp_path):
+    """The rebalanced run on four ranks (the histogram all-reduced, the
+    agents moved by ``all_to_all_single``): every rank's block bit-equal
+    to the virtual mesh's run, the same decisions, then a re-shard onto a
+    4x1 mesh (a new DeviceMesh) by each transport bit-equal to the
+    virtual mesh's; its checkpoint restores on the virtual mesh with the
+    same agents by gid, and equals the virtual run's checkpoint."""
+    from repro_torch.core.reshard import reshard_state
+    from repro_torch.core.simulation import Simulation
+    from repro_torch.distributed import checkpoint as ckpt_lib
+
+    sim = pmr.rebalance_sim()
+    sim.run(pmr.REBALANCE_STEPS)
+    applied = [h for h in sim.rebalancer.history if h["applied"]]
+    assert applied and sim.geom.uneven, sim.rebalancer.history
+    assert_bit_equal(_assembled(f"{rebalanced}/final", 4),
+                     state_to_arrays(sim.state))
+    hist = [{k: v for k, v in h.items() if k != "migration_s"}
+            for h in sim.rebalancer.history]
+    for f in _facts(f"{rebalanced}/final", 4):
+        assert f["history"] == repr(hist)
+        assert f["n_agents"] == sim.n_agents() == 400
+        assert tuple(f["mesh"]) == sim.geom.mesh_shape
+    for transport in ("device", "host"):
+        _, want = reshard_state(sim.engine, sim.state, mesh_shape=(4, 1),
+                                transport=transport)
+        assert_bit_equal(_assembled(f"{rebalanced}/{transport}", 4),
+                         state_to_arrays(want))
+    # the checkpoint: the virtual run's, leaf for leaf
+    mine = sim.save(str(tmp_path / "virtual"))
+    theirs = os.path.join(rebalanced, "ckpt", os.path.basename(mine))
+    with open(os.path.join(mine, "manifest.json")) as a, \
+            open(os.path.join(theirs, "manifest.json")) as b:
+        assert json.load(a) == json.load(b)
+    back = Simulation.restore(os.path.join(rebalanced, "ckpt"),
+                              sim.behavior, n_devices=4, device="cpu")
+    # each rank's restore onto the process mesh is its block of this one
+    assert_bit_equal(_assembled(f"{rebalanced}/restored", 4),
+                     state_to_arrays(back.state))
+
+    def by_gid(state):
+        v = state.soa.valid
+        a = state.soa.attrs
+        key = (a["gid_rank"][v].long() << 32) + a["gid_count"][v].long()
+        order = torch.argsort(key)
+        return {n: t[v][order] for n, t in a.items()}
+
+    got, want = by_gid(back.state), by_gid(sim.state)
+    assert set(got) == set(want)
+    for n in want:
+        assert torch.equal(got[n], want[n]), n
+    assert back.iteration == sim.iteration
+    assert ckpt_lib.latest_step(os.path.join(rebalanced, "ckpt")) == 6

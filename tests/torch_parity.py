@@ -225,3 +225,60 @@ def check_steps_like_oracle(oracle: dict, name: str, case: dict) -> list:
                            oracle_state(oracle, name, i + 1))
         counts.append(int(got.soa.valid.sum()))
     return counts
+
+
+def jax_state_from_arrays(arrays: Dict[str, np.ndarray]):
+    """The inverse of :func:`jax_state_arrays`: a JAX ``SimState`` from the
+    field-path dict (e.g. ``repro_torch.bridge.state_to_arrays`` of a port
+    state), every leaf a ``jnp`` array."""
+    import jax.numpy as jnp
+    from repro.core.agent_soa import AgentSoA as JSoA
+    from repro.core.engine import SimState as JState
+
+    attrs, refs = {}, {}
+    for k, v in arrays.items():
+        if k.startswith("soa.attrs."):
+            attrs[k[len("soa.attrs."):]] = jnp.asarray(v)
+        elif k.startswith("refs."):
+            edge, field = k[len("refs."):].split(".", 1)
+            refs.setdefault(edge, {})[field] = jnp.asarray(v)
+    return JState(
+        soa=JSoA(attrs=attrs, valid=jnp.asarray(arrays["soa.valid"])),
+        refs=refs, **{n: jnp.asarray(arrays[n]) for n in (
+            "it", "key", "gid_counter", "dropped", "halo_bytes",
+            "codec_overflow", "health")})
+
+
+# ---------------------------------------------------------------------------
+# Re-shard and checkpoint cases: a clustered density on 16 x 16 cells
+# ---------------------------------------------------------------------------
+
+SKEWED_CENTERS = [(8.0, 8.0), (24.0, 24.0)]
+UNEVEN = ((5, 11), (7, 9))
+
+
+def clustered(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    c = np.asarray(SKEWED_CENTERS)[rng.integers(0, 2, n)]
+    pos = np.clip(c + rng.normal(0.0, 3.0, (n, 2)), 0.5,
+                  31.5).astype(np.float32)
+    attrs = {"diameter": np.full((n,), 1.0, np.float32),
+             "ctype": rng.integers(0, 2, n).astype(np.int32)}
+    return pos, attrs
+
+
+def geoms(start: str, cap: int = 32):
+    """The port's and JAX's Domain of a 16 x 16-cell start geometry."""
+    from repro.core import Domain as JDomain
+    from repro.core.domain import Partition as JPartition
+    from repro_torch.core import Domain, Partition
+
+    if start == "uneven":
+        return (Domain(cell_size=2.0, interior=(11, 9), mesh_shape=(2, 2),
+                       cap=cap, partition=Partition.from_widths(UNEVEN)),
+                JDomain(cell_size=2.0, interior=(11, 9), mesh_shape=(2, 2),
+                        cap=cap, partition=JPartition.from_widths(UNEVEN)))
+    mesh = {"2x2": (2, 2), "1x1": (1, 1)}[start]
+    kw = dict(cell_size=2.0, interior=(16 // mesh[0], 16 // mesh[1]),
+              mesh_shape=mesh, cap=cap)
+    return Domain(**kw), JDomain(**kw)
