@@ -208,6 +208,34 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    128^2 cells on four ranks of a process mesh (gloo, the card shared):
    each rank's block (sha256 of every field) equal to the virtual mesh's
    device block after the re-shard and the steps.
+18. runtime guards, fault plans and supervised runs, and the scenario
+   server over a process mesh (its own seconds printed; or
+   ``tools/guards_phase.py`` alone): (a) phase 4's 16,777,216 agents
+   (cap 48) for 10 steps with ``guards="error"`` and with guards off:
+   every health word 0, the final states bit-equal in every field
+   (compared on the card), the same ``pair_sweep`` launches; ms a step of
+   each (CUDA events, steps 2-10) and, at a control point,
+   ``health_counts``, the device duplicate check and ``check_health``
+   timed; the card's float-to-int conversion of NaN and infinities as the
+   CPU's binning spells it out (XLA's); (b) on phase 6's 2x2 virtual mesh
+   (``int8+mig``) under ``"warn"``, one step each from a ``halo_slab``
+   fault and a ``nan_attrs`` fault at 1e-6 (``nan_inf`` equal to the NaN
+   slots of the aura-filled SoA, counted apart), a gid of device (0, 0)
+   given to device (1, 1)'s first agent (``gid_duplicate`` 1) and an
+   agent moved one device along x (``out_of_slab`` 1), each report
+   printed; (c) a supervised run on that mesh, ``Supervised(every=4,
+   keep=3)`` under ``build/`` (removed after), 12 steps, the plan a
+   ``halo_slab`` fault at 6, a torn checkpoint at 8 and a device loss to 2
+   survivors at 9: the log's kinds, steps, ``rolled_back_to``, devices and
+   replays as the plan implies, agents conserved and health 0 after
+   recovery, the replay bit-equal by gid to an uninterrupted resume from
+   the rollback checkpoint onto the same devices; each save's and
+   recovery's seconds; (d) four gloo ranks on the card: the
+   ``sir_mechanics`` ``ScenarioServer(mesh=)`` on a 2x2 family (131,072
+   agents, 256^2 cells; budgets 8 and 12, streaming every 4) with every
+   rank's frames equal to the one-process virtual-mesh server's, and
+   phase 16's configuration guarded with a ``nan_attrs`` fault, every
+   rank's ``health_counts`` equal to the virtual mesh's.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -224,6 +252,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2941,7 +2970,7 @@ def band_rows(sim, coords):
 
     law = "soft_repulsion_adhesion"
     geom, eng = sim.geom, sim.engine
-    post, _, _, _, pre = eng._aura(sim.state, eng._comm(), True)
+    post, _, _, _, pre, _ = eng._aura(sim.state, eng._comm(), True)
     blk, pre_blk = device_block(post, coords), device_block(pre, coords)
     del post, pre
     whole = kernel_call(blk, geom, law)["force"]
@@ -3713,6 +3742,373 @@ def phase_rebalance(seed: int):
                 seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: runtime guards, fault plans and supervised runs; the scenario
+# server over a process mesh
+# ---------------------------------------------------------------------------
+
+GUARD_STEPS = 10
+GUARD_NAN_FRAC = 1e-6
+SUP_DIR = ROOT / "build" / "supervised_ckpt"
+SUP_STEPS = 12
+SUP_PLAN = [dict(step=6, kind="halo_slab", axis=0),
+            dict(step=8, kind="torn_checkpoint"),
+            dict(step=9, kind="device_loss", survivors=2)]
+# (kind, step, rolled_back_to, devices, replay_steps) the plan implies:
+# the halo fault caught at the end of the 4 -> 8 chunk and rolled back to
+# 4; the checkpoint at 8 torn after its save; the device loss at 9
+# skipping it, back to 4 again, onto 2 devices
+SUP_WANT = [("checkpoint", 0), ("checkpoint", 4),
+            ("fault", "HealthError", 8), ("recovered", 4, 4, 4),
+            ("checkpoint", 8), ("torn_checkpoint",),
+            ("fault", "DeviceLost", 9), ("recovered", 4, 2, 5),
+            ("checkpoint", 8), ("checkpoint", 12), ("completed", 12)]
+PM_SERVE = dict(n_agents=131072, interior=(128, 128), mesh_shape=(2, 2))
+PM_SERVE_REQUESTS = [({"beta": 0.05}, 8, 4, 0), ({"beta": 0.2}, 12, 4, 1),
+                     ({"gamma": 0.3, "sir_radius": 1.0}, 12, 4, 2)]
+PM_GUARD_STEPS = 3
+
+
+def guard_sim(seed: int, guards, mesh_shape=(1, 1), mesh=None):
+    """Phase 4's main path (``mesh_shape`` (1, 1)) or phase 6's 2x2 virtual
+    mesh (int8+mig), with ``guards``."""
+    one = tuple(mesh_shape) == (1, 1)
+    sim = make_sim(cc.behavior(),
+                   interior=MAIN_INTERIOR if one else MESH_INTERIOR,
+                   mesh_shape=mesh_shape, cap=MAIN_CAP,
+                   delta=None if one else MESH_DELTA, sweep_backend="auto",
+                   device="cuda", guards=guards, mesh=mesh)
+    cc.init(sim, 4 * math.prod(MAIN_INTERIOR), seed=seed)
+    return sim
+
+
+def guard_run(seed: int, guards):
+    """Phase 18 (a): ``GUARD_STEPS`` steps of the main path; the sim, its
+    launches and ms a step over steps 2-10."""
+    sim = guard_sim(seed, guards)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    sim.run(1)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    sim.run(GUARD_STEPS - 1)
+    end.record()
+    end.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / (GUARD_STEPS - 1)
+    launches = {k: v for k, v in all_launches().items() if v}
+    return sim, launches, start.elapsed_time(end) / (GUARD_STEPS - 1), \
+        host_ms
+
+
+def guards_main(seed: int):
+    """Phase 18 (a): the main path with guards "error" and off: every
+    health word 0, the final states bit-equal, the same launches; ms a
+    step of each, and the control point's reads timed."""
+    from repro_torch.core import guards as tg
+
+    off, l_off, ms_off, host_off = guard_run(seed, None)
+    on, l_on, ms_on, host_on = guard_run(seed, "error")
+    counts = tg.health_counts(on.state)
+    diff = states_bit_equal(off.state, on.state)
+    n = total_agents(on.state)
+    if counts.tolist() != [0] * tg.NUM_GUARDS:
+        fail(f"guards: health words {counts.tolist()} on a healthy run")
+    if diff:
+        fail(f"guards: the guarded run differs from the unguarded in {diff}")
+    if l_on != l_off or l_on.get("soft_repulsion_adhesion") != GUARD_STEPS:
+        fail(f"guards: launches {l_on} guarded, {l_off} not")
+    if n != 4 * math.prod(MAIN_INTERIOR):
+        fail(f"guards: {n} agents")
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    reads = {}
+    for name, fn in (("health_counts", lambda: tg.health_counts(on.state)),
+                     ("gid_duplicate_count",
+                      lambda: tg.gid_duplicate_count(on.state)),
+                     ("check_health", lambda: tg.check_health(
+                         on.engine.guards, on.state, counts))):
+        fn()
+        times = []
+        for _ in range(3):
+            _, secs = timed(fn)
+            times.append(1e3 * secs)
+        reads[name] = min(times)
+    dups = tg.gid_duplicate_count(on.state)
+    if dups:
+        fail(f"guards: {dups} duplicate gids")
+    print(f"[guards] main path, {GUARD_STEPS} steps: guards off "
+          f"{ms_off:.3f} ms/step, guards='error' {ms_on:.3f} ms/step "
+          f"(CUDA events, steps 2-{GUARD_STEPS}; host {host_off:.3f} / "
+          f"{host_on:.3f}): +{ms_on - ms_off:.3f} ms "
+          f"({100 * (ms_on - ms_off) / ms_off:.2f}%); health {counts.tolist()};"
+          f" final states bit-equal in every field; launches {l_on}",
+          flush=True)
+    print(f"[guards] control point on {n} agents (host clock, synchronised,"
+          f" best of 3): health_counts {reads['health_counts']:.3f} ms, "
+          f"device duplicate check {reads['gid_duplicate_count']:.3f} ms, "
+          f"check_health {reads['check_health']:.3f} ms", flush=True)
+    del on
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_ms_off=ms_off, step_ms_guarded=ms_on,
+                host_ms_off=host_off, host_ms_guarded=host_on,
+                launches=l_on, control_point_ms=reads)
+
+
+def nan_slots(soa) -> int:
+    """Live slots with a NaN position (the guard's count, independently:
+    positions are the only float attribute the faults hit)."""
+    return int((torch.isnan(soa.pos).any(-1) & soa.valid).sum())
+
+
+def guards_trip(seed: int):
+    """Phase 18 (b): each guard trips on the 2x2 virtual mesh under
+    "warn": a halo_slab and a nan_attrs fault (nan_inf, the count the
+    aura-filled SoA holds), a duplicated gid (gid_duplicate, 1) and an
+    agent moved into the next device's slab (out_of_slab, 1); and the
+    card's float-to-int conversion of non-finite positions as the CPU's
+    binning spells it out (XLA's)."""
+    from repro_torch.core import guards as tg
+    from repro_torch.core.grid import floor_int32
+    from repro_torch.distributed.chaos import Fault, FaultPlan
+
+    x = torch.tensor([math.nan, math.inf, -math.inf, 3.7, -2.5, 3e9])
+    got = floor_int32(x.cuda()).cpu()
+    if not torch.equal(got, floor_int32(x)):
+        fail(f"guards: the card converts {x.tolist()} to {got.tolist()}, "
+             f"the CPU binning to {floor_int32(x).tolist()}")
+    sim = guard_sim(seed, "warn", MESH_SHAPE)
+    sim.run(1)
+    eng = sim.engine
+    comm = eng._comm()
+    cfg = eng.guards
+    out = {}
+
+    def step(label, state, want_idx, want_new):
+        mark = tg.health_counts(state)
+        aura = eng._aura(state, comm, True)
+        expect = nan_slots(aura[0]) if want_new is None else want_new
+        del aura
+        state = eng.local_step(state, comm, True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, rep = tg.check_health(cfg, state, mark)
+        if rep is None or rep.new[want_idx] != expect or expect <= 0:
+            fail(f"guards: {label} did not trip {tg.GUARD_NAMES[want_idx]} "
+                 f"with {expect}: {rep and rep.format()}")
+        print(f"[guards trip] {label}: {rep.format()}", flush=True)
+        out[label] = dict(new=rep.new.tolist(), counts=rep.counts.tolist())
+        return state
+
+    it = sim.iteration
+    st, _ = FaultPlan((Fault(step=it, kind="halo_slab", axis=0),),
+                      seed=seed).fire(eng, sim.state, it)
+    step("halo_slab", st, tg.GUARD_NAN, None)
+    st, _ = FaultPlan((Fault(step=it, kind="nan_attrs",
+                             frac=GUARD_NAN_FRAC),), seed=seed).fire(
+        eng, sim.state, it)
+    k = max(1, round(GUARD_NAN_FRAC * total_agents(sim.state)))
+    if nan_slots(st.soa) != k:
+        fail(f"guards: nan_attrs poked {nan_slots(st.soa)} agents, not {k}")
+    step("nan_attrs", st, tg.GUARD_NAN, None)
+    # a gid of device (0, 0) given to device (1, 1)'s first live agent
+    st = sim.state
+    v00 = torch.nonzero(st.soa.valid[0, 0].reshape(-1))[0, 0]
+    v11 = torch.nonzero(st.soa.valid[1, 1].reshape(-1))[0, 0]
+    gid = {n: st.soa.attrs[n].clone() for n in ("gid_rank", "gid_count")}
+    for n in gid:
+        gid[n][1, 1].reshape(-1)[v11] = gid[n][0, 0].reshape(-1)[v00]
+    dup = dataclasses.replace(st, soa=st.soa.replace(
+        attrs={**st.soa.attrs, **gid}))
+    step("duplicate gid", dup, tg.GUARD_GID_DUP, 1)
+    del dup, gid
+    # device (0, 0)'s first live agent moved one device along x
+    pos = st.soa.pos.clone()
+    pos[0, 0].reshape(-1, 2)[v00, 0] += MESH_INTERIOR[0] * sim.geom.cell_size
+    moved = dataclasses.replace(st, soa=st.soa.replace(
+        attrs={**st.soa.attrs, "pos": pos}))
+    step("out of slab", moved, tg.GUARD_SLAB, 1)
+    del moved, pos, st, sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def guards_supervised(seed: int):
+    """Phase 18 (c): a supervised run at full width on the 2x2 (a halo
+    fault, a torn checkpoint, a device loss), its log as the plan implies,
+    agents conserved and health 0 after recovery, and the replay bit-equal
+    by gid to an uninterrupted run resumed from the rollback checkpoint
+    onto the same devices."""
+    import shutil
+
+    from repro_torch.core import guards as tg
+    from repro_torch.distributed.chaos import Fault, FaultPlan
+    from repro_torch.launch.supervise import Supervised, Supervisor
+
+    shutil.rmtree(SUP_DIR, ignore_errors=True)
+    sim = guard_sim(seed, "error", MESH_SHAPE)
+    n0 = total_agents(sim.state)
+    codec = sim.engine.delta_cfg    # a restore re-applies it (ROADMAP C 7)
+    plan = FaultPlan(tuple(Fault(**f) for f in SUP_PLAN), seed=seed)
+    sv = Supervisor(sim, Supervised(dir=str(SUP_DIR), every=4, keep=3),
+                    fault_plan=plan)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the torn checkpoint's skip
+        sv.run(SUP_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = []
+    for e in sv.log:
+        k = e["kind"]
+        got.append((k,) + tuple(e[f] for f in {
+            "checkpoint": ("step",), "fault": ("error_type", "iteration"),
+            "recovered": ("rolled_back_to", "devices", "replay_steps"),
+            "completed": ("iteration",)}.get(k, ())))
+    if got != [tuple(w) for w in SUP_WANT]:
+        fail(f"supervised: log {got} != {SUP_WANT}")
+    counts = tg.health_counts(sim.state)
+    if (total_agents(sim.state) != n0 or counts.any()
+            or sim.geom.n_devices != 2):
+        fail(f"supervised: {total_agents(sim.state)} agents of {n0}, "
+             f"health {counts.tolist()}, {sim.geom.mesh_shape}")
+    rec = sv.events("recovered")[-1]
+    ctl, restore_s = timed(lambda: Simulation.restore(
+        str(SUP_DIR), cc.behavior(), step=rec["rolled_back_to"],
+        n_devices=rec["devices"], delta=codec, guards="error",
+        device="cuda"))
+    ctl.run(SUP_STEPS - rec["rolled_back_to"])
+    k1, c1 = by_gid(sim.state)
+    k2, c2 = by_gid(ctl.state)
+    bad = [n for n in c1 if not bit_equal(c1[n], c2[n])]
+    if not torch.equal(k1, k2) or bad:
+        fail(f"supervised: the replay differs by gid in {bad or 'gids'}")
+    saves = [round(e["seconds"], 3) for e in sv.events("checkpoint")]
+    restores = [round(e["seconds"], 3) for e in sv.events("recovered")]
+    print(f"[supervised] 2x2, {SUP_STEPS} steps, every=4 keep=3: log "
+          f"{got}; agents {n0} conserved, health 0 on {sim.geom.mesh_shape};"
+          f" the replay bit-equal by gid in {sorted(c1)} to a resume from "
+          f"step {rec['rolled_back_to']} on {rec['devices']} devices; "
+          f"saves {saves} s (async: the snapshot; the write overlaps), "
+          f"recoveries {restores} s, the control's restore "
+          f"{restore_s:.3f} s; supervised run {run_s:.1f} s", flush=True)
+    del sim, ctl, c1, c2, k1, k2
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(SUP_DIR, ignore_errors=True)
+    return dict(log=got, save_s=saves, recover_s=restores,
+                control_restore_s=restore_s, run_s=run_s)
+
+
+def serve_frames(mesh=None):
+    """Every request's frames of phase 18 (d)'s sir_mechanics server."""
+    from repro_torch.launch.serve import (
+        ScenarioRequest, ScenarioServer, sir_mechanics_family)
+
+    server = ScenarioServer([sir_mechanics_family(device="cuda", **PM_SERVE)],
+                            slot_size=4, mesh=mesh)
+    rids = [server.submit(ScenarioRequest(
+        family="sir_mechanics", params=p, steps=n, stream_every=e, seed=s))
+        for p, n, e, s in PM_SERVE_REQUESTS]
+    server.drain()
+    return {str(r): [(int(t), np.asarray(f).tolist())
+                     for t, f in server.handle(r).frames] for r in rids}
+
+
+def guarded_pm_run(seed: int, mesh=None):
+    """Phase 16's configuration, guarded ("warn"), with a nan_attrs fault
+    at its second step: the global health counts after
+    ``PM_GUARD_STEPS`` steps."""
+    from repro_torch.core import guards as tg
+    from repro_torch.distributed.chaos import Fault, FaultPlan
+
+    sim = guard_sim(seed, "warn", MESH_SHAPE, mesh)
+    plan = FaultPlan((Fault(step=1, kind="nan_attrs",
+                            frac=GUARD_NAN_FRAC),), seed=seed)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sim.run(PM_GUARD_STEPS, fault_plan=plan)
+    return tg.health_counts(sim.state, sim._comm).tolist()
+
+
+def guards_rank(rank: int, world: int, out: str, seed: int):
+    """Phase 18 (d): one rank: the server's frames and the guarded run's
+    health counts."""
+    from repro_torch.launch.mesh import make_abm_mesh
+
+    torch.cuda.set_device(0)
+    mesh = make_abm_mesh(MESH_SHAPE)
+    t0 = time.perf_counter()
+    frames = serve_frames(mesh)
+    serve_s = time.perf_counter() - t0
+    counts = guarded_pm_run(seed, mesh)
+    with open(f"{out}/r{rank}.json", "w") as f:
+        json.dump(dict(frames=frames, counts=counts, serve_s=serve_s), f)
+
+
+def guards_process_mesh(seed: int):
+    """Phase 18 (d): four gloo ranks on the card against the virtual
+    mesh: the server's frames, and the guarded run's health counts."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    PM_DIR.mkdir(parents=True, exist_ok=True)
+    out = tempfile.mkdtemp(prefix="guards-", dir=PM_DIR)
+    t0 = time.perf_counter()
+    spawn_ranks(guards_rank, 4, f"{out}/store", args=(out, seed),
+                timeout_s=PM_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    want_frames = json.loads(json.dumps(serve_frames()))
+    want_counts = guarded_pm_run(seed)
+    if not want_counts[0]:
+        fail(f"guards process mesh: the virtual run's nan_inf is 0 "
+             f"({want_counts})")
+    serve_s = []
+    for r in range(4):
+        with open(f"{out}/r{r}.json") as f:
+            got = json.load(f)
+        if got["frames"] != want_frames:
+            fail(f"serve process mesh rank {r}: frames differ from the "
+                 "virtual-mesh server's")
+        if got["counts"] != want_counts:
+            fail(f"guards process mesh rank {r}: health {got['counts']} != "
+                 f"{want_counts}")
+        serve_s.append(got["serve_s"])
+    n = PM_SERVE["n_agents"]
+    for frames in want_frames.values():
+        if any(sum(f) != n for _, f in frames):
+            fail(f"serve process mesh: a frame does not sum to {n}")
+    print(f"[guards process mesh] 4 ranks: the sir_mechanics server "
+          f"({len(PM_SERVE_REQUESTS)} requests, budgets 8 and 12, every 4;"
+          f" {n} agents on {PM_SERVE['mesh_shape']} x "
+          f"{PM_SERVE['interior']} cells) streams the virtual-mesh "
+          f"server's frames on every rank, bit for bit "
+          f"({max(serve_s):.1f} s a rank); a guarded run with a nan_attrs "
+          f"fault: health {want_counts} on every rank and on the virtual "
+          f"mesh; spawn to join {secs:.1f}s", flush=True)
+    return dict(seconds=secs, health=want_counts, serve_s=serve_s)
+
+
+def phase_guards(seed: int):
+    """Phase 18: guards, fault plans and supervision on the card, and the
+    scenario server over a process mesh."""
+    t0 = time.perf_counter()
+    main_path = guards_main(seed)
+    trips = guards_trip(seed)
+    supervised = guards_supervised(seed)
+    pm = guards_process_mesh(seed)
+    secs = time.perf_counter() - t0
+    print(f"[guards] phase 18: {secs:.1f}s", flush=True)
+    return dict(main_path=main_path, trips=trips, supervised=supervised,
+                process_mesh=pm, seconds=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3798,6 +4194,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rebalance = phase_rebalance(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    guards = phase_guards(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     # phase 16: each rank's launches of the process mesh's driven run
@@ -3856,6 +4255,10 @@ def main(argv=None) -> int:
         if k["name"] in dc.LAUNCHES:
             k["rebalance_path"] = {"launches": rebalance["launches"].get(
                 k["name"], 0)}
+    # phase 18: the guarded main path's launches (10 steps)
+    kernels[0]["guards_path"] = dict(
+        guards, launches=guards["main_path"]["launches"].get(
+            "soft_repulsion_adhesion", 0))
     kernels[0]["process_mesh_path"] = dict(
         process_mesh, launches=[
             lc.get("soft_repulsion_adhesion", 0) + lc.get("same_type", 0)

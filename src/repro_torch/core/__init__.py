@@ -10,6 +10,8 @@ Public API of this slice:
                              the composition of several
   Engine / SimState        - simulation engine on a virtual device mesh
   DeltaConfig              - aura-exchange delta / migration codec config
+  GuardConfig / HealthError / health_counts
+                           - runtime health guards (core.guards)
 """
 
 from repro_torch.core.agent_soa import (
@@ -19,12 +21,14 @@ from repro_torch.core.behaviors import Behavior, compose
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain, Partition
 from repro_torch.core.engine import Engine, SimState, total_agents
+from repro_torch.core.guards import GuardConfig, HealthError, health_counts
 from repro_torch.core.reshard import Rebalancer
 from repro_torch.core.simulation import Checkpoint, Rebalance, Simulation
 
 __all__ = [
     "AgentSchema", "AgentSoA", "GID_COUNT", "GID_RANK", "POS", "Behavior",
     "Checkpoint", "compose",
-    "DeltaConfig", "Domain", "Engine", "Partition", "Rebalance",
-    "Rebalancer", "SimState", "Simulation", "total_agents",
+    "DeltaConfig", "Domain", "Engine", "GuardConfig", "HealthError",
+    "Partition", "Rebalance", "Rebalancer", "SimState", "Simulation",
+    "health_counts", "total_agents",
 ]

@@ -41,8 +41,12 @@ the sweep (``sweep_accumulate_overlapped``).  :meth:`Engine.drive` runs
 the dynamic load balancer (``core.reshard``): a re-shard re-enters
 :meth:`Engine.init_state`'s carry (gid columns, spawn-counter floors, the
 iteration and the RNG lineage), or moves the agents on the devices.
-Guards and fault plans need a later slice and raise
-``NotImplementedError`` naming ROADMAP A9.
+With ``guards`` enabled (a :class:`~repro_torch.core.guards.GuardConfig`)
+the step adds the runtime health guards to ``SimState.health``: residency
+at step entry, NaN/Inf right after the aura exchange, conservation after
+migration (a sum over the virtual mesh's devices, one all-reduce on a
+process mesh); :meth:`Engine.drive` reads them at its control points and
+fires a fault plan's faults (``distributed.chaos``) at theirs.
 
 RNG: the reference's ``jax.random`` lineage, bit for bit
 (:mod:`repro_torch.core.prng`).  :meth:`Engine.init_state` splits
@@ -78,8 +82,8 @@ from repro_torch.core.delta import (
 )
 from repro_torch.core.domain import Domain
 from repro_torch.core.grid import (
-    bin_agents, clear_ring, mask_unowned, mesh_owned_mask, set_plane,
-    take_plane,
+    bin_agents, clear_ring, interior_mask, mask_unowned, mesh_owned_mask,
+    set_plane, take_plane,
 )
 from repro_torch.core.halo import (
     Comm, ProcessMeshComm, VirtualMeshComm, halo_exchange, init_refs,
@@ -88,11 +92,12 @@ from repro_torch.core.halo import (
 from repro_torch.core.neighbors import (
     sweep_accumulate, sweep_accumulate_overlapped,
 )
+from repro_torch.core.guards import (
+    GUARD_CONSERVATION, GUARD_DOMAIN, GUARD_NAN, GUARD_SLAB, NUM_GUARDS,
+    GuardConfig, as_guard_config, check_health, health_counts, nan_count,
+    residency_counts,
+)
 from repro_torch.device import resolve_device
-
-# Number of runtime guard counters in SimState.health (the reference's
-# core.guards.NUM_GUARDS); the guards themselves come with ROADMAP A9.
-NUM_GUARDS = 5
 
 
 def _jnp_mod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -115,12 +120,6 @@ class SimState:
     halo_bytes: torch.Tensor        # mesh int32 wire bytes of last aura
     codec_overflow: torch.Tensor    # mesh int32 cumulative clipped deltas
     health: torch.Tensor            # mesh + (NUM_GUARDS,) int32
-
-
-def _unported(what: str, value, item: str) -> None:
-    if value is not None:
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP {item})")
 
 
 def device_block(soa: AgentSoA, coords: Tuple[int, ...]) -> AgentSoA:
@@ -175,11 +174,13 @@ class _Frame:
     device's owned region (``origins`` and ``ends`` in world space,
     ``widths`` in cells, each ``mesh_shape + (ndim,)``) and, on an uneven
     cut, its owned cells (``owned``, ``mesh_shape + local_shape``; None on
-    an equal split)."""
+    an equal split).  ``own_cells`` is ``owned``, or on an equal split the
+    ``local_shape`` interior."""
     origins: torch.Tensor
     ends: torch.Tensor
     widths: torch.Tensor
     owned: Optional[torch.Tensor]
+    own_cells: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -201,6 +202,10 @@ class Engine:
     # interior/boundary split (1 + 2 * ndim sweeps a device), bit-equal to
     # it at every owned cell.
     overlap: str = "auto"
+    # Runtime health guards (core.guards): a GuardConfig, a policy string
+    # or None.  "off" (the default) computes none of them: the step then
+    # launches exactly what an unguarded step launches.
+    guards: Any = GuardConfig()
     device: Any = "cuda"
     # _frame's constants, built once per torch device and comm's blocks
     _frames: Dict[Any, _Frame] = dataclasses.field(
@@ -213,6 +218,7 @@ class Engine:
         if self.overlap not in ("auto", "on", "off"):
             raise ValueError(
                 f"overlap={self.overlap!r}; expected 'auto', 'on' or 'off'")
+        object.__setattr__(self, "guards", as_guard_config(self.guards))
         object.__setattr__(self, "device", resolve_device(self.device))
 
     # ------------------------------------------------------------------
@@ -362,14 +368,17 @@ class Engine:
             mesh = geom.mesh_shape
             widths = [[geom.axis_widths[a][c[a]] for a in range(geom.ndim)]
                       for c in np.ndindex(*mesh)]
+            owned = _pick(mesh_owned_mask(geom, dev), comm) \
+                if geom.uneven else None
             frame = _Frame(
                 origins=_pick(geom.device_origins(dev), comm),
                 ends=_pick(geom.device_ends(dev), comm),
                 widths=_pick(torch.tensor(
                     widths, dtype=torch.int32, device=dev).reshape(
                         mesh + (geom.ndim,)), comm),
-                owned=_pick(mesh_owned_mask(geom, dev), comm)
-                if geom.uneven else None)
+                owned=owned,
+                own_cells=owned if owned is not None else torch.from_numpy(
+                    interior_mask(geom)).to(dev))
             self._frames[key] = frame
         return frame
 
@@ -405,14 +414,15 @@ class Engine:
     def _device_finish(self, blk: AgentSoA, acc: Dict[str, torch.Tensor],
                        origin: torch.Tensor, key: torch.Tensor, lrank: int,
                        gidc: torch.Tensor, owned=None,
-                       own: torch.Tensor = None
-                       ) -> Tuple[AgentSoA, torch.Tensor, torch.Tensor]:
+                       own: torch.Tensor = None, count: bool = False):
         """Pointwise update, spawn, clamp and re-binning of one device's
         block (its aura filled) from its sweep's accumulators ``acc``, with
         the step key ``key``, rank ``lrank``, spawn counter ``gidc``, owned
         widths ``owned`` and owned cells ``own`` (a ``local_shape`` mask;
         both None on an equal split).  Returns the binned block, the agents
-        dropped for cell overflow and the advanced counter."""
+        dropped for cell overflow, the advanced counter and, with
+        ``count``, the live agents that entered the binning (spawns
+        included; else None): the conservation guard's count."""
         geom = self.geom
         beh = self.behavior
         nd = geom.ndim
@@ -465,8 +475,9 @@ class Engine:
             gidc = gidc + sflat.sum(dtype=torch.int32)
             flat = {n: torch.cat([flat[n], child[n]]) for n in flat}
             fvalid = torch.cat([fvalid, sflat])
+        n_in = fvalid.sum(dtype=torch.int32) if count else None
         soa, dropped = bin_agents(geom, flat, fvalid, origin, owned)
-        return soa, dropped, gidc
+        return soa, dropped, gidc, n_in
 
     def step_keys(self, state: SimState, n: int = 1,
                   comm: Comm = None) -> torch.Tensor:
@@ -500,10 +511,13 @@ class Engine:
               out: AgentSoA = None):
         """1. Aura update (rebuilt from scratch each iteration, section
         2.2.1), into ``out``'s tensors when given.  Returns
-        :func:`~repro_torch.core.halo.halo_exchange`'s four results and
-        the SoA before the exchange (its ring and padding invalidated: the
-        overlapped sweep's interior pass reads it) as a list, which
-        :meth:`_advance` empties."""
+        :func:`~repro_torch.core.halo.halo_exchange`'s four results, the
+        SoA before the exchange (its ring and padding invalidated: the
+        overlapped sweep's interior pass reads it) and, with the guards
+        on, this step's guard counts so far (``lead + (NUM_GUARDS,)``:
+        residency at entry, NaN/Inf of the exchanged SoA, its received
+        ring included; else None) as a list, which :meth:`_advance`
+        empties."""
         geom = self.geom
         nd = geom.ndim
         if comm.lead != nd:
@@ -511,17 +525,37 @@ class Engine:
                 f"local_step needs a comm with {nd} leading mesh dims "
                 f"(a VirtualMeshComm or ProcessMeshComm); got "
                 f"lead={comm.lead}")
+        gcfg = self.guards
+        frame = self._frame(state.soa.valid.device, comm)
+        g = None
+        if gcfg.enabled:
+            # residency is read at step entry: the previous migration has
+            # settled, so an owned agent off its slab is corruption
+            g = torch.zeros(comm.lead_shape + (NUM_GUARDS,),
+                            dtype=torch.int32, device=frame.origins.device)
+            if gcfg.domain or gcfg.slab:
+                dom_bad, slab_bad = residency_counts(
+                    geom, state.soa, frame.origins, frame.widths,
+                    frame.own_cells, comm.lead)
+                if gcfg.domain:
+                    g[..., GUARD_DOMAIN] += dom_bad
+                if gcfg.slab:
+                    g[..., GUARD_SLAB] += slab_bad
         if geom.uneven:
-            pre = mask_unowned(
-                state.soa, geom, lead=comm.lead,
-                mask=self._frame(state.soa.valid.device, comm).owned)
+            pre = mask_unowned(state.soa, geom, lead=comm.lead,
+                               mask=frame.owned)
             owned = self._owned(comm)
         else:
             pre = clear_ring(state.soa, comm.lead)
             owned = None
-        return list(halo_exchange(
+        aura = list(halo_exchange(
             geom, pre, comm, state.refs, self.delta_cfg, full_halo, out=out,
-            owned=owned)) + [pre if self.overlap == "on" else None]
+            owned=owned))
+        if gcfg.enabled and gcfg.nan:
+            # right after the exchange, before any sweep (the overlapped
+            # sweep's boundary pass included) reads the received ring
+            g[..., GUARD_NAN] += nan_count(aura[0], comm.lead)
+        return aura + [pre if self.overlap == "on" else None, g]
 
     def _advance(self, state: SimState, aura: list, comm: Comm,
                  step_keys: torch.Tensor, sweep) -> SimState:
@@ -534,7 +568,7 @@ class Engine:
         geom = self.geom
         mesh = geom.mesh_shape
         lead_shape = comm.lead_shape
-        soa, refs, hbytes, oflow, pre = aura
+        soa, refs, hbytes, oflow, pre, g = aura
         aura.clear()   # the caller's reference: the SoA dies below
         dev = state.soa.valid.device
         frame = self._frame(dev, comm)
@@ -546,27 +580,47 @@ class Engine:
         binned = _MeshSoA(lead_shape)
         drops: List[torch.Tensor] = []
         gidcs: List[torch.Tensor] = []
+        entered: List[torch.Tensor] = []   # the conservation guard's
+        cons = g is not None and self.guards.conservation
         if step_keys is None:
             step_keys = self.step_keys(state, comm=comm)[0]
-        for c, g in comm.blocks():
-            lrank = int(np.ravel_multi_index(g, mesh))
+        for c, gc in comm.blocks():
+            lrank = int(np.ravel_multi_index(gc, mesh))
             blk = device_block(soa, c)
-            acc = sweep(g, blk,
+            acc = sweep(gc, blk,
                         None if pre is None else device_block(pre, c))
-            blk, d1, gidc = self._device_finish(
+            blk, d1, gidc, n_in = self._device_finish(
                 blk, acc, frame.origins[c], step_keys[c], lrank,
-                state.gid_counter[c], geom.owned_widths(g),
-                None if frame.owned is None else frame.owned[c])
+                state.gid_counter[c], geom.owned_widths(gc),
+                None if frame.owned is None else frame.owned[c], cons)
             del acc
             binned.put(c, blk)
             drops.append(d1)
             gidcs.append(gidc)
+            entered.append(n_in)
             del blk
         del soa, pre   # the aura-filled SoA is dead: free it before migrating
         dropped = state.dropped + torch.stack(drops).reshape(lead_shape)
 
         # 5. Agent migration: dimension-ordered ring exchange over all axes.
         soa3, d2, moflow = self._migrate(binned.soa, comm, frame, lsz)
+
+        health = state.health
+        if g is not None:
+            if cons:
+                # the global ledger balances up to this step's drops: one
+                # sum over the virtual mesh's devices, one all-reduce
+                # over a process mesh's ranks
+                post = (soa3.valid & frame.own_cells[..., None]).sum(
+                    dtype=torch.int32)
+                lost = (dropped - state.dropped + d2).sum(dtype=torch.int32)
+                ledger = torch.stack([
+                    torch.stack(entered).sum(dtype=torch.int32), post, lost])
+                if isinstance(comm, ProcessMeshComm):
+                    ledger = comm.sum_over_all_ranks(ledger)
+                g[..., GUARD_CONSERVATION] += (
+                    ledger[0] - ledger[1] - ledger[2]).abs()
+            health = health + g
 
         return SimState(
             soa=soa3,
@@ -578,7 +632,7 @@ class Engine:
             halo_bytes=torch.full(lead_shape, hbytes, dtype=torch.int32,
                                   device=dev),
             codec_overflow=coflow + moflow,
-            health=state.health,
+            health=health,
         )
 
     def _migrate(self, soa: AgentSoA, comm: Comm, frame: _Frame,
@@ -883,8 +937,14 @@ class Engine:
         next aura exchange is a full refresh (the re-shard zeroed the
         references).  Returns ``(engine, state, series)``: the engine
         differs from ``self`` after a re-shard, and on a process mesh the
-        new ``DeviceMesh`` is ``rebalancer.mesh``."""
-        _unported("fault plans", fault_plan, "A9")
+        new ``DeviceMesh`` is ``rebalancer.mesh``.
+
+        With the guards on, the health word is read at every control
+        point (:func:`~repro_torch.core.guards.check_health`).  A
+        ``fault_plan`` (``distributed.chaos.FaultPlan``) fires its faults
+        at their absolute iterations, from the control points: segments
+        end at pending fault steps.  Neither adds a host read when the
+        guards are off and no plan is given."""
         eng = self
         if rebalancer is None and self.rebalance_every > 0:
             from repro_torch.core.reshard import Rebalancer
@@ -899,15 +959,33 @@ class Engine:
         # grown overflow count forces the next exchange to a full refresh.
         track_clip = self.delta_cfg.enabled and self.delta_cfg.scale is not None
         clip_mark = codec_overflow_count(state, reduce) if track_clip else 0
+        # The health word is read at the same control points (the mark
+        # follows counter resets of a re-shard down); fault plans key on
+        # the absolute iteration.
+        track_health = self.guards.enabled
+        hmark = health_counts(state, reduce) if track_health else None
+        it0 = _global_it(state, reduce) if fault_plan is not None else 0
 
         def after(state):
-            nonlocal force_full, clip_mark
+            nonlocal force_full, clip_mark, hmark
             force_full = False
             if track_clip:
                 cnt = codec_overflow_count(state, reduce)
                 if cnt > clip_mark:
                     force_full = True
                     clip_mark = cnt
+            if track_health:
+                hmark, _ = check_health(eng.guards, state, hmark,
+                                        comm=reduce)
+
+        def fire(i, state):
+            nonlocal force_full
+            if fault_plan is None:
+                return state
+            state, fired = fault_plan.fire(eng, state, it0 + i, comm=reduce)
+            if fired:
+                force_full = True
+            return state
 
         def check(i, state):
             """The rebalancer's check at tick ``i``: True on a re-shard."""
@@ -928,6 +1006,7 @@ class Engine:
                 if resharded:
                     seg_fn = eng.make_segment_runner(mesh)
                     force_full = True
+                state = fire(i, state)
                 nxt = n_steps
                 if rebalancer is not None and rebalancer.every > 0:
                     e = rebalancer.every
@@ -937,6 +1016,10 @@ class Engine:
                         nxt = min(nxt, i + 1)
                 if eng.delta_cfg.enabled:
                     nxt = min(nxt, (i // r + 1) * r)
+                if fault_plan is not None:
+                    nf = fault_plan.next_step(after=it0 + i)
+                    if nf is not None:
+                        nxt = min(nxt, max(nf - it0, i + 1))
                 full = force_full or (not eng.delta_cfg.enabled) \
                     or i % r == 0
                 state = seg_fn(state, nxt - i, full_first=full)
@@ -952,12 +1035,20 @@ class Engine:
                 step_fn = rebalancer.make_step(eng) if mesh is None \
                     else rebalancer.make_step(eng, mesh)
                 force_full = True
+            state = fire(i, state)
             full = force_full or (not self.delta_cfg.enabled) or i % r == 0
             state = step_fn(state, full_halo=full)
             after(state)
             if collect is not None:
                 series.append(collect(state))
         return eng, state, series
+
+
+def _global_it(state: SimState, comm: ProcessMeshComm = None) -> int:
+    """The iteration counter (the largest of every rank's on a process
+    mesh)."""
+    it = state.it.max()
+    return int(it if comm is None else comm.max_over_all_ranks(it))
 
 
 def total_agents(state: SimState, comm: ProcessMeshComm = None) -> int:

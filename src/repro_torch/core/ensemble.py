@@ -36,8 +36,9 @@ which mask each device's block to its owned cells.  On a process mesh
 (``run(..., mesh=)``, one process a device) each process runs its own
 device's block of every lane: the lanes' states come from
 ``proto_engine().init_state(..., mesh=mesh)`` and the loops run over the
-comm's one block.  Not ported: the guards and their per-lane health words
-(ROADMAP A9).
+comm's one block.  ``guards=`` runs the guarded step on every lane (each
+lane's halves are its solo engine's), and :func:`ensemble_health_counts`
+reads the per-lane words, lanes independent.
 """
 
 from __future__ import annotations
@@ -52,7 +53,10 @@ from repro_torch.core.agent_soa import AgentSoA
 from repro_torch.core.compile_cache import CompiledCache
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain
-from repro_torch.core.engine import Engine, SimState, _unported
+from repro_torch.core.engine import Engine, SimState
+from repro_torch.core.guards import (
+    GUARD_CONSERVATION, NUM_GUARDS, GuardConfig, as_guard_config,
+)
 from repro_torch.core.neighbors import (
     resolve_sweep_backend, sweep_accumulate_lanes,
 )
@@ -91,6 +95,27 @@ def stack_states(states: Sequence[SimState]) -> SimState:
 def replica_state(state: SimState, r: int) -> SimState:
     """Lane ``r`` of a stacked state, in the solo layout (views)."""
     return _map_state(lambda x: x[r], state)
+
+
+def ensemble_health_counts(estate: "EnsembleState", comm=None
+                           ) -> np.ndarray:
+    """Per-lane guard words, ``(R, NUM_GUARDS)`` int64: each lane reduced
+    over its devices as the solo :func:`~repro_torch.core.guards.
+    health_counts` (summed; the conservation word, a replicated global,
+    the max), and with a process mesh's ``comm`` over every rank.  Lanes
+    stay independent: one lane's NaN burst never shows in another's."""
+    h = estate.state.health
+    rr = h.shape[0]
+    h = h.reshape(rr, -1, NUM_GUARDS).to(torch.int64)
+    out = h.sum(1)
+    cons = h[:, :, GUARD_CONSERVATION].max(1).values if h.shape[1] \
+        else torch.zeros((rr,), dtype=torch.int64, device=h.device)
+    if comm is not None:
+        out = comm.sum_over_all_ranks(out)
+        cons = comm.max_over_all_ranks(cons)
+    out = out.cpu().numpy()
+    out[:, GUARD_CONSERVATION] = cons.cpu().numpy()
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,15 +176,14 @@ class Ensemble:
     dt: float = 1.0
     delta_cfg: DeltaConfig = DeltaConfig(enabled=False)
     sweep_backend: str = "auto"
-    guards: Any = None
+    guards: GuardConfig = GuardConfig()
     family: str = ""              # display label (serve telemetry)
     device: Any = "cuda"
 
     def __post_init__(self):
         object.__setattr__(self, "param_names",
                            tuple(sorted(self.param_names)))
-        _unported("guards", None if self.guards in (None, "off")
-                  else self.guards, "A9")
+        object.__setattr__(self, "guards", as_guard_config(self.guards))
         object.__setattr__(self, "device", resolve_device(self.device))
 
     # -- identity ------------------------------------------------------
@@ -177,7 +201,8 @@ class Ensemble:
     def _engine(self, params: Dict[str, float]) -> Engine:
         return Engine(geom=self.geom, behavior=self.behavior_fn(params),
                       delta_cfg=self.delta_cfg, dt=self.dt,
-                      sweep_backend=self.sweep_backend, device=self.device)
+                      sweep_backend=self.sweep_backend, guards=self.guards,
+                      device=self.device)
 
     def proto_engine(self) -> Engine:
         """Solo :class:`Engine` of this family at parameters 0.0 - for

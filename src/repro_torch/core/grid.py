@@ -20,6 +20,24 @@ from repro_torch.core.agent_soa import AgentSoA, POS, flat_view
 from repro_torch.core.domain import Domain
 
 
+# The largest float32 below 2**31.
+_F32_BELOW_2_31 = 2147483520.0
+
+
+def floor_int32(x: torch.Tensor) -> torch.Tensor:
+    """``floor(x)`` as int32 by XLA's conversion, which saturates and
+    takes NaN to 0 (the reference bins a NaN position into cell 1).  The
+    card's conversion does the same; the CPU's (x86) gives INT_MIN for NaN
+    and for every value out of range, so there it is spelled out."""
+    f = torch.floor(x)
+    if f.device.type != "cpu":
+        return f.to(torch.int32)
+    c = torch.nan_to_num(f, nan=0.0).clamp(
+        min=-2147483648.0, max=_F32_BELOW_2_31).to(torch.int32)
+    return torch.where(f > _F32_BELOW_2_31,
+                       torch.tensor(2147483647, dtype=torch.int32), c)
+
+
 def cell_of(geom: Domain, pos: torch.Tensor, origin: torch.Tensor,
             owned=None) -> torch.Tensor:
     """Map world positions (N, ndim) to local cell coordinates (N, ndim)
@@ -33,7 +51,7 @@ def cell_of(geom: Domain, pos: torch.Tensor, origin: torch.Tensor,
     # (pos - origin) / float32(cell_size).
     cs = torch.tensor(geom.cell_size, dtype=torch.float32, device=pos.device)
     rel = (pos - origin[None, :]) / cs
-    c = torch.floor(rel).to(torch.int32) + 1
+    c = floor_int32(rel) + 1
     top = [h - 1 for h in geom.local_shape] if owned is None \
         else [int(w) + 1 for w in owned]
     return torch.stack(

@@ -49,7 +49,7 @@ from repro_torch.core import prng
 from repro_torch.core.agent_soa import AgentSoA, GID_COUNT, GID_RANK, POS
 from repro_torch.core.domain import Domain, Partition
 from repro_torch.core.engine import (
-    NUM_GUARDS, Engine, SimState, _pick,
+    NUM_GUARDS, Engine, SimState, _global_it, _pick,
 )
 from repro_torch.core.grid import mesh_owned_mask, running_max
 from repro_torch.core.halo import init_refs
@@ -456,11 +456,6 @@ def _mesh_counters(geom: Domain, state: SimState, comm=None) -> np.ndarray:
     full = np.zeros(geom.mesh_shape, np.int64)
     full[comm.coords()] = int(state.gid_counter.reshape(-1)[0])
     return comm.sum_over_all_ranks(torch.from_numpy(full)).numpy().ravel()
-
-
-def _global_it(state: SimState, comm=None) -> int:
-    it = state.it.max().cpu()
-    return int(it if comm is None else comm.max_over_all_ranks(it))
 
 
 def _dropped_total(state: SimState, comm=None) -> int:

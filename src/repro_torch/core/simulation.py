@@ -19,71 +19,47 @@ ProcessMeshComm`); ``n_agents`` and :meth:`Simulation.sum_over_all_ranks`
 are global.  ``rebalance=`` (a :class:`Rebalance`) runs the dynamic load
 balancer (``core.reshard``) as a scheduled operation: a re-shard swaps the
 facade's engine, state, step and process mesh in place, so ``sim.engine``
-and ``sim.state`` always match.  ``checkpoint=`` saves logical ABM
-checkpoints (``distributed.checkpoint.save_abm``), and
-:meth:`Simulation.restore` restores one onto any device count.  Not
-ported in this slice, and raising ``NotImplementedError`` when asked for:
-``guards``, ``supervised`` runs and fault plans (A9), and ``validate``
-(A11).  A list of several behaviours
+and ``sim.state`` always match.  ``checkpoint=`` saves
+logical ABM checkpoints (``distributed.checkpoint.save_abm``), and
+:meth:`Simulation.restore` restores one onto any device count.
+``guards=`` turns on the runtime health guards (``core.guards``), read at
+the facade's control points; ``run(fault_plan=)`` injects a
+``distributed.chaos.FaultPlan``'s faults, and ``run(supervised=)`` hands
+the run to ``launch.supervise.Supervisor`` (periodic verified checkpoints,
+rollback on a guard trip or an exception).  A list of several behaviours
 is composed (:func:`~repro_torch.core.behaviors.compose`), as the
-reference does.  Of the construction-time
-contracts only stencil soundness (``radius <= cell_size``) is ported; the
-rest of the contract checker waits for A11.
+reference does.  Construction runs the whole static contract suite
+(``analysis.contracts.enforce``: partition validity, stencil soundness,
+one-hop migration, codec headroom) and a re-shard runs it again on the new
+geometry; ``validate`` (the suite with the lint and the step audit) waits
+for ROADMAP A11.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import ContractError, enforce
 from repro_torch.core.behaviors import Behavior, compose
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain
 from repro_torch.core.engine import (
-    Engine, SimState, _unported, codec_overflow_count, total_agents,
+    Engine, SimState, codec_overflow_count, total_agents,
 )
+from repro_torch.core.guards import GuardConfig, check_health, health_counts
 from repro_torch.core.operations import Operation, checkpoint_op
 from repro_torch.core.reshard import Rebalancer, estimate_device_runtimes
+
+__all__ = ["Checkpoint", "ContractError", "Rebalance", "Simulation"]
 
 # Geometry defaults applied when the first argument is a kwargs dict.
 _GEOM_DEFAULTS = dict(cell_size=2.0, interior=(8, 8), mesh_shape=(1, 1),
                       cap=24, boundary="closed")
-
-
-class ContractError(ValueError):
-    """Raised at construction when an error-severity contract fails."""
-
-
-def check_stencil(geom: Domain, behavior: Behavior, mode: str = "error"
-                  ) -> List[str]:
-    """Stencil soundness: the ``3**ndim`` sweep visits adjacent cells only,
-    so ``radius > cell_size`` would silently drop interacting pairs.
-    ``mode`` is ``"error"`` (raise), ``"warn"`` or ``"off"``; returns the
-    findings."""
-    if mode not in ("off", "warn", "error"):
-        raise ValueError(
-            f"check mode {mode!r} not in ('off', 'warn', 'error')")
-    if mode == "off":
-        return []
-    leaves = behavior.children or (behavior,)
-    errors = [
-        f"stencil-soundness: interaction radius {float(b.radius):g} exceeds "
-        f"cell_size {geom.cell_size:g}: the {3 ** geom.ndim}-cell "
-        "neighbourhood sweep would drop pairs (raise cell_size or reduce "
-        "the radius)"
-        for b in leaves if float(b.radius) > float(geom.cell_size)]
-    if errors and mode == "error":
-        raise ContractError(
-            "simulation contracts violated (pass check=\"warn\" or "
-            "check=\"off\" to bypass):\n" + "\n".join(errors))
-    for e in errors:
-        warnings.warn(f"simcheck contract: {e}", stacklevel=3)
-    return errors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,8 +138,15 @@ class Simulation:
         ``Rebalance(every=n)``, or None.
       checkpoint: a :class:`Checkpoint`, a directory shorthand for
         ``Checkpoint(dir)``, or None.
-      check: stencil-soundness gate, ``"error"`` | ``"warn"`` | ``"off"``
-        (re-run on the new geometry after every re-shard).
+      check: the construction-time contract gate
+        (``analysis.contracts.enforce``), ``"error"`` (raise
+        :class:`ContractError` on any error finding) | ``"warn"`` |
+        ``"off"``; re-run on the new geometry after every re-shard.
+      guards: the runtime health guards, a :class:`~repro_torch.core.
+        guards.GuardConfig`, a policy string (``"warn"`` | ``"error"``)
+        or None (off: the step computes none of them).  Read at the same
+        control points as the codec's overflow word; under ``"error"`` a
+        trip raises ``HealthError``, which a supervised run rolls back on.
       device: ``"cuda"`` (default; raises without a GPU) or ``"cpu"``.
     """
 
@@ -172,9 +155,9 @@ class Simulation:
                  mesh=None, delta: Optional[DeltaConfig] = None,
                  dt: float = 1.0, rebalance=None, checkpoint=None,
                  sweep_backend: str = "auto", overlap: str = "auto",
-                 check: str = "error", guards=None, device="cuda"):
-        _unported("guards", None if guards in (None, "off") else guards,
-                  "A9")
+                 check: str = "error",
+                 guards: Union[GuardConfig, str, None] = None,
+                 device="cuda"):
         if isinstance(geom, dict):
             geom = Domain(**{**_GEOM_DEFAULTS, **geom})
         if isinstance(behaviors, Behavior):
@@ -185,8 +168,9 @@ class Simulation:
         self.engine: Engine = Engine(
             geom=geom, behavior=behavior,
             delta_cfg=delta or DeltaConfig(enabled=False), dt=dt,
-            sweep_backend=sweep_backend, overlap=overlap, device=device)
-        check_stencil(geom, behavior, check)
+            sweep_backend=sweep_backend, overlap=overlap, guards=guards,
+            device=device)
+        enforce(self.engine, mode=check, mesh=mesh)
         self._check = check
         self._mesh = mesh
         # the process comm: collective host reads and SumOverAllRanks
@@ -325,10 +309,9 @@ class Simulation:
                 if self._step_fn else None
             self._seg_fn = None
             self._force_full = True
-            # a narrower uneven slab can break the stencil contract: gate
-            # the new geometry at the caller's mode
-            check_stencil(self.engine.geom, self.engine.behavior,
-                          self._check)
+            # a narrower uneven slab can break the one-hop contract
+            # mid-run: gate the new geometry at the caller's mode
+            enforce(self.engine, mode=self._check, mesh=self._mesh)
 
     def _fused_span(self, tick: int, remaining: int, ops) -> int:
         """Longest segment starting at ``tick`` with no scheduled
@@ -363,12 +346,29 @@ class Simulation:
         scheduled post-ops.  Steps between operations run as one segment
         (``fused=True``) or one step call each (``fused=False``); both give
         the same state.  ``collect(state)`` records under ``"collect"``
-        every step.  Returns self."""
+        every step.  Returns self.
+
+        ``fault_plan`` (``distributed.chaos.FaultPlan``) fires its faults
+        at their absolute iterations; segments end at pending fault
+        steps.  ``supervised`` (a ``launch.supervise.Supervised``, or a
+        checkpoint directory) hands the whole run to the supervisor:
+        periodic verified checkpoints, and rollback with retries when a
+        guard trips or the run raises."""
         if self.state is None:
             raise RuntimeError("Simulation.run() before init(): call "
                                "sim.init(positions, attrs) first")
-        _unported("fault plans", fault_plan, "A9")
-        _unported("supervised runs", supervised, "A9")
+        if supervised is not None:
+            from repro_torch.launch.supervise import Supervised, Supervisor
+            if isinstance(supervised, str):
+                supervised = Supervised(dir=supervised)
+            if collect is not None:
+                raise ValueError(
+                    "collect= is not supported under supervised runs "
+                    "(a rollback would double-record); use scheduled "
+                    "ops via sim.every(...)")
+            Supervisor(self, supervised, fault_plan=fault_plan).run(
+                int(steps), fused=fused)
+            return self
         ops = list(self._ops)
         if collect is not None:
             ops.append(Operation(fn=lambda sim: collect(sim.state),
@@ -388,6 +388,14 @@ class Simulation:
         track_clip = delta.enabled and delta.scale is not None
         clip_mark = codec_overflow_count(self.state, self._comm) \
             if track_clip else 0
+        # The health word is read at the same control points (a re-shard
+        # or a restore resets it: the mark follows it down), before the
+        # post-ops, so a scheduled checkpoint never captures a state a
+        # guard just flagged.
+        track_health = self.engine.guards.enabled
+        hmark = health_counts(self.state, self._comm) \
+            if track_health else None
+        it0 = self.iteration if fault_plan is not None else 0
 
         done = 0
         while done < int(steps):
@@ -398,8 +406,17 @@ class Simulation:
             if not per_step and self._seg_fn is None:
                 # a pre-op re-sharded
                 self._seg_fn = self.engine.make_segment_runner(self._mesh)
+            if fault_plan is not None:
+                self.state, fired = fault_plan.fire(
+                    self.engine, self.state, it0 + done, comm=self._comm)
+                if fired:
+                    self._force_full = True
             n = 1 if per_step else self._fused_span(
                 tick, int(steps) - done, ops)
+            if fault_plan is not None and not per_step:
+                nf = fault_plan.next_step(after=it0 + done)
+                if nf is not None:
+                    n = max(1, min(n, nf - (it0 + done)))
             full = (self._force_full or not delta.enabled
                     or tick % refresh == 0)
             self._force_full = False
@@ -426,6 +443,9 @@ class Simulation:
                 if cnt > clip_mark:
                     self._force_full = True
                     clip_mark = cnt
+            if track_health:
+                hmark, _ = check_health(self.engine.guards, self.state,
+                                        hmark, comm=self._comm)
             for t in range(tick, tick + n):
                 for op in ops:
                     if not op.pre and op.due(t):
@@ -463,7 +483,8 @@ class Simulation:
                 rebalance: Union[Rebalance, int, None] = None,
                 checkpoint: Union[Checkpoint, str, None] = None,
                 ownership: Optional[str] = None,
-                check: str = "error", guards=None, mesh=None,
+                check: str = "error",
+                guards: Union[GuardConfig, str, None] = None, mesh=None,
                 device="cuda") -> "Simulation":
         """Elastic restore: a facade rebuilt from a logical checkpoint onto
         ``n_devices`` (default: one device, or the process ``mesh``'s
@@ -474,8 +495,6 @@ class Simulation:
         from repro_torch.core.reshard import process_mesh
         from repro_torch.distributed.elastic import elastic_restore_abm
 
-        _unported("guards", None if guards in (None, "off") else guards,
-                  "A9")
         if not isinstance(behaviors, Behavior):
             behs = tuple(behaviors)
             behaviors = behs[0] if len(behs) == 1 else compose(*behs)
@@ -485,7 +504,8 @@ class Simulation:
             device=device)
         if mesh is not None:
             mesh = process_mesh(engine.geom.mesh_shape, mesh)
+        engine = dataclasses.replace(engine, guards=guards)
         sim = cls(engine.geom, behaviors, delta=delta or engine.delta_cfg,
                   dt=engine.dt, rebalance=rebalance, checkpoint=checkpoint,
-                  check=check, mesh=mesh, device=device)
+                  check=check, guards=guards, mesh=mesh, device=device)
         return sim.with_state(engine, state)

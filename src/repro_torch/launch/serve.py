@@ -28,7 +28,13 @@ This module is that loop for agent-based scenarios:
   (:mod:`repro_torch.core.compile_cache`).
 
 The server is in-process and synchronous - ``pump()`` runs one batch,
-``drain()`` runs until the queue is empty.  ``--smoke`` exercises the
+``drain()`` runs until the queue is empty.  Over a process mesh
+(``ScenarioServer(mesh=)``, one process a device) every rank builds the
+same server and submits the same requests: each rank steps its own
+device's block of every lane, and each frame is its per-lane metric
+summed over the ranks (``sum_over_all_ranks``), so every rank streams the
+same frames; a family's metric must then add over devices (counts,
+sums).  ``--smoke`` exercises the
 whole loop: three compatible requests batched into one padded slot plus
 one incompatible request rejected with its diagnostic.  It runs on the
 card unless ``--device cpu`` is given:
@@ -46,6 +52,7 @@ from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.analysis import Diagnostic, check_ensemble
 from repro_torch.core import operations
@@ -63,9 +70,10 @@ class ScenarioFamily:
 
     ``init_point(ensemble, seed)`` builds the solo :class:`SimState` of a
     single request (structure - agent count, schema, geometry - is fixed
-    per family; only the parameter point and seed vary).  ``metric``
-    reduces a *stacked* state to per-lane frames, ``(R, ...)``: lane
-    ``r``'s row is request ``r``'s frame.
+    per family; only the parameter point and seed vary); a server over a
+    process mesh calls ``init_point(ensemble, seed, mesh=mesh)`` for this
+    rank's block.  ``metric`` reduces a *stacked* state to per-lane
+    frames, ``(R, ...)``: lane ``r``'s row is request ``r``'s frame.
     """
 
     name: str
@@ -115,9 +123,9 @@ def sir_mechanics_family(n_agents: int = 400, initial_infected: int = 20,
                              device=device)
     return ScenarioFamily(
         name=name, ensemble=ens,
-        init_point=lambda e, seed: sm.ensemble_point_state(
+        init_point=lambda e, seed, mesh=None: sm.ensemble_point_state(
             e, seed=seed, n_agents=n_agents,
-            initial_infected=initial_infected),
+            initial_infected=initial_infected, mesh=mesh),
         metric=operations.batch_attr_counts("state", (sm.S, sm.I, sm.R)),
         defaults=sm.ensemble_defaults())
 
@@ -131,14 +139,8 @@ class ScenarioServer:
 
     def __init__(self, families: Sequence[ScenarioFamily] = (),
                  slot_size: int = 8, mesh=None):
-        # mesh: a process mesh (one process a device).  Ensemble.run takes
-        # one, but the server's init points and per-lane frames are still
-        # one process's (ROADMAP A7); the family's own virtual mesh needs
-        # none
-        if mesh is not None:
-            raise NotImplementedError(
-                "a scenario server over a process mesh is not ported yet "
-                "(ROADMAP A7)")
+        # mesh: a process mesh (one process a device, shaped like every
+        # family's Domain mesh); the family's own virtual mesh needs none
         if slot_size < 1:
             raise ValueError(f"slot_size must be >= 1, got {slot_size}")
         self.slot_size = int(slot_size)
@@ -246,12 +248,17 @@ class ScenarioServer:
             h.status = "running"
 
         ens = fam.ensemble
+        # on a process mesh: this rank's blocks, and the frames summed
+        # over the ranks
+        kw = {} if self.mesh is None else dict(mesh=self.mesh)
+        comm = None if self.mesh is None \
+            else ens.proto_engine()._comm(self.mesh)
         points, states = [], []
         for h in handles:
             p = {**fam.defaults, **h.request.params}
             seed = int(p.pop("seed", h.request.seed))
             points.append({k: p[k] for k in ens.param_names})
-            states.append(fam.init_point(ens, seed))
+            states.append(fam.init_point(ens, seed, **kw))
         estate = ens.init(states, points)
         estate = ens.pad_to(estate, self.slot_size)
         self._batches += 1
@@ -274,6 +281,9 @@ class ScenarioServer:
             estate, _ = ens.run(estate, mark - done, mesh=self.mesh)
             done = mark
             frame = fam.metric(estate.state)
+            if comm is not None:
+                frame = comm.sum_over_all_ranks(
+                    torch.from_numpy(np.asarray(frame))).numpy()
             for lane, h in enumerate(handles):
                 r = h.request
                 due = (r.stream_every > 0 and done <= r.steps

@@ -152,7 +152,8 @@ def ensemble_family(interior=(8, 8), mesh_shape=(1, 1), cap=32,
     """The sir_mechanics compatibility family on a given geometry (the
     codec off unless ``delta`` is given): ``interior`` x ``mesh_shape``,
     or an uneven :class:`~repro_torch.core.domain.Partition` (which then
-    sets both).  Guards wait for ROADMAP A9."""
+    sets both); ``guards`` runs every lane's guarded step
+    (``core.guards``)."""
     from repro_torch.core.delta import DeltaConfig
     if partition is not None:
         geom = Domain(cell_size=2.0, interior=partition.max_widths,

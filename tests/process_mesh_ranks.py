@@ -347,3 +347,140 @@ def rebalance_ranks(rank: int, world: int, out: str) -> None:
         new = process_mesh((4, 1), sim.mesh)
         _save(f"{out}/{transport}/r{rank}.npz", eng._comm(new),
               rank_arrays(st))
+
+
+# ---------------------------------------------------------------------------
+# The scenario server, guards, fault plans and supervision on the process
+# mesh
+# ---------------------------------------------------------------------------
+
+# (family keywords, requests as (params, steps, stream_every, seed))
+SERVE_REQUESTS = [({"beta": 0.05}, 8, 4, 0), ({"beta": 0.2}, 12, 4, 1),
+                  ({"gamma": 0.3, "sir_radius": 1.0}, 12, 0, 2)]
+SERVE_FAMILY = {(2, 2): dict(n_agents=120, interior=(4, 4),
+                             mesh_shape=(2, 2)),
+                (2, 1): dict(n_agents=120, interior=(4, 8),
+                             mesh_shape=(2, 1))}
+
+
+def serve_frames(mesh_shape, mesh=None) -> dict:
+    """Every request's frames of the sir_mechanics server on the family's
+    mesh (a process ``mesh``, or the virtual one), keyed by rid."""
+    from repro_torch.launch.serve import (
+        ScenarioRequest, ScenarioServer, sir_mechanics_family)
+
+    server = ScenarioServer([sir_mechanics_family(
+        device="cpu", **SERVE_FAMILY[tuple(mesh_shape)])], slot_size=4,
+        mesh=mesh)
+    rids = [server.submit(ScenarioRequest(
+        family="sir_mechanics", params=p, steps=n, stream_every=e, seed=s))
+        for p, n, e, s in SERVE_REQUESTS]
+    server.drain()
+    return {str(r): [(int(t), np.asarray(f).tolist())
+                     for t, f in server.handle(r).frames] for r in rids}
+
+
+def serve_ranks(rank: int, world: int, out: str) -> None:
+    """The server over a process mesh of ``world`` ranks (2x2 or 2x1)."""
+    torch.set_num_threads(1)
+    shape = (2, 2) if world == 4 else (2, 1)
+    mesh = make_abm_mesh(shape, device_type="cpu")
+    os.makedirs(f"{out}/serve", exist_ok=True)
+    with open(f"{out}/serve/r{rank}.json", "w") as f:
+        json.dump(serve_frames(shape, mesh), f)
+
+
+GUARD_PLAN = [dict(step=2, kind="nan_attrs", frac=0.05),
+              dict(step=3, kind="halo_slab", axis=1)]
+GUARD_STEPS = 4
+SUPERVISED_PLAN = [dict(step=6, kind="halo_slab", axis=0),
+                   dict(step=8, kind="torn_checkpoint"),
+                   dict(step=9, kind="raise")]
+SUPERVISED_STEPS = 12
+
+
+def a9_sim(guards, mesh=None):
+    from repro_torch.sims import cell_clustering as cc
+    sim = make_sim(cc.behavior(adhesion=0.4), interior=(6, 6),
+                   mesh_shape=(2, 2), cap=16, dt=0.5, guards=guards,
+                   device="cpu", mesh=mesh)
+    cc.init(sim, 200, seed=3)
+    return sim
+
+
+def guarded_run(mesh=None):
+    """A guarded run with a fault plan (a NaN burst, a corrupted halo
+    slab), then a duplicate gid planted across devices: the run's sim,
+    its global health counts, and the duplicate count."""
+    import warnings
+
+    from repro_torch.core import guards as g
+    from repro_torch.distributed.chaos import Fault, FaultPlan
+
+    sim = a9_sim("warn", mesh)
+    plan = FaultPlan(tuple(Fault(**f) for f in GUARD_PLAN), seed=5)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sim.run(GUARD_STEPS, fault_plan=plan)
+    comm = sim._comm
+    counts = g.health_counts(sim.state, comm).tolist()
+    # the device (1, 1)'s first live agent takes gid (0, 0)
+    st = sim.state
+    at = (1, 1) if comm is None else (0, 0)
+    if comm is None or tuple(comm.coords()) == (1, 1):
+        v = st.soa.valid[at].reshape(-1)
+        i = int(torch.nonzero(v)[0])
+        for name in ("gid_rank", "gid_count"):
+            st.soa.attrs[name][at].reshape(-1)[i] = 0
+    return sim, counts, g.gid_duplicate_count(st, comm)
+
+
+def supervised_run(ckpt_dir: str, mesh=None):
+    """A supervised recovery: a corrupted halo slab, a torn checkpoint
+    and an injected raise; the run's sim and its log."""
+    import warnings
+
+    from repro_torch.distributed.chaos import Fault, FaultPlan
+    from repro_torch.launch.supervise import Supervised, Supervisor
+
+    sim = a9_sim("error", mesh)
+    plan = FaultPlan(tuple(Fault(**f) for f in SUPERVISED_PLAN), seed=3)
+    sv = Supervisor(sim, Supervised(dir=ckpt_dir, every=4, keep=9),
+                    fault_plan=plan)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sv.run(SUPERVISED_STEPS)
+    return sim, sv
+
+
+def a9_ranks(rank: int, world: int, out: str) -> None:
+    """On four ranks: the server, a guarded run with faults, a supervised
+    recovery onto the four ranks, and a device loss that would degrade."""
+    from repro_torch.distributed.chaos import Fault, FaultPlan
+    from repro_torch.launch.supervise import Supervised, Supervisor
+
+    serve_ranks(rank, world, out)
+    torch.set_num_threads(1)
+    mesh = make_abm_mesh((2, 2), device_type="cpu")
+    sim, counts, dups = guarded_run(mesh)
+    comm = sim.engine._comm(mesh)
+    _save(f"{out}/guarded/r{rank}.npz", comm, rank_arrays(sim.state))
+    sim, sv = supervised_run(f"{out}/ckpt", mesh)
+    _save(f"{out}/supervised/r{rank}.npz", sim.engine._comm(sim.mesh),
+          rank_arrays(sim.state))
+    log = [{k: e[k] for k in ("kind", "step", "iteration", "error_type",
+                              "rolled_back_to", "devices", "replay_steps")
+            if k in e} for e in sv.log]
+    lost = a9_sim("error", mesh)
+    try:
+        Supervisor(lost, Supervised(dir=f"{out}/ckpt_lost", every=2,
+                                    keep=3),
+                   fault_plan=FaultPlan((Fault(step=2, kind="device_loss",
+                                               survivors=2),))).run(4)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    with open(f"{out}/a9_r{rank}.json", "w") as f:
+        json.dump(dict(counts=counts, dups=dups, log=log, refused=refused,
+                       n_agents=sim.n_agents(),
+                       mesh=list(sim.geom.mesh_shape)), f)

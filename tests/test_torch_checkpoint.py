@@ -279,9 +279,11 @@ def test_scheduled_checkpoints_and_restore_keep_ownership(tmp_path):
         assert back.geom.uneven == (n > 1)
         back.run(1)
         assert back.n_agents() == 500
-    with pytest.raises(NotImplementedError, match="A9"):
-        Simulation.restore(str(tmp_path), cc.behavior(), device="cpu",
-                           guards="warn")
+    # guards= is ported (A9; tests/test_torch_resilience.py): the
+    # restored facade and its engine carry them
+    guarded = Simulation.restore(str(tmp_path), cc.behavior(adhesion=0.3),
+                                 device="cpu", guards="warn")
+    assert guarded.engine.guards.policy == "warn"
     ack = ckpt_lib.AsyncCheckpointer(str(tmp_path / "async"))
     ack.save_abm(sim.iteration, sim.engine, sim.state)
     assert ack.wait().endswith("step_0000000009")

@@ -135,9 +135,13 @@ def test_facade_scheduled_ops_and_series():
 
 def test_unported_options_raise():
     beh = cc.behavior()
-    for kw in (dict(guards="warn"),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Simulation(dict(interior=(6, 6)), beh, device="cpu", **kw)
+    # guards= is ported (tests/test_torch_resilience.py): it builds, and
+    # supervision of an unguarded run is refused by its contract
+    sim = Simulation(dict(interior=(6, 6)), beh, device="cpu",
+                     guards="warn")
+    assert sim.engine.guards.policy == "warn"
+    assert not Simulation(dict(interior=(6, 6)), beh,
+                          device="cpu").engine.guards.enabled
     # rebalance= and checkpoint= are ported (tests/test_torch_reshard.py,
     # tests/test_torch_checkpoint.py): they build
     sim = Simulation(dict(interior=(6, 6)), beh, device="cpu", rebalance=5,

@@ -390,8 +390,10 @@ def test_stack_and_replica_state_round_trip():
     again = stack_states([replica_state(est.state, r) for r in range(3)])
     _assert_states_equal(replica_state(again, 2),
                          replica_state(est.state, 2))
-    with pytest.raises(NotImplementedError, match="A9"):
-        sm.ensemble_family(guards="warn", device="cpu")
+    # guards= is ported (A9; tests/test_torch_resilience.py): it builds
+    guarded = sm.ensemble_family(guards="warn", device="cpu")
+    assert guarded.guards.policy == "warn"
+    assert guarded.proto_engine().guards == guarded.guards
     with pytest.raises(TypeError, match="DeviceMesh"):   # ported (A7)
         ens.run(est, 1, mesh=object())
 

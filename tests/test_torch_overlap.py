@@ -165,7 +165,7 @@ def _case(name, seed=3):
     pos = _positions(rng, geom_t.global_cells)
     eng = Engine(geom=geom_t, behavior=beh_t, dt=0.1, device="cpu")
     st = eng.init_state(pos, _attrs(rng, len(pos), len(interior)), seed=seed)
-    post, _, _, _, pre = dataclasses.replace(eng, overlap="on")._aura(
+    post, _, _, _, pre, _ = dataclasses.replace(eng, overlap="on")._aura(
         st, eng._comm(), True)
     pre_t, post_t = device_block(pre, coords), device_block(post, coords)
     return geom_j, geom_t, (_to_jax(pre_t), _to_jax(post_t)), (pre_t, post_t)

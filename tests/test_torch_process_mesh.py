@@ -369,3 +369,87 @@ def test_rebalanced_run_matches_virtual_mesh(rebalanced, tmp_path):
         assert torch.equal(got[n], want[n]), n
     assert back.iteration == sim.iteration
     assert ckpt_lib.latest_step(os.path.join(rebalanced, "ckpt")) == 6
+
+
+# ---------------------------------------------------------------------------
+# The scenario server (A7), guards, fault plans and supervision (A9)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def a9(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("pm_a9"))
+    spawn_ranks(pmr.a9_ranks, 4, os.path.join(out, "store"), args=(out,),
+                timeout_s=SPAWN_TIMEOUT_S)
+    return out
+
+
+@pytest.fixture(scope="module")
+def serve2(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("pm_serve2"))
+    spawn_ranks(pmr.serve_ranks, 2, os.path.join(out, "store"),
+                args=(out,), timeout_s=SPAWN_TIMEOUT_S)
+    return out
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_server_over_a_process_mesh_matches_virtual(world, a9, serve2):
+    """Every rank builds the same server and submits the same requests;
+    each streams the virtual-mesh server's frames, bit for bit (budgets 8
+    and 12, streaming every 4 steps and at the end)."""
+    out = a9 if world == 4 else serve2
+    shape = (2, 2) if world == 4 else (2, 1)
+    want = json.loads(json.dumps(pmr.serve_frames(shape)))
+    assert [t for t, _ in want["0"]] == [4, 8]
+    assert [t for t, _ in want["1"]] == [4, 8, 12]
+    for r in range(world):
+        with open(f"{out}/serve/r{r}.json") as f:
+            assert json.load(f) == want
+    for frames in want.values():
+        assert all(sum(f) == 120 for _, f in frames)
+
+
+def test_guarded_run_with_faults_matches_virtual(a9):
+    """A NaN burst and a corrupted halo slab on four ranks: every rank's
+    global health counts equal the virtual mesh's, its block is the
+    virtual mesh's bit for bit; a gid duplicated across ranks is counted
+    once (the keys routed to a rank by hash)."""
+    sim, counts, dups = pmr.guarded_run()
+    assert counts[0] > 0 and dups == 1
+    assert_bit_equal(_assembled(f"{a9}/guarded", 4),
+                     state_to_arrays(sim.state))
+    for f in _facts_a9(a9):
+        assert f["counts"] == counts
+        assert f["dups"] == dups
+
+
+def _facts_a9(out):
+    res = []
+    for r in range(4):
+        with open(f"{out}/a9_r{r}.json") as f:
+            res.append(json.load(f))
+    return res
+
+
+def test_supervised_recovery_on_four_ranks_matches_virtual(a9, tmp_path):
+    """A supervised run on four ranks (a halo fault rolled back to 4, a
+    torn checkpoint skipped by the next recovery): the log and every
+    rank's final block equal the virtual mesh's supervised run; the
+    recovery stays on the four ranks."""
+    sim, sv = pmr.supervised_run(str(tmp_path / "ck"))
+    keys = ("kind", "step", "iteration", "error_type", "rolled_back_to",
+            "devices", "replay_steps")
+    log = [{k: e[k] for k in keys if k in e} for e in sv.log]
+    assert [e["rolled_back_to"] for e in sv.events("recovered")] == [4, 4]
+    assert sv.events("torn_checkpoint")
+    assert_bit_equal(_assembled(f"{a9}/supervised", 4),
+                     state_to_arrays(sim.state))
+    for f in _facts_a9(a9):
+        assert f["log"] == log
+        assert f["n_agents"] == sim.n_agents() == 200
+        assert f["mesh"] == list(sim.geom.mesh_shape)
+
+
+def test_device_loss_degrade_on_a_process_mesh_raises(a9):
+    for f in _facts_a9(a9):
+        assert "ROADMAP A9" in f["refused"]
+        assert "2 survivors" in f["refused"]
