@@ -236,6 +236,20 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    rank's frames equal to the one-process virtual-mesh server's, and
    phase 16's configuration guarded with a ``nan_attrs`` fault, every
    rank's ``health_counts`` equal to the virtual mesh's.
+19. the simcheck suite on the card (its own seconds printed; or
+   ``tools/simcheck_phase.py`` alone): (a) the bare ``simcheck --strict``
+   in process (every sim with its virtual variants, the ensemble family,
+   the lint of ``repro_torch``), exit code 0; (b) ``validate()`` of phase
+   4's main sim and of phase 6's 2x2 ``int8+mig`` mesh, each after one
+   step: clean under strict, every field of ``sim.state`` bit-equal
+   (sha256) and every launch counter as before, its seconds and peak
+   memory; (c) the engine's own host syncs and host->device copies, by
+   aten op and innermost ``repro_torch`` frame, of a main step, a mesh
+   delta step and a guarded main step (``analysis.audit_step``); (d) a
+   planted ``.item()`` update and a planted float64 update, flagged on
+   the card exactly as on the CPU; (e) the probe steps' ``pair_sweep``
+   and codec launches, gated and written as each kernel's
+   ``simcheck_path``.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -4109,6 +4123,180 @@ def phase_guards(seed: int):
                 process_mesh=pm, seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the simcheck suite on the card
+# ---------------------------------------------------------------------------
+
+def _sc_item_update(attrs, valid, acc, key, params, dt):
+    drift = attrs["diameter"].sum().item()   # planted: a device->host read
+    new = dict(attrs)
+    new["diameter"] = attrs["diameter"] + drift
+    return new, valid, torch.zeros_like(valid), None
+
+
+def _sc_f64_update(attrs, valid, acc, key, params, dt):
+    new = dict(attrs)                         # planted: a float64 upcast
+    new["diameter"] = (attrs["diameter"].double() * 2.0).float()
+    return new, valid, torch.zeros_like(valid), None
+
+
+def simcheck_main_sim(seed: int, mesh: bool):
+    """Phase 4's main sim (``mesh=False``) or phase 6's 2x2 ``int8+mig``
+    mesh, seeded as those phases seed it, after one step."""
+    if mesh:
+        sim = make_sim(cc.behavior(), interior=MESH_INTERIOR,
+                       mesh_shape=MESH_SHAPE, cap=MAIN_CAP, delta=MESH_DELTA,
+                       sweep_backend="auto", device="cuda")
+    else:
+        sim = make_sim(cc.behavior(), interior=MAIN_INTERIOR, cap=MAIN_CAP,
+                       sweep_backend="auto", device="cuda")
+    cc.init(sim, 4 * math.prod(MAIN_INTERIOR), seed=seed)
+    sim.run(1)
+    torch.cuda.synchronize()
+    return sim
+
+
+def simcheck_validate(sim, label: str):
+    """Phase 19 (b) on one sim: ``validate()`` clean under strict, every
+    field of ``sim.state`` bit-equal (sha256) and every launch counter as
+    before; its seconds and peak memory."""
+    before = state_sha(sim.state)
+    counts = all_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rep = sim.validate()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    after = state_sha(sim.state)
+    print(f"[simcheck] {label}: validate() {secs:.2f}s, peak device memory "
+          f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held before); "
+          f"{rep.summary()}", flush=True)
+    if rep.exit_code(strict=True):
+        fail(f"simcheck {label}: validate() not clean under strict:\n"
+             f"{rep.format_text()}")
+    diff = sorted(k for k in before if before[k] != after.get(k))
+    if diff:
+        fail(f"simcheck {label}: validate() changed sim.state in {diff}")
+    if all_launches() != counts:
+        fail(f"simcheck {label}: validate() changed the launch counts "
+             f"{counts} -> {all_launches()}")
+    return dict(seconds=secs, peak_bytes=peak, held_bytes=base,
+                diagnostics=len(rep))
+
+
+def simcheck_syncs(audit, label: str, context: str):
+    """Phase 19 (c): the engine's own host syncs of one audited step."""
+    for line in audit.format_syncs(context).splitlines():
+        print(f"[simcheck syncs] {label} {line}", flush=True)
+    if audit.diagnostics:
+        fail(f"simcheck {label}: the audit found "
+             f"{[d.format() for d in audit.diagnostics]}")
+    return dict(
+        syncs=[[op, frame, n] for (op, frame), n
+               in sorted(audit.syncs[context].items())],
+        uploads=[[op, frame, n] for (op, frame), n
+                 in sorted(audit.uploads[context].items())],
+        ops=audit.n_ops[context], seconds=audit.seconds,
+        launches=audit.launches)
+
+
+def simcheck_planted():
+    """Phase 19 (d): a planted ``.item()`` and a planted float64 update,
+    each flagged on the card exactly as on the CPU."""
+    from repro_torch.analysis import audit_engine
+    from repro_torch.core.domain import Domain
+    from repro_torch.core.engine import Engine
+
+    out = {}
+    for name, upd, contract in (("item", _sc_item_update, "host-sync"),
+                                ("float64", _sc_f64_update, "dtype-drift")):
+        beh = dataclasses.replace(cc.behavior(), update_fn=upd)
+        geom = Domain(cell_size=2.0, interior=(8, 8), mesh_shape=(2, 2),
+                      cap=24)
+        got = {dev: [d.to_dict() for d in audit_engine(
+            Engine(geom=geom, behavior=beh, delta_cfg=DeltaConfig(
+                enabled=True, qdtype=torch.int8, migration=torch.int16),
+                device=dev))] for dev in ("cuda", "cpu")}
+        flagged = sorted({(d["severity"], d["contract"], d["location"])
+                          for d in got["cuda"]})
+        print(f"[simcheck planted] {name}: {flagged}", flush=True)
+        if got["cuda"] != got["cpu"]:
+            fail(f"simcheck planted {name}: the card's findings "
+                 f"{got['cuda']} != the CPU's {got['cpu']}")
+        if not any(d["contract"] == contract for d in got["cuda"]):
+            fail(f"simcheck planted {name}: no {contract} finding")
+        out[name] = flagged
+    return out
+
+
+def phase_simcheck(seed: int):
+    """Phase 19: the simcheck suite on the card (``Simulation.validate``,
+    the step audit, the lint, the CLI)."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis import audit_step
+    from repro_torch.launch import simcheck
+
+    t_phase = time.perf_counter()
+    # (a) the bare CLI under --strict on the card
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = simcheck.main(["--strict"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    print(f"[simcheck] bare simcheck --strict on the card: rc {rc}, "
+          f"{cli_s:.2f}s; {buf.getvalue().strip().splitlines()[-1]}",
+          flush=True)
+    if rc != 0:
+        fail(f"simcheck --strict exited {rc}:\n{buf.getvalue()}")
+
+    # (b) validate() on the main sim and on the 2x2 int8+mig mesh, and
+    # (c) the engine's own host syncs of a main step, a mesh delta step
+    # and a guarded main step
+    sim = simcheck_main_sim(seed, mesh=False)
+    main_v = simcheck_validate(sim, "main (16,777,216 agents, cap 48)")
+    a_main = audit_step(sim.engine)
+    syncs = {"main step[full]": simcheck_syncs(a_main, "main",
+                                               "step[full]")}
+    a_guard = audit_step(dataclasses.replace(sim.engine, guards="error"))
+    syncs["guarded main step[full]"] = simcheck_syncs(
+        a_guard, "guarded main", "step[full]")
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    sim = simcheck_main_sim(seed, mesh=True)
+    mesh_v = simcheck_validate(sim, "2x2 int8+mig mesh")
+    a_mesh = audit_step(sim.engine)
+    syncs["mesh step[delta]"] = simcheck_syncs(a_mesh, "mesh",
+                                               "step[delta]")
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the probe steps' kernel launches
+    launches = {"main": a_main.launches, "guarded main": a_guard.launches,
+                "mesh": a_mesh.launches}
+    print(f"[simcheck] the probe steps' launches: {launches}", flush=True)
+    for label, got in launches.items():
+        if got.get("soft_repulsion_adhesion", 0) < 1:
+            fail(f"simcheck {label}: the probe step launched no pair_sweep")
+    for name in CODEC_REPLACES:
+        if a_mesh.launches.get(name, 0) < 1:
+            fail(f"simcheck mesh: the probe steps launched no {name}")
+
+    # (d) planted faults, flagged on the card as on the CPU
+    planted = simcheck_planted()
+    secs = time.perf_counter() - t_phase
+    print(f"[simcheck] phase 19: {secs:.1f}s", flush=True)
+    return dict(cli_seconds=cli_s, main=main_v, mesh=mesh_v, syncs=syncs,
+                launches=launches, planted=planted, seconds=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4197,6 +4385,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     guards = phase_guards(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = phase_simcheck(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     # phase 16: each rank's launches of the process mesh's driven run
@@ -4259,6 +4450,16 @@ def main(argv=None) -> int:
     kernels[0]["guards_path"] = dict(
         guards, launches=guards["main_path"]["launches"].get(
             "soft_repulsion_adhesion", 0))
+    # phase 19: the step audit's probe steps (validate's path)
+    sc = checks["launches"]
+    kernels[0]["simcheck_path"] = dict(
+        {k: v for k, v in checks.items() if k != "launches"},
+        launches=sum(got.get("soft_repulsion_adhesion", 0)
+                     for got in sc.values()),
+        probe_launches=sc)
+    for k in kernels[1:]:
+        if k["name"] in dc.LAUNCHES:
+            k["simcheck_path"] = {"launches": sc["mesh"].get(k["name"], 0)}
     kernels[0]["process_mesh_path"] = dict(
         process_mesh, launches=[
             lc.get("soft_repulsion_adhesion", 0) + lc.get("same_type", 0)

@@ -29,9 +29,10 @@ device of the Domain on one card, so it never lacks one; a process mesh
 ``torch.distributed`` world size.
 
 :func:`check_ensemble` is the ensemble family's batch-safety contract,
-which the scenario server runs at admission.  Its pass 4 (the hot-path
-lint with per-lane parameters and the host-callback scan) waits, with the
-lint itself and ``Simulation.validate``, for ROADMAP A11.
+which the scenario server runs at admission, all four of the reference's
+passes.  ``Simulation.validate`` and ``launch.simcheck`` run
+:func:`check_engine` beside the lint (``analysis.lint``) and the step
+audit (``analysis.step_audit``).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ CONTRACT_ONE_HOP = "one-hop-migration"
 CONTRACT_HEADROOM = "codec-headroom"
 CONTRACT_PARTITION = "partition-validity"
 CONTRACT_SUPERVISION = "supervised-recovery"
+CONTRACT_ENSEMBLE = "ensemble-batch-safe"
 CONTRACT_ENSEMBLE_FACTORY = "ensemble-factory-static"
 
 # severity ordering for displacement-bound kinds
@@ -456,10 +458,58 @@ def _fn_label(fn) -> str:
     return f"{mod}.{name}" if mod else name
 
 
+# What plays the part of the reference's host callbacks (``pure_callback``,
+# ``io_callback``, ``host_callback``, ``callback``, ``debug_callback``:
+# Python run on the host with an array's values) in a torch behaviour: the
+# calls that bring a tensor's values to the host for Python to use -
+# ``.cpu()``, ``.numpy()`` and ``.tolist()``.  Inside an ensemble step
+# each fires once per lane per step and stalls the card's queue.
+_HOST_CALLBACK_NAMES = {"cpu", "numpy", "tolist"}
+
+
+def _scan_host_callbacks(behavior, name: str) -> List[Diagnostic]:
+    import ast
+    import inspect
+    import textwrap
+
+    out: List[Diagnostic] = []
+
+    def scan_fn(fn, label):
+        try:
+            src = textwrap.dedent(inspect.getsource(fn))
+            tree = ast.parse(src)
+        except (OSError, TypeError, SyntaxError):
+            return
+        code = getattr(fn, "__code__", None)
+        filename = code.co_filename if code else "<source>"
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            func = node.func
+            attr = func.attr if isinstance(func, ast.Attribute) else (
+                func.id if isinstance(func, ast.Name) else None)
+            if attr in _HOST_CALLBACK_NAMES:
+                out.append(Diagnostic(
+                    severity="error", contract=CONTRACT_ENSEMBLE,
+                    message=(f"host callback `{attr}` in a behavior "
+                             "kernel: under the ensemble runner it copies "
+                             "every lane's values to the host on every "
+                             "step"),
+                    hint="compute on-device with torch ops; read metrics "
+                         "through per-replica reducers "
+                         "(operations.batch_*) at segment boundaries",
+                    location=f"{label} ({filename}:{node.lineno})"))
+
+    for path, leaf in leaf_behaviors(behavior, name):
+        scan_fn(leaf.pair_fn, f"{path}.pair_fn")
+        scan_fn(leaf.update_fn, f"{path}.update_fn")
+    return out
+
+
 def check_ensemble(ensemble) -> List[Diagnostic]:
     """Batch-safety contract of one ensemble family (duck-typed: needs
     ``behavior_fn``, ``param_names`` and ``proto_engine()``); the
-    reference's passes 1-3:
+    reference's four passes:
 
     1. the solo engine contracts over the family's proto engine;
     2. a probe of the behaviour factory with every parameter a *two-lane*
@@ -467,7 +517,12 @@ def check_ensemble(ensemble) -> List[Diagnostic]:
        tracer: ``float()`` or an ``if`` on a two-element tensor raises, so
        a factory that concretizes or branches on a parameter is caught;
     3. structural stability: the behaviour built at 0.25 and at 0.75 must
-       agree on schema, radius, pair attrs, accumulators and spawn.
+       agree on schema, radius, pair attrs, accumulators and spawn;
+    4. the hot-path lint re-run with ``params`` holding agent data (the
+       ensemble's lanes hold parameters as per-lane tensors,
+       ``core.ensemble``, so a Python branch on one reads every lane to
+       the host), every finding escalated to an ``ensemble-batch-safe``
+       error, and the scan for host callbacks (:data:`_HOST_CALLBACK_NAMES`).
     """
     label = _fn_label(ensemble.behavior_fn)
     try:
@@ -520,4 +575,15 @@ def check_ensemble(ensemble) -> List[Diagnostic]:
             hint="move structural choices (schema, radii, accumulator "
                  "specs) out of the swept parameters",
             location=label))
+
+    from repro_torch.analysis.lint import lint_behavior
+    for d in lint_behavior(lo, "ensemble",
+                           static_args={"dt", "self", "cls"}):
+        out.append(Diagnostic(
+            severity="error", contract=CONTRACT_ENSEMBLE,
+            message=f"[{d.contract}] {d.message} (params are per-lane "
+                    "tensors under the ensemble runner)",
+            hint=d.hint, location=d.location))
+
+    out.extend(_scan_host_callbacks(lo, "ensemble"))
     return out

@@ -176,8 +176,8 @@ def soft_repulsion_adhesion(attrs_i, attrs_j, disp, dist2, params):
     rep = torch.where(overlap > 0, _f32(params["repulsion"], dist2) * overlap,
                       zero)
     same = (attrs_i["ctype"] == attrs_j["ctype"]).to(torch.float32)
-    gate = same if float(params.get("same_type_only", 1.0)) > 0 \
-        else torch.ones_like(same)
+    gate = torch.where(_f32(params.get("same_type_only", 1.0), dist2) > 0,
+                       same, torch.ones_like(same))
     adh = torch.where(overlap <= 0, _f32(params["adhesion"], dist2) * gate,
                       zero)
     force = (rep - adh)[..., None] * unit  # + pushes apart, - pulls together

@@ -183,8 +183,14 @@ class _Frame:
     own_cells: torch.Tensor
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
+@dataclasses.dataclass(frozen=True)
 class Engine:
+    """The step's configuration.  It compares and hashes by its fields, as
+    the reference's frozen ``Engine``: two engines of one configuration
+    are one cache key (``hash(engine) == hash(dataclasses.replace(
+    engine))``, the step audit's ``cache-key`` contract); the behaviour
+    compares by identity.  The per-instance caches below take no part."""
+
     geom: Domain
     behavior: Behavior
     delta_cfg: DeltaConfig = DeltaConfig(enabled=False)
@@ -209,10 +215,12 @@ class Engine:
     device: Any = "cuda"
     # _frame's constants, built once per torch device and comm's blocks
     _frames: Dict[Any, _Frame] = dataclasses.field(
-        default_factory=dict, init=False, repr=False)
+        default_factory=dict, init=False, repr=False, compare=False,
+        hash=False)
     # _comm's process comms by mesh (their edge buffers live across steps)
     _comms: Dict[int, Tuple[Any, ProcessMeshComm]] = dataclasses.field(
-        default_factory=dict, init=False, repr=False)
+        default_factory=dict, init=False, repr=False, compare=False,
+        hash=False)
 
     def __post_init__(self):
         if self.overlap not in ("auto", "on", "off"):

@@ -28,6 +28,12 @@ devices of the mesh its tensors hold.  Under an uneven partition the high
 faces sit at each device's owned extent, so on the virtual mesh a slab's
 index along its axis is one int a device along that mesh axis
 (:func:`~repro_torch.core.grid.take_plane`); a process passes its own.
+
+Each comm says which devices one ``shift(tree, axis, direction)`` joins:
+``edges(axis, direction)``, the (source, destination) pairs of indices
+along the mesh axis - the counterpart of a ``ppermute``'s ``perm`` - and
+``shift`` moves data along exactly those pairs (:func:`ring_edges`), so
+the step audit (``analysis.step_audit``) checks what runs.
 """
 
 from __future__ import annotations
@@ -54,6 +60,21 @@ from repro_torch.core.domain import AXIS_CHARS, Domain
 from repro_torch.core.grid import ring_index, set_plane, take_plane
 
 
+Edges = Tuple[Tuple[int, int], ...]
+
+
+def ring_edges(size: int, direction: int, toroidal: bool) -> Edges:
+    """The (source, destination) pairs of one step by ``direction`` along
+    a mesh axis of ``size`` devices: ``i -> i + direction``, wrapping when
+    ``toroidal`` and dropped off a closed end (an open chain: a partial
+    permutation).  A size-1 axis is ``((0, 0),)`` when toroidal and empty
+    when closed."""
+    if direction not in (-1, 1):
+        raise ValueError(f"shift direction {direction}; expected +-1")
+    return tuple((i, (i + direction) % size) for i in range(size)
+                 if toroidal or 0 <= i + direction < size)
+
+
 class Comm:
     """Spatial communication abstraction over an N-D device mesh."""
 
@@ -62,6 +83,12 @@ class Comm:
     def shift(self, tree: Slab, axis: int, direction: int) -> Slab:
         """Move data one step along a mesh axis; devices with no source get
         zeros (closed boundary) or wrap (toroidal)."""
+        raise NotImplementedError
+
+    def edges(self, axis: int, direction: int) -> Edges:
+        """The (source, destination) pairs, as indices along mesh axis
+        ``axis``, that ``shift(tree, axis, direction)`` moves data along;
+        a destination missing from them gets zeros."""
         raise NotImplementedError
 
     def coords(self):
@@ -86,8 +113,11 @@ class LocalComm(Comm):
 
     toroidal: Tuple[bool, ...]
 
+    def edges(self, axis: int, direction: int) -> Edges:
+        return ring_edges(1, direction, self.toroidal[axis])
+
     def shift(self, tree: Slab, axis: int, direction: int) -> Slab:
-        if self.toroidal[axis]:
+        if self.edges(axis, direction):
             return tree
         return {k: torch.zeros_like(v) for k, v in tree.items()}
 
@@ -117,22 +147,39 @@ class VirtualMeshComm(Comm):
     def lead(self) -> int:
         return len(self.mesh_shape)
 
-    def _shift_one(self, x: torch.Tensor, axis: int, direction: int
-                   ) -> torch.Tensor:
-        size = self.mesh_shape[axis]
-        if self.toroidal[axis]:
-            return torch.roll(x, shifts=direction, dims=axis)
-        keep = x.narrow(axis, 0, size - 1) if direction > 0 \
-            else x.narrow(axis, 1, size - 1)
-        pad = torch.zeros_like(x.narrow(axis, 0, 1))
-        parts = [pad, keep] if direction > 0 else [keep, pad]
-        return torch.cat(parts, dim=axis)
+    def edges(self, axis: int, direction: int) -> Edges:
+        return ring_edges(self.mesh_shape[axis], direction,
+                          self.toroidal[axis])
+
+    @staticmethod
+    def _runs(size: int, edges: Edges):
+        """``edges`` as runs along the axis: ``(source start or None,
+        length)`` for consecutive destinations fed by consecutive sources
+        (None: destinations with no source, given zeros)."""
+        src_of = {d: s for s, d in edges}
+        runs, j = [], 0
+        while j < size:
+            s, k = src_of.get(j), j + 1
+            if s is None:
+                while k < size and k not in src_of:
+                    k += 1
+            else:
+                while k < size and src_of.get(k) == s + (k - j):
+                    k += 1
+            runs.append((s, k - j))
+            j = k
+        return runs
 
     def shift(self, tree: Slab, axis: int, direction: int) -> Slab:
-        if direction not in (-1, 1):
-            raise ValueError(f"shift direction {direction}; expected +-1")
-        return {k: self._shift_one(v, axis, direction)
-                for k, v in tree.items()}
+        runs = self._runs(self.mesh_shape[axis], self.edges(axis, direction))
+
+        def one(x: torch.Tensor) -> torch.Tensor:
+            return torch.cat(
+                [x.narrow(axis, s, n) if s is not None
+                 else torch.zeros_like(x.narrow(axis, 0, n))
+                 for s, n in runs], dim=axis)
+
+        return {k: one(v) for k, v in tree.items()}
 
     def coords(self) -> Tuple[torch.Tensor, ...]:
         """Per-axis mesh coordinates of every device, each shaped like the
@@ -277,17 +324,30 @@ class ProcessMeshComm(Comm):
         """Row-major rank of this device in the mesh."""
         return int(np.ravel_multi_index(self.mesh_coords, self.mesh_shape))
 
-    def _peer(self, axis: int, step: int) -> Optional[int]:
-        """Process rank of the device ``step`` along ``axis``, or None off
-        a closed edge."""
-        c = list(self.mesh_coords)
-        size = self.mesh_shape[axis]
-        c[axis] += step
-        if not 0 <= c[axis] < size:
-            if not self.toroidal[axis]:
-                return None
-            c[axis] %= size
-        return int(self.ranks[tuple(c)])
+    def edges(self, axis: int, direction: int) -> Edges:
+        return ring_edges(self.mesh_shape[axis], direction,
+                          self.toroidal[axis])
+
+    def peers(self, axis: int, direction: int
+              ) -> Tuple[Optional[int], Optional[int]]:
+        """This device's (source, destination) process ranks in one
+        ``shift(tree, axis, direction)``: its ``irecv`` and ``isend``
+        peers, the pairs of :meth:`edges` that hold it (None where it
+        has none)."""
+        me = self.mesh_coords[axis]
+        src = dst = None
+
+        def rank(i):
+            c = list(self.mesh_coords)
+            c[axis] = i
+            return int(self.ranks[tuple(c)])
+
+        for s, d in self.edges(axis, direction):
+            if s == me:
+                dst = rank(d)
+            if d == me:
+                src = rank(s)
+        return src, dst
 
     def _buffer(self, key, nbytes: int, device, pinned: bool = False
                 ) -> torch.Tensor:
@@ -304,14 +364,12 @@ class ProcessMeshComm(Comm):
     def shift(self, tree: Slab, axis: int, direction: int) -> Slab:
         import torch.distributed as dist
 
-        if direction not in (-1, 1):
-            raise ValueError(f"shift direction {direction}; expected +-1")
-        if self.mesh_shape[axis] == 1:
-            if self.toroidal[axis]:
-                return tree
+        src, dst = self.peers(axis, direction)
+        me = int(self.ranks[self.mesh_coords])
+        if src == dst == me:
+            return tree          # a size-1 torus: no message
+        if src is None and dst is None:
             return {k: torch.zeros_like(v) for k, v in tree.items()}
-        dst = self._peer(axis, direction)
-        src = self._peer(axis, -direction)
         dev = next(iter(tree.values())).device
         staged = self._staged(dev)
         if dev.type == "cuda":

@@ -31,8 +31,8 @@ is composed (:func:`~repro_torch.core.behaviors.compose`), as the
 reference does.  Construction runs the whole static contract suite
 (``analysis.contracts.enforce``: partition validity, stencil soundness,
 one-hop migration, codec headroom) and a re-shard runs it again on the new
-geometry; ``validate`` (the suite with the lint and the step audit) waits
-for ROADMAP A11.
+geometry; :meth:`Simulation.validate` runs the suite with the hot-path
+lint and the step audit (``analysis.step_audit``).
 """
 
 from __future__ import annotations
@@ -246,10 +246,28 @@ class Simulation:
         return x if self._comm is None else self._comm.sum_over_all_ranks(x)
 
     def validate(self, *, jaxpr: bool = True):
-        """The full contract suite of the reference (stencil, one-hop
-        migration, aura, codec headroom, partition, lint, step audit)."""
-        raise NotImplementedError(
-            "Simulation.validate is not ported yet (ROADMAP A11)")
+        """The full check suite over this simulation: the static contracts
+        (stencil soundness, one-hop migration, aura sufficiency, codec
+        headroom, partition validity), the hot-path lint of every leaf
+        behaviour function and - unless ``jaxpr=False`` - the step audit
+        (``analysis.step_audit``: shift edge lists, host syncs, dtype
+        drift, narrow integer arithmetic, cache-key stability).  The
+        keyword keeps the reference's name, so callers port unchanged; an
+        eager engine has no jaxpr, and it now selects the step audit,
+        which runs one full-refresh step (and, with the codec on, one
+        delta step) of a seeded probe population on the engine's device.
+        ``sim.state`` is not touched.  On a process mesh every rank calls
+        it and audits its own step and edges.  Returns an
+        ``analysis.Report``."""
+        from repro_torch.analysis import (
+            Report, audit_engine, check_engine, lint_behavior,
+        )
+        rep = Report()
+        rep.extend(check_engine(self.engine, self._mesh))
+        rep.extend(lint_behavior(self.behavior))
+        if jaxpr:
+            rep.extend(audit_engine(self.engine, self._mesh))
+        return rep
 
     # ------------------------------------------------------------------
     # Setup

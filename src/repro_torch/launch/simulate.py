@@ -47,7 +47,18 @@ SIMS = ["cell_clustering", "cell_proliferation", "epidemiology",
 DELTAS = ["auto", "off", "int8", "int16", "int8+mig", "int16+mig"]
 
 
-def main(argv=None):
+def cli_delta(value: str, n_devices: int):
+    """``--delta``'s value as the facade's ``DeltaConfig`` (or None) on a
+    mesh of ``n_devices``: ``auto`` is the reference's default
+    (``resolve_delta(None, n)``: int8 on a mesh, a full refresh on one
+    device); ``off`` is a full refresh on any mesh (ROADMAP C 4: the
+    reference's ``--delta off`` passes None, so it runs the codec on a
+    mesh)."""
+    from repro_torch.sims.common import resolve_delta
+    return resolve_delta(None if value == "auto" else value, n_devices)
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sim", required=True, choices=SIMS)
     ap.add_argument("--agents", type=int, default=400)
@@ -77,6 +88,11 @@ def main(argv=None):
                     choices=["auto", "reference", "tiled", "kernel"],
                     help="auto = the CUDA kernel on the card, tiled on CPU")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return ap
+
+
+def main(argv=None):
+    ap = parser()
     args = ap.parse_args(argv)
 
     import importlib
@@ -126,7 +142,7 @@ def main(argv=None):
     t0 = time.time()
     state, metrics = mod.run(
         n_agents=args.agents, steps=args.steps, mesh_shape=mesh_shape,
-        interior=interior, delta=None if args.delta == "auto" else args.delta,
+        interior=interior, delta=cli_delta(args.delta, n_dev),
         rebalance=rebalance, sweep_backend=args.sweep_backend,
         device=args.device, mesh=mesh)
     if state.soa.valid.is_cuda:

@@ -1,16 +1,21 @@
-"""Shared scaffolding for the benchmark simulations (port of part of
+"""Shared scaffolding for the benchmark simulations (port of
 ``repro/sims/common.py``): ``make_sim`` wires the sims' geometry defaults
-into the :class:`Simulation` facade."""
+into the :class:`Simulation` facade.  The former ``make_engine`` /
+``run_sim`` pairing survives only as deprecation shims with the one-line
+facade equivalent in the warning text, as in the reference."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import warnings
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core.behaviors import Behavior
 from repro_torch.core.delta import DeltaConfig
 from repro_torch.core.domain import Domain, Partition
+from repro_torch.core.engine import Engine, SimState
 from repro_torch.core.simulation import Simulation
 
 
@@ -123,3 +128,74 @@ def ball_positions(rng: np.random.Generator, n: int, center, radius
     v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
     r = radius * np.cbrt(rng.uniform(0, 1, n))[:, None]
     return (np.asarray(center)[None, :] + v * r).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Deprecation shims
+# ---------------------------------------------------------------------------
+
+def make_engine(
+    behavior: Behavior,
+    *,
+    interior: Tuple[int, ...] = (8, 8),
+    mesh_shape: Tuple[int, ...] = (1, 1),
+    cell_size: float = 2.0,
+    cap: int = 24,
+    boundary: Union[str, Tuple[str, ...]] = "closed",
+    delta: Optional[DeltaConfig] = None,
+    dt: float = 0.1,
+    mesh=None,
+    rebalance_every: int = 0,
+    imbalance_threshold: float = 0.5,
+    device="cuda",
+) -> Engine:
+    """DEPRECATED: build a raw Engine.  Use the facade instead:
+    ``Simulation(dict(interior=..., mesh_shape=..., ...), behavior,
+    delta=..., dt=..., rebalance=Rebalance(every=n, threshold=t))``.
+    ``mesh`` is accepted and unused, as in the reference (``run_sim``
+    takes the process mesh)."""
+    warnings.warn(
+        "make_engine is deprecated — use repro.core.Simulation("
+        "dict(interior=..., mesh_shape=..., cap=...), behavior, delta=..., "
+        "dt=..., rebalance=Rebalance(every=n, threshold=t)) instead",
+        DeprecationWarning, stacklevel=2)
+    geom = Domain(cell_size=cell_size, interior=interior,
+                  mesh_shape=mesh_shape, cap=cap, boundary=boundary)
+    return Engine(geom=geom, behavior=behavior,
+                  delta_cfg=delta or DeltaConfig(enabled=False), dt=dt,
+                  rebalance_every=rebalance_every,
+                  imbalance_threshold=imbalance_threshold, device=device)
+
+
+def _warn_if_stale_engine(old: Engine, new: Engine, had_handle: bool
+                          ) -> None:
+    """Warn when a run loop discards a re-sharded engine the caller has no
+    handle to (the reference's ``warn_if_stale_engine``; the facade swaps
+    its own engine in place, so only this shim can hit it)."""
+    if new is not old and not had_handle:
+        warnings.warn(
+            f"a re-shard moved the state to mesh {new.geom.mesh_shape}; "
+            f"the engine you hold (mesh {old.geom.mesh_shape}) no longer "
+            "matches it — migrate to repro.core.Simulation, whose "
+            "sim.engine/sim.state stay consistent across re-shards",
+            stacklevel=3)
+
+
+def run_sim(engine: Engine, state: SimState, steps: int, mesh=None,
+            collect: Optional[Callable] = None, rebalancer=None):
+    """DEPRECATED: drive a raw (engine, state) pair.  Use the facade instead:
+    ``sim.run(steps, collect=...)`` - ``sim.engine``/``sim.state`` stay
+    consistent across re-shards with no stale-handle contract to honor.
+    With a process ``mesh`` (``launch.mesh.make_abm_mesh``) every rank
+    calls it with its own block (``engine.init_state(..., mesh=mesh)``)."""
+    warnings.warn(
+        "run_sim is deprecated — use repro.core.Simulation: "
+        "sim.run(steps, collect=...); read sim.state / sim.series",
+        DeprecationWarning, stacklevel=2)
+    step = engine.make_local_step(mesh)
+    had_handle = rebalancer is not None
+    eng, state, series = engine.drive(state, steps, step_fn=step,
+                                      rebalancer=rebalancer, collect=collect,
+                                      mesh=mesh)
+    _warn_if_stale_engine(engine, eng, had_handle)
+    return state, series

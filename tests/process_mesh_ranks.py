@@ -484,3 +484,74 @@ def a9_ranks(rank: int, world: int, out: str) -> None:
         json.dump(dict(counts=counts, dups=dups, log=log, refused=refused,
                        n_agents=sim.n_agents(),
                        mesh=list(sim.geom.mesh_shape)), f)
+
+
+SIMCHECK_CASE = dict(sim="cell_clustering",
+                     make=dict(interior=(4, 4), mesh_shape=(2, 2), cap=24),
+                     codec="int8+mig", init=(200, 3), steps=2)
+
+
+def simcheck_ranks(rank: int, world: int, out: str) -> None:
+    """On four ranks of a 2x2 process mesh: ``Simulation.validate`` of
+    :data:`SIMCHECK_CASE` after two steps (its report, the rank's state and
+    comm counters before and after, the block after one more step), the
+    rank's own audit (its logged edges and host syncs), and the
+    deprecated ``make_engine`` / ``run_sim`` pair driving the same mesh."""
+    import warnings
+
+    from repro_torch.analysis import audit_step
+    from repro_torch.kernels import delta_codec
+    from repro_torch.kernels import neighbor_interaction as ni
+    from repro_torch.sims import cell_clustering as cc
+    from repro_torch.sims.common import make_engine, run_sim
+
+    torch.set_num_threads(1)
+    case = SIMCHECK_CASE
+    mesh = make_abm_mesh(mesh_shape(case), device_type="cpu")
+    sim = build_sim(case, mesh)
+    comm = sim.engine._comm(mesh)
+    sim.run(case["steps"])
+    before = rank_arrays(sim.state)
+    counters = (dict(ni.LAUNCHES), dict(delta_codec.LAUNCHES),
+                dict(comm.stats))
+    rep = sim.validate()
+    after = rank_arrays(sim.state)
+    same = all(np.array_equal(before[k], after[k]) for k in before)
+    kept = counters == (dict(ni.LAUNCHES), dict(delta_codec.LAUNCHES),
+                        dict(comm.stats))
+    audit = audit_step(sim.engine, mesh)
+    sim.run(1)
+    _save(f"{out}/simcheck/validated/r{rank}.npz", comm,
+          rank_arrays(sim.state))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        eng = make_engine(cc.behavior(), interior=(4, 4), mesh_shape=(2, 2),
+                          cap=24, delta=resolve_delta("int8+mig", 4),
+                          device="cpu")
+    pos, attrs = shim_population()
+    state = eng.init_state(pos, attrs, seed=3, mesh=mesh)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        state, _ = run_sim(eng, state, 3, mesh=mesh)
+    _save(f"{out}/simcheck/run_sim/r{rank}.npz", eng._comm(mesh),
+          rank_arrays(state))
+    os.makedirs(f"{out}/simcheck", exist_ok=True)
+    with open(f"{out}/simcheck/r{rank}.json", "w") as f:
+        json.dump(dict(
+            diagnostics=[d.to_dict() for d in rep],
+            state_kept=same, counters_kept=kept,
+            edges={ctx: [[a, d, [list(e) for e in es]]
+                         for a, d, es in log]
+                   for ctx, log in audit.edges.items()},
+            syncs={ctx: sum(c.values()) for ctx, c in audit.syncs.items()},
+            coords=list(comm.coords())), f)
+
+
+def shim_population():
+    """``(positions, attrs)`` of the ``run_sim`` shim's run: 200 agents of
+    cell_clustering on the 8 x 8 cells of :data:`SIMCHECK_CASE`."""
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(0.5, 15.5, (200, 2)).astype(np.float32)
+    return pos, {"diameter": np.full((200,), 1.0, np.float32),
+                 "ctype": rng.integers(0, 2, 200).astype(np.int32)}
