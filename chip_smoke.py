@@ -235,7 +235,13 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    agents, 256^2 cells; budgets 8 and 12, streaming every 4) with every
    rank's frames equal to the one-process virtual-mesh server's, and
    phase 16's configuration guarded with a ``nan_attrs`` fault, every
-   rank's ``health_counts`` equal to the virtual mesh's.
+   rank's ``health_counts`` equal to the virtual mesh's; (e) on the same
+   four ranks a supervised 2x2 run (1,048,576 agents, ``int8+mig``,
+   ``guards="error"``) that loses two devices at step 6: ranks 0-1 restore
+   onto the survivors' mesh, each block (sha256 of every field) and the
+   log equal to the virtual mesh's degraded run, ranks 2-3 log the same
+   recovery (``left``) and stop at the fault; the recovery seconds on a
+   line of their own.
 19. the simcheck suite on the card (its own seconds printed; or
    ``tools/simcheck_phase.py`` alone): (a) the bare ``simcheck --strict``
    in process (every sim with its virtual variants, the ensemble family,
@@ -250,6 +256,19 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    the card exactly as on the CPU; (e) the probe steps' ``pair_sweep``
    and codec launches, gated and written as each kernel's
    ``simcheck_path``.
+20. ``ops.neighborhood_pair_sweep`` (the gathered-slab kernel): slabs of
+   interior rows 0-63 of phase 4's SoA after one step (131,072 cells, K
+   48, NK 432; a SIR state 0-2 a slot drawn from the seed, which the
+   clustering SoA lacks), every law and stack (0-5, 16-18) once through
+   the entry point (one launch, nothing else), then against its plain
+   version (counts exactly, floats to 1e-5), timed (CUDA events) with
+   its bound (the slab columns it reads and its outputs); every law on
+   random D = 3 slabs, closed and toroidal.  No driven path launches it.
+21. the examples: ``examples_torch/quickstart.py`` and
+   ``supervised_run.py --device-loss`` through their ``main``s at the
+   reference's sizes (each fails on its own assertions), with wall
+   seconds and peak device memory (``tools/examples_phase.py`` runs all
+   eight).
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -336,7 +355,7 @@ ENS_LAW5 = "gated_epidemiology"
 # 18: the force, law 5 and the structural gate test
 OPS_LAW = {"soft_repulsion_adhesion": 20, "same_type": 3, "epidemiology": 2,
            "oncology": 21, STACK: 24, PROLIF_LAW: 20, SPH_STACK: 23,
-           ENS_LAW5: 4, ENS_STACK: 25}
+           ENS_LAW5: 4, ENS_STACK: 25, "crowd": 2}
 
 ENS_BEHAVIOR = sm.ensemble_behavior(sm.ensemble_defaults())
 LAW_ARGS = {   # law -> (pair_fn, pair_attrs, params)
@@ -356,6 +375,7 @@ LAW_ARGS = {   # law -> (pair_fn, pair_attrs, params)
     ENS_LAW5: (sm._gated_sir_pair, ("state",), {"sir_radius": 1.5}),
     ENS_STACK: (ENS_BEHAVIOR.pair_fn, ENS_BEHAVIOR.pair_attrs,
                 ENS_BEHAVIOR.params),
+    "crowd": (ts._crowd_pair, (), {}),
 }
 COUNT_OUTPUTS = ("same", "cnt", "n_inf", "crowd", "b1.n_inf", "b1.crowd")
 
@@ -3781,6 +3801,13 @@ PM_SERVE = dict(n_agents=131072, interior=(128, 128), mesh_shape=(2, 2))
 PM_SERVE_REQUESTS = [({"beta": 0.05}, 8, 4, 0), ({"beta": 0.2}, 12, 4, 1),
                      ({"gamma": 0.3, "sir_radius": 1.0}, 12, 4, 2)]
 PM_GUARD_STEPS = 3
+# Phase 18 (e): a supervised 2x2 run (int8+mig, guards "error") that
+# loses two devices at step 6 and degrades onto the survivors.
+DEG_INTERIOR = (256, 256)
+DEG_STEPS = 10
+DEG_PLAN = [dict(step=6, kind="device_loss", survivors=2)]
+DEG_LOG_KEYS = ("kind", "step", "iteration", "error_type", "rolled_back_to",
+                "devices", "replay_steps", "left")
 
 
 def guard_sim(seed: int, guards, mesh_shape=(1, 1), mesh=None):
@@ -4034,6 +4061,31 @@ def serve_frames(mesh=None):
                      for t, f in server.handle(r).frames] for r in rids}
 
 
+def degrade_run(seed: int, ckpt_dir: str, mesh=None):
+    """Phase 18 (e): the supervised run that degrades (on the virtual
+    mesh, or this rank's device of a process ``mesh``): its sim and
+    supervisor."""
+    from repro_torch.distributed.chaos import Fault, FaultPlan
+    from repro_torch.launch.supervise import Supervised, Supervisor
+
+    sim = make_sim(cc.behavior(), interior=DEG_INTERIOR,
+                   mesh_shape=MESH_SHAPE, cap=MAIN_CAP, delta=MESH_DELTA,
+                   sweep_backend="auto", device="cuda", guards="error",
+                   mesh=mesh)
+    cc.init(sim, 4 * math.prod(DEG_INTERIOR) * math.prod(MESH_SHAPE),
+            seed=seed)
+    sv = Supervisor(sim, Supervised(dir=ckpt_dir, every=4, keep=3),
+                    fault_plan=FaultPlan(tuple(Fault(**f) for f in DEG_PLAN),
+                                         seed=seed))
+    sv.run(DEG_STEPS)
+    torch.cuda.synchronize()
+    return sim, sv
+
+
+def degrade_log(sv):
+    return [{k: e[k] for k in DEG_LOG_KEYS if k in e} for e in sv.log]
+
+
 def guarded_pm_run(seed: int, mesh=None):
     """Phase 16's configuration, guarded ("warn"), with a nan_attrs fault
     at its second step: the global health counts after
@@ -4051,8 +4103,8 @@ def guarded_pm_run(seed: int, mesh=None):
 
 
 def guards_rank(rank: int, world: int, out: str, seed: int):
-    """Phase 18 (d): one rank: the server's frames and the guarded run's
-    health counts."""
+    """Phase 18 (d, e): one rank: the server's frames, the guarded run's
+    health counts and the degraded supervised run."""
     from repro_torch.launch.mesh import make_abm_mesh
 
     torch.cuda.set_device(0)
@@ -4061,13 +4113,26 @@ def guards_rank(rank: int, world: int, out: str, seed: int):
     frames = serve_frames(mesh)
     serve_s = time.perf_counter() - t0
     counts = guarded_pm_run(seed, mesh)
+    sim, sv = degrade_run(seed, f"{out}/degrade_ckpt", mesh)
+    degrade = dict(
+        left=sv.left, log=degrade_log(sv), iteration=sim.iteration,
+        recover_s=[e["seconds"] for e in sv.events("recovered")])
+    if not sv.left:
+        degrade.update(coords=list(sim.engine._comm(sim.mesh).coords()),
+                       sha=state_sha(sim.state), n_agents=sim.n_agents(),
+                       mesh=list(sim.geom.mesh_shape))
     with open(f"{out}/r{rank}.json", "w") as f:
-        json.dump(dict(frames=frames, counts=counts, serve_s=serve_s), f)
+        json.dump(dict(frames=frames, counts=counts, serve_s=serve_s,
+                       degrade=degrade), f)
 
 
 def guards_process_mesh(seed: int):
-    """Phase 18 (d): four gloo ranks on the card against the virtual
-    mesh: the server's frames, and the guarded run's health counts."""
+    """Phase 18 (d, e): four gloo ranks on the card against the virtual
+    mesh: the server's frames, the guarded run's health counts, and a
+    supervised run that loses two devices: each survivor's block (sha256
+    of every field) and its log the virtual degraded run's, the ranks that
+    left stopped at the fault."""
+    import shutil
     import tempfile
 
     from repro_torch.launch.mesh import spawn_ranks
@@ -4083,10 +4148,38 @@ def guards_process_mesh(seed: int):
     if not want_counts[0]:
         fail(f"guards process mesh: the virtual run's nan_inf is 0 "
              f"({want_counts})")
-    serve_s = []
+    deg_dir = PM_DIR / "degrade_virtual"
+    shutil.rmtree(deg_dir, ignore_errors=True)
+    vsim, vsv = degrade_run(seed, str(deg_dir))
+    want_log = degrade_log(vsv)
+    (vrec,) = vsv.events("recovered")
+    vshape = tuple(vsim.geom.mesh_shape)
+    if vsim.geom.n_devices != 2:
+        fail(f"degrade: the virtual run ends on {vshape}")
+    want_sha = {c: state_sha(vsim.state, c) for c in np.ndindex(*vshape)}
+    v_agents = vsim.n_agents()
+    del vsim, vsv
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(deg_dir, ignore_errors=True)
+    cut = want_log.index({k: vrec[k] for k in DEG_LOG_KEYS if k in vrec})
+    serve_s, recover_s = [], []
     for r in range(4):
         with open(f"{out}/r{r}.json") as f:
             got = json.load(f)
+        d = got["degrade"]
+        recover_s.append(d["recover_s"])
+        if r < 2:
+            if d["left"] or d["log"] != want_log or \
+                    d["sha"] != want_sha[tuple(d["coords"])] or \
+                    d["n_agents"] != v_agents:
+                fail(f"degrade rank {r}: left {d['left']}, log "
+                     f"{d['log']} against {want_log}, or its block differs "
+                     f"from the virtual degraded run's")
+        elif not d["left"] or d["log"] != want_log[:cut] + [
+                dict(want_log[cut], left=True)] or \
+                d["iteration"] != want_log[cut - 1]["iteration"]:
+            fail(f"degrade rank {r}: did not leave at the fault ({d})")
         if got["frames"] != want_frames:
             fail(f"serve process mesh rank {r}: frames differ from the "
                  "virtual-mesh server's")
@@ -4105,8 +4198,17 @@ def guards_process_mesh(seed: int):
           f"server's frames on every rank, bit for bit "
           f"({max(serve_s):.1f} s a rank); a guarded run with a nan_attrs "
           f"fault: health {want_counts} on every rank and on the virtual "
-          f"mesh; spawn to join {secs:.1f}s", flush=True)
-    return dict(seconds=secs, health=want_counts, serve_s=serve_s)
+          f"mesh; a supervised run losing 2 of 4 devices at step 6 "
+          f"degrades onto ranks 0-1 ({vshape}), each survivor's block the "
+          f"virtual degraded run's bit for bit ({v_agents} agents), its log "
+          f"the virtual one's, ranks 2-3 stopped at the fault; spawn to "
+          f"join {secs:.1f}s", flush=True)
+    print(f"[degrade] recovery seconds, ranks 0-3: {recover_s}; the "
+          f"virtual mesh's {vrec['seconds']:.3f}", flush=True)
+    return dict(seconds=secs, health=want_counts, serve_s=serve_s,
+                degrade=dict(recover_s=recover_s,
+                             virtual_recover_s=vrec["seconds"],
+                             mesh=list(vshape), n_agents=v_agents))
 
 
 def phase_guards(seed: int):
@@ -4297,6 +4399,208 @@ def phase_simcheck(seed: int):
                 launches=launches, planted=planted, seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: ops.neighborhood_pair_sweep on gathered slabs, every law
+# ---------------------------------------------------------------------------
+
+# Every device law and stack of the kernel (law numbers 0-5, 16-18).
+SLAB_LAWS = ("soft_repulsion_adhesion", "same_type", "epidemiology",
+             "oncology", "crowd", ENS_LAW5, STACK, SPH_STACK, ENS_STACK)
+SLAB_ROWS = (0, 64)        # interior rows of the main path's SoA gathered
+SLAB_CHUNK = 2048          # cells a plain-version chunk
+
+
+def slab_call(slabs, law, plain=False):
+    pair_fn, _, params = LAW_ARGS[law]
+    fn = ni.pair_sweep_plain if plain else ops.neighborhood_pair_sweep
+    return fn(*slabs, pair_fn=pair_fn, radius=2.0, params=params, box=None)
+
+
+def slab_plain_chunked(slabs, law):
+    """The plain version ``SLAB_CHUNK`` cells at a time (its (C, K, NK)
+    pair tensors would not fit at once)."""
+    ai, aj, vi, vj = slabs
+    parts = []
+    for c0 in range(0, vi.shape[0], SLAB_CHUNK):
+        sl = slice(c0, c0 + SLAB_CHUNK)
+        parts.append(slab_call(({n: a[sl] for n, a in ai.items()},
+                                {n: a[sl] for n, a in aj.items()},
+                                vi[sl], vj[sl]), law, plain=True))
+    return {n: torch.cat([p[n] for p in parts]) for n in parts[0]}
+
+
+def slab_bound(slabs, law, valid_pairs: int, in_radius: int):
+    """(bound_ms, bound_by, bytes, ops), valid-first as :func:`bound`
+    counts: each slot's valid flag of both slabs, the law's columns (pos,
+    the gids, its own) of the valid slots only (the kernel reads no more
+    of an empty slot), each read once, and every self slot's outputs
+    written once; the distance test on the valid pairs of distinct slots
+    and the law on those within the radius."""
+    ai, aj, vi, vj = slabs
+    pl = ni.law_for(LAW_ARGS[law][0])
+    names = ("pos", "gid_rank", "gid_count") + pl.float_cols + pl.int_cols
+    row = sum(ai[n][0, 0].numel() * ai[n].element_size() for n in names)
+    nbytes = vi.numel() + vj.numel() + row * (int(vi.sum()) + int(vj.sum()))
+    c, k = vi.shape
+    nd = ai["pos"].shape[-1]
+    nbytes += c * k * 4 * sum(nd if ax else 1 for _, ax in pl.outputs)
+    nops = (3 * nd + 1) * valid_pairs + OPS_LAW[law] * in_radius
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, nops)
+
+
+def slab_small_3d(seed: int):
+    """Every law on random D = 3 slabs on the card (64 cells, K 8, NK
+    216), closed and toroidal, against the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c, k, nk = 64, 8, 216
+
+    def side(n):
+        return ({"pos": torch.rand((c, n, 3), generator=gen,
+                                   device="cuda") * 6,
+                 "gid_rank": torch.zeros((c, n), dtype=torch.int32,
+                                         device="cuda"),
+                 "gid_count": torch.randint(0, 10_000, (c, n), generator=gen,
+                                            device="cuda",
+                                            dtype=torch.int32),
+                 "diameter": 0.6 + 0.8 * torch.rand((c, n), generator=gen,
+                                                    device="cuda"),
+                 "ctype": torch.randint(0, 2, (c, n), generator=gen,
+                                        device="cuda", dtype=torch.int32),
+                 "state": torch.randint(0, 3, (c, n), generator=gen,
+                                        device="cuda", dtype=torch.int32)},
+                torch.rand((c, n), generator=gen, device="cuda") < 0.7)
+
+    (ai, vi), (aj, vj) = side(k), side(nk)
+    errs = {}
+    for box in (None, (6.0, 6.0, 6.0)):
+        for law in SLAB_LAWS:
+            pair_fn, _, params = LAW_ARGS[law]
+            got = ops.neighborhood_pair_sweep(
+                ai, aj, vi, vj, pair_fn=pair_fn, radius=2.0, params=params,
+                box=box)
+            want = ni.pair_sweep_plain(ai, aj, vi, vj, pair_fn=pair_fn,
+                                       radius=2.0, params=params, box=box)
+            tag = "toroidal" if box else "closed"
+            errs[f"{law}@d3 {tag}"] = compare(got, want,
+                                              f"slabs d3 {tag} {law}")
+    return errs
+
+
+def phase_slabs(seed: int):
+    """Phase 20: ``ops.neighborhood_pair_sweep`` (the gathered-slab
+    kernel) on slabs gathered from the main path's SoA after one step,
+    interior rows ``SLAB_ROWS`` (the SoA carries no SIR state: a state
+    0-2 a slot is drawn from the seed), each law once through the entry
+    point (one launch), then against its plain version, timed; and every
+    law on random D = 3 slabs."""
+    t_phase = time.perf_counter()
+    sim = make_sim(cc.behavior(), interior=MAIN_INTERIOR, cap=MAIN_CAP,
+                   device="cuda")
+    cc.init(sim, 4 * math.prod(MAIN_INTERIOR), seed=seed)
+    sim.run(1)
+    soa = aura_block(sim)
+    del sim
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    attrs = dict(soa.attrs, state=torch.randint(
+        0, 3, soa.valid.shape, generator=gen, device="cuda",
+        dtype=torch.int32))
+    ai, aj, vi, vj = ni.neighborhood_slabs(
+        attrs, soa.valid, ("diameter", "ctype", "state"), rows=SLAB_ROWS)
+    slabs = ({n: a.contiguous() for n, a in ai.items()},
+             {n: a.contiguous() for n, a in aj.items()},
+             vi.contiguous(), vj.contiguous())
+    del soa, attrs, ai, aj, vi, vj
+    gc.collect()
+    torch.cuda.empty_cache()
+    vi, vj = slabs[2], slabs[3]
+    c, k = vi.shape
+    nk = vj.shape[1]
+    valid_pairs = int((vi.sum(1, dtype=torch.int64)
+                       * vj.sum(1, dtype=torch.int64)).sum()) \
+        - int(vi.sum())              # each self pair
+    print(f"[slabs] interior rows {SLAB_ROWS} of the main path's SoA: "
+          f"{c} cells, K {k}, NK {nk}, {int(vi.sum())} agents", flush=True)
+    rows, in_radius = {}, None
+    for law in SLAB_LAWS:
+        reset_all_launches()
+        got = slab_call(slabs, law)                 # the entry point
+        torch.cuda.synchronize()
+        launches = all_launches()
+        want_l = {n: 0 for n in launches}
+        want_l["neighborhood_pair_sweep"] = 1
+        if launches != want_l:
+            fail(f"slabs {law}: launches {launches} != {want_l}")
+        want = {}
+        plain_ms = cuda_ms(lambda: want.update(slab_plain_chunked(
+            slabs, law)), 1, warmup=False)
+        err = compare(got, want, f"slabs {law}")
+        if law == "same_type":       # the pairs within the radius
+            in_radius = int(want["cnt"].sum(dtype=torch.float64))
+        del got, want
+        ms = cuda_ms(lambda: slab_call(slabs, law), 5)
+        rows[law] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    for law, r in rows.items():
+        b_ms, b_by, nbytes, nops = slab_bound(slabs, law, valid_pairs,
+                                              in_radius)
+        r.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops,
+                 library_ms=None)
+        print(f"[slabs] {law}: max_abs_err={r['max_abs_err']:.3g} "
+              f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, {nops} ops)",
+              flush=True)
+    del slabs
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = slab_small_3d(seed)
+    print(f"[slabs] D = 3 random slabs, every law closed and toroidal: "
+          f"max_abs_err {max(small.values()):.3g}; phase 20 "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    return dict(rows=rows, d3_errs=small, cells=c, k=k, nk=nk,
+                valid_pairs=valid_pairs, in_radius_pairs=in_radius)
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the ABM examples on the card (examples_torch/)
+# ---------------------------------------------------------------------------
+
+def run_example(name: str, **kw):
+    """``examples_torch/<name>.py``'s ``main(device="cuda", **kw)`` at the
+    reference's sizes: its result, wall seconds and peak device bytes."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = mod.main(device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[examples] {name} {kw or ''}: {wall:.2f} s wall, peak "
+          f"{peak} B on the card", flush=True)
+    return out, dict(wall_s=wall, peak_bytes=peak)
+
+
+def phase_examples():
+    """Phase 21: ``quickstart`` and ``supervised_run --device-loss``
+    through their ``main``s at the reference's sizes (each raises on a
+    failed assertion of its own)."""
+    quick, q = run_example("quickstart")
+    if quick["n_agents"] != 400 or quick["dropped"]:
+        fail(f"quickstart: {quick}")
+    sup, s = run_example("supervised_run", device_loss=True)
+    if sup["n_devices"] != 2 or sup["n_agents"] != 400:
+        fail(f"supervised_run --device-loss: {sup['n_devices']} devices, "
+             f"{sup['n_agents']} agents")
+    return {"quickstart": q, "supervised_run --device-loss": dict(
+        s, recover_s=sup["recoveries"])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4388,6 +4692,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     checks = phase_simcheck(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    slab_phase = phase_slabs(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = phase_examples()
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     # phase 16: each rank's launches of the process mesh's driven run
@@ -4497,6 +4807,22 @@ def main(argv=None) -> int:
              "lanes": len(ENS_POINTS), "launches": launched},
             **ens_rows[law]))
     kernels[-2]["ensembles"] = ensembles
+    # phase 20: no driven path launches it (only ops calls it); its row
+    # is the force law's, every law under "laws"
+    soft_slab = slab_phase["rows"]["soft_repulsion_adhesion"]
+    kernels.append(dict(
+        {"name": "neighborhood_pair_sweep", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pair_sweep.cu",
+         "replaces": "src/repro/kernels/neighbor_interaction.py:92",
+         "launches": 0, "law": "soft_repulsion_adhesion",
+         "max_abs_err": max(max(r["max_abs_err"]
+                                for r in slab_phase["rows"].values()),
+                            max(slab_phase["d3_errs"].values()))},
+        **{k: soft_slab[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+        laws=slab_phase["rows"],
+        **{k: v for k, v in slab_phase.items() if k != "rows"}))
+    kernels[0]["examples"] = examples
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

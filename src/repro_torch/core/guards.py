@@ -178,8 +178,9 @@ def gid_duplicate_count(state, comm=None) -> int:
     pairs after its ``lexsort``): one sort of the int64 keys
     ``gid_rank << 32 | gid_count`` on the state's device and an
     adjacent-equal count.  With a process mesh's ``comm`` each key goes
-    first to the rank ``key mod world`` (one ``all_to_all_single``), so
-    equal keys of two ranks meet, and the counts are summed."""
+    first to the rank ``key mod world`` of the mesh's group (one
+    ``all_to_all_single``), so equal keys of two ranks meet, and the
+    counts are summed."""
     v = state.soa.valid.reshape(-1)
     r = state.soa.attrs[GID_RANK].reshape(-1)[v].to(torch.int64)
     c = state.soa.attrs[GID_COUNT].reshape(-1)[v].to(torch.int64)
@@ -188,8 +189,8 @@ def gid_duplicate_count(state, comm=None) -> int:
         import torch.distributed as dist
 
         from repro_torch.core.reshard import _to_all
-        world = dist.get_world_size()
-        key = _to_all({"key": key}, key % world, world)["key"]
+        world = dist.get_world_size(comm.group)
+        key = _to_all({"key": key}, key % world, world, comm.group)["key"]
     key = torch.sort(key).values
     n = (key[1:] == key[:-1]).sum()
     if comm is not None:

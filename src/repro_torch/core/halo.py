@@ -249,8 +249,10 @@ def unpack(buf: torch.Tensor, layout: Layout) -> Slab:
 @dataclasses.dataclass(frozen=True, eq=False)
 class ProcessMeshComm(Comm):
     """This process's device of a spatial mesh of processes, one device
-    each, joined by the default ``torch.distributed`` group (the
-    counterpart of the reference's ``ShardComm``).  Every tensor carries ``ndim`` leading
+    each, joined by the mesh's ``torch.distributed`` group: the default
+    group, or for a mesh over a subset of its ranks (a degraded run's
+    survivors) the subset's own, ``group`` (the counterpart of the
+    reference's ``ShardComm``).  Every tensor carries ``ndim`` leading
     dims of size 1, the layout of the virtual mesh's one-device case.
 
     ``shift(tree, axis, direction)`` sends this device's payload to the
@@ -276,7 +278,8 @@ class ProcessMeshComm(Comm):
     toroidal: Tuple[bool, ...]
     mesh_coords: Tuple[int, ...]       # this process's device
     ranks: Any                         # numpy: process rank at each coord
-    backend: str = "gloo"              # the default group's
+    backend: str = "gloo"              # the group's
+    group: Any = None                  # the mesh's group (None: default)
     # (axis, direction, "send"/"recv") -> reusable buffer
     _buffers: Dict[Any, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
@@ -288,22 +291,44 @@ class ProcessMeshComm(Comm):
     def from_mesh(mesh, toroidal: Tuple[bool, ...]) -> "ProcessMeshComm":
         """The comm of this process's device of ``mesh``, a
         ``torch.distributed.device_mesh.DeviceMesh`` over every rank of
-        the default group (:func:`repro_torch.launch.mesh.make_abm_mesh`)."""
+        its group (:func:`repro_torch.launch.mesh.make_abm_mesh`)."""
         import torch.distributed as dist
 
+        from repro_torch.launch.mesh import mesh_group
+
+        group = mesh_group(mesh)
         ranks = np.asarray(mesh.mesh.cpu().numpy(), dtype=np.int64)
-        if ranks.size != dist.get_world_size():
+        size = dist.get_world_size(group)
+        if ranks.size != size:
             raise ValueError(
-                f"mesh {ranks.shape} holds {ranks.size} ranks; the process "
-                f"group has {dist.get_world_size()}: a process mesh spans "
-                "the whole group")
+                f"mesh {ranks.shape} holds {ranks.size} ranks; its process "
+                f"group has {size}: a process mesh spans its whole group")
         coords = mesh.get_coordinate()
         if coords is None:
             raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
         return ProcessMeshComm(
             mesh_shape=tuple(ranks.shape), toroidal=tuple(toroidal),
             mesh_coords=tuple(int(c) for c in coords), ranks=ranks,
-            backend=str(dist.get_backend()))
+            backend=str(dist.get_backend(group)), group=group)
+
+    def group_rank(self, ranks: torch.Tensor) -> torch.Tensor:
+        """The ranks in the mesh's group of default-group ``ranks`` (an
+        int64 tensor); a group numbers its members in ascending order."""
+        if self.group is None:
+            return ranks
+        members = torch.from_numpy(np.sort(self.ranks.reshape(-1)))
+        return torch.searchsorted(members.to(ranks.device), ranks)
+
+    def global_rank(self, group_rank: int) -> int:
+        """The default-group rank of rank ``group_rank`` of the mesh's
+        group."""
+        return int(np.sort(self.ranks.reshape(-1))[int(group_rank)])
+
+    def barrier(self) -> None:
+        """A barrier of the mesh's ranks."""
+        import torch.distributed as dist
+
+        dist.barrier(group=self.group)
 
     @property
     def lead(self) -> int:
@@ -384,7 +409,8 @@ class ProcessMeshComm(Comm):
             wire_in = self._buffer((axis, direction, "recv"), nbytes,
                                    torch.device("cpu"), pinned=True) \
                 if staged else recv
-            reqs.append(dist.irecv(wire_in, src=src, tag=tag))
+            reqs.append(dist.irecv(wire_in, src=src, tag=tag,
+                                    group=self.group))
         if dst is not None:
             send = pack(tree, layout, self._buffer(
                 (axis, direction, "send"), nbytes, dev))
@@ -395,7 +421,8 @@ class ProcessMeshComm(Comm):
                 wire_out.copy_(send)
             else:
                 wire_out = send
-            reqs.append(dist.isend(wire_out, dst=dst, tag=tag))
+            reqs.append(dist.isend(wire_out, dst=dst, tag=tag,
+                                    group=self.group))
             self.stats["messages"] += 1
             self.stats["bytes"] += nbytes
         for r in reqs:
@@ -415,7 +442,7 @@ class ProcessMeshComm(Comm):
         t0 = time.perf_counter()
         host = x.device.type == "cuda" and self.backend != "nccl"
         t = x.detach().to("cpu", copy=True) if host else x.detach().clone()
-        dist.all_reduce(t, op=op)
+        dist.all_reduce(t, op=op, group=self.group)
         self.stats["seconds"] += time.perf_counter() - t0
         return t.to(x.device) if host else t
 

@@ -73,21 +73,23 @@ def _comm_of(engine: Engine, mesh):
 
 
 def process_mesh(mesh_shape: Tuple[int, ...], like):
-    """The process mesh of ``mesh_shape`` over the group of the process
+    """The process mesh of ``mesh_shape`` over the ranks of the process
     mesh ``like``: ``like`` itself when the shapes agree, else a
-    ``DeviceMesh`` built once a shape (every rank builds it at the same
-    call, so the group's collectives stay in step)."""
+    ``DeviceMesh`` built once a shape and set of ranks (every rank of
+    ``like`` builds it at the same call, so the group's collectives stay
+    in step)."""
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import make_abm_mesh
+    from repro_torch.launch.mesh import relayout_mesh
 
     shape = tuple(int(m) for m in mesh_shape)
     if tuple(like.mesh.shape) == shape:
         return like
-    key = (shape, like.device_type, id(dist.group.WORLD))
+    ranks = tuple(sorted(int(r) for r in like.mesh.reshape(-1).tolist()))
+    key = (shape, like.device_type, ranks, id(dist.group.WORLD))
     held = _MESHES.get(key)
     if held is None:
-        held = make_abm_mesh(shape, device_type=like.device_type)
+        held = relayout_mesh(like, shape)
         _MESHES[key] = held
     return held
 
@@ -464,19 +466,22 @@ def _dropped_total(state: SimState, comm=None) -> int:
 
 
 def _gather_agents(canon: torch.Tensor, attrs: Dict[str, np.ndarray],
-                   dst: Optional[int]) -> Optional[Dict[str, np.ndarray]]:
-    """Every process's flat agents in the canonical order: on every rank,
-    or on rank ``dst`` only (the others get None)."""
+                   dst: Optional[int], comm
+                   ) -> Optional[Dict[str, np.ndarray]]:
+    """Every process's flat agents in the canonical order: on every rank
+    of ``comm``'s group, or on its rank ``dst`` only (the others get
+    None)."""
     import torch.distributed as dist
 
     mine = (canon.cpu().numpy(), attrs)
-    world = dist.get_world_size()
+    world = dist.get_world_size(comm.group)
     if dst is None:
         parts = [None] * world
-        dist.all_gather_object(parts, mine)
+        dist.all_gather_object(parts, mine, group=comm.group)
     else:
+        dst = comm.global_rank(dst)
         parts = [None] * world if dist.get_rank() == dst else None
-        dist.gather_object(mine, parts, dst=dst)
+        dist.gather_object(mine, parts, dst=dst, group=comm.group)
         if parts is None:
             return None
     order = np.argsort(np.concatenate([p[0] for p in parts]))
@@ -490,8 +495,8 @@ def flatten_state(geom: Domain, state: SimState, comm=None,
     and an uneven cut's padding hold copies or nothing) in the canonical
     interleaved order, plus the engine carry needed to re-initialise
     elsewhere.  On a process mesh (``comm``) each rank gives its own
-    agents: every rank gets the whole mesh's, or only rank ``dst`` when
-    given (the others get None)."""
+    agents: every rank gets the whole mesh's, or only rank ``dst`` of the
+    mesh's group when given (the others get None)."""
     native, canon = _live_slots(geom, state, comm)
     attrs = {n: a.cpu().numpy() for n, a in
              _flat_columns(state, native).items()}
@@ -500,7 +505,7 @@ def flatten_state(geom: Domain, state: SimState, comm=None,
                  base_key=_root_key(state, comm),
                  dropped_total=_dropped_total(state, comm))
     if comm is not None:
-        attrs = _gather_agents(canon, attrs, dst)
+        attrs = _gather_agents(canon, attrs, dst, comm)
         if attrs is None:
             return None
     positions = attrs.pop(POS)
@@ -659,8 +664,9 @@ def _route(new_geom: Domain, pos: torch.Tensor, table
 
 
 def _to_all(send: Dict[str, torch.Tensor], dest: torch.Tensor,
-            world: int) -> Dict[str, torch.Tensor]:
-    """Move each row of the columns ``send`` to process ``dest`` with one
+            world: int, group=None) -> Dict[str, torch.Tensor]:
+    """Move each row of the columns ``send`` to rank ``dest`` of the
+    ``world`` ranks of ``group`` (None: the default group) with one
     ``all_to_all_single`` of one packed byte row an agent, its split sizes
     from an exchange of per-destination counts; a process receives its
     rows in source-rank order.  Through host memory (gloo)."""
@@ -678,10 +684,10 @@ def _to_all(send: Dict[str, torch.Tensor], dest: torch.Tensor,
     packed = torch.cat(parts, dim=1).cpu()
     n_send = torch.bincount(dest, minlength=world).cpu()
     n_recv = torch.empty_like(n_send)
-    dist.all_to_all_single(n_recv, n_send)
+    dist.all_to_all_single(n_recv, n_send, group=group)
     out = torch.empty((int(n_recv.sum()), sum(widths)), dtype=torch.uint8)
     dist.all_to_all_single(out, packed, output_split_sizes=n_recv.tolist(),
-                           input_split_sizes=n_send.tolist())
+                           input_split_sizes=n_send.tolist(), group=group)
     out = out.to(dev)
     got, off = {}, 0
     for name, w in zip(names, widths):
@@ -741,9 +747,10 @@ def reshard_state_device(engine: Engine, state: SimState,
         cols = {n: v[order] for n, v in cols.items()}
         base = 0
     else:
-        dest = torch.from_numpy(new_comm.ranks.reshape(-1)).to(dev)[devlin]
+        dest = new_comm.group_rank(
+            torch.from_numpy(new_comm.ranks.reshape(-1)).to(dev)[devlin])
         got = _to_all(dict(cols, _key=skey, _canon=canon), dest,
-                      old.n_devices)
+                      old.n_devices, comm.group)
         # the virtual mesh's order: by key, ties in the canonical order
         order = torch.sort(got["_canon"])[1]
         skey, order2 = torch.sort(got["_key"][order], stable=True)

@@ -264,22 +264,21 @@ def save_abm(ckpt_dir: str, step: int, engine, state,
     agents, the engine carry (iteration, spawn counters, RNG root) and the
     occupancy histogram.  The checkpoint is mesh-independent: a restore
     is a re-shard whose plan comes from the stored histogram.  With a
-    process ``mesh`` every rank calls it: the agents are gathered to rank
-    0 and the histogram is the all-reduced one; rank 0 writes after every
-    rank has reached a barrier, and every rank waits for the write at a
-    second one.  Returns the published path on every rank."""
+    process ``mesh`` every rank of it calls it: the agents are gathered to
+    the mesh group's rank 0 and the histogram is the all-reduced one; that
+    rank writes after every rank has reached a barrier, and every rank
+    waits for the write at a second one.  Returns the published path on
+    every rank."""
     if mesh is None:
         tree, merged = _abm_snapshot(engine, state, extras)
         return save(ckpt_dir, step, tree, extras=merged, keep=keep)
-    import torch.distributed as dist
-
     comm = engine._comm(mesh)
     tree, merged = _abm_snapshot(engine, state, extras, comm)
-    dist.barrier()
+    comm.barrier()
     path = str(pathlib.Path(ckpt_dir) / f"step_{step:010d}")
-    if dist.get_rank() == 0:
+    if tree is not None:
         path = save(ckpt_dir, step, tree, extras=merged, keep=keep)
-    dist.barrier()
+    comm.barrier()
     return path
 
 

@@ -7,13 +7,17 @@ cuts a fresh plan for the current device count from that histogram with
 the load-balance planners, re-derives the :class:`Domain` and
 re-initialises through ``Engine.init_state`` with the carry, the mid-run
 re-shard's own path: a run resumes on whatever device count survives.
+:func:`restore_plan` loads a checkpoint and cuts that plan alone, so every
+rank of a process mesh can learn the survivors' mesh shape before the
+ranks that leave stop.
 The language-model half (``choose_lm_mesh``, ``elastic_restore``) needs
 the sharded training stack of ROADMAP A12 and raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -32,37 +36,27 @@ def elastic_restore(ckpt_dir: str, model, **kwargs):
         "(ROADMAP A12)")
 
 
-def elastic_restore_abm(ckpt_dir: str, behavior, *,
-                        n_devices: Optional[int] = None,
-                        step: Optional[int] = None,
-                        delta_cfg=None, dt: Optional[float] = None,
-                        rebalance_every: int = 0,
-                        imbalance_threshold: float = 0.5,
-                        ownership: Optional[str] = None,
-                        mesh=None, device="cuda"):
-    """Restore an ABM checkpoint onto the current device population.
+@dataclasses.dataclass(frozen=True)
+class RestorePlan:
+    """A loaded checkpoint and the geometry a restore re-cuts it onto:
+    its step, its leaves, its ``abm`` metadata and the plan's
+    :class:`~repro_torch.core.domain.Domain`."""
+    step: int
+    flat: Dict[str, Any]
+    meta: Dict[str, Any]
+    geom: Any
 
-    ``choose_partition`` cuts a fresh plan for ``n_devices`` (default: one
-    device, or the process ``mesh``'s size) over the stored histogram: the
-    least imbalanced equal-split factorization for ``ownership="equal"``,
-    a box-granular uneven rectilinear partition for ``"rcb"``; ``None``
-    keeps the checkpointed run's mode.  The stored codec config is
-    re-applied unless ``delta_cfg`` is given.  Global agent ids, the spawn
-    counters' floors, the iteration counter, the RNG lineage and the
-    cumulative drops carry over.
 
-    With a process ``mesh`` every rank calls this and bins only its own
-    block; the plan's mesh shape may differ from ``mesh``'s (the state's
-    mesh is then ``core.reshard.process_mesh(engine.geom.mesh_shape,
-    mesh)``).  Returns ``(engine, state, step)``."""
-    from repro_torch.core.delta import DeltaConfig
+def restore_plan(ckpt_dir: str, n_devices: int,
+                 step: Optional[int] = None,
+                 ownership: Optional[str] = None) -> RestorePlan:
+    """Load the newest verified checkpoint (or ``step``) and cut its plan
+    for ``n_devices``: the least imbalanced equal-split factorization for
+    ``ownership="equal"``, a box-granular uneven rectilinear partition
+    for ``"rcb"``; ``None`` keeps the checkpointed run's mode."""
     from repro_torch.core.domain import Domain
-    from repro_torch.core.engine import Engine
     from repro_torch.core.load_balance import choose_partition
-    from repro_torch.core.reshard import _add_dropped, process_mesh
 
-    if n_devices is None:
-        n_devices = 1 if mesh is None else int(mesh.mesh.numel())
     step_, flat, extras = ckpt_lib.restore(ckpt_dir, step=step)
     meta = extras["abm"]
     hist = np.asarray(flat["histogram"])
@@ -87,6 +81,45 @@ def elastic_restore_abm(ckpt_dir: str, behavior, *,
         geom = Domain(
             interior=tuple(g // m for g, m in zip(global_cells, mesh_shape)),
             mesh_shape=mesh_shape, **geom_kw)
+    return RestorePlan(step=step_, flat=flat, meta=meta, geom=geom)
+
+
+def elastic_restore_abm(ckpt_dir: str, behavior, *,
+                        n_devices: Optional[int] = None,
+                        step: Optional[int] = None,
+                        delta_cfg=None, dt: Optional[float] = None,
+                        rebalance_every: int = 0,
+                        imbalance_threshold: float = 0.5,
+                        ownership: Optional[str] = None,
+                        mesh=None, device="cuda",
+                        plan: Optional[RestorePlan] = None):
+    """Restore an ABM checkpoint onto the current device population.
+
+    ``choose_partition`` cuts a fresh plan for ``n_devices`` (default: one
+    device, or the process ``mesh``'s size) over the stored histogram: the
+    least imbalanced equal-split factorization for ``ownership="equal"``,
+    a box-granular uneven rectilinear partition for ``"rcb"``; ``None``
+    keeps the checkpointed run's mode.  The stored codec config is
+    re-applied unless ``delta_cfg`` is given.  Global agent ids, the spawn
+    counters' floors, the iteration counter, the RNG lineage and the
+    cumulative drops carry over.
+
+    With a process ``mesh`` every rank calls this and bins only its own
+    block; the plan's mesh shape may differ from ``mesh``'s (the state's
+    mesh is then ``core.reshard.process_mesh(engine.geom.mesh_shape,
+    mesh)``).  ``plan`` (:func:`restore_plan`, for ``n_devices``) spares
+    a caller that has loaded it already a second read.  Returns
+    ``(engine, state, step)``."""
+    from repro_torch.core.delta import DeltaConfig
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.reshard import _add_dropped, process_mesh
+
+    if n_devices is None:
+        n_devices = 1 if mesh is None else int(mesh.mesh.numel())
+    if plan is None:
+        plan = restore_plan(ckpt_dir, n_devices, step=step,
+                            ownership=ownership)
+    step_, flat, meta, geom = plan.step, plan.flat, plan.meta, plan.geom
     if delta_cfg is None:
         # the quantized closed loop is part of the dynamics: a replay
         # restores with the checkpointed codec (none stored: codec off)

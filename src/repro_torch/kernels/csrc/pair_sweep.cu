@@ -35,6 +35,11 @@
 // solo launch's at its params, in the same order: a lane equals its solo
 // launch bit for bit.
 //
+// Gathered slabs.  The same laws also run on slabs a caller has gathered
+// (the reference's public op, ops.neighborhood_pair_sweep):
+// neighborhood_pair_sweep_kernel, after the legacy force kernel below,
+// dispatched through the same law numbers (with_law).
+//
 // What bounds it on an H100.  Bytes: each slot's valid flag (1 B), the
 // law's columns of the occupied slots only (pos 8 B, gids 8 B, up to 8 B
 // of law columns), and the dense accumulators of every interior slot
@@ -769,43 +774,54 @@ cudaError_t launch(const Columns& col, int3 n, int k, float r2,
   return cudaGetLastError();
 }
 
-// The launch of law `law` at dimension D.
-template <int D>
-cudaError_t dispatch(int law, const Columns& col, int3 n, int k, float r2,
-                     const Box& box, const LawParams& p, const Lanes& ln,
-                     const Outputs& out, int n_outs, cudaStream_t s) {
+// Calls fn.template run<Law>() with law number `law`'s functor at
+// dimension D (the numbers of pair_sweep_launch, below).
+template <int D, class Fn>
+cudaError_t with_law(int law, const Fn& fn) {
   switch (law) {
     case 0:
-      return launch<D, SoftRepulsionAdhesion<D>>(col, n, k, r2, box, p, ln,
-                                                 out, n_outs, s);
+      return fn.template run<SoftRepulsionAdhesion<D>>();
     case 1:
-      return launch<D, SameType<D>>(col, n, k, r2, box, p, ln, out, n_outs,
-                                    s);
+      return fn.template run<SameType<D>>();
     case 2:
-      return launch<D, Epidemiology<D, 0>>(col, n, k, r2, box, p, ln, out,
-                                           n_outs, s);
+      return fn.template run<Epidemiology<D, 0>>();
     case 3:
-      return launch<D, Oncology<D>>(col, n, k, r2, box, p, ln, out, n_outs,
-                                    s);
+      return fn.template run<Oncology<D>>();
     case 4:
-      return launch<D, Crowd<D>>(col, n, k, r2, box, p, ln, out, n_outs, s);
+      return fn.template run<Crowd<D>>();
     case 5:
-      return launch<D, GatedEpidemiology<D, 0>>(col, n, k, r2, box, p, ln,
-                                                out, n_outs, s);
+      return fn.template run<GatedEpidemiology<D, 0>>();
     case 16:
-      return launch<D, Stack<SoftRepulsionAdhesion<D>, Epidemiology<D, 1>>>(
-          col, n, k, r2, box, p, ln, out, n_outs, s);
+      return fn.template run<
+          Stack<SoftRepulsionAdhesion<D>, Epidemiology<D, 1>>>();
     case 17:
-      return launch<D, Stack<SoftRepulsionAdhesion<D>, Crowd<D>>>(
-          col, n, k, r2, box, p, ln, out, n_outs, s);
+      return fn.template run<Stack<SoftRepulsionAdhesion<D>, Crowd<D>>>();
     case 18:
-      return launch<D,
-                    Stack<SoftRepulsionAdhesion<D>, GatedEpidemiology<D, 1>>>(
-          col, n, k, r2, box, p, ln, out, n_outs, s);
+      return fn.template run<
+          Stack<SoftRepulsionAdhesion<D>, GatedEpidemiology<D, 1>>>();
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+// The resident sweep's launch of one law at dimension D.
+template <int D>
+struct SweepLaunch {
+  const Columns& col;
+  int3 n;
+  int k;
+  float r2;
+  const Box& box;
+  const LawParams& p;
+  const Lanes& ln;
+  const Outputs& out;
+  int n_outs;
+  cudaStream_t s;
+  template <class Law>
+  cudaError_t run() const {
+    return launch<D, Law>(col, n, k, r2, box, p, ln, out, n_outs, s);
+  }
+};
 
 // The legacy soft-sphere force on gathered slabs.
 //
@@ -1088,6 +1104,127 @@ __global__ void __launch_bounds__(kForceThreads)
   }
 }
 
+
+// The pair sweep of every law on gathered slabs.
+//
+// Replaces the TPU kernel src/repro/kernels/neighbor_interaction.py:92
+// (pair_sweep_kernel) as its public op calls it,
+// src/repro/kernels/ops.py:65-88 (neighborhood_pair_sweep): on slabs the
+// caller has already gathered, self slots (C, K) against neighbourhood
+// slots (C, NK) of every cell (core/neighbors.gather_neighborhood gives NK
+// = 3^D K), columns pos (D floats), gid_rank, gid_count, valid and the
+// law's own, any law or stack above, minimum image on the wrapping axes.
+// A pair counts when both slots are valid, their <gid_rank, gid_count>
+// differ and dist2 <= radius^2; the law's contributions are summed over j
+// in slab order, with the float32 operations of the resident sweep's
+// pair loop (built with -fmad=false).  The resident sweep above reads the
+// SoA in place and cannot take slabs; this is the port's entry point for
+// a caller that gathers its own (only ops.neighborhood_pair_sweep calls
+// it: no driven path does).
+//
+// What bounds it on an H100: bytes.  Every column of both slabs is read
+// once (at D = 2, 9 + 4 law bytes a j row and as many a self slot) and
+// the (C, K, w) sums are written once; ~20 float operations a pair within
+// the radius are far below the 67 TFLOP/s line.  chip_smoke.py computes
+// the bytes of each run's slabs.
+//
+// What the design does about it: a thread a self slot, in slab order, so
+// the K threads of a cell read each j row at one address (one transaction
+// for the warp, L1 serving the rest); it reads a j row's valid flag
+// first and the rest of the row only where it is set, walks the row's
+// NK entries in order and writes its sums once.  A simple first kernel:
+// every thread re-reads its cell's valid flags, and a warp that straddles
+// two cells reads two rows at once.
+constexpr int kSlabThreads = 256;
+
+struct SlabColumns {
+  const float* pos;            // (C, n, D)
+  const int* gid_rank;         // (C, n)
+  const int* gid_count;        // (C, n)
+  const unsigned char* valid;  // (C, n) bool
+  const float* fcol;           // (C, n) the law's float column, or null
+  const int* icol[2];          // (C, n) its int columns, or null
+};
+
+__device__ __forceinline__ Cols slab_cols(const SlabColumns& c, long long g,
+                                          int ints) {
+  return Cols{c.fcol != nullptr ? c.fcol[g] : 0.f,
+              {ints > 0 ? c.icol[0][g] : 0, ints > 1 ? c.icol[1][g] : 0}};
+}
+
+template <int D, class Law>
+__global__ void __launch_bounds__(kSlabThreads)
+    neighborhood_pair_sweep_kernel(SlabColumns ci, SlabColumns cj,
+                                   long long c, int k, int nk, float r2,
+                                   Box box, LawParams p, Outputs out) {
+  const long long slot =
+      static_cast<long long>(blockIdx.x) * kSlabThreads + threadIdx.x;
+  if (slot >= c * k) return;
+  const long long cell = slot / k;
+  float acc[Law::kAcc];
+#pragma unroll
+  for (int x = 0; x < Law::kAcc; ++x) acc[x] = 0.f;
+  if (ci.valid[slot]) {
+    float pi[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) pi[d] = ci.pos[slot * D + d];
+    const int ri = ci.gid_rank[slot];
+    const int gi = ci.gid_count[slot];
+    const Cols cols_i = slab_cols(ci, slot, Law::kInts);
+    const long long j0 = cell * nk;
+    for (long long j = j0; j < j0 + nk; ++j) {
+      if (!cj.valid[j]) continue;
+      if (cj.gid_rank[j] == ri && cj.gid_count[j] == gi) continue;
+      float disp[D];
+      float dist2 = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        float dd = cj.pos[j * D + d] - pi[d];
+        if (box.wrap[d]) dd = dd - box.len[d] * rintf(dd / box.len[d]);
+        disp[d] = dd;
+        dist2 += dd * dd;
+      }
+      if (!(dist2 <= r2)) continue;
+      Law::add(acc, disp, dist2, cols_i, slab_cols(cj, j, Law::kInts), p.v,
+               p.gate);
+    }
+  }
+  store<Law>(acc, out, slot);
+}
+
+// The gathered-slab sweep's launch of one law at dimension D.
+template <int D>
+struct SlabLaunch {
+  const SlabColumns& ci;
+  const SlabColumns& cj;
+  long long c;
+  int k;
+  int nk;
+  float r2;
+  const Box& box;
+  const LawParams& p;
+  const Outputs& out;
+  int n_outs;
+  cudaStream_t s;
+  template <class Law>
+  cudaError_t run() const {
+    if (n_outs != Law::kParts) return cudaErrorInvalidValue;
+    for (int q = 0; q < Law::kParts; ++q)
+      if (out.p[q] == nullptr) return cudaErrorInvalidValue;
+    if constexpr (Law::kInts > 0) {
+      if (ci.icol[Law::kInts - 1] == nullptr ||
+          cj.icol[Law::kInts - 1] == nullptr)
+        return cudaErrorInvalidValue;
+    }
+    const long long blocks = (c * k + kSlabThreads - 1) / kSlabThreads;
+    if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    neighborhood_pair_sweep_kernel<D, Law>
+        <<<static_cast<unsigned>(blocks), kSlabThreads, 0, s>>>(
+            ci, cj, c, k, nk, r2, box, p, out);
+    return cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" const char* pair_sweep_error_string(int err) {
@@ -1141,9 +1278,11 @@ extern "C" int pair_sweep_launch(
   const Lanes ln{lanes, lane_stride, out_stride, table};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ndim == 2)
-    return dispatch<2>(law, col, n, k, r2, box, p, ln, out, n_outs, s);
+    return with_law<2>(law, SweepLaunch<2>{col, n, k, r2, box, p, ln, out,
+                                           n_outs, s});
   if (ndim == 3)
-    return dispatch<3>(law, col, n, k, r2, box, p, ln, out, n_outs, s);
+    return with_law<3>(law, SweepLaunch<3>{col, n, k, r2, box, p, ln, out,
+                                           n_outs, s});
   return cudaErrorInvalidValue;
 }
 
@@ -1187,4 +1326,53 @@ extern "C" int neighbor_force_launch(
       static_cast<const int*>(gid_j), c, k, nk, cells, r2, p,
       static_cast<float*>(out));
   return cudaGetLastError();
+}
+
+// The gathered-slab sweep (ops.neighborhood_pair_sweep): law and ndim as
+// pair_sweep_launch takes them; cols_i and cols_j each 7 device pointers,
+// pos, gid_rank, gid_count, valid, the float column and the two int
+// columns (null where the law reads none) of the self slabs (c, k) and
+// the neighbourhood slabs (c, nk), each contiguous; params, gates and
+// outs as pair_sweep_launch takes them, the outputs (c, k, width).
+// Returns a cudaError_t (0 on success); the launch is asynchronous on
+// `stream`.
+extern "C" int neighborhood_pair_sweep_launch(
+    int law, int ndim, int device, const void* const* cols_i,
+    const void* const* cols_j, long long c, int k, int nk, float r2,
+    float box0, float box1, float box2, int wrap0, int wrap1, int wrap2,
+    const float* params, int n_params, const float* gates, int n_gates,
+    void* const* outs, int n_outs, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (c < 0 || k < 0 || nk < 0 || n_params < 0 || n_params > kMaxParams ||
+      n_gates < 0 || n_gates > kMaxParts || n_outs < 1 ||
+      n_outs > kMaxParts)
+    return cudaErrorInvalidValue;
+  if (c == 0 || k == 0) return cudaSuccess;
+  auto columns = [](const void* const* v) {
+    return SlabColumns{static_cast<const float*>(v[0]),
+                       static_cast<const int*>(v[1]),
+                       static_cast<const int*>(v[2]),
+                       static_cast<const unsigned char*>(v[3]),
+                       static_cast<const float*>(v[4]),
+                       {static_cast<const int*>(v[5]),
+                        static_cast<const int*>(v[6])}};
+  };
+  const SlabColumns ci = columns(cols_i);
+  const SlabColumns cj = columns(cols_j);
+  const Box box{{box0, box1, box2}, {wrap0, wrap1, wrap2}};
+  LawParams p{};
+  for (int i = 0; i < n_params; ++i) p.v[i] = params[i];
+  for (int i = 0; i < kMaxParts; ++i)
+    p.gate[i] = i < n_gates ? gates[i] : HUGE_VALF;
+  Outputs out{};
+  for (int i = 0; i < n_outs; ++i) out.p[i] = static_cast<float*>(outs[i]);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ndim == 2)
+    return with_law<2>(law, SlabLaunch<2>{ci, cj, c, k, nk, r2, box, p, out,
+                                          n_outs, s});
+  if (ndim == 3)
+    return with_law<3>(law, SlabLaunch<3>{ci, cj, c, k, nk, r2, box, p, out,
+                                          n_outs, s});
+  return cudaErrorInvalidValue;
 }

@@ -35,8 +35,16 @@ slabs on its own kernel in the same source, with
 :func:`neighbor_force_plain` (the port of ``ref.neighbor_force_ref``)
 beside it.
 
+The public op's entry point is here too:
+:func:`neighborhood_pair_sweep`, the port of the reference's
+``ops.neighborhood_pair_sweep`` (``pair_sweep_kernel`` on slabs the caller
+gathered), runs every law of :data:`LAWS` and :data:`STACKS` on ``(C,
+K)`` x ``(C, NK)`` slabs on a third kernel of the same source, with
+:func:`pair_sweep_plain` as its plain version.
+
 Each launch adds one to ``LAUNCHES[law]`` (``LAUNCHES["neighbor_force"]``
-for the legacy kernel), whatever its lanes, or, for a face band of the
+for the legacy kernel, ``LAUNCHES["neighborhood_pair_sweep"]`` for the
+gathered-slab one), whatever its lanes, or, for a face band of the
 overlapped sweep (``pair_sweep(..., face=True)``), to
 ``LAUNCHES[law + FACE]``; nothing else touches the counts, so a run can
 show that it went through the kernel, and on which blocks.
@@ -141,12 +149,14 @@ STACKS: Dict[Tuple[str, ...], PairLaw] = {
 _MAX_PARAMS, _MAX_GATES = 8, 4
 
 # Kernel launches per law since the last reset_launches() (a face band's
-# under the law's name + FACE), and of the legacy neighbor_force kernel.
+# under the law's name + FACE), of the legacy neighbor_force kernel and of
+# the gathered-slab sweep.
 FACE = "@face"
 LAUNCHES: Dict[str, int] = {
     law.name + tag: 0 for law in (*LAWS.values(), *STACKS.values())
     for tag in ("", FACE)}
 LAUNCHES["neighbor_force"] = 0
+LAUNCHES["neighborhood_pair_sweep"] = 0
 
 
 def reset_launches() -> None:
@@ -496,27 +506,16 @@ def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
                 f"(in slots: {strides})")
         lane_stride = next(iter(strides.values()))
 
-    box = tuple(box) if box is not None else (None,) * nd
-    lens = [0.0 if b is None else float(b) for b in box] + [0.0] * (3 - nd)
-    wraps = [0 if b is None else 1 for b in box] + [0] * (3 - nd)
     n = list(interior) + [1] * (3 - nd)
-
     outs = {name: torch.empty((lanes,) + interior + (k,)
                               + ((nd,) if per_axis else ()),
                               dtype=torch.float32, device=dev)
             for name, per_axis in law.outputs}
-    c_params = (ctypes.c_float * max(len(params), 1))(*params)
-    c_gates = (ctypes.c_float * max(len(gates), 1))(*gates)
-    c_outs = (ctypes.c_void_p * len(outs))(
-        *[o.data_ptr() for o in outs.values()])
 
     lib = _library()
     err = lib.pair_sweep_launch(
         law.law_id, nd, dev.index, ptrs[1], ptrs[2], ptrs[3], ptrs[0], *cols,
-        *n, k, float(np.float32(radius * radius)), *lens, *wraps,
-        ctypes.cast(c_params, ctypes.c_void_p), len(params),
-        ctypes.cast(c_gates, ctypes.c_void_p), len(gates),
-        ctypes.cast(c_outs, ctypes.c_void_p), len(outs),
+        *n, k, *_c_args(radius, box, nd, params, gates, outs),
         lanes, lane_stride, math.prod(interior) * k,
         None if table is None else table.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -526,6 +525,25 @@ def _launch(law: PairLaw, attrs: Tensors, valid: torch.Tensor,
             f"({lib.pair_sweep_error_string(err).decode()})")
     LAUNCHES[law.name + (FACE if face else "")] += 1
     return outs
+
+
+def _c_args(radius: float, box, nd: int, params: list, gates: list,
+            outs: Tensors) -> list:
+    """The launch arguments both sweep launches share, in their order:
+    r^2, the three box lengths and wrap flags (``box``: per axis, None
+    on a closed one), then params, gates and the output pointers as
+    (host array, count) pairs."""
+    box = tuple(box) if box is not None else (None,) * nd
+    lens = [0.0 if b is None else float(b) for b in box] + [0.0] * (3 - nd)
+    wraps = [0 if b is None else 1 for b in box] + [0] * (3 - nd)
+    c_params = (ctypes.c_float * max(len(params), 1))(*params)
+    c_gates = (ctypes.c_float * max(len(gates), 1))(*gates)
+    c_outs = (ctypes.c_void_p * len(outs))(
+        *[o.data_ptr() for o in outs.values()])
+    return [float(np.float32(radius * radius)), *lens, *wraps,
+            ctypes.cast(c_params, ctypes.c_void_p), len(params),
+            ctypes.cast(c_gates, ctypes.c_void_p), len(gates),
+            ctypes.cast(c_outs, ctypes.c_void_p), len(outs)]
 
 
 # ---------------------------------------------------------------------------
@@ -621,3 +639,100 @@ def _launch_force(pos_i, diam_i, type_i, valid_i, gid_i,
             f"({lib.pair_sweep_error_string(err).decode()})")
     LAUNCHES["neighbor_force"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Every law on gathered slabs (ops.neighborhood_pair_sweep)
+# ---------------------------------------------------------------------------
+
+def neighborhood_pair_sweep(
+    attrs_i: Tensors, attrs_j: Tensors,
+    valid_i: torch.Tensor, valid_j: torch.Tensor,
+    *, pair_fn: Callable, radius: float, params: dict,
+    box: Optional[Sequence[Optional[float]]] = None,
+) -> Tensors:
+    """Per-agent pair sums on gathered slabs: ``attrs_i`` values ``(C, K,
+    *t)``, ``attrs_j`` values ``(C, NK, *t)`` (holding pos, the gid
+    columns and the law's own), ``valid_i`` ``(C, K)``, ``valid_j`` ``(C,
+    NK)``; returns a dict of ``(C, K, *t)`` float32 sums.  On a CUDA
+    tensor this launches the ``neighborhood_pair_sweep`` kernel, which
+    runs the laws and stacks of :func:`law_for` (or raises); on a CPU
+    tensor it runs :func:`pair_sweep_plain`."""
+    if valid_i.device.type == "cpu":
+        return pair_sweep_plain(attrs_i, attrs_j, valid_i, valid_j,
+                                pair_fn=pair_fn, radius=radius,
+                                params=params, box=box)
+    if valid_i.device.type != "cuda":
+        raise ValueError(f"neighborhood_pair_sweep: unsupported device "
+                         f"{valid_i.device}")
+    law = law_for(pair_fn)
+    vals, gates = _law_args(law, pair_fn, params)
+    return _launch_slabs(law, attrs_i, attrs_j, valid_i, valid_j, radius,
+                         vals, gates, box)
+
+
+def _slabs_library() -> ctypes.CDLL:
+    lib = _library()
+    if lib.neighborhood_pair_sweep_launch.argtypes is None:
+        lib.neighborhood_pair_sweep_launch.argtypes = (
+            [ctypes.c_int] * 3                       # law, ndim, device
+            + [ctypes.c_void_p] * 2                  # column arrays
+            + [ctypes.c_longlong] + [ctypes.c_int] * 2   # c, k, nk
+            + [ctypes.c_float] * 4                   # r2, box lengths
+            + [ctypes.c_int] * 3                     # wrap flags
+            + [ctypes.c_void_p, ctypes.c_int] * 3    # params, gates, outs
+            + [ctypes.c_void_p])                     # stream
+        lib.neighborhood_pair_sweep_launch.restype = ctypes.c_int
+    return lib
+
+
+def _launch_slabs(law: PairLaw, attrs_i: Tensors, attrs_j: Tensors,
+                  valid_i: torch.Tensor, valid_j: torch.Tensor,
+                  radius: float, params: list, gates: list,
+                  box: Optional[Sequence[Optional[float]]]) -> Tensors:
+    dev = valid_i.device
+    c, k = valid_i.shape
+    nk = valid_j.shape[1]
+    nd = attrs_i[_POS].shape[-1]
+    if nd not in (2, 3):
+        raise ValueError(f"neighborhood_pair_sweep: {nd}-D positions; the "
+                         "kernel takes 2-D and 3-D")
+    # the kernel reads each column as a dense array: a view is copied
+    names = (_POS, _GID_RANK, _GID_COUNT) + law.float_cols + law.int_cols
+    attrs_i = {n: attrs_i[n].contiguous() for n in names}
+    attrs_j = {n: attrs_j[n].contiguous() for n in names}
+    valid_i, valid_j = valid_i.contiguous(), valid_j.contiguous()
+
+    def columns(side, attrs, valid, n):
+        _check(f"valid_{side}", valid, torch.bool, (c, n), dev)
+        _check(f"{_POS}_{side}", attrs[_POS], torch.float32, (c, n, nd), dev)
+        ptrs = [attrs[_POS].data_ptr()]
+        for name in (_GID_RANK, _GID_COUNT):
+            _check(f"{name}_{side}", attrs[name], torch.int32, (c, n), dev)
+            ptrs.append(attrs[name].data_ptr())
+        ptrs.append(valid.data_ptr())
+        for names, dtype, slots in ((law.float_cols, torch.float32, 1),
+                                    (law.int_cols, torch.int32, 2)):
+            for name in names:
+                _check(f"{name}_{side}", attrs[name], dtype, (c, n), dev)
+                ptrs.append(attrs[name].data_ptr())
+            ptrs += [None] * (slots - len(names))
+        return (ctypes.c_void_p * 7)(*ptrs)
+
+    cols_i = columns("i", attrs_i, valid_i, k)
+    cols_j = columns("j", attrs_j, valid_j, nk)
+    outs = {name: torch.empty((c, k) + ((nd,) if per_axis else ()),
+                              dtype=torch.float32, device=dev)
+            for name, per_axis in law.outputs}
+    lib = _slabs_library()
+    err = lib.neighborhood_pair_sweep_launch(
+        law.law_id, nd, dev.index, ctypes.cast(cols_i, ctypes.c_void_p),
+        ctypes.cast(cols_j, ctypes.c_void_p), c, k, nk,
+        *_c_args(radius, box, nd, params, gates, outs),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"neighborhood_pair_sweep kernel launch failed: cudaError {err} "
+            f"({lib.pair_sweep_error_string(err).decode()})")
+    LAUNCHES["neighborhood_pair_sweep"] += 1
+    return outs

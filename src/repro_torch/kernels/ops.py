@@ -1,8 +1,8 @@
 """Public wrappers around the port's kernels (port of
 ``repro/kernels/ops.py``): attention of ``(B, H, S, hd)`` heads with GQA,
-the legacy soft-sphere force sweep, and the delta codec on one ``(N, L)``
-float32 slab with one scalar scale and the TPU kernel's int8 range of
-``+-127``.
+the legacy soft-sphere force sweep, the pair sweep of any law on gathered
+neighbourhood slabs, and the delta codec on one ``(N, L)`` float32 slab
+with one scalar scale and the TPU kernel's int8 range of ``+-127``.
 
 The engine does not go through the codec wrappers; it calls
 ``core.delta``, which runs the same kernels over the stacked slabs of
@@ -10,7 +10,7 @@ every device."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,6 +45,33 @@ def neighbor_force(pos_i, diam_i, type_i, valid_i, gid_i,
         pos_j, diam_j, type_j, valid_j, gid_j,
         radius=radius, repulsion=repulsion, adhesion=adhesion,
         same_type_only=same_type_only)
+
+
+def neighborhood_pair_sweep(
+    attrs_i: Dict[str, torch.Tensor],
+    attrs_j: Dict[str, torch.Tensor],
+    valid_i: torch.Tensor,
+    valid_j: torch.Tensor,
+    *,
+    pair_fn: Callable,
+    radius: float,
+    params: dict,
+    box: Optional[Sequence[Optional[float]]] = None,
+    block_cells: Optional[int] = None,
+    interpret: Optional[bool] = None,
+) -> Dict[str, torch.Tensor]:
+    """The generic fused neighbourhood sweep on gathered slabs: self slots
+    ``(C, K)`` against neighbourhood slots ``(C, NK)`` (``core.neighbors.
+    gather_neighborhood``), ``pair_fn`` summed over the valid pairs of
+    distinct agents within ``radius`` (minimum image on ``box``'s
+    non-None axes); a dict of ``(C, K, *t)`` sums.  On the card a
+    ``pair_fn`` without a device law raises ``NotImplementedError``
+    (ROADMAP B1); on the CPU any ``pair_fn`` runs.  ``block_cells`` and
+    ``interpret`` are the TPU kernel's knobs, taken and ignored."""
+    del block_cells, interpret
+    return neighbor_interaction.neighborhood_pair_sweep(
+        attrs_i, attrs_j, valid_i, valid_j, pair_fn=pair_fn,
+        radius=radius, params=params, box=box)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:

@@ -4,12 +4,17 @@
     init_process_mesh()                        # under torchrun
     mesh = make_abm_mesh((2, 2))               # a DeviceMesh (sx, sy)
     sim = make_sim(behavior, mesh_shape=(2, 2), mesh=mesh)
+    ...
+    close_process_mesh()                       # at the rank's end
 
 :func:`init_process_mesh` joins the default process group, from
 ``torchrun``'s environment or from an explicit ``init_method``, rank and
 world size, always with a timeout, so that a rank that is lost fails the
 run instead of hanging it.  :func:`make_abm_mesh` lays that group's ranks
-out row-major over the mesh, with the reference's axis names.
+out row-major over the mesh, with the reference's axis names, or a subset
+of them in a group of their own (a degraded run's survivors,
+:func:`survivor_ranks`).
+:func:`close_process_mesh` leaves the group with its threads joined.
 :func:`spawn_ranks` starts the ranks of a mesh as processes of this host
 and joins them against a deadline (the tests and ``chip_smoke.py`` run a
 mesh through it).  The reference's production mesh and its TPU hardware
@@ -63,36 +68,125 @@ def init_process_mesh(backend: str = "gloo", *,
 
 def make_abm_mesh(mesh_shape: Sequence[int],
                   axes: Optional[Tuple[str, ...]] = None,
-                  device_type: str = "cuda"):
+                  device_type: str = "cuda",
+                  ranks: Optional[Sequence[int]] = None):
     """The spatial ``DeviceMesh`` over every rank of the default group,
     row-major (rank ``r`` at mesh coordinates ``unravel(r, mesh_shape)``,
     the reference's ``linear_rank``), with axis names ``(sx, sy[, sz])``
     unless ``axes`` names them.  ``device_type`` is the engine's
-    (``"cuda"``, or ``"cpu"`` on a CPU run)."""
+    (``"cuda"``, or ``"cpu"`` on a CPU run).
+
+    ``ranks`` lays out a subset of the default group instead, row-major in
+    ascending order: the mesh of the devices a degraded run keeps
+    (:func:`survivor_ranks`).  Its ranks get a group of their own
+    (:func:`mesh_group`), built by every rank of the default group at
+    this call; a rank outside gets a mesh whose ``get_coordinate()`` is
+    None.  A later mesh of the same ranks (:func:`relayout_mesh`) takes
+    that group again, so the ranks that left need not take part."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
 
     mesh_shape = tuple(int(m) for m in mesh_shape)
     n = math.prod(mesh_shape)
     world = dist.get_world_size()
-    if n != world:
-        raise ValueError(f"mesh {mesh_shape} has {n} devices; the process "
-                         f"group has {world} ranks")
     if axes is None:
         axes = spatial_axis_names(len(mesh_shape))
-    ranks = torch.arange(n, dtype=torch.int64).reshape(mesh_shape)
-    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axes))
+    if ranks is None or sorted(int(r) for r in ranks) == list(range(world)):
+        if n != world:
+            raise ValueError(f"mesh {mesh_shape} has {n} devices; the "
+                             f"process group has {world} ranks")
+        return _mesh(mesh_shape, axes, device_type, range(n), None)
+    members = sorted(int(r) for r in ranks)
+    if len(members) != n or len(set(members)) != n or \
+            not 0 <= members[0] <= members[-1] < world:
+        raise ValueError(f"mesh {mesh_shape} has {n} devices; ranks "
+                         f"{members} are not {n} distinct ranks of the "
+                         f"{world} of the process group")
+    return _mesh(mesh_shape, axes, device_type, members,
+                 dist.new_group(ranks=members))
+
+
+def _mesh(mesh_shape, axes, device_type, members, group):
+    """A mesh over ``members`` (ascending, row-major) joined by ``group``
+    (None: the default group), which the mesh carries.  The port reads
+    only its layout, coordinates and that group, so the ``DeviceMesh``
+    builds no groups of its own: one it held would keep its gloo threads
+    running past :func:`close_process_mesh`."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    layout = torch.tensor(list(members), dtype=torch.int64).reshape(
+        mesh_shape)
+    mesh = DeviceMesh(device_type, layout, mesh_dim_names=tuple(axes),
+                      _init_backend=False)
+    mesh.abm_group = group
+    return mesh
+
+
+def mesh_group(mesh):
+    """The process group of a process mesh: None (the default group) for
+    a mesh over every rank, else the group of its subset."""
+    return getattr(mesh, "abm_group", None)
+
+
+def relayout_mesh(mesh, mesh_shape: Sequence[int]):
+    """The mesh of ``mesh_shape`` over the ranks of the process mesh
+    ``mesh``, in its group (a re-shard's new shape); only those ranks call
+    it."""
+    shape = tuple(int(m) for m in mesh_shape)
+    group = mesh_group(mesh)
+    if group is None:
+        return make_abm_mesh(shape, device_type=mesh.device_type)
+    members = sorted(int(r) for r in mesh.mesh.reshape(-1).tolist())
+    if math.prod(shape) != len(members):
+        raise ValueError(f"mesh {shape} over the {len(members)} ranks of "
+                         f"mesh {tuple(mesh.mesh.shape)}")
+    return _mesh(shape, spatial_axis_names(len(shape)), mesh.device_type,
+                 members, group)
+
+
+def close_process_mesh() -> None:
+    """Leave the process group and join the gloo threads of this
+    process's groups.  ``destroy_process_group`` shuts a group down, but
+    its threads (``gloo_tcp_loop``, ``pt_gloo_runloop``) are joined only
+    when its last reference goes; a group still referenced in the
+    interpreter's teardown can have a thread destroyed while joinable,
+    which aborts a process whose work was done ("terminate called without
+    an active exception", SIGABRT).  So this drops the re-shard's cached
+    meshes, collects what is unreachable and destroys every group.  A
+    mesh of :func:`make_abm_mesh` over every rank holds no group; a
+    subset's mesh holds its group until the caller drops it."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.core import reshard
+
+    reshard._MESHES.clear()
+    gc.collect()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def survivor_ranks(mesh, n: int) -> Tuple[int, ...]:
+    """The ranks of the ``n`` devices a run on ``mesh`` keeps when it
+    loses the rest: the first ``n`` of its row-major order, as the
+    reference's restore keeps ``jax.devices()[:n]`` (``jax.make_mesh``
+    takes the leading devices)."""
+    order = [int(r) for r in mesh.mesh.reshape(-1).tolist()]
+    if not 0 < n <= len(order):
+        raise ValueError(f"{n} survivors of a mesh of {len(order)} devices")
+    return tuple(sorted(order[:n]))
 
 
 def _rank_main(rank: int, fn: Callable, world: int, store: str,
                timeout_s: float, args: tuple) -> None:
+    """One rank of :func:`spawn_ranks`: joins the group, runs ``fn`` and
+    leaves through :func:`close_process_mesh`."""
     init_process_mesh("gloo", init_method=f"file://{store}", rank=rank,
                       world_size=world, timeout_s=timeout_s)
-    import torch.distributed as dist
     try:
         fn(rank, world, *args)
     finally:
-        dist.destroy_process_group()
+        close_process_mesh()
 
 
 def spawn_ranks(fn: Callable, world: int, store: str, args: tuple = (),

@@ -131,7 +131,9 @@ def main(argv=None):
         n_dev *= m
     interior = tuple(args.interior // m for m in mesh_shape)
 
-    from repro_torch.launch.mesh import init_process_mesh, make_abm_mesh
+    from repro_torch.launch.mesh import (
+        close_process_mesh, init_process_mesh, make_abm_mesh,
+    )
     mesh = None
     if n_dev > 1 and int(os.environ.get("WORLD_SIZE", "0")) == n_dev:
         init_process_mesh("gloo")
@@ -167,7 +169,7 @@ def main(argv=None):
         dist.all_reduce(top, op=dist.ReduceOp.MAX)
         n, dropped, overflow = int(tot[0]), int(tot[1]), int(top[0])
         dist.barrier()
-        dist.destroy_process_group()
+        close_process_mesh()
         if rank != 0:
             return
     print(f"sim={args.sim} devices={n_dev} agents={n} steps={args.steps} "

@@ -26,9 +26,13 @@ Devices: the virtual mesh recovers onto the run's own device count (the
 reference's ``min(n_devices, len(jax.devices()))``: the whole mesh lives
 on the card), or onto a :class:`~repro_torch.distributed.chaos.
 DeviceLost`'s survivors.  A process mesh (one process a device) recovers
-onto the same ranks; it cannot degrade onto fewer, because its
-``DeviceMesh`` spans the whole world group
-(``launch.mesh.make_abm_mesh``).
+onto the same ranks, or on a device loss onto the ranks of the devices
+the reference keeps (``launch.mesh.survivor_ranks``): every rank, having
+raised the same ``DeviceLost`` at the same control point, loads the
+restore plan, and the survivors build their mesh in its shape, with a
+group of their own (``launch.mesh.make_abm_mesh(ranks=...)``).  The
+others log the recovery the survivors log, with ``left=True``, and stop
+(``Supervisor.left``; their ``run`` returns).
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ class Supervisor:
         self.cfg = cfg
         self.fault_plan = fault_plan
         self.log: List[Dict] = []
+        self.left = False     # this rank's device was lost (a degrade)
         enforce_diagnostics(check_supervision(sim.engine, cfg),
                             mode=getattr(sim, "_check", "error"))
         self.ckptr = ckpt_lib.AsyncCheckpointer(cfg.dir, keep=cfg.keep)
@@ -88,10 +93,10 @@ class Supervisor:
     def events(self, kind: str) -> List[Dict]:
         return [e for e in self.log if e["kind"] == kind]
 
-    @staticmethod
-    def _rank() -> int:
-        import torch.distributed as dist
-        return dist.get_rank()
+    def _comm(self):
+        """The process mesh's comm of this rank (None on one process)."""
+        sim = self.sim
+        return None if sim.mesh is None else sim.engine._comm(sim.mesh)
 
     # ------------------------------------------------------------------
     def _save(self) -> None:
@@ -109,17 +114,21 @@ class Supervisor:
         if self.fault_plan is not None:
             # a torn-write fault needs bytes on disk before it can tear
             self.ckptr.wait()
+            comm = self._comm()
+            # on a process mesh the group's rank 0 tears, as it wrote
             torn = self.fault_plan.maybe_tear(
-                self.cfg.dir, it, tear=mesh is None or self._rank() == 0)
-            if mesh is not None:
-                import torch.distributed as dist
-                dist.barrier()   # no rank reads before rank 0 tore
+                self.cfg.dir, it, tear=comm is None or int(
+                    comm.ranks[comm.mesh_coords]) == comm.global_rank(0))
+            if comm is not None:
+                comm.barrier()   # no rank reads before rank 0 tore
             if torn:
                 self._event("torn_checkpoint", path=torn)
 
     def _recover(self, err: BaseException, retry: int) -> None:
         from repro_torch.core.reshard import process_mesh
-        from repro_torch.distributed.elastic import elastic_restore_abm
+        from repro_torch.distributed.elastic import (
+            elastic_restore_abm, restore_plan,
+        )
 
         sim = self.sim
         mesh = sim.mesh
@@ -134,18 +143,23 @@ class Supervisor:
             raise err
         n = survivors if survivors is not None \
             else sim.engine.geom.n_devices
-        if mesh is not None and n < sim.engine.geom.n_devices:
-            raise NotImplementedError(
-                f"degrading a process mesh of {sim.engine.geom.n_devices} "
-                f"ranks onto {n} survivors is not ported yet (ROADMAP A9): "
-                "its DeviceMesh spans the whole world group") from err
         if self.cfg.backoff_s > 0:
             time.sleep(self.cfg.backoff_s * 2 ** (retry - 1))
+        plan = restore_plan(self.cfg.dir, n)   # ownership: the checkpoint's
+        if mesh is not None and n < sim.engine.geom.n_devices:
+            from repro_torch.launch.mesh import make_abm_mesh, survivor_ranks
+            mesh = make_abm_mesh(plan.geom.mesh_shape,
+                                 device_type=mesh.device_type,
+                                 ranks=survivor_ranks(mesh, n))
+            if mesh.get_coordinate() is None:   # this rank's device is lost
+                self.left = True
+                self._recovered(err, failed_at, plan.step, n, retry, t0,
+                                left=True)
+                return
         engine0, state, step_ = elastic_restore_abm(
             self.cfg.dir, sim.behavior, n_devices=n,
             delta_cfg=sim.engine.delta_cfg, dt=sim.engine.dt,
-            ownership=None,  # None inherits the checkpointed mode
-            mesh=mesh, device=sim.engine.device)
+            mesh=mesh, device=sim.engine.device, plan=plan)
         # keep the run's knobs (guards, sweep backend, overlap): only the
         # geometry comes from the re-cut restore plan
         engine = dataclasses.replace(sim.engine, geom=engine0.geom)
@@ -156,11 +170,15 @@ class Supervisor:
         # restarts at zero, so the replay is bit-exact with an
         # uninterrupted run resumed from this checkpoint
         sim._ticks = 0
+        self._recovered(err, failed_at, step_, n, retry, t0)
+
+    def _recovered(self, err, failed_at: int, step_: int, n: int,
+                   retry: int, t0: float, **kw) -> None:
         self._event(
             "recovered", error=repr(err), error_type=type(err).__name__,
             failed_at=failed_at, rolled_back_to=step_, devices=n,
             retry=retry, replay_steps=failed_at - step_,
-            seconds=time.perf_counter() - t0)
+            seconds=time.perf_counter() - t0, **kw)
 
     # ------------------------------------------------------------------
     def run(self, steps: int, fused: bool = True):
@@ -193,6 +211,8 @@ class Supervisor:
                                 reason="degrade disabled")
                     raise
                 self._recover(err, retries)
+                if self.left:
+                    return sim
             else:
                 retries = 0
                 if sim.iteration % cfg.every == 0 or sim.iteration >= target:

@@ -17,7 +17,7 @@ from repro_torch.bridge import rank_arrays, rank_state, state_from_arrays
 from repro_torch.core import DeltaConfig, Partition
 from repro_torch.core.engine import codec_overflow_count, total_agents
 from repro_torch.core.halo import ProcessMeshComm
-from repro_torch.launch.mesh import make_abm_mesh
+from repro_torch.launch.mesh import close_process_mesh, make_abm_mesh
 from repro_torch.sims.common import make_sim, resolve_delta
 
 
@@ -453,12 +453,38 @@ def supervised_run(ckpt_dir: str, mesh=None):
     return sim, sv
 
 
-def a9_ranks(rank: int, world: int, out: str) -> None:
-    """On four ranks: the server, a guarded run with faults, a supervised
-    recovery onto the four ranks, and a device loss that would degrade."""
+# A device lost at step 6 of a supervised run, checkpoints every 4 steps
+# (the virtual mesh's device_loss_2x2 plan); survivors None: the default,
+# one device fewer.
+DEGRADE_STEPS = 10
+DEGRADE_SURVIVORS = {"degrade2": 2, "degrade3": None}
+LOG_KEYS = ("kind", "step", "iteration", "error_type", "rolled_back_to",
+            "devices", "replay_steps", "left")
+
+
+def log_view(log) -> list:
+    return [{k: e[k] for k in LOG_KEYS if k in e} for e in log]
+
+
+def degrade_run(ckpt_dir: str, survivors, mesh=None):
+    """A supervised 2x2 run that loses devices at step 6 and degrades
+    onto the survivors; the run's sim and its supervisor."""
     from repro_torch.distributed.chaos import Fault, FaultPlan
     from repro_torch.launch.supervise import Supervised, Supervisor
 
+    sim = a9_sim("error", mesh)
+    plan = FaultPlan((Fault(step=6, kind="device_loss",
+                            survivors=survivors),))
+    sv = Supervisor(sim, Supervised(dir=ckpt_dir, every=4, keep=9),
+                    fault_plan=plan)
+    sv.run(DEGRADE_STEPS)
+    return sim, sv
+
+
+def a9_ranks(rank: int, world: int, out: str) -> None:
+    """On four ranks: the server, a guarded run with faults, a supervised
+    recovery onto the four ranks, and two device losses degraded onto two
+    and three survivors."""
     serve_ranks(rank, world, out)
     torch.set_num_threads(1)
     mesh = make_abm_mesh((2, 2), device_type="cpu")
@@ -471,19 +497,19 @@ def a9_ranks(rank: int, world: int, out: str) -> None:
     log = [{k: e[k] for k in ("kind", "step", "iteration", "error_type",
                               "rolled_back_to", "devices", "replay_steps")
             if k in e} for e in sv.log]
-    lost = a9_sim("error", mesh)
-    try:
-        Supervisor(lost, Supervised(dir=f"{out}/ckpt_lost", every=2,
-                                    keep=3),
-                   fault_plan=FaultPlan((Fault(step=2, kind="device_loss",
-                                               survivors=2),))).run(4)
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
+    facts = dict(counts=counts, dups=dups, log=log,
+                 n_agents=sim.n_agents(), mesh=list(sim.geom.mesh_shape))
+    for key, survivors in DEGRADE_SURVIVORS.items():
+        sim, sv = degrade_run(f"{out}/ckpt_{key}", survivors, mesh)
+        if not sv.left:
+            _save(f"{out}/{key}/r{rank}.npz", sim.engine._comm(sim.mesh),
+                  rank_arrays(sim.state))
+        facts[key] = dict(
+            log=log_view(sv.log), left=sv.left, iteration=sim.iteration,
+            n_agents=None if sv.left else sim.n_agents(),
+            mesh=list(sim.geom.mesh_shape))
     with open(f"{out}/a9_r{rank}.json", "w") as f:
-        json.dump(dict(counts=counts, dups=dups, log=log, refused=refused,
-                       n_agents=sim.n_agents(),
-                       mesh=list(sim.geom.mesh_shape)), f)
+        json.dump(facts, f)
 
 
 SIMCHECK_CASE = dict(sim="cell_clustering",
@@ -555,3 +581,31 @@ def shim_population():
     pos = rng.uniform(0.5, 15.5, (200, 2)).astype(np.float32)
     return pos, {"diameter": np.full((200,), 1.0, np.float32),
                  "ctype": rng.integers(0, 2, 200).astype(np.int32)}
+
+
+_HELD = []     # a DeviceMesh kept alive to the rank's end, as a sim keeps it
+
+
+def gloo_threads() -> list:
+    """The names of this process's gloo threads, from ``/proc``."""
+    names = []
+    for t in sorted(os.listdir("/proc/self/task")):
+        try:
+            with open(f"/proc/self/task/{t}/comm") as f:
+                names.append(f.read().strip())
+        except OSError:          # a thread that ended meanwhile
+            pass
+    return [n for n in names if "gloo" in n]
+
+
+def teardown_ranks(rank: int, world: int, out: str) -> None:
+    """A rank that keeps a 2x1 mesh alive to its end and drops a
+    survivors' mesh of rank 0 (a group of its own): its gloo threads
+    before and after :func:`close_process_mesh`."""
+    _HELD.append(make_abm_mesh((2, 1), device_type="cpu"))
+    sub = make_abm_mesh((1, 1), device_type="cpu", ranks=[0])
+    before = gloo_threads()
+    del sub
+    close_process_mesh()
+    with open(f"{out}/r{rank}.json", "w") as f:
+        json.dump(dict(before=before, after=gloo_threads()), f)

@@ -158,7 +158,7 @@ def test_cli_smoke_on_cpu():
     # sweep's), apart
     assert set(lines[-1].split(": ")[1].split(", ")) == {
         f"{law}{tag}=0" for law in laws for tag in ("", "@face")} | {
-        "neighbor_force=0", "delta_encode=0",
+        "neighbor_force=0", "neighborhood_pair_sweep=0", "delta_encode=0",
         "delta_decode=0", "migration_pos_encode=0",
         "migration_pos_decode=0"}
     mesh = _run(["-m", "repro_torch.launch.simulate", "--sim",

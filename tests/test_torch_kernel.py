@@ -397,6 +397,63 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                       pair_attrs=("ctype",), radius=2.0, params={}, box=box)
 
 
+# Every law and stack of the kernel on gathered slabs
+# (ops.neighborhood_pair_sweep): the resident sweep's, law 5 and the
+# ensemble family's stack 18 too.
+def _slab_laws():
+    ens = sm.ensemble_behavior(sm.ensemble_defaults())
+    return dict(_laws_3d(), **{
+        "gated_epidemiology": (sm._gated_sir_pair, ("state",),
+                               {"sir_radius": 1.2}, ("n_inf",)),
+        "ensemble_stack": (ens.pair_fn, ens.pair_attrs, ens.params,
+                           ("b1.n_inf",))})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interior", [(12, 12), (4, 4, 3)])
+@pytest.mark.parametrize("boundary", ["closed", "toroidal"])
+@pytest.mark.parametrize("law", sorted(_slab_laws()))
+def test_neighborhood_pair_sweep_kernel_matches_plain_on_cuda(
+        cuda, law, boundary, interior):
+    """The gathered-slab kernel against its plain version on slabs of an
+    initial sir_mechanics SoA, D = 2 and 3, the self slab as strided
+    views: counts exactly, forces to 1e-5; one launch a call."""
+    soa, box = _abm_soa(cuda, boundary, interior=interior)
+    pair_fn, pattrs, params, counts = _slab_laws()[law]
+    ai, aj, vi, vj = ni.neighborhood_slabs(soa.attrs, soa.valid, pattrs)
+    # the self slab as strided views of the same values
+    ai = {n: torch.stack([a, a], dim=-1)[..., 0] for n, a in ai.items()}
+    vi = torch.stack([vi, vi], dim=-1)[..., 0]
+    assert not vi.is_contiguous() and not ai["pos"].is_contiguous()
+    before = ni.LAUNCHES["neighborhood_pair_sweep"]
+    got = ops.neighborhood_pair_sweep(ai, aj, vi, vj, pair_fn=pair_fn,
+                                      radius=2.0, params=params, box=box)
+    torch.cuda.synchronize()
+    assert ni.LAUNCHES["neighborhood_pair_sweep"] == before + 1
+    want = ni.pair_sweep_plain(ai, aj, vi, vj, pair_fn=pair_fn, radius=2.0,
+                               params=params, box=box)
+    assert set(got) == set(want)
+    for n, w in want.items():
+        if n in counts:
+            assert torch.equal(got[n], w), n
+        else:
+            torch.testing.assert_close(got[n], w, atol=1e-5, rtol=1e-5)
+        assert float(w.abs().sum()) > 0, n
+
+
+@pytest.mark.cuda
+def test_neighborhood_pair_sweep_refuses_an_unknown_law_on_cuda(cuda):
+    soa, box = _abm_soa(cuda, "closed")
+    ai, aj, vi, vj = ni.neighborhood_slabs(soa.attrs, soa.valid, ())
+
+    def near(attrs_i, attrs_j, disp, dist2, params):
+        return {"near": torch.ones_like(dist2)}
+
+    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+        ops.neighborhood_pair_sweep(ai, aj, vi, vj, pair_fn=near,
+                                    radius=2.0, params={}, box=box)
+
+
 # ---------------------------------------------------------------------------
 # Lane launches (B1 d): B lanes in one launch, read in place from a stacked
 # mesh state, each lane at its own params from the device table

@@ -18,6 +18,13 @@ timeout that kills its ranks:
   size-2 torus, whose two directions go to one rank); (e)
   ``tumor_spheroid`` on a 1x1x2 mesh (D = 3); ``shift`` on the torus.
 
+A spawn of four ranks (``a9``) runs the scenario server, a guarded run
+with faults, a supervised recovery, and two supervised runs that lose
+devices and degrade onto two and three survivors (each survivor's block
+and log against the virtual mesh's degraded run; the ranks that left
+stop at the fault); a spawn of two (``serve2``) runs the server on a 2x1
+mesh.  Each server case requests only its own spawn.
+
 Against the virtual mesh every field is bit-equal: integers, ``valid``,
 the gids and the slot layout, and the floats' bytes (each device runs the
 same operations in the same order in either layout).  Against JAX, the
@@ -316,6 +323,71 @@ def rebalanced(tmp_path_factory):
     return out
 
 
+# A rank of the CLI under torchrun's environment, with its gloo threads
+# written after ``simulate.main`` returns.
+TORCHRUN_RANK = """
+import json, os, sys
+import process_mesh_ranks as pmr
+from repro_torch.launch import simulate
+simulate.main(["--sim", "cell_clustering", "--mesh", "2x1", "--device",
+               "cpu", "--agents", "100", "--steps", "2"])
+with open(os.path.join(sys.argv[1], "r%s.json" % os.environ["RANK"]),
+          "w") as f:
+    json.dump(dict(after=pmr.gloo_threads()), f)
+"""
+
+
+def _torchrun_ranks(out: str, world: int = 2) -> None:
+    """``world`` processes of ``TORCHRUN_RANK`` joined as torchrun joins
+    them (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``)."""
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]),
+        WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+        MASTER_PORT=str(port), GLOO_SOCKET_IFNAME="lo",
+        OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TORCHRUN_RANK, out],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        for r, p in enumerate(procs):
+            log = p.communicate(timeout=SPAWN_TIMEOUT_S)[0]
+            assert p.returncode == 0, f"rank {r}: {p.returncode}\n{log}"
+    finally:
+        for p in procs:
+            p.kill()
+
+
+@pytest.mark.parametrize("entry", ["spawn_ranks", "torchrun"])
+def test_closing_a_process_mesh_joins_its_gloo_threads(entry, tmp_path):
+    """ROADMAP C 10: a gloo group's threads are joined only when its last
+    reference goes, and one left to the interpreter's teardown could
+    abort a finished rank.  ``close_process_mesh`` (the end of every rank
+    of ``spawn_ranks`` and of the CLI under torchrun) leaves no gloo
+    thread running, with a mesh still held and after a survivors' mesh
+    of a group of its own, and every rank ends with code 0."""
+    out = str(tmp_path)
+    if entry == "spawn_ranks":
+        spawn_ranks(pmr.teardown_ranks, 2, os.path.join(out, "store"),
+                    args=(out,), timeout_s=SPAWN_TIMEOUT_S)
+    else:
+        _torchrun_ranks(out)
+    for r in range(2):
+        with open(os.path.join(out, f"r{r}.json")) as f:
+            threads = json.load(f)
+        if entry == "spawn_ranks":
+            assert "gloo_tcp_loop" in threads["before"], threads
+        assert threads["after"] == [], threads
+
+
 def test_rebalanced_run_matches_virtual_mesh(rebalanced, tmp_path):
     """The rebalanced run on four ranks (the histogram all-reduced, the
     agents moved by ``all_to_all_single``): every rank's block bit-equal
@@ -392,11 +464,12 @@ def serve2(tmp_path_factory):
 
 
 @pytest.mark.parametrize("world", [2, 4])
-def test_server_over_a_process_mesh_matches_virtual(world, a9, serve2):
+def test_server_over_a_process_mesh_matches_virtual(world, request):
     """Every rank builds the same server and submits the same requests;
     each streams the virtual-mesh server's frames, bit for bit (budgets 8
-    and 12, streaming every 4 steps and at the end)."""
-    out = a9 if world == 4 else serve2
+    and 12, streaming every 4 steps and at the end).  Each case requests
+    only its own spawn: two ranks ``serve2``, four ``a9``."""
+    out = request.getfixturevalue("a9" if world == 4 else "serve2")
     shape = (2, 2) if world == 4 else (2, 1)
     want = json.loads(json.dumps(pmr.serve_frames(shape)))
     assert [t for t, _ in want["0"]] == [4, 8]
@@ -449,7 +522,33 @@ def test_supervised_recovery_on_four_ranks_matches_virtual(a9, tmp_path):
         assert f["mesh"] == list(sim.geom.mesh_shape)
 
 
-def test_device_loss_degrade_on_a_process_mesh_raises(a9):
-    for f in _facts_a9(a9):
-        assert "ROADMAP A9" in f["refused"]
-        assert "2 survivors" in f["refused"]
+@pytest.mark.parametrize("key", sorted(pmr.DEGRADE_SURVIVORS))
+def test_device_loss_degrades_a_process_mesh_onto_survivors(a9, key,
+                                                             tmp_path):
+    """A supervised four-rank run that loses devices at step 6 restores
+    onto the survivors (two, and the default three): each survivor's
+    block is the virtual mesh's degraded run's bit for bit, its log that
+    run's; the ranks that left log the same recovery, ``left``, and
+    stopped at the fault."""
+    sim, sv = pmr.degrade_run(str(tmp_path / "ck"),
+                              pmr.DEGRADE_SURVIVORS[key])
+    n = sim.geom.n_devices
+    assert n == (2 if key == "degrade2" else 3)
+    log = pmr.log_view(sv.log)
+    (rec,) = [e for e in log if e["kind"] == "recovered"]
+    assert rec["devices"] == n and not sv.left
+    assert_bit_equal(_assembled(f"{a9}/{key}", n),
+                     state_to_arrays(sim.state))
+    cut = log.index(rec) + 1
+    for rank, f in enumerate(_facts_a9(a9)):
+        got = f[key]
+        if rank < n:
+            assert not got["left"]
+            assert got["log"] == log
+            assert got["n_agents"] == sim.n_agents() == 200
+            assert got["mesh"] == list(sim.geom.mesh_shape)
+            assert got["iteration"] == sim.iteration == pmr.DEGRADE_STEPS
+        else:
+            assert got["left"]
+            assert got["log"] == log[:cut - 1] + [dict(rec, left=True)]
+            assert got["iteration"] == log[cut - 2]["iteration"]
