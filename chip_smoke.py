@@ -264,11 +264,32 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    version (counts exactly, floats to 1e-5), timed (CUDA events) with
    its bound (the slab columns it reads and its outputs); every law on
    random D = 3 slabs, closed and toroidal.  No driven path launches it.
-21. the examples: ``examples_torch/quickstart.py`` and
-   ``supervised_run.py --device-loss`` through their ``main``s at the
-   reference's sizes (each fails on its own assertions), with wall
-   seconds and peak device memory (``tools/examples_phase.py`` runs all
-   eight).
+21. the examples: ``examples_torch/quickstart.py``,
+   ``supervised_run.py --device-loss`` and ``serve_lm.py`` (minicpm3-4b's
+   smoke size, MLA) through their ``main``s at the reference's sizes (each
+   fails on its own assertions), with wall seconds and peak device memory
+   (``tools/examples_phase.py`` runs the eight ABM ones);
+22. the transformer-block families of the LM stack at full width, random
+   bf16 weights from ``params.init`` and ``--seed``: minicpm-2b (40
+   layers, head dim 64), minicpm3-4b (62, MLA), qwen3-moe (8 of 94 layers,
+   64 query heads on 4 KV heads), phi3.5-moe (16 of 32), llava (32, 1152
+   patches + 896 tokens) and hubert (48, frames, non-causal, head dim 80
+   zero-padded to 128); each depth cut printed with the sizes that force
+   it.  Scoring: ``loss_fn`` on 4 x 2048 positions, backend ``"kernel"``,
+   counted alone: ``n_layers`` launches of the bf16 attention kernel for
+   each GQA config, none for MLA (``sdpa_chunked``), a finite loss, finite
+   logits with the padded columns masked; the first and last layer's
+   attention launches against the plain version on their inputs (as phase
+   10), the kernel at that shape timed against the plain version and SDPA
+   with its bound; ms a forward, tokens/s, peak memory.  MoE: capacity C,
+   the share of (token, expert) assignments dropped a layer, two
+   forwards' logits bit-equal.  hubert: 4 layers on float32 weights, the
+   float32 kernel (4 launches) against ``"chunked"`` to 1e-3.  Serving
+   (all but hubert): 4 prompts of 480 tokens (llava: 1152 patches + 384
+   tokens) + 32 greedy tokens into a 512-slot cache (llava 1568), no
+   kernel launch; the prefill's last logits against a chunked forward
+   over the prompt (0.06 abs, 0.05 rel); prefill ms, ms a decode step,
+   peak memory; the phase's seconds.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -309,6 +330,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import neighbor_interaction as ni  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.core import operations, prng  # noqa: E402
 from repro_torch.sims import cell_clustering as cc  # noqa: E402
@@ -829,11 +851,15 @@ def reset_all_launches():
 class Capture:
     """Records a copy of the inputs and the output of every call of the
     wrappers ``names`` of ``module`` while it is active (the wrappers still
-    run): ``calls[name]`` is a list of ``(args, kwargs, output)``."""
+    run): ``calls[name]`` is a list of ``(args, kwargs, output)``.  With
+    ``keep``, only the calls of those indices (0 the first) are recorded;
+    ``seen[name]`` counts every call."""
 
-    def __init__(self, module, names):
+    def __init__(self, module, names, keep=None):
         self.module = module
         self.calls = {name: [] for name in names}
+        self.seen = {name: 0 for name in names}
+        self.keep = keep
         self._orig = {}
 
     def __enter__(self):
@@ -848,9 +874,11 @@ class Capture:
 
             def rec(*args, _name=name, _fn=fn, **kw):
                 out = _fn(*args, **kw)
-                self.calls[_name].append(
-                    (copy(args), {k: copy(v) for k, v in kw.items()},
-                     copy(out)))
+                if self.keep is None or self.seen[_name] in self.keep:
+                    self.calls[_name].append(
+                        (copy(args), {k: copy(v) for k, v in kw.items()},
+                         copy(out)))
+                self.seen[_name] += 1
                 return out
 
             setattr(self.module, name, rec)
@@ -1604,32 +1632,41 @@ def _bf16_ratio(got, base, ref, vocab):
             float(d_base.max()))
 
 
-def serve(model, params, prompt, cache):
-    """Greedy serving: prefill ``prompt`` into ``cache``, then
-    ``SERVE_NEW`` decode steps.  Returns the logits of the prefill's last
-    position and of every step ``(B, SERVE_NEW + 1, V)``, the prompt with
-    the generated tokens, the prefill's ms and the ms a decode step (CUDA
-    events)."""
+def serve_batch(model, params, prompt, cache, pos0: int, n_new: int):
+    """Greedy serving: prefill the inputs ``prompt`` (``pos0`` positions)
+    into ``cache``, then ``n_new`` decode steps.  Returns the logits of the
+    prefill's last position and of every step ``(B, n_new + 1, V)``, the
+    generated tokens ``(B, n_new)``, the prefill's ms and the ms a decode
+    step (CUDA events)."""
     prefill = lm_steps.make_prefill_step(model)
     decode = lm_steps.make_serve_decode_step(model)
     start, mid, end = (torch.cuda.Event(enable_timing=True)
                        for _ in range(3))
     start.record()
-    logits, cache = prefill(params, {"tokens": prompt}, cache)
+    logits, cache = prefill(params, prompt, cache)
     mid.record()
     rows, gen_tok = [logits[:, -1]], []
-    for t in range(SERVE_NEW):
+    for t in range(n_new):
         nxt = torch.argmax(rows[-1], dim=-1).to(torch.int32)[:, None]
         gen_tok.append(nxt)
-        logits, cache = decode(params, cache, nxt, prompt.shape[1] + t)
+        logits, cache = decode(params, cache, nxt, pos0 + t)
         rows.append(logits[:, -1])
     end.record()
     end.synchronize()
-    seq = torch.cat([prompt] + gen_tok, dim=1)
+    return (torch.stack(rows, dim=1), torch.cat(gen_tok, dim=1),
+            start.elapsed_time(mid), mid.elapsed_time(end) / n_new)
+
+
+def serve(model, params, prompt, cache):
+    """Phase 10's serving: ``SERVE_NEW`` greedy tokens after ``prompt``;
+    returns :func:`serve_batch`'s logits, the prompt with the generated
+    tokens, and its two times."""
+    rows, gen_tok, prefill_ms, decode_ms = serve_batch(
+        model, params, {"tokens": prompt}, cache, prompt.shape[1], SERVE_NEW)
+    seq = torch.cat([prompt, gen_tok], dim=1)
     if seq.shape[1] != SERVE_MAX:
         fail(f"serving: {seq.shape[1]} tokens, not {SERVE_MAX}")
-    return (torch.stack(rows, dim=1), seq, start.elapsed_time(mid),
-            mid.elapsed_time(end) / SERVE_NEW)
+    return rows, seq, prefill_ms, decode_ms
 
 
 def phase_lm(seed: int):
@@ -4587,9 +4624,9 @@ def run_example(name: str, **kw):
 
 
 def phase_examples():
-    """Phase 21: ``quickstart`` and ``supervised_run --device-loss``
-    through their ``main``s at the reference's sizes (each raises on a
-    failed assertion of its own)."""
+    """Phase 21: ``quickstart``, ``supervised_run --device-loss`` and
+    ``serve_lm`` through their ``main``s at the reference's sizes (each
+    raises on a failed assertion of its own)."""
     quick, q = run_example("quickstart")
     if quick["n_agents"] != 400 or quick["dropped"]:
         fail(f"quickstart: {quick}")
@@ -4597,8 +4634,360 @@ def phase_examples():
     if sup["n_devices"] != 2 or sup["n_agents"] != 400:
         fail(f"supervised_run --device-loss: {sup['n_devices']} devices, "
              f"{sup['n_agents']} agents")
+    lm, lm_stats = run_example("serve_lm")
+    if lm["cache_shape"] != (2, 4, 40, 24) or len(lm["tokens"]) != 4 or any(
+            len(t) != 16 for t in lm["tokens"]):
+        fail(f"serve_lm: cache {lm['cache_shape']}, tokens {lm['tokens']}")
     return {"quickstart": q, "supervised_run --device-loss": dict(
-        s, recover_s=sup["recoveries"])}
+        s, recover_s=sup["recoveries"]), "serve_lm": lm_stats}
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the transformer-block families of the LM stack
+# ---------------------------------------------------------------------------
+
+# (config, layers run at full width): None is full depth.  The two MoE
+# configs are cut to fit one 80 GB card, each cut printed with the sizes
+# that force it (phase_families).
+FAMILIES = (("minicpm-2b", None), ("minicpm3-4b", None),
+            ("qwen3-moe-235b-a22b", 8), ("phi3.5-moe-42b-a6.6b", 16),
+            ("llava-next-mistral-7b", None), ("hubert-xlarge", None))
+# serving: 4 prompts of 480 tokens + 32 greedy tokens into a 512-slot
+# cache (sdpa_chunked needs Skv a multiple of its 512-key chunk, and an
+# MLA prefill attends over the whole cache); llava: its 1152 patches and
+# 384 tokens, a 1568-slot cache
+FAM_PROMPT, FAM_NEW, FAM_MAX = 480, 32, 512
+VLM_PROMPT, VLM_MAX = 384, 1568
+# the reference's prefill-vs-forward tolerance (tests/test_archs_smoke.py)
+SERVE_ATOL, SERVE_RTOL = 0.06, 0.05
+HUBERT_F32_LAYERS = 4   # the float32 cross-path check's depth
+
+
+def family_batch(cfg, gen):
+    """Scoring inputs of ``LM_BATCH`` x ``LM_SEQ`` positions: tokens, a
+    vlm's patch embeddings before its tokens, or an encoder's frames, and
+    the labels (a vlm's over its text span)."""
+    b, s = LM_BATCH, LM_SEQ
+    if cfg.family == "audio":
+        return {"frames": _randn(gen, (b, s, cfg.frontend_dim),
+                                 torch.bfloat16),
+                "labels": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                        device="cuda", dtype=torch.int32)}
+    tok = torch.randint(0, cfg.vocab, (b, s - cfg.n_patches + 1),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    if cfg.family == "vlm":
+        batch["patches"] = _randn(gen, (b, cfg.n_patches, cfg.frontend_dim),
+                                  torch.bfloat16)
+    return batch
+
+
+def attention_row(q, k, v, causal: bool):
+    """The attention kernel on one recorded launch's inputs: its ms, the
+    plain version's, SDPA's on the same heads, and the bound of the
+    launch's true head dims (the pairs its mask keeps)."""
+    import torch.nn.functional as F
+
+    bh, sq, hd = q.shape
+    skv, hdv = v.shape[1], v.shape[2]
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 10)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
+        q, k, v, causal=causal), 3)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[None], k[None], v[None], is_causal=causal), 10)
+    b_ms, b_by, nbytes, nops = attention_bound(bh, sq, skv, hd, hdv, causal,
+                                               q.dtype)
+    return dict(shape=[bh, sq, hd], causal=causal, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, ops=nops,
+                kernel=fa.kernel_for(q.dtype, fa.built_head_dim(hd),
+                                     fa.built_head_dim(hdv)))
+
+
+def family_scoring(name, model, params, cfg, batch):
+    """Scoring: a counted, timed ``loss_fn`` forward; the attention
+    launches of the first and last layer against the plain version; the
+    kernel at this shape; a MoE model's drops and determinism."""
+    gqa = cfg.attention == "gqa"
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    lm_steps.loss_fn(model, params, batch, backend="kernel")    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss = lm_steps.loss_fn(model, params, batch, backend="kernel")
+    end.record()
+    end.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    fwd_ms = start.elapsed_time(end)
+    loss = float(loss)
+    expected = {n: 0 for n in launches}
+    if gqa:
+        expected["flash_attention_wgmma"] = cfg.n_layers
+    if launches != expected:
+        fail(f"{name} scoring: kernel launches {launches} != {expected}")
+    if not math.isfinite(loss):
+        fail(f"{name} scoring: loss {loss}")
+    tokens = LM_BATCH * LM_SEQ
+    row = dict(layers=cfg.n_layers, score_ms=fwd_ms,
+               score_tokens_per_s=tokens / (fwd_ms / 1e3), loss=loss,
+               score_peak_bytes=peak, score_launches=launches)
+    print(f"[families] {name} scoring {LM_BATCH}x{LM_SEQ} ({cfg.n_layers} "
+          f"layers): loss {loss:.6f} (ln vocab {math.log(cfg.vocab):.6f}); "
+          f"{fwd_ms:.3f} ms a forward + loss (CUDA events), "
+          f"{row['score_tokens_per_s']:.6g} tokens/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; attention "
+          + (f"on the kernel, launches "
+             f"{ {k: n for k, n in launches.items() if n} }" if gqa else
+             "through sdpa_chunked (MLA runs no kernel, as in the "
+             "reference); no kernel launch"), flush=True)
+    times = profile(lambda: lm_steps.loss_fn(model, params, batch,
+                                             backend="kernel"),
+                    "families profile", f"{name}: one scoring forward + loss")
+    if times:
+        total = sum(times.values())
+        attn = sum(us for k, us in times.items()
+                   if "flash_wgmma_kernel" in k or "flash_attention_kernel"
+                   in k)
+        row["profile"] = dict(
+            device_ms=total / 1e3, attention_share=attn / total,
+            top={k[:90]: us / 1e3 for k, us in sorted(
+                times.items(), key=lambda kv: -kv[1])[:5]})
+        print(f"[families profile] {name}: attention kernel "
+              f"{attn / 1e3:.3f} ms = {100 * attn / total:.1f}% of the "
+              f"forward's {total / 1e3:.3f} ms of device time", flush=True)
+
+    last = cfg.n_layers - 1
+    with Capture(fa, ["flash_attention"], keep=(0, last)) as cap:
+        logits = model.logits(params, inputs, backend="kernel")
+    if gqa:
+        calls = cap.calls["flash_attention"]
+        if cap.seen["flash_attention"] != cfg.n_layers or len(calls) != 2:
+            fail(f"{name}: {cap.seen['flash_attention']} attention calls in "
+                 f"a forward, not {cfg.n_layers}")
+        row["launch_vs_plain"] = max(
+            _attn_err(got, fa.flash_attention_plain(*qkv, **kw),
+                      f"{name} attention launch of layer {i}")
+            for i, (qkv, kw, got) in zip((0, last), calls))
+        (q, k, v), kw, _ = calls[0]
+        del calls, cap
+        row["kernel_row"] = attention_row(q, k, v, kw["causal"])
+        r = row["kernel_row"]
+        print(f"[families] {name} attention launches of layers 0 and {last} "
+              f"vs the plain version on their inputs: max abs diff "
+              f"{row['launch_vs_plain']:.4g} (one bf16 ulp + "
+              f"{ATTN_BF16_ATOL}); {r['kernel']} at {tuple(r['shape'])} "
+              f"{'causal' if r['causal'] else 'full'}: kernel_ms="
+              f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
+              f"{r['library_ms']:.4f} (scaled_dot_product_attention) "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}; {r['bytes']} "
+              f"B, {r['ops']} ops)", flush=True)
+        del q, k, v
+    elif cap.seen["flash_attention"]:
+        fail(f"{name}: MLA called the attention kernel")
+    v = cfg.vocab
+    finite = bool(torch.isfinite(logits[..., :v]).all())
+    masked = (float(logits[..., v:].float().max())
+              if cfg.padded_vocab > v else -math.inf)
+    if logits.shape != (LM_BATCH, LM_SEQ, cfg.padded_vocab) or not finite \
+            or masked > -1e29:
+        fail(f"{name} scoring: logits {tuple(logits.shape)}, finite "
+             f"{finite}, padded columns up to {masked}")
+
+    if cfg.moe is not None:
+        shares = []
+        apply = moe_mod.moe_apply
+
+        def recorded(p, c, x):
+            shares.append(moe_mod.dropped_share(p, c, x))
+            return apply(p, c, x)
+
+        moe_mod.moe_apply = recorded
+        try:
+            again = model.logits(params, inputs, backend="kernel")
+        finally:
+            moe_mod.moe_apply = apply
+        if not torch.equal(again, logits):
+            fail(f"{name}: two forwards differ (max "
+                 f"{float((again.float() - logits.float()).abs().max())}): "
+                 "the MoE combine must be deterministic")
+        c = moe_mod.capacity(cfg, LM_SEQ)
+        row["moe"] = dict(capacity=c, dropped_share_by_layer=shares)
+        print(f"[families] {name}: capacity C = {c} of {LM_SEQ} tokens a "
+              f"group ({cfg.moe.n_experts} experts, top {cfg.moe.top_k}, "
+              f"factor {cfg.moe.capacity_factor}); (token, expert) "
+              f"assignments dropped by capacity, by layer: "
+              f"{[round(x, 6) for x in shares]} (mean "
+              f"{sum(shares) / len(shares):.6f}); two forwards' logits "
+              "bit-equal", flush=True)
+        del again
+    del logits
+    return row
+
+
+def hubert_f32(params, cfg, frames):
+    """hubert's first ``HUBERT_F32_LAYERS`` layers on float32 copies of
+    the weights: the ``"kernel"`` backend (the float32 kernel, non-causal,
+    head dim 80 zero-padded to 128) against ``"chunked"``."""
+    n = HUBERT_F32_LAYERS
+    model = build_model(dataclasses.replace(cfg, n_layers=n))
+    p32 = {k: P.tree_map((lambda a: a[:n].float()) if k == "blocks"
+                         else (lambda a: a.float()), sub)
+           for k, sub in params.items()}
+    x = {"frames": frames.float()}
+    reset_all_launches()
+    kern = model.logits(p32, x, backend="kernel")
+    torch.cuda.synchronize()
+    launches = all_launches()
+    expected = {k: 0 for k in launches}
+    expected["flash_attention"] = n
+    if launches != expected:
+        fail(f"hubert float32: kernel launches {launches} != {expected}")
+    err = _lm_close(kern, model.logits(p32, x, backend="chunked"),
+                    "hubert float32: kernel vs chunked", LM_F32_TOL,
+                    LM_F32_TOL, cfg.vocab)
+    print(f"[families] hubert-xlarge float32, {n} layers: logits kernel vs "
+          f"chunked backend max abs diff {err:.4g} (limit {LM_F32_TOL} abs "
+          f"and rel); launches { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    return dict(layers=n, kernel_vs_chunked=err, launches=launches)
+
+
+def family_serving(name, model, params, cfg, batch):
+    """Greedy serving: a prompt's prefill into the cache, ``FAM_NEW``
+    decode steps; the prefill's last logits against a chunked forward over
+    the prompt (the reference's tolerance)."""
+    vlm = cfg.family == "vlm"
+    n_tok, max_len = (VLM_PROMPT, VLM_MAX) if vlm else (FAM_PROMPT, FAM_MAX)
+    prompt = {"tokens": batch["tokens"][:, :n_tok]}
+    if vlm:
+        prompt["patches"] = batch["patches"]
+    pos0 = n_tok + cfg.n_patches
+    if pos0 + FAM_NEW != max_len:
+        fail(f"{name} serving: {pos0} + {FAM_NEW} positions, cache {max_len}")
+    cache = model.init_cache(LM_BATCH, max_len, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    rows, gen_tok, prefill_ms, decode_ms = serve_batch(
+        model, params, prompt, cache, pos0, FAM_NEW)
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        fail(f"{name} serving: launched {launches}; prefill and decode run "
+             "the plain attention paths")
+    v = cfg.vocab
+    if not bool(torch.isfinite(rows[..., :v]).all()):
+        fail(f"{name} serving: logits not finite")
+    decode = lm_steps.make_serve_decode_step(model)
+    times = profile(lambda: decode(params, cache, gen_tok[:, -1:],
+                                   max_len - 1),
+                    "families profile",
+                    f"{name}: one more decode step (the last again)")
+    device_ms = sum(times.values()) / 1e3 if times else None
+    fwd = model.logits(params, prompt, backend="chunked")[:, -1:]
+    err = _lm_close(rows[:, :1], fwd, f"{name} serving: prefill vs chunked "
+                    "forward (bf16)", SERVE_ATOL, SERVE_RTOL, v)
+    del fwd
+    out = dict(prefill_ms=prefill_ms, decode_step_ms=decode_ms,
+               decode_tokens_per_s=LM_BATCH / (decode_ms / 1e3),
+               serve_peak_bytes=peak, prefill_vs_forward=err, cache=max_len,
+               decode_step_device_ms=device_ms)
+    if device_ms is not None:
+        print(f"[families profile] {name}: a decode step {device_ms:.3f} ms "
+              f"of device kernels in {decode_ms:.3f} ms: the card idles "
+              f"{100 * (1 - device_ms / decode_ms):.1f}% of it", flush=True)
+    note = ""
+    if not vlm:   # the 512 served positions tile sdpa_chunked's chunk
+        seq = torch.cat([prompt["tokens"], gen_tok], dim=1)
+        fwd = model.logits(params, {"tokens": seq},
+                           backend="chunked")[:, pos0 - 1:]
+        out["decode_vs_forward"] = float(
+            (rows[..., :v].float() - fwd[..., :v].float()).abs().max())
+        out["greedy_agrees"] = float(
+            (rows[:, :-1, :v].argmax(-1) == fwd[:, :-1, :v].argmax(-1))
+            .float().mean())
+        note = (f"; reported: max |serving - chunked forward over the "
+                f"{max_len} tokens| {out['decode_vs_forward']:.4g}, greedy "
+                f"tokens equal to the forward's argmax "
+                f"{100 * out['greedy_agrees']:.1f}%")
+        del fwd
+    print(f"[families] {name} serving {LM_BATCH} x {pos0}-position prompts, "
+          f"{FAM_NEW} greedy tokens, cache {max_len}: prefill "
+          f"{prefill_ms:.3f} ms, {decode_ms:.3f} ms a decode step, "
+          f"{out['decode_tokens_per_s']:.6g} decode tokens/s; peak device "
+          f"memory {peak / 2**30:.2f} GiB; prefill's last logits vs a chunked "
+          f"forward over the prompt: max abs diff {err:.4g} (limit "
+          f"{SERVE_ATOL} abs, {SERVE_RTOL} rel){note}", flush=True)
+    return out
+
+
+def family_run(name: str, layers, seed: int, card: str):
+    full = get_config(name).full
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    model = build_model(cfg)
+    per_layer = P.count_params(build_model(dataclasses.replace(
+        full, n_layers=1)).spec["blocks"])
+    n_params = P.count_params(model.spec)
+    rest = n_params - cfg.n_layers * per_layer
+    cut = None
+    if layers is not None:
+        cut = (f"{layers} of {full.n_layers} layers: one layer holds "
+               f"{per_layer:.4g} parameters ({2 * per_layer / 1e9:.2f} GB in "
+               f"bf16) and the embedding, head and norms {rest:.4g} "
+               f"({2 * rest / 1e9:.2f} GB); all {full.n_layers} layers would "
+               f"need {2 * (full.n_layers * per_layer + rest) / 1e9:.1f} GB "
+               f"of the card's 80, {layers} need "
+               f"{2 * n_params / 1e9:.1f} GB and leave the rest to scoring's "
+               f"activations and logits")
+        print(f"[families] {name}: depth cut to {cut}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    model.load_params(P.init(model.spec, gen, device="cuda"))
+    params = model.params
+    torch.cuda.synchronize()
+    print(f"[families] {name} ({cfg.family}, {cfg.attention}): "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"({cfg.n_kv_heads} KV) of {cfg.hd}, vocab {cfg.padded_vocab}; "
+          f"{n_params} parameters in bf16 from params.init: "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    batch = family_batch(cfg, gen)
+    with torch.no_grad():
+        row = family_scoring(name, model, params, cfg, batch)
+        row.update(depth_cut=cut, card=card, parameters=n_params)
+        if cfg.family == "audio":
+            row["f32"] = hubert_f32(params, cfg, batch["frames"])
+        else:
+            row.update(family_serving(name, model, params, cfg, batch))
+    print(f"[families] {name} on {card}: scoring {row['score_ms']:.3f} ms, "
+          f"{row['score_tokens_per_s']:.6g} tokens/s, peak "
+          f"{row['score_peak_bytes'] / 2**30:.2f} GiB; "
+          + (f"prefill {row['prefill_ms']:.3f} ms, decode "
+             f"{row['decode_step_ms']:.3f} ms a step, peak "
+             f"{row['serve_peak_bytes'] / 2**30:.2f} GiB; "
+             if "prefill_ms" in row else "no serving (an encoder); ")
+          + f"depth {cfg.n_layers} of {full.n_layers}", flush=True)
+    return row
+
+
+def phase_families(seed: int):
+    """Phase 22: minicpm-2b, minicpm3-4b (MLA), qwen3-moe and phi3.5-moe
+    (MoE), llava (vlm) and hubert (audio) at full width, scoring and
+    (but hubert) serving."""
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {}
+    for name, layers in FAMILIES:
+        out[name] = family_run(name, layers, seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[families] phase 22: {out['seconds']:.1f}s", flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -4698,6 +5087,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     examples = phase_examples()
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = phase_families(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     # phase 16: each rank's launches of the process mesh's driven run
@@ -4791,13 +5183,23 @@ def main(argv=None) -> int:
          "source": FLASH_SOURCE,
          "replaces": "src/repro/kernels/flash_attention.py:75",
          "launches": lm["score_launches"]["flash_attention_wgmma"]},
-        **flash["rows"]["flash_attention_wgmma"], lm_path=lm))
+        **flash["rows"]["flash_attention_wgmma"], lm_path=lm,
+        # phase 22: each config's scoring forward, counted alone
+        families_path=dict(
+            {name: dict(r, launches=r["score_launches"][
+                "flash_attention_wgmma"]) for name, r in families.items()
+             if name != "seconds"}, seconds=families["seconds"])))
     kernels.append(dict(
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
          "replaces": "src/repro/kernels/flash_attention.py:75",
          # the scoring forward on float32 copies of the weights
          "launches": lm["f32_launches"]["flash_attention"]},
-        **flash["rows"]["flash_attention"]))
+        **flash["rows"]["flash_attention"],
+        # phase 22: hubert's float32 forward at reduced depth
+        families_path={"hubert-xlarge": dict(
+            families["hubert-xlarge"]["f32"],
+            launches=families["hubert-xlarge"]["f32"]["launches"][
+                "flash_attention"])}))
     for law in (ENS_STACK, ENS_LAW5):
         launched = ensembles["one_device"]["launches"].get(law, 0)
         kernels.append(dict(

@@ -1,5 +1,5 @@
 """GQA attention: the chunked online softmax, decode, and the projections
-with rope and the KV cache (port of ``repro/models/attention.py``).
+with rope and the KV cache; and MLA (port of ``repro/models/attention.py``).
 
 Two execution paths share one math definition:
 
@@ -13,7 +13,8 @@ casts mirror the reference's, on which bfloat16 parity depends: ``q`` is
 scaled in its own type, scores are float32 after a product in the input
 type, and ``p`` is cast to ``v``'s type before the PV product.  The
 reference's ``constrain`` calls are sharding hints, a no-op on one device,
-and have no counterpart here.  MLA comes with ROADMAP A12.
+and have no counterpart here.  MLA (:func:`mla_apply`) runs on the plain
+paths only, as in the reference.
 """
 
 from __future__ import annotations
@@ -171,11 +172,95 @@ def gqa_apply(
     return y, new_cache
 
 
+# ---------------------------------------------------------------------------
+# MLA: Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
 def mla_spec(cfg: ArchConfig):
-    raise NotImplementedError(
-        "MLA attention is not ported yet (ROADMAP A12)")
+    d, h = cfg.d_model, cfg.n_heads
+    m = cfg.mla
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_down": ParamSpec((d, m.q_lora_rank), ("embed", "lora")),
+        "wq_up": ParamSpec((m.q_lora_rank, h, qk_hd),
+                           ("lora", "heads", "head_dim")),
+        "wkv_down": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                              ("embed", "lora")),
+        "wk_up": ParamSpec((m.kv_lora_rank, h, m.qk_nope_head_dim),
+                           ("lora", "heads", "head_dim")),
+        "wv_up": ParamSpec((m.kv_lora_rank, h, m.v_head_dim),
+                           ("lora", "heads", "head_dim")),
+        "wo": ParamSpec((h, m.v_head_dim, d), ("heads", "head_dim", "embed")),
+    }
 
 
-def mla_apply(*args, **kwargs):
-    raise NotImplementedError(
-        "MLA attention is not ported yet (ROADMAP A12)")
+def mla_apply(
+    params,
+    cfg: ArchConfig,
+    x: Tensor,                              # (B, S, D)
+    positions: Tensor,
+    cache: Optional[Tensor] = None,         # latent cache (B, T, r + rope)
+    cache_index: Optional[int] = None,
+    length_mask: Optional[Tensor] = None,   # (B, T) for decode
+    backend: str = "chunked",
+    chunk: int = 512,
+):
+    """MLA: the cache holds only the compressed latent and the rope keys,
+    written in place, up-projected per use.  Returns ``(y, cache)``.
+
+    With a cache, one query token (``s == 1``) takes the absorbed decode:
+    ``wk_up`` folded into the query and ``wv_up`` into the output, so the
+    scores and the context are taken against the latent cache itself.
+    Everything else up-projects K and V and runs ``sdpa_chunked`` (a
+    prefill attends over the whole cache, causally); as in the reference,
+    ``backend`` selects nothing here: no kernel runs MLA."""
+    if backend not in BACKENDS:
+        raise ValueError(f"attention backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    r = m.kv_lora_rank
+
+    cq = mm("bsd,dr->bsr", x, params["wq_down"])
+    q = mm("bsr,rhk->bhsk", cq, params["wq_up"])
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    ckv = mm("bsd,dr->bsr", x, params["wkv_down"])          # (B, S, r+rope)
+    latent, k_rope_flat = ckv[..., :r], ckv[..., r:]
+    k_rope = rope(k_rope_flat[:, None], positions, cfg.rope_theta)
+
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    if cache is not None:
+        packed = torch.cat([latent, k_rope[:, 0]], dim=-1)  # (B, S, r+rope)
+        cache[:, cache_index:cache_index + s] = packed.to(cache.dtype)
+        latent_all = cache[..., :r].to(x.dtype)
+        k_rope_all = cache[:, None, :, r:].to(x.dtype)
+    else:
+        latent_all, k_rope_all = latent, k_rope
+    t = latent_all.shape[1]
+
+    if s == 1 and cache is not None:
+        # the absorbed decode: K and V are never materialized
+        q_abs = mm("bhsk,rhk->bhsr", q_nope, params["wk_up"])
+        s_nope = mm("bhsr,btr->bhst", q_abs, latent_all)
+        s_rope = mm("bhsk,btk->bhst", q_rope, k_rope_all[:, 0])
+        logits = (s_nope + s_rope).float() * scale
+        lm = length_mask if length_mask is not None else torch.ones(
+            (b, t), dtype=torch.bool, device=x.device)
+        logits = logits.masked_fill(~lm[:, None, None, :], NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        ctx = mm("bhst,btr->bhsr", probs, latent_all)
+        out = mm("bhsr,rhk->bhsk", ctx, params["wv_up"])
+        return mm("bhsk,hkd->bsd", out, params["wo"]), cache
+
+    k_nope = mm("btr,rhk->bhtk", latent_all, params["wk_up"])
+    vv = mm("btr,rhk->bhtk", latent_all, params["wv_up"])
+    k_full = torch.cat([k_nope, k_rope_all.expand(b, h, t,
+                                                  m.qk_rope_head_dim)],
+                       dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = sdpa_chunked(q_full, k_full, vv, cfg.causal, chunk=chunk,
+                       scale=scale)
+    return mm("bhsk,hkd->bsd", out, params["wo"]), cache

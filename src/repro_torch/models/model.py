@@ -1,11 +1,18 @@
-"""Model assembly (port of ``repro/models/model.py``): the dense family.
+"""Model assembly (port of ``repro/models/model.py``): the families of the
+transformer block.
 
-dense - [GQA attention + SwiGLU MLP] x L, the L layers' parameters stacked
-along a leading axis as in the reference, applied by a Python loop (the
-reference's ``lax.scan``; without autograd there is no remat to choose).
+  dense - [GQA|MLA attention + SwiGLU MLP] x L
+  moe   - [GQA attention + MoE FFN] x L (``models/moe.py``)
+  audio - hubert: an encoder, bidirectional attention + GeLU MLP over
+          precomputed frame embeddings (the conv frontend is a stub, as in
+          the reference); no cache
+  vlm   - llava: a Mistral decoder over [projected patch embeddings ++
+          tokens] (the vision tower is a stub, as in the reference)
 
-The other families (moe, ssm, hybrid, audio, vlm) and MLA raise
-``NotImplementedError`` (ROADMAP A12).
+The L layers' parameters are stacked along a leading axis as in the
+reference and applied by a Python loop (the reference's ``lax.scan``;
+without autograd there is no remat to choose).  The ssm (xLSTM) and hybrid
+(zamba2) families raise ``NotImplementedError`` (ROADMAP A12).
 
 The parameter tree is a nested dict of tensors keyed as the reference's
 (``embed.w``, ``blocks.attn.wq``, ``blocks.ln1.scale``, ...).  ``Model`` is
@@ -17,7 +24,7 @@ nothing.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict
 
 import torch
 from torch import nn
@@ -25,24 +32,22 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import NORM_FNS, NORM_SPECS, mm, swiglu, \
-    swiglu_spec
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import NORM_FNS, NORM_SPECS, gelu_mlp, \
+    gelu_mlp_spec, mm, swiglu, swiglu_spec
 from repro_torch.models.params import ParamSpec, tree_map
 
 Tensor = torch.Tensor
 
-_FAMILIES = ("dense",)
-
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A12)")
+_FAMILIES = ("dense", "moe", "audio", "vlm")
+_CACHED = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in _FAMILIES:
-        raise _unported(f"the {cfg.family!r} model family")
-    if cfg.attention != "gqa":
-        raise _unported(f"{cfg.attention!r} attention")
+        raise NotImplementedError(
+            f"the {cfg.family!r} model family is not ported yet (ROADMAP "
+            "A12)")
 
 
 def _stack_specs(spec_tree, n: int):
@@ -58,30 +63,48 @@ def _layer(tree, i: int):
 
 
 # ---------------------------------------------------------------------------
-# Decoder block (dense)
+# Decoder/encoder transformer block (dense / moe / audio / vlm)
 # ---------------------------------------------------------------------------
 
 def _block_spec(cfg: ArchConfig):
-    _check_family(cfg)
-    return {
+    spec: Dict[str, Any] = {
         "ln1": NORM_SPECS[cfg.norm](cfg.d_model),
         "ln2": NORM_SPECS[cfg.norm](cfg.d_model),
-        "attn": attn_mod.gqa_spec(cfg),
-        "ffn": swiglu_spec(cfg.d_model, cfg.d_ff),
     }
+    if cfg.attention == "gqa":
+        spec["attn"] = attn_mod.gqa_spec(cfg)
+    elif cfg.attention == "mla":
+        spec["attn"] = attn_mod.mla_spec(cfg)
+    if cfg.moe is not None:
+        spec["ffn"] = moe_mod.moe_spec(cfg)
+    elif cfg.family == "audio":
+        spec["ffn"] = gelu_mlp_spec(cfg.d_model, cfg.d_ff)
+    else:
+        spec["ffn"] = swiglu_spec(cfg.d_model, cfg.d_ff)
+    return spec
 
 
 def _block_apply(params, cfg: ArchConfig, x, positions, cache=None,
                  cache_index=None, length_mask=None, backend="chunked"):
+    """Returns ``(x, cache, aux)``: the MoE auxiliary loss, else 0."""
     norm = NORM_FNS[cfg.norm]
-    h, new_cache = attn_mod.gqa_apply(
+    attn_fn = (attn_mod.gqa_apply if cfg.attention == "gqa"
+               else attn_mod.mla_apply)
+    h, new_cache = attn_fn(
         params["attn"], cfg, norm(params["ln1"], x), positions,
         cache=cache, cache_index=cache_index, length_mask=length_mask,
         backend=backend,
     )
     x = x + h
-    f = swiglu(params["ffn"], norm(params["ln2"], x))
-    return x + f, new_cache
+    z = norm(params["ln2"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.moe is not None:
+        f, aux = moe_mod.moe_apply(params["ffn"], cfg, z)
+    elif cfg.family == "audio":
+        f = gelu_mlp(params["ffn"], z)
+    else:
+        f = swiglu(params["ffn"], z)
+    return x + f, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +112,7 @@ def _block_apply(params, cfg: ArchConfig, x, positions, cache=None,
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """The dense LM: its configuration, its spec tree and, once
+    """An LM: its configuration, its spec tree and, once
     :meth:`load_params` has run, its parameters as registered tensors.
     The forward functions take the parameter tree explicitly, as the
     reference's do."""
@@ -159,11 +182,15 @@ class Model(nn.Module):
 def build_model(cfg: ArchConfig) -> Model:
     _check_family(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
-    spec: Dict[str, Any] = {
-        "embed": {"w": ParamSpec((v, d), ("vocab", "embed"))},
-        "blocks": _stack_specs(_block_spec(cfg), cfg.n_layers),
-        "ln_f": NORM_SPECS[cfg.norm](d),
-    }
+    frontend = {"w": ParamSpec((cfg.frontend_dim, d), ("frontend", "embed"))}
+    spec: Dict[str, Any] = {}
+    if cfg.family == "audio":
+        spec["frontend"] = frontend
+    spec["embed"] = {"w": ParamSpec((v, d), ("vocab", "embed"))}
+    if cfg.family == "vlm":
+        spec["frontend"] = frontend
+    spec["blocks"] = _stack_specs(_block_spec(cfg), cfg.n_layers)
+    spec["ln_f"] = NORM_SPECS[cfg.norm](d)
     if not cfg.tie_embeddings:
         spec["head"] = {"w": ParamSpec((d, v), ("embed", "vocab"))}
     return Model(cfg=cfg, spec=spec)
@@ -174,10 +201,14 @@ def build_model(cfg: ArchConfig) -> Model:
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(params, cfg: ArchConfig, batch) -> Tensor:
-    if "tokens" not in batch or set(batch) - {"tokens", "labels",
-                                              "loss_mask"}:
-        raise _unported("non-token model inputs (frames, patches)")
-    return params["embed"]["w"][batch["tokens"].long()]
+    if cfg.family == "audio":
+        return mm("bsf,fd->bsd", batch["frames"], params["frontend"]["w"])
+    x = params["embed"]["w"][batch["tokens"].long()]
+    if cfg.family == "vlm":
+        p = mm("bnf,fd->bnd", batch["patches"], params["frontend"]["w"])
+        t = torch.promote_types(p.dtype, x.dtype)
+        x = torch.cat([p.to(t), x.to(t)], dim=1)
+    return x
 
 
 def _head(params, cfg: ArchConfig, x: Tensor) -> Tensor:
@@ -193,7 +224,7 @@ def _head(params, cfg: ArchConfig, x: Tensor) -> Tensor:
 
 
 def _n_layers(params) -> int:
-    return params["blocks"]["attn"]["wq"].shape[0]
+    return params["blocks"]["attn"]["wo"].shape[0]
 
 
 def _forward(params, cfg: ArchConfig, batch, backend: str) -> Tensor:
@@ -201,8 +232,8 @@ def _forward(params, cfg: ArchConfig, batch, backend: str) -> Tensor:
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(_n_layers(params)):
-        x, _ = _block_apply(_layer(params["blocks"], i), cfg, x,
-                            positions, backend=backend)
+        x, _, _ = _block_apply(_layer(params["blocks"], i), cfg, x,
+                               positions, backend=backend)
     return _head(params, cfg, x)
 
 
@@ -211,21 +242,36 @@ def _forward(params, cfg: ArchConfig, batch, backend: str) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def _init_cache(cfg: ArchConfig, batch: int, max_len: int,
-                device: DeviceLike = "cuda") -> Tuple[Tensor, Tensor]:
-    """The bfloat16 ``(L, B, Hkv, T, hd)`` key and value caches."""
+                device: DeviceLike = "cuda"):
+    """bfloat16: GQA's ``(L, B, Hkv, T, hd)`` key and value caches, or
+    MLA's latent cache ``(L, B, T, kv_lora_rank + qk_rope_head_dim)``.
+    An encoder (audio) has none and raises ``ValueError``, as the
+    reference does."""
     _check_family(cfg)
+    if cfg.family not in _CACHED:
+        raise ValueError(f"no cache for family {cfg.family}")
     dev = resolve_device(device)
+    if cfg.attention == "mla":
+        m = cfg.mla
+        return torch.zeros((cfg.n_layers, batch, max_len,
+                            m.kv_lora_rank + m.qk_rope_head_dim),
+                           dtype=torch.bfloat16, device=dev)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
     return (torch.zeros(shape, dtype=torch.bfloat16, device=dev),
             torch.zeros(shape, dtype=torch.bfloat16, device=dev))
 
 
+def _layer_cache(cfg: ArchConfig, cache, i: int):
+    if cfg.attention == "mla":
+        return cache[i]
+    return cache[0][i], cache[1][i]
+
+
 def _run_cached(params, cfg, x, positions, cache, index, length_mask):
-    ck, cv = cache
     for i in range(_n_layers(params)):
-        x, _ = _block_apply(_layer(params["blocks"], i), cfg, x,
-                            positions, cache=(ck[i], cv[i]),
-                            cache_index=index, length_mask=length_mask)
+        x, _, _ = _block_apply(_layer(params["blocks"], i), cfg, x,
+                               positions, cache=_layer_cache(cfg, cache, i),
+                               cache_index=index, length_mask=length_mask)
     return x
 
 
@@ -242,9 +288,10 @@ def _prefill(params, cfg: ArchConfig, batch, cache):
 def _decode(params, cfg: ArchConfig, tokens, cache, index: int,
             length_mask):
     """One autoregressive step.  tokens: (B, 1); index: the write offset.
-    The cache is updated in place."""
+    The cache is updated in place.  A vlm's decode embeds the tokens only
+    (the patches were the prefill's prefix)."""
     _check_family(cfg)
-    x = _embed_inputs(params, cfg, {"tokens": tokens})
+    x = params["embed"]["w"][tokens.long()]
     positions = torch.full((1,), index, device=x.device)
     x = _run_cached(params, cfg, x, positions, cache, index, length_mask)
     return _head(params, cfg, x), cache

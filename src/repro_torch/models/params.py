@@ -48,14 +48,25 @@ def tree_leaves(tree):
     return [tree]
 
 
+_WHOLE_DRAW = 2 ** 30    # elements: a larger leaf is drawn a slice at a time
+
+
 def init(spec_tree, generator: torch.Generator,
          device: DeviceLike = "cuda"):
     """Tensors for every spec of ``spec_tree`` on ``device``, drawn from
     ``generator`` (which must live on that device) leaf by leaf in the
     tree's order: normal draws in float32 times the scale, then cast, as
-    the reference does.  The numbers differ from ``jax.random``'s: tests
-    carry the reference's weights through ``repro_torch.bridge``."""
+    the reference does.  A leaf of more than ``2**30`` elements (a stack of
+    a MoE model's expert weights) is drawn one slice of its leading axis
+    at a time, so the float32 draw never holds the whole leaf.  The numbers
+    differ from ``jax.random``'s: tests carry the reference's weights
+    through ``repro_torch.bridge``."""
     dev = resolve_device(device)
+
+    def draw(shape, scale, dtype):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return (w * scale).to(dtype)
 
     def one(s: ParamSpec):
         if s.init == "zeros":
@@ -64,9 +75,12 @@ def init(spec_tree, generator: torch.Generator,
             return torch.ones(s.shape, dtype=s.dtype, device=dev)
         fan_in = s.shape[0] if len(s.shape) > 1 else max(s.shape[-1], 1)
         scale = s.scale if s.init == "normal" else 1.0 / math.sqrt(fan_in)
-        w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
-                        device=dev)
-        return (w * scale).to(s.dtype)
+        if math.prod(s.shape) <= _WHOLE_DRAW:
+            return draw(s.shape, scale, s.dtype)
+        out = torch.empty(s.shape, dtype=s.dtype, device=dev)
+        for i in range(s.shape[0]):
+            out[i] = draw(s.shape[1:], scale, s.dtype)
+        return out
 
     return tree_map(one, spec_tree)
 

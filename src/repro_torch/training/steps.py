@@ -32,7 +32,11 @@ def cross_entropy(logits: Tensor, labels: Tensor,
 
 def loss_fn(model: Model, params, batch: Dict[str, Tensor],
             backend: str = "chunked") -> Tensor:
+    cfg = model.cfg
     logits = model.logits(params, batch, backend=backend)
+    if cfg.family == "vlm":
+        # loss only on the text span (logits cover patches ++ text)
+        logits = logits[:, cfg.n_patches:]
     return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
 
 
@@ -51,11 +55,14 @@ def make_serve_decode_step(model: Model):
 
 
 def _cache_len(cfg: ArchConfig, cache) -> int:
-    if cfg.family == "dense" and cfg.attention == "gqa":
+    if cfg.family in ("dense", "moe", "vlm"):
+        if cfg.attention == "mla":
+            return cache.shape[2]
         return cache[0].shape[3]
-    raise NotImplementedError(
-        f"the {cfg.family!r}/{cfg.attention!r} cache is not ported yet "
-        "(ROADMAP A12)")
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"the {cfg.family!r} cache is not ported yet (ROADMAP A12)")
+    raise ValueError(cfg.family)
 
 
 def make_prefill_step(model: Model):

@@ -1,5 +1,6 @@
-"""The eight ABM examples of the port (``examples_torch/``) on the CPU at
-small sizes, each through its ``main(...)``.
+"""The eight ABM examples of the port (``examples_torch/``) and
+``serve_lm`` (minicpm3-4b's smoke size, MLA) on the CPU at small sizes,
+each through its ``main(...)``.
 
 ``quickstart``, ``sir_mechanics_demo`` and ``epidemic_distributed`` are
 held against the JAX package's facade run at the same size and seed:
@@ -149,6 +150,7 @@ def test_supervised_run_degrades_onto_two_devices():
     ("overlap_demo", dict(n_agents=300, steps=6)),
     ("param_sweep", dict(n_agents=60, steps=6, slot=4, grid_points=4,
                          rounds=1)),
+    ("serve_lm", dict(batch=2, prompt_len=8, gen_len=4)),
 ])
 def test_example_runs_on_the_cpu(name, kwargs):
     out = example(name).main(device="cpu", **kwargs)
@@ -159,6 +161,12 @@ def test_example_runs_on_the_cpu(name, kwargs):
         assert out["n_agents"] == 300
     elif name == "overlap_demo":
         assert out["applied"] >= 1 and out["n_agents"] == 300
+    elif name == "serve_lm":
+        # minicpm3-4b smoke: 2 layers, a 16 + 8-dim latent cache a token
+        assert out["cache_shape"] == (2, 2, 12, 24)
+        assert len(out["tokens"]) == 2 and all(
+            len(t) == 4 and all(0 <= v < 256 for v in t)
+            for t in out["tokens"])
     else:
         assert len(out["sweep"]) == 4 and out["batches"] >= 2
         assert out["runner_cache"]["hits"] >= 1
