@@ -290,6 +290,33 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    kernel launch; the prefill's last logits against a chunked forward
    over the prompt (0.06 abs, 0.05 rel); prefill ms, ms a decode step,
    peak memory; the phase's seconds.
+23. the ssm and hybrid families at full width and depth, random bf16
+   weights from ``params.init`` and ``--seed``: zamba2-1.2b (38 Mamba2
+   blocks: 6 groups of 6, each followed by the one shared attention
+   block, then a 2-block tail; chunk 256) and xlstm-1.3b (48 blocks: 6
+   segments of 7 mLSTM + 1 sLSTM).  Scoring: ``loss_fn`` on 4 x 2048
+   positions, backend ``"kernel"``, counted alone: 6 launches of the bf16
+   attention kernel for zamba2 (hd 64, 32 heads), none for xLSTM; a
+   finite loss, finite logits (zamba2's at the published chunk of 256:
+   the gate of ROADMAP §C 11) with the padded columns masked; zamba2's
+   first and last shared-attention launches against the plain version on
+   their inputs, the kernel at that shape timed against the plain version
+   and SDPA with its bound; ms a forward, tokens/s, peak memory, and the
+   device and host shares of the SSD chunk scan, the mLSTM chunk scan and
+   the sLSTM time loop (profiler ranges around each).  Cross-device: a
+   7-layer zamba2 (a group and a tail block) and an 8-layer xLSTM (one
+   segment) on float32 copies of the weights over 1 x 512 tokens, the
+   card's logits against the port's own CPU run to 1e-3.  Serving: 4
+   prompts of 512 tokens (a multiple of both chunks) + 32 greedy tokens
+   (zamba2's KV cache 544 slots), no kernel launch; as phase 10: the
+   prefill's last logits against a chunked forward over the prompt (0.06
+   abs, 0.05 rel), every bf16 step's distance from the float32 forward
+   over the same tokens at most 2x the bf16 forward's; on float32 weights
+   and cache, every step (the first decode step within 0.06 / 0.05)
+   against a forward over the prompt and the generated tokens (padded to
+   1024, whole chunks; causal, so the padding changes nothing before it)
+   to 1e-3; prefill ms, ms a decode step, its idle share, peak memory;
+   the phase's seconds.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -330,7 +357,11 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import neighbor_interaction as ni  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
+from repro_torch.models import mamba2 as m2_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import xlstm as xl_mod  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models.layers import NORM_FNS  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.core import operations, prng  # noqa: E402
 from repro_torch.sims import cell_clustering as cc  # noqa: E402
@@ -4990,6 +5021,590 @@ def phase_families(seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the ssm and hybrid families of the LM stack
+# ---------------------------------------------------------------------------
+
+SSM_PARAMS = {"zamba2-1.2b": 1_167_979_840, "xlstm-1.3b": 1_996_185_936}
+# serving: 4 prompts of 512 tokens + 32 greedy tokens (the chunked scans
+# assert S a multiple of min(chunk, S); 512 is one of both chunks, 256);
+# zamba2's KV cache holds the 544 positions
+SSM_PROMPT, SSM_NEW = 512, 32
+# the decode check's forward: the prompt, the generated tokens and the
+# last of them repeated, to whole chunks of the scans (256) and of
+# sdpa_chunked (512 keys); causal: a position sees none of the padding
+SSM_FWD = 1024
+# the cross-device check on float32 weights: a group and a tail block of
+# zamba2, one segment of xLSTM; 1 x 512 tokens
+SSM_CHECK_LAYERS = {"zamba2-1.2b": 7, "xlstm-1.3b": 8}
+SSM_CHECK_SEQ = 512
+# an mLSTM block rounds its chunk products' operands and its chunk outputs
+# to bf16 (the reference's design, on float32 weights too): a one-ulp flip
+# there is 2^-8 of that value, so the card and the CPU are held to the
+# bf16 tolerance of the parity tests there, and to LM_F32_TOL elsewhere
+SSM_MLSTM_TOL = 2e-2
+# steps at which the sLSTM loop's float32 run is held against float64
+SSM_CHAOS_STEPS = (1, 8, 16, 32, 64, 128, 512)
+# the functions timed as spans of a scoring forward: (module, name, label)
+SSM_SPANS = ((m2_mod, "_ssd_chunk", "ssd chunk scan"),
+             (xl_mod, "_mlstm_chunk", "mlstm chunk scan"),
+             (xl_mod, "_slstm_scan", "slstm time loop"))
+
+
+class Spans:
+    """While active, wraps module functions: each call's host seconds and
+    its span on the card's timeline (CUDA events recorded before and after
+    it; one stream runs in order, so the spans do not overlap).  The two
+    event records add ~2 us of host time a call."""
+
+    def __init__(self, spans):
+        self.spans = spans
+        self.events = {label: [] for _, _, label in spans}
+        self.host_s = {label: 0.0 for _, _, label in spans}
+        self._orig = []
+
+    def __enter__(self):
+        for mod, name, label in self.spans:
+            fn = getattr(mod, name)
+            self._orig.append((mod, name, fn))
+
+            def timed(*args, _fn=fn, _label=label, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                out = _fn(*args, **kw)
+                end.record()
+                self.host_s[_label] += time.perf_counter() - t0
+                self.events[_label].append((start, end))
+                return out
+
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+        return False
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {label: sum(s.elapsed_time(e) for s, e in ev)
+                for label, ev in self.events.items()}
+
+
+def ssm_scoring(name, model, params, cfg, batch):
+    """Scoring: after a warm-up forward over the serving prompts' size,
+    one logits forward with the spans of the scans and the sLSTM loop,
+    zamba2's first and last shared-attention launches recorded: its logits
+    checked, the recorded launches against the plain version and the
+    kernel at that shape; then, nothing else held, a counted, timed
+    ``loss_fn`` forward (its peak memory); zamba2's kernel profile."""
+    hybrid = cfg.family == "hybrid"
+    n_attn = cfg.n_layers // cfg.shared_attn_every if hybrid else 0
+    row = dict(layers=cfg.n_layers)
+    model.logits(params, {"tokens": batch["tokens"][:, :SSM_PROMPT]},
+                 backend="kernel")                           # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    with Spans(SSM_SPANS) as sp, \
+            Capture(fa, ["flash_attention"], keep=(0, n_attn - 1)) as cap:
+        logits = model.logits(params, {"tokens": batch["tokens"]},
+                              backend="kernel")
+    end.record()
+    spans = sp.ms()
+    span_fwd = start.elapsed_time(end)
+    row["spans"] = {label: dict(ms=ms, share=ms / span_fwd,
+                                host_s=sp.host_s[label],
+                                calls=len(sp.events[label]))
+                    for label, ms in spans.items() if sp.events[label]}
+    row["spans_forward_ms"] = span_fwd
+    print(f"[ssm] {name} spans of a logits forward ({span_fwd:.3f} ms with "
+          "the spans' events): " + "; ".join(
+              f"{label} {r['ms']:.3f} ms = {100 * r['share']:.1f}% "
+              f"({r['calls']} calls, {r['host_s']:.3f} s of host time)"
+              for label, r in row["spans"].items()), flush=True)
+    v = cfg.vocab
+    finite = bool(torch.isfinite(logits[..., :v]).all())
+    masked = (float(logits[..., v:].float().max())
+              if cfg.padded_vocab > v else -math.inf)
+    if logits.shape != (LM_BATCH, LM_SEQ, cfg.padded_vocab) or not finite \
+            or masked > -1e29:
+        fail(f"{name} scoring: logits {tuple(logits.shape)}, finite "
+             f"{finite}, padded columns up to {masked}")
+    print(f"[ssm] {name}: logits finite over {LM_BATCH}x{LM_SEQ}x{v}"
+          + (f" at chunk {cfg.ssm.chunk} (ROADMAP §C 11's gate)" if hybrid
+             else "") + (f"; padded columns {v}..{cfg.padded_vocab - 1} "
+                         f"masked (max {masked:.3g})"
+                         if cfg.padded_vocab > v else "; no padded column"),
+          flush=True)
+    del logits
+    if hybrid:
+        calls = cap.calls["flash_attention"]
+        if cap.seen["flash_attention"] != n_attn or len(calls) != 2:
+            fail(f"{name}: {cap.seen['flash_attention']} attention calls in "
+                 f"a forward, not {n_attn}")
+        row["launch_vs_plain"] = max(
+            _attn_err(got, fa.flash_attention_plain(*qkv, **kw),
+                      f"{name} shared-attention launch {i}")
+            for i, (qkv, kw, got) in zip((0, n_attn - 1), calls))
+        (q, k, v_), kw, _ = calls[0]
+        row["kernel_row"] = attention_row(q, k, v_, kw["causal"])
+        del calls, q, k, v_
+        r = row["kernel_row"]
+        print(f"[ssm] {name} shared-attention launches 0 and {n_attn - 1} "
+              f"vs the plain version on their inputs: max abs diff "
+              f"{row['launch_vs_plain']:.4g} (one bf16 ulp + "
+              f"{ATTN_BF16_ATOL}); {r['kernel']} at {tuple(r['shape'])} "
+              f"{'causal' if r['causal'] else 'full'}: kernel_ms="
+              f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
+              f"{r['library_ms']:.4f} (scaled_dot_product_attention) "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}; {r['bytes']} "
+              f"B, {r['ops']} ops)", flush=True)
+    elif cap.seen["flash_attention"]:
+        fail(f"{name}: xLSTM called the attention kernel")
+    del cap
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    start.record()
+    loss = lm_steps.loss_fn(model, params, batch, backend="kernel")
+    end.record()
+    end.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    fwd_ms = start.elapsed_time(end)
+    loss = float(loss)
+    expected = {n: 0 for n in launches}
+    if hybrid:
+        expected["flash_attention_wgmma"] = n_attn
+    if launches != expected:
+        fail(f"{name} scoring: kernel launches {launches} != {expected}")
+    if not math.isfinite(loss):
+        fail(f"{name} scoring: loss {loss}")
+    tokens = LM_BATCH * LM_SEQ
+    row.update(score_ms=fwd_ms, score_tokens_per_s=tokens / (fwd_ms / 1e3),
+               loss=loss, score_peak_bytes=peak, score_launches=launches)
+    print(f"[ssm] {name} scoring {LM_BATCH}x{LM_SEQ} ({cfg.n_layers} "
+          f"layers): loss {loss:.6f} (ln vocab {math.log(cfg.vocab):.6f}); "
+          f"{fwd_ms:.3f} ms a forward + loss (CUDA events), "
+          f"{row['score_tokens_per_s']:.6g} tokens/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+    if hybrid:
+        times = profile(lambda: lm_steps.loss_fn(model, params, batch,
+                                                 backend="kernel"),
+                        "ssm profile", f"{name}: one scoring forward + loss")
+        if times:
+            total = sum(times.values())
+            attn = sum(us for k, us in times.items()
+                       if "flash_wgmma_kernel" in k)
+            row["profile"] = dict(
+                device_ms=total / 1e3, attention_share=attn / total,
+                top={k[:90]: us / 1e3 for k, us in sorted(
+                    times.items(), key=lambda kv: -kv[1])[:5]})
+            print(f"[ssm profile] {name}: attention kernel {attn / 1e3:.3f} "
+                  f"ms = {100 * attn / total:.1f}% of the forward's "
+                  f"{total / 1e3:.3f} ms of device time", flush=True)
+    return row
+
+
+def _fit(spec, tree):
+    """The leading layers of a full-depth parameter tree that a shallower
+    spec holds, as float32 copies."""
+    if isinstance(spec, dict):
+        return {k: _fit(sub, tree[k]) for k, sub in spec.items()}
+    a = tree if tuple(tree.shape) == spec.shape else tree[:spec.shape[0]]
+    if tuple(a.shape) != spec.shape:
+        fail(f"cross-device check: {tuple(tree.shape)} does not fit "
+             f"{spec.shape}")
+    return a.float()
+
+
+def slstm_sensitivity(cfg, params, u):
+    """The sLSTM recurrence's own amplification of rounding: the first
+    block's loop on the card in float32 and in float64 from the same
+    float32 inputs ``u`` (B, S, d); max |h| difference at some steps."""
+    blk = model_mod._layer(params["slstm"], 0)
+    r32, r64 = blk["r_gates"].float(), blk["r_gates"].double()
+    gx = torch.einsum("bsd,dg->bsg", u.float(),
+                      blk["w_gates"].float()) + blk["b_gates"]
+    st32 = xl_mod.slstm_init_state(cfg, u.shape[0], u.device)
+    st64 = xl_mod.SLSTMState(*(a.double() for a in st32))
+    out = {}
+    for t in range(u.shape[1]):
+        st32 = xl_mod._slstm_step(st32, gx[:, t], r32)
+        st64 = xl_mod._slstm_step(st64, gx[:, t].double(), r64)
+        if t + 1 in SSM_CHAOS_STEPS:
+            out[t + 1] = float((st32.h.double() - st64.h).abs().max())
+    return out
+
+
+def xlstm_blocks_card_vs_cpu(cfg, p_card, p_cpu, tok):
+    """Every block of a one-segment xLSTM on the card against the same
+    block on the CPU from the CPU's input to it: the mLSTM blocks over the
+    whole sequence, the sLSTM block one token at a time from the CPU's
+    state (its recurrence amplifies a rounding difference ~10x a step, so
+    over the sequence two correct runs part; step by step each is held),
+    then the head.  Returns the largest error of each."""
+    norm = NORM_FNS[cfg.norm]
+    n_seg, per = model_mod._segments(cfg)
+    if n_seg != 1:
+        fail(f"the block check takes one segment, not {n_seg}")
+    lay = model_mod._layer
+    errs = {}
+
+    def err(got, want, label, tol=LM_F32_TOL):
+        return _lm_close(got.cpu(), want, label, tol, tol, got.shape[-1])
+
+    x = model_mod._embed_inputs(p_cpu, cfg, {"tokens": tok})
+    for j in range(per):
+        u = norm(lay(p_cpu["ln_m"], 0, j), x)
+        want, _ = xl_mod.mlstm_apply(lay(p_cpu["mlstm"], 0, j), cfg, u)
+        got, _ = xl_mod.mlstm_apply(lay(p_card["mlstm"], 0, j), cfg,
+                                    u.cuda())
+        errs[f"mlstm {j}"] = err(got, want, f"xlstm mLSTM block {j}: card "
+                                 "vs CPU", SSM_MLSTM_TOL)
+        x = x + want
+    u = norm(lay(p_cpu["ln_s"], 0), x)
+    blk_c, blk_g = lay(p_cpu["slstm"], 0), lay(p_card["slstm"], 0)
+    st = xl_mod.slstm_init_state(cfg, u.shape[0], "cpu")
+    outs, e_out, e_h = [], 0.0, 0.0
+    for t in range(u.shape[1]):
+        want, st_next = xl_mod.slstm_apply(blk_c, cfg, u[:, t:t + 1], st)
+        got, st_g = xl_mod.slstm_apply(
+            blk_g, cfg, u[:, t:t + 1].cuda(),
+            xl_mod.SLSTMState(*(a.cuda() for a in st)))
+        e_out = max(e_out, err(got, want, f"xlstm sLSTM step {t}: card vs "
+                               "CPU"))
+        e_h = max(e_h, err(st_g.h, st_next.h, f"xlstm sLSTM state at step "
+                           f"{t}: card vs CPU"))
+        outs.append(want)
+        st = st_next
+    errs["slstm steps"], errs["slstm states"] = e_out, e_h
+    x = x + torch.cat(outs, dim=1)
+    want = model_mod._head(p_cpu, cfg, x)
+    got = model_mod._head(p_card, cfg, x.cuda())
+    errs["head"] = _lm_close(got.cpu(), want, "xlstm head: card vs CPU",
+                             LM_F32_TOL, LM_F32_TOL, cfg.vocab)
+    return errs
+
+
+def ssm_cross_device(name, cfg, params, tokens):
+    """A short model on float32 copies of the weights, the card against
+    the port's own run on the CPU.  zamba2 (backend ``"kernel"``: its
+    group runs the float32 attention kernel once): the logits, to
+    LM_F32_TOL.  xLSTM: every block from the CPU's input to it
+    (:func:`xlstm_blocks_card_vs_cpu`; the mLSTM blocks to SSM_MLSTM_TOL,
+    the rest to LM_F32_TOL); the whole model's
+    logits are reported with the first position where they part by more,
+    beside the recurrence's own float32-vs-float64 divergence on the
+    card."""
+    n = SSM_CHECK_LAYERS[name]
+    model = build_model(dataclasses.replace(cfg, n_layers=n))
+    p32 = _fit(model.spec, params)
+    p_cpu = P.tree_map(lambda a: a.cpu(), p32)
+    tok = tokens[:1, :SSM_CHECK_SEQ]
+    reset_all_launches()
+    card = model.logits(p32, {"tokens": tok}, backend="kernel")
+    torch.cuda.synchronize()
+    launches = all_launches()
+    expected = {k: 0 for k in launches}
+    if cfg.family == "hybrid":
+        expected["flash_attention"] = n // cfg.shared_attn_every
+    if launches != expected:
+        fail(f"{name} cross-device: kernel launches {launches} != "
+             f"{expected}")
+    t0 = time.perf_counter()
+    cpu = model.logits(p_cpu, {"tokens": tok.cpu()}, backend="kernel")
+    cpu_s = time.perf_counter() - t0
+    v = cfg.vocab
+    row = dict(layers=n, launches=launches, cpu_s=cpu_s)
+    if cfg.family == "hybrid":
+        row["card_vs_cpu"] = _lm_close(
+            card.cpu(), cpu, f"{name} float32, {n} layers: card vs CPU",
+            LM_F32_TOL, LM_F32_TOL, v)
+        what = (f"max abs diff {row['card_vs_cpu']:.4g} (limit "
+                f"{LM_F32_TOL} abs and rel)")
+    else:
+        g, w = card.cpu()[0, :, :v], cpu[0, :, :v]
+        over = ((g - w).abs() > LM_F32_TOL * (1 + w.abs())).any(
+            dim=-1).nonzero()
+        row["logits_max_diff"] = float((g - w).abs().max())
+        row["first_position_apart"] = int(over[0]) if len(over) else None
+        x = model_mod._embed_inputs(p32, model.cfg, {"tokens": tok})
+        u = NORM_FNS[cfg.norm](model_mod._layer(p32["ln_s"], 0), x)
+        row["slstm_f32_vs_f64"] = slstm_sensitivity(model.cfg, p32, u)
+        row["blocks"] = xlstm_blocks_card_vs_cpu(model.cfg, p32, p_cpu,
+                                                 tok.cpu())
+        row["card_vs_cpu"] = max(row["blocks"].values())
+        blocks = ", ".join(f"{k} {e:.3g}" for k, e in row["blocks"].items())
+        what = (f"every block from the CPU's input to it: {blocks} (limit "
+                f"{SSM_MLSTM_TOL} for the mLSTM blocks, {LM_F32_TOL} the "
+                "rest, abs and rel); "
+                f"reported: the whole model's logits part beyond "
+                f"{LM_F32_TOL} from position {row['first_position_apart']} "
+                f"(max {row['logits_max_diff']:.4g}); the sLSTM loop alone, "
+                f"float32 vs float64 on the card, max |h| diff after "
+                + ", ".join(f"{t} steps {e:.3g}"
+                            for t, e in row["slstm_f32_vs_f64"].items()))
+    print(f"[ssm] {name} float32, {n} layers, 1 x {SSM_CHECK_SEQ} tokens, "
+          f"the card vs the port on the CPU ({cpu_s:.2f} s there): {what}; "
+          "launches "
+          f"{ {k: c for k, c in launches.items() if c} }", flush=True)
+    del card, cpu, p32, p_cpu
+    return row
+
+
+def _cache_as(cache, dtype):
+    """A copy of a serving cache (dicts, tuples and NamedTuples of tensors)
+    with every floating leaf in ``dtype``."""
+    if isinstance(cache, dict):
+        return {k: _cache_as(v, dtype) for k, v in cache.items()}
+    if isinstance(cache, tuple):
+        leaves = [_cache_as(v, dtype) for v in cache]
+        return type(cache)(*leaves) if hasattr(cache, "_fields") else tuple(
+            leaves)
+    return cache.to(dtype) if cache.is_floating_point() else cache
+
+
+def serve_forced(model, params, prompt, cache, pos0: int, tokens):
+    """Prefill ``prompt``, then decode the given ``tokens`` (B, n) one at a
+    time; the logits of the prefill's last position and of every step, and
+    the cache the prefill returned."""
+    decode = lm_steps.make_serve_decode_step(model)
+    logits, cache = lm_steps.make_prefill_step(model)(params, prompt, cache)
+    prefilled = cache
+    rows = [logits[:, -1]]
+    for t in range(tokens.shape[1]):
+        logits, cache = decode(params, cache, tokens[:, t:t + 1], pos0 + t)
+        rows.append(logits[:, -1])
+    return torch.stack(rows, dim=1), prefilled
+
+
+def xlstm_continued(model, params, cache, tokens):
+    """The logits of ``tokens[:, :1]`` on the chunked path continued from
+    an xLSTM prefill's ``cache`` (the states carried into a chunk, as
+    between the chunks of one forward) over ``tokens`` (B, 2): what a
+    forward over the prompt and that token computes, the prompt's part
+    taken from the same prefill."""
+    cfg = model.cfg
+    x = model_mod._embed_inputs(params, cfg, {"tokens": tokens})
+    x, _ = model_mod._run_ssm(params, cfg, x, cache)
+    return model_mod._head(params, cfg, x[:, :1])
+
+
+def ssm_serving(name, model, params, cfg, batch):
+    """Greedy serving of ``SSM_PROMPT``-token prompts and ``SSM_NEW``
+    decode steps, timed and counted in bf16; then the same serving on
+    float32 weights and cache, decoding the bf16 run's tokens.  Gated: the
+    bf16 prefill's last logits against a chunked forward over the prompt
+    (the same work; 0.06 abs, 0.05 rel).  zamba2, against forwards over
+    the prompt and the tokens, as phase 10: the float32 first decode step
+    within 0.06 / 0.05 and every float32 step within LM_F32_TOL; every
+    bf16 step's distance from the float32 forward at most LM_BF16_MARGIN
+    times the bf16 forward's.  xLSTM: its sLSTM recurrence amplifies a
+    rounding difference ~10x a step, so a prefill and a forward, whose
+    products have other shapes and round apart, reach position 512 in
+    different states; the first decode step is held against the chunked
+    path continued from the same prefill: float32 within 0.06 / 0.05 (the
+    chunked mLSTM rounds its products' operands and its outputs to bf16,
+    its one-token recurrence does not); bf16, its distance from the
+    float32 step from that state at most LM_BF16_MARGIN times the bf16
+    chunked path's.  The distances from the forward are reported.  The bf16
+    first step's distance from the bf16 forward is reported: bf16 paths
+    drift apart with depth."""
+    hybrid = cfg.family == "hybrid"
+    prompt = {"tokens": batch["tokens"][:, :SSM_PROMPT]}
+    max_len = SSM_PROMPT + SSM_NEW
+    cache = model.init_cache(LM_BATCH, max_len, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    rows, gen_tok, prefill_ms, decode_ms = serve_batch(
+        model, params, prompt, cache, SSM_PROMPT, SSM_NEW)
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        fail(f"{name} serving: launched {launches}; prefill and decode run "
+             "the plain paths")
+    v = cfg.vocab
+    if not bool(torch.isfinite(rows[..., :v]).all()):
+        fail(f"{name} serving: logits not finite")
+    decode = lm_steps.make_serve_decode_step(model)
+    # the same work as a served step (the initial cache's states)
+    times = profile(lambda: decode(params, cache, gen_tok[:, -1:],
+                                   max_len - 1),
+                    "ssm profile", f"{name}: one more decode step")
+    device_ms = sum(times.values()) / 1e3 if times else None
+    del cache
+    fwd = model.logits(params, prompt, backend="chunked")[:, -1:]
+    err = _lm_close(rows[:, :1], fwd, f"{name} serving: prefill vs chunked "
+                    "forward (bf16)", SERVE_ATOL, SERVE_RTOL, v)
+    seq = {"tokens": torch.cat([prompt["tokens"], gen_tok, gen_tok[:, -1:]
+                                .expand(LM_BATCH, SSM_FWD - max_len)], 1)}
+    fwd = model.logits(params, seq, backend="chunked")[
+        :, SSM_PROMPT - 1:max_len]
+    first_bf16 = float((rows[:, 1, :v].float() - fwd[:, 1, :v].float()
+                        ).abs().max())
+    all_bf16 = float((rows[..., :v].float() - fwd[..., :v].float()
+                      ).abs().max())
+    agree = float((rows[:, :-1, :v].argmax(-1) == fwd[:, :-1, :v].argmax(-1))
+                  .float().mean())
+    # float32 weights and cache, decoding the same tokens
+    p32 = P.tree_map(lambda a: a.float(), params)
+    ref = model.logits(p32, seq, backend="chunked")[:, SSM_PROMPT - 1:max_len]
+    ratio, _, _ = _bf16_ratio(rows, fwd, ref, v)
+    del fwd
+    cache32 = _cache_as(model.init_cache(LM_BATCH, max_len, device="cuda"),
+                        torch.float32)
+    rows32, cache32 = serve_forced(model, p32, prompt, cache32, SSM_PROMPT,
+                                   gen_tok)
+    d32 = (rows32[..., :v] - ref[..., :v]).abs().amax(dim=-1).amax(dim=0)
+    all32, first32 = float(d32.max()), float(d32[1])
+    cont = {}
+    if hybrid:
+        _lm_close(rows32[:, 1:2], ref[:, 1:2], f"{name} serving: first "
+                  "decode step vs forward (float32)", SERVE_ATOL, SERVE_RTOL,
+                  v)
+        _lm_close(rows32, ref, f"{name} serving vs forward (float32)",
+                  LM_F32_TOL, LM_F32_TOL, v)
+        if not ratio <= LM_BF16_MARGIN:
+            fail(f"{name} serving: bf16 logits up to {ratio} x the chunked "
+                 "forward's distance from the float32 forward")
+    else:
+        # the first decode step against the chunked path continued from
+        # the same prefill, float32 and bf16
+        two = seq["tokens"][:, SSM_PROMPT:SSM_PROMPT + 2]
+        cont["f32"] = _lm_close(
+            rows32[:, 1:2], xlstm_continued(model, p32, cache32, two),
+            f"{name} serving: first decode step vs the chunked path from "
+            "the prefill (float32)", SERVE_ATOL, SERVE_RTOL, v)
+        # bf16, as phase 10: the decode step's distance from the float32
+        # step from the same (bf16 prefill's) state, against the bf16
+        # chunked path's
+        _, cache16 = lm_steps.make_prefill_step(model)(
+            params, prompt, model.init_cache(LM_BATCH, max_len,
+                                             device="cuda"))
+        cont16 = xlstm_continued(model, params, cache16, two)
+        ref1 = xlstm_continued(model, p32, _cache_as(cache16, torch.float32),
+                               two)
+        cont["bf16_ratio"], _, _ = _bf16_ratio(rows[:, 1:2], cont16, ref1, v)
+        cont["bf16"] = float((rows[:, 1, :v].float()
+                              - cont16[:, 0, :v].float()).abs().max())
+        del cache16, cont16, ref1
+        if not cont["bf16_ratio"] <= LM_BF16_MARGIN:
+            fail(f"{name} serving: the bf16 first decode step up to "
+                 f"{cont['bf16_ratio']} x the bf16 chunked path's distance "
+                 "from the float32 step")
+    del ref, rows32, cache32, p32
+    out = dict(prefill_ms=prefill_ms, decode_step_ms=decode_ms,
+               decode_tokens_per_s=LM_BATCH / (decode_ms / 1e3),
+               serve_peak_bytes=peak, prefill_vs_forward=err,
+               bf16_ratio=ratio, first_decode_vs_forward_bf16=first_bf16,
+               decode_vs_forward_bf16=all_bf16, greedy_agrees=agree,
+               f32_first_decode_vs_forward=first32, f32_vs_forward=all32,
+               first_decode_vs_continued=cont,
+               f32_vs_forward_by_step=[float(x) for x in d32],
+               cache=max_len, decode_step_device_ms=device_ms)
+    if device_ms is not None:
+        print(f"[ssm profile] {name}: a decode step {device_ms:.3f} ms of "
+              f"device kernels in {decode_ms:.3f} ms: the card idles "
+              f"{100 * (1 - device_ms / decode_ms):.1f}% of it", flush=True)
+    steps32 = ", ".join(f"{x:.3g}" for x in out["f32_vs_forward_by_step"][:8])
+    print(f"[ssm] {name} serving {LM_BATCH} x {SSM_PROMPT}-token prompts, "
+          f"{SSM_NEW} greedy tokens" + (f", KV cache {max_len}" if hybrid
+                                        else "")
+          + f": prefill {prefill_ms:.3f} ms, {decode_ms:.3f} ms a decode "
+          f"step, {out['decode_tokens_per_s']:.6g} decode tokens/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB; bf16 prefill's last logits "
+          f"vs a chunked forward over the prompt {err:.4g} (limit "
+          f"{SERVE_ATOL} abs, {SERVE_RTOL} rel); "
+          + ("" if hybrid else
+             f"the first decode step vs the chunked path continued from the "
+             f"same prefill: float32 {cont['f32']:.4g} (limit {SERVE_ATOL} "
+             f"abs, {SERVE_RTOL} rel: the chunked mLSTM rounds to bf16, the "
+             f"recurrence does not); bf16: its distance from the float32 "
+             f"step from the same state {cont['bf16_ratio']:.4g} x the bf16 "
+             f"chunked path's (limit {LM_BF16_MARGIN}), reported: bf16 decode "
+             f"vs chunked {cont['bf16']:.4g}; ")
+          + f"float32 weights and cache, the same tokens: the first decode "
+          f"step vs a forward over the prompt and the tokens {first32:.4g} ("
+          + (f"limit {SERVE_ATOL} abs, {SERVE_RTOL} rel" if hybrid else
+             "reported: the sLSTM recurrence parts the prefill's states from "
+             "the forward's") + f"), every step {all32:.4g} ("
+          + (f"limit {LM_F32_TOL}" if hybrid else "reported")
+          + f"; by step {steps32}, ...); "
+          f"bf16: largest ratio of a position's distance from the float32 "
+          f"forward to the bf16 forward's {ratio:.4g} ("
+          + (f"limit {LM_BF16_MARGIN}" if hybrid else "reported") + "); "
+          f"reported: the first decode step vs the bf16 forward "
+          f"{first_bf16:.4g}, every step {all_bf16:.4g}, greedy tokens equal "
+          f"to the forward's argmax {100 * agree:.1f}%", flush=True)
+    return out
+
+
+def ssm_run(name: str, seed: int, card: str):
+    cfg = get_config(name).full
+    model = build_model(cfg)
+    n_params = P.count_params(model.spec)
+    if n_params != SSM_PARAMS[name]:
+        fail(f"{name}: {n_params} parameters, not {SSM_PARAMS[name]}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    model.load_params(P.init(model.spec, gen, device="cuda"))
+    params = model.params
+    torch.cuda.synchronize()
+    what = (f"{cfg.n_layers} Mamba2 blocks (chunk {cfg.ssm.chunk}, "
+            f"{cfg.ssm.n_heads} SSD heads, d_state {cfg.ssm.d_state}), the "
+            f"shared attention every {cfg.shared_attn_every} ({cfg.n_heads} "
+            f"heads of {cfg.hd})" if cfg.family == "hybrid" else
+            f"{cfg.n_layers} blocks, every {cfg.xlstm.slstm_every}th an "
+            f"sLSTM ({cfg.n_heads} heads)")
+    print(f"[ssm] {name} ({cfg.family}): {what}, d_model {cfg.d_model}, "
+          f"vocab {cfg.padded_vocab}; {n_params} parameters in bf16 from "
+          f"params.init: {time.perf_counter() - t0:.2f}s", flush=True)
+    batch = family_batch(cfg, gen)
+    secs = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        row = ssm_scoring(name, model, params, cfg, batch)
+        secs["scoring"] = time.perf_counter() - t0
+        row.update(card=card, parameters=n_params)
+        t0 = time.perf_counter()
+        row["f32"] = ssm_cross_device(name, cfg, params, batch["tokens"])
+        secs["cross_device"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        row.update(ssm_serving(name, model, params, cfg, batch))
+        secs["serving"] = time.perf_counter() - t0
+    row["seconds"] = secs
+    print(f"[ssm] {name} on {card}: scoring {row['score_ms']:.3f} ms, "
+          f"{row['score_tokens_per_s']:.6g} tokens/s, peak "
+          f"{row['score_peak_bytes'] / 2**30:.2f} GiB; prefill "
+          f"{row['prefill_ms']:.3f} ms, decode {row['decode_step_ms']:.3f} "
+          f"ms a step, peak {row['serve_peak_bytes'] / 2**30:.2f} GiB; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()),
+          flush=True)
+    return row
+
+
+def phase_ssm(seed: int):
+    """Phase 23: zamba2-1.2b (hybrid) and xlstm-1.3b (ssm) at full width
+    and depth: scoring, the cross-device check, serving."""
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {}
+    for name in SSM_PARAMS:
+        out[name] = ssm_run(name, seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[ssm] phase 23: {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5090,6 +5705,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     families = phase_families(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm = phase_ssm(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     # phase 16: each rank's launches of the process mesh's driven run
@@ -5188,7 +5806,13 @@ def main(argv=None) -> int:
         families_path=dict(
             {name: dict(r, launches=r["score_launches"][
                 "flash_attention_wgmma"]) for name, r in families.items()
-             if name != "seconds"}, seconds=families["seconds"])))
+             if name != "seconds"}, seconds=families["seconds"]),
+        # phase 23: zamba2's scoring forward (its shared attention block),
+        # counted alone; xLSTM launches none
+        ssm_path=dict(
+            {name: dict(r, launches=r["score_launches"][
+                "flash_attention_wgmma"]) for name, r in ssm.items()
+             if name != "seconds"}, seconds=ssm["seconds"])))
     kernels.append(dict(
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
          "replaces": "src/repro/kernels/flash_attention.py:75",
@@ -5199,6 +5823,11 @@ def main(argv=None) -> int:
         families_path={"hubert-xlarge": dict(
             families["hubert-xlarge"]["f32"],
             launches=families["hubert-xlarge"]["f32"]["launches"][
+                "flash_attention"])},
+        # phase 23: the 7-layer zamba2 on float32 weights (card vs CPU)
+        ssm_path={"zamba2-1.2b": dict(
+            ssm["zamba2-1.2b"]["f32"],
+            launches=ssm["zamba2-1.2b"]["f32"]["launches"][
                 "flash_attention"])}))
     for law in (ENS_STACK, ENS_LAW5):
         launched = ensembles["one_device"]["launches"].get(law, 0)

@@ -1,8 +1,9 @@
 """Architecture registry of the port: importing this package registers the
-configurations ported so far (exact published numbers plus their smoke
-reductions): the dense, MoE, vision-language and audio families of the
-transformer block.  xlstm-1.3b and zamba2-1.2b wait for their families,
-ssm and hybrid (ROADMAP A12)."""
+configurations (exact published numbers plus their smoke reductions): the
+dense, MoE, vision-language and audio families of the transformer block,
+the ssm family (xlstm-1.3b: mLSTM and sLSTM blocks) and the hybrid one
+(zamba2-1.2b: Mamba2 blocks and one shared attention block): all ten of
+the reference's."""
 
 from repro_torch.configs import (  # noqa: F401
     hubert_xlarge,
@@ -13,5 +14,7 @@ from repro_torch.configs import (  # noqa: F401
     olmo_1b,
     phi3p5_moe,
     qwen3_moe,
+    xlstm_1p3b,
+    zamba2_1p2b,
 )
 from repro_torch.configs.base import ArchConfig, ArchSpec, get, names  # noqa: F401

@@ -41,8 +41,9 @@ def loss_fn(model: Model, params, batch: Dict[str, Tensor],
 
 
 def make_serve_decode_step(model: Model):
-    """decode_step(params, cache, tokens, index) -> (logits, cache); the
-    cache is updated in place."""
+    """decode_step(params, cache, tokens, index) -> (logits, cache): KV
+    caches are updated in place, recurrent states (ssm, hybrid) returned
+    new, so pass the cache returned to the next step."""
 
     def step(params, cache, tokens: Tensor, index: int):
         b = tokens.shape[0]
@@ -59,9 +60,10 @@ def _cache_len(cfg: ArchConfig, cache) -> int:
         if cfg.attention == "mla":
             return cache.shape[2]
         return cache[0].shape[3]
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} cache is not ported yet (ROADMAP A12)")
+    if cfg.family == "hybrid":
+        return cache["attn"][0].shape[3]
+    if cfg.family == "ssm":
+        return 1    # no attention: the length mask is not read
     raise ValueError(cfg.family)
 
 

@@ -1216,6 +1216,29 @@ def test_flash_bhsd_gqa_bf16_on_cuda(cuda):
 
 
 @pytest.mark.cuda
+def test_flash_wgmma_at_zamba2_shared_attention_on_cuda(cuda):
+    """zamba2-1.2b's shared attention block as a scoring forward gives it
+    to the kernel: 32 heads of hd 64 on 4 sequences of 2048 tokens, GQA
+    without grouping (32 KV heads), causal, bf16, through
+    ``ops.flash_attention_bhsd``: one launch, within one bf16 ulp + 1e-5
+    of the plain version."""
+    g = torch.Generator().manual_seed(28)
+    q, k, v = (torch.randn((4, 32, 2048, 64), generator=g).to(
+        torch.bfloat16).to(cuda) for _ in range(3))
+    before = dict(fa.LAUNCHES)
+    got = ops.flash_attention_bhsd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + 1
+    assert sum(fa.LAUNCHES.values()) == sum(before.values()) + 1
+    assert got.shape == (4, 32, 2048, 64) and got.dtype == torch.bfloat16
+    want = fa.flash_attention_plain(q.reshape(128, 2048, 64),
+                                    k.reshape(128, 2048, 64),
+                                    v.reshape(128, 2048, 64), causal=True)
+    _assert_within_bf16_ulp(got, want.reshape(4, 32, 2048, 64))
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 128, 128, 64, 64, torch.float32)
     with pytest.raises(TypeError):

@@ -39,16 +39,18 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
+from repro_torch.models import model as model_mod
 from repro_torch.models import params as P
 from repro_torch.models.model import build_model
 from repro_torch.training import steps
 
 CONFIGS = ("internlm2-20b", "olmo-1b")
-# every registered config: the dense GQA two above and the transformer-block
-# families of tests/test_torch_lm_families.py
+# every registered config: the dense GQA two above, the transformer-block
+# families of tests/test_torch_lm_families.py and the ssm and hybrid ones
+# of tests/test_torch_ssm.py
 REGISTERED = ("hubert-xlarge", "internlm2-20b", "llava-next-mistral-7b",
               "minicpm-2b", "minicpm3-4b", "olmo-1b", "phi3.5-moe-42b-a6.6b",
-              "qwen3-moe-235b-a22b")
+              "qwen3-moe-235b-a22b", "xlstm-1.3b", "zamba2-1.2b")
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -381,6 +383,14 @@ def test_bridge_round_trip_is_exact_in_bf16():
 @pytest.mark.parametrize("change", [dict(family="ssm"),
                                     dict(family="hybrid")])
 def test_unported_families_raise(change):
-    cfg = dataclasses.replace(get("olmo-1b").smoke, **change)
-    with pytest.raises(NotImplementedError, match="A12"):
+    """Every family of the reference is ported: ssm and hybrid build (their
+    configs' smoke sizes), and a family the reference does not know raises
+    its ``ValueError``, in ``build_model`` as in the forward."""
+    name = {"ssm": "xlstm-1.3b", "hybrid": "zamba2-1.2b"}[change["family"]]
+    assert get(name).smoke.family == change["family"]
+    build_model(get(name).smoke)
+    cfg = dataclasses.replace(get("olmo-1b").smoke, family="unknown")
+    with pytest.raises(ValueError, match="unknown"):
         build_model(cfg)
+    with pytest.raises(ValueError, match="unknown"):
+        model_mod._forward({}, cfg, {}, "chunked")
