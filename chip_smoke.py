@@ -317,6 +317,36 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    1024, whole chunks; causal, so the padding changes nothing before it)
    to 1e-3; prefill ms, ms a decode step, its idle share, peak memory;
    the phase's seconds.
+24. LM training (``tools/train_phase.py`` alone): olmo-1b at full width
+   and depth, random bf16 weights from ``params.init`` and ``--seed``,
+   AdamW + WSD (warmup 1), ``SyntheticLM`` 4 x 2048 on the card, backend
+   ``"chunked"`` as the reference trains.  (a) 8 steps of
+   ``make_train_step`` (remat ``"dots"``) on one repeated batch: loss and
+   grad norm finite at every step, the loss falling, no kernel launched;
+   ms a step (CUDA events, steps 2-8), train tokens/s, host ms a step,
+   peak memory; one more step with CUDA-event spans of the forward
+   (``loss_fn``), the backward (``torch.autograd.grad``, the recompute
+   included) and the optimizer (``AdamW.update``), and one profiled: the
+   card's idle share and the matrix products' share of its kernel time;
+   (b) two steps with the int8 ``DeltaEFCompressor`` (a refresh, a
+   quantized step): ms and peak;
+   (c) ``value_and_grad`` under remat ``none``, ``dots`` and ``full``:
+   peak memory and ms of each, the losses and gradients bit-equal (or
+   every leaf within 2^-7 of its max, reported), a policy out of memory at
+   4 x 2048 reported and the three compared at 2 x 2048 too; (d) 2 layers
+   at full width on float32 copies of the weights, 1 x 512 tokens: the
+   loss (1e-5 relative) and every gradient (1e-4 of its leaf's max)
+   against the port on the CPU, one AdamW step on the same gradients
+   (masters to 1e-6); (e) ``accum_steps=2`` against 1 on the same 2 x 512
+   rows (loss and gradients to 1e-5); (f) the smoke model's 4 steps with a
+   checkpoint at 2 under ``build/``, steps 3-4 from the restore
+   bit-identical, save and restore seconds; (g) every config's smoke size
+   2 steps on the card (finite, parameters moved) and its float32 loss and
+   gradients against the CPU's (mLSTM leaves 2e-3: bf16-rounded chunk
+   operands); (h) ``backend="kernel"`` under autograd raises
+   ``NotImplementedError`` (ROADMAP B5 b) before any launch;
+   ``examples_torch/train_lm.py`` (200 steps) wall seconds and peak
+   memory; the phase's seconds.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -330,6 +360,7 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -376,6 +407,10 @@ from repro_torch.core import reshard as rs  # noqa: E402
 from repro_torch.core.simulation import Rebalance, Simulation  # noqa: E402
 from repro_torch.distributed import checkpoint as ckpt  # noqa: E402
 from repro_torch.training import steps as lm_steps  # noqa: E402
+from repro_torch.training import optimizer as optim_mod  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.distributed.grad_compress import (  # noqa: E402
+    DeltaEFCompressor)
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -5227,7 +5262,7 @@ def slstm_sensitivity(cfg, params, u):
     """The sLSTM recurrence's own amplification of rounding: the first
     block's loop on the card in float32 and in float64 from the same
     float32 inputs ``u`` (B, S, d); max |h| difference at some steps."""
-    blk = model_mod._layer(params["slstm"], 0)
+    blk = model_mod._layers_of(params["slstm"], 1)(0)
     r32, r64 = blk["r_gates"].float(), blk["r_gates"].double()
     gx = torch.einsum("bsd,dg->bsg", u.float(),
                       blk["w_gates"].float()) + blk["b_gates"]
@@ -5253,8 +5288,10 @@ def xlstm_blocks_card_vs_cpu(cfg, p_card, p_cpu, tok):
     n_seg, per = model_mod._segments(cfg)
     if n_seg != 1:
         fail(f"the block check takes one segment, not {n_seg}")
-    lay = model_mod._layer
     errs = {}
+
+    def lay(tree, *idx):
+        return model_mod._layers_of(tree, len(idx))(*idx)
 
     def err(got, want, label, tol=LM_F32_TOL):
         return _lm_close(got.cpu(), want, label, tol, tol, got.shape[-1])
@@ -5335,7 +5372,8 @@ def ssm_cross_device(name, cfg, params, tokens):
         row["logits_max_diff"] = float((g - w).abs().max())
         row["first_position_apart"] = int(over[0]) if len(over) else None
         x = model_mod._embed_inputs(p32, model.cfg, {"tokens": tok})
-        u = NORM_FNS[cfg.norm](model_mod._layer(p32["ln_s"], 0), x)
+        ln_s = model_mod._layers_of(p32["ln_s"], 1)(0)
+        u = NORM_FNS[cfg.norm](ln_s, x)
         row["slstm_f32_vs_f64"] = slstm_sensitivity(model.cfg, p32, u)
         row["blocks"] = xlstm_blocks_card_vs_cpu(model.cfg, p32, p_cpu,
                                                  tok.cpu())
@@ -5605,6 +5643,491 @@ def phase_ssm(seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: LM training
+# ---------------------------------------------------------------------------
+
+TRAIN_CONFIG = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048     # the train cell: 8192 tokens a step
+TRAIN_STEPS = 8                      # on one repeated batch; timed 2-8
+TRAIN_REMATS = ("none", "dots", "full")
+# remat recomputes and changes no value: the policies' losses and
+# gradients must be bit-equal; a leaf may differ by at most this share of
+# its largest element (bf16 gradients: a recomputed product rounded apart
+# by one ulp) before the gate fails
+TRAIN_REMAT_TOL = 2 ** -7
+# card vs CPU: float32 copies of the weights at full width, 2 layers,
+# 1 x 512 tokens
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_SEQ = 2, 512
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_MASTER_TOL = 1e-5, 1e-4, 1e-6
+# an mLSTM block rounds its chunk products' operands to bf16 on float32
+# weights too (tests/test_torch_train.py's 2e-3)
+TRAIN_MLSTM_TOL = 2e-3
+TRAIN_ACCUM_TOL = 1e-5               # accum 2 vs 1: loss and gradients
+# cuBLAS's matrix-product kernels, by the profiler's names
+GEMM_NAMES = ("nvjet", "gemm", "cutlass", "xmma")
+# every config's smoke size takes two steps on the card
+TRAIN_FAMILIES = ("olmo-1b", "internlm2-20b", "minicpm-2b", "minicpm3-4b",
+                  "qwen3-moe-235b-a22b", "phi3.5-moe-42b-a6.6b",
+                  "llava-next-mistral-7b", "hubert-xlarge", "xlstm-1.3b",
+                  "zamba2-1.2b")
+TRAIN_SPANS = ((lm_steps, "loss_fn", "forward"),
+               (torch.autograd, "grad", "backward"),
+               (optim_mod.AdamW, "update", "optimizer"))
+
+
+def _grad_err(got, want, tol_of=lambda k: TRAIN_GRAD_TOL):
+    """Each leaf's max |got - want| over want's max |.|: the worst share
+    and its leaf; fails over ``tol_of(leaf)``."""
+    worst, where = 0.0, None
+    for (k, g), (_, w) in zip(ckpt._flatten_with_paths(got),
+                              ckpt._flatten_with_paths(want)):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        if not bool(torch.isfinite(g).all()):
+            fail(f"train: a non-finite gradient in {k}")
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if err > tol_of(k):
+            fail(f"train: gradient {k} apart by {err:.3g} of its max "
+                 f"(limit {tol_of(k)})")
+        if err >= worst:
+            worst, where = err, k
+    return worst, where
+
+
+def _leaves_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        ckpt._flatten_with_paths(a), ckpt._flatten_with_paths(b)))
+
+
+def _timed_steps(step, p, st, batch, n, ctx=None):
+    """``n`` train steps on one batch, each between CUDA events; returns
+    the new state, the metrics read back, each step's device ms and each
+    step's host ms (the call's own time: nothing reads back until the
+    end)."""
+    evs, metrics, host = [], [], []
+    torch.cuda.synchronize()
+    for _ in range(n):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        if ctx is None:
+            p, st, m = step(p, st, batch)
+        else:
+            p, st, m, ctx = step(p, st, batch, ctx)
+        e.record()
+        host.append(1e3 * (time.perf_counter() - t0))
+        evs.append((s, e))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    got = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, m in enumerate(got):
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            fail(f"train step {i + 1}: loss {m['loss']}, grad_norm "
+                 f"{m['grad_norm']}")
+    return p, st, ctx, got, [s.elapsed_time(e) for s, e in evs], host
+
+
+def train_main(model, cfg, params, batch, card):
+    """(a) 8 steps on one batch (remat "dots"), timed; the spans of a 9th;
+    (b) two steps with the gradient compressor."""
+    opt = optim_mod.AdamW(schedule=optim_mod.WSDSchedule(warmup_steps=1))
+    st = opt.init(params)
+    step = lm_steps.make_train_step(model, opt, remat="dots")
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    p, st, _, ms, step_ms, host_ms = _timed_steps(step, params, st, batch,
+                                                  TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    launches = all_launches()
+    if any(launches.values()):
+        fail(f"train: kernel launches {launches} (the path trains on the "
+             "chunked attention, as the reference)")
+    losses = [m["loss"] for m in ms]
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall over {TRAIN_STEPS} steps on one "
+             f"batch: {losses}")
+    timed = step_ms[1:]
+    mean_ms = sum(timed) / len(timed)
+    mean_host = sum(host_ms[1:]) / len(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] {cfg.name} on {card}: {TRAIN_STEPS} steps on one batch "
+          f"of {TRAIN_BATCH} x {TRAIN_SEQ}, remat dots, AdamW + WSD (warmup "
+          f"1): loss " + ", ".join(f"{v:.5f}" for v in losses)
+          + f"; grad_norm {ms[0]['grad_norm']:.4g} -> "
+          f"{ms[-1]['grad_norm']:.4g}; {mean_ms:.3f} ms a step (CUDA "
+          f"events, steps 2-{TRAIN_STEPS}: "
+          + ", ".join(f"{v:.3f}" for v in timed)
+          + f"), {tokens / (mean_ms / 1e3):.6g} train tokens/s, host "
+          f"{mean_host:.3f} ms a step (the calls' own time, steps 2-"
+          f"{TRAIN_STEPS}; step 1 {step_ms[0]:.3f} ms on the card, "
+          f"{host_ms[0]:.3f} on the host); peak {peak / 2**30:.2f} GiB",
+          flush=True)
+    with Spans(TRAIN_SPANS) as spans:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        p, st, _ = step(p, st, batch)
+        e.record()
+        span_ms = spans.ms()
+    whole = s.elapsed_time(e)
+    shares = {k: v / whole for k, v in span_ms.items()}
+    print(f"[train] spans of one step ({whole:.3f} ms on the card): "
+          + ", ".join(f"{k} {span_ms[k]:.3f} ms ({100 * shares[k]:.1f} %)"
+                      for k in span_ms)
+          + "; host s in each: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in spans.host_s.items()), flush=True)
+    # the card's busy share of one more step (torch.profiler's device
+    # events) against its CUDA-event time
+    times = profile(lambda: step(p, st, batch), "train profile",
+                    "one train step (remat dots)")
+    busy_ms = sum(times.values()) / 1e3 if times else None
+    idle = None if busy_ms is None else 1.0 - busy_ms / mean_ms
+    gemm_ms = sum(us for k, us in times.items() if any(
+        t in k.lower() for t in GEMM_NAMES)) / 1e3
+    if idle is not None:
+        print(f"[train] one step: {busy_ms:.3f} ms of device kernels "
+              f"against {mean_ms:.3f} ms a step: idle {100 * idle:.1f} %; "
+              f"the matrix products (cuBLAS) {gemm_ms:.3f} ms "
+              f"({100 * gemm_ms / busy_ms:.1f} % of the kernels' time), "
+              f"the rest elementwise, reductions and copies", flush=True)
+    del p, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the step with --grad-compress: a refresh, then a quantized step
+    comp = DeltaEFCompressor()
+    st = opt.init(params)
+    cstep = lm_steps.make_train_step(model, opt, remat="dots",
+                                     grad_transform=comp)
+    torch.cuda.reset_peak_memory_stats()
+    _, _, ctx, cms, c_ms, c_host = _timed_steps(cstep, params, st, batch,
+                                                2, comp.init(params))
+    c_peak = torch.cuda.max_memory_allocated()
+    if int(ctx["step"]) != 2:
+        fail(f"train --grad-compress: context step {int(ctx['step'])}")
+    print(f"[train] --grad-compress (int8 delta + error feedback): refresh "
+          f"step {c_ms[0]:.3f} ms, quantized step {c_ms[1]:.3f} ms (host "
+          f"{c_host[1]:.3f}; loss "
+          f"{cms[1]['loss']:.5f}, grad_norm {cms[1]['grad_norm']:.4g}); "
+          f"wire {comp.wire_bytes(params, full=False)} B a quantized step "
+          f"against {comp.wire_bytes(params, full=True)} B float32; peak "
+          f"{c_peak / 2**30:.2f} GiB", flush=True)
+    del st, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grad_norms=[m["grad_norm"] for m in ms],
+                launches=launches, step_ms=mean_ms, step_ms_each=step_ms,
+                host_ms=mean_host, host_ms_each=host_ms,
+                busy_ms=busy_ms, idle_share=idle, gemm_ms=gemm_ms,
+                tokens_per_s=tokens / (mean_ms / 1e3), peak_bytes=peak,
+                span_ms=span_ms, span_shares=shares, span_step_ms=whole,
+                compress=dict(refresh_ms=c_ms[0], quantized_ms=c_ms[1],
+                              peak_bytes=c_peak))
+
+
+def train_host_cost(cfg, seed, full_ms):
+    """(a') The host's own cost of a train step: the same step (remat
+    "dots", AdamW) on the smoke width at the full config's depth and the
+    cell's 4 x 2048 tokens: the same calls, on device work small enough
+    that the launch queue does not back up, so a call's time is the
+    host's own.  Steps 2-4, host ms (the calls' own time) and card ms."""
+    small = dataclasses.replace(get_config(TRAIN_CONFIG).smoke,
+                                n_layers=cfg.n_layers)
+    model = build_model(small)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.load_params(P.init(model.spec, gen, device="cuda")).params
+    batch = SyntheticLM(small, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        seed=seed, device="cuda").batch_for_step(0)
+    opt = optim_mod.AdamW(schedule=optim_mod.WSDSchedule(warmup_steps=1))
+    step = lm_steps.make_train_step(model, opt, remat="dots")
+    _, _, _, _, card_ms, host_ms = _timed_steps(step, params,
+                                                opt.init(params), batch, 4)
+    host = sum(host_ms[1:]) / 3
+    card = sum(card_ms[1:]) / 3
+    print(f"[train] the host's own cost of a step: {small.n_layers} layers "
+          f"at the smoke width (d_model {small.d_model}), {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, remat dots: host {host:.3f} ms a step (the calls' "
+          f"own time, steps 2-4: "
+          + ", ".join(f"{v:.3f}" for v in host_ms[1:])
+          + f"), card {card:.3f} ms (CUDA events); "
+          f"{100 * host / full_ms:.1f} % of the full-width step's "
+          f"{full_ms:.3f} ms", flush=True)
+    del params, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=small.n_layers, d_model=small.d_model,
+                host_ms=host, host_ms_each=host_ms, card_ms=card,
+                card_ms_each=card_ms, share_of_full_step=host / full_ms)
+
+
+def train_remat(model, params, batch):
+    """(c) ``value_and_grad`` under each remat policy at 4 x 2048: peak
+    memory and device ms of each, the losses and gradients bit-equal.  A
+    policy that does not fit on the card fails the phase."""
+    ref, row = None, {}
+    for policy in TRAIN_REMATS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        try:
+            t0 = time.perf_counter()
+            s.record()
+            loss, grads = lm_steps.value_and_grad(model, params, batch,
+                                                  remat=policy)
+            e.record()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            fail(f"remat {policy} at {TRAIN_BATCH} x {TRAIN_SEQ}: out of "
+                 f"memory (peak so far "
+                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+        r = {"peak_bytes": torch.cuda.max_memory_allocated(),
+             "ms": s.elapsed_time(e), "host_ms": host_ms,
+             "loss": float(loss)}
+        if ref is None:
+            ref = (policy, loss, grads)
+        else:
+            r["bit_equal"] = bool(torch.equal(loss, ref[1])
+                                  and _leaves_equal(grads, ref[2]))
+            if not r["bit_equal"]:
+                if abs(float(loss) - float(ref[1])) > 1e-6 * abs(
+                        float(ref[1])):
+                    fail(f"remat {policy}: loss {float(loss)} against "
+                         f"{ref[0]}'s {float(ref[1])}")
+                r["max_share"] = _grad_err(
+                    grads, ref[2], lambda k: TRAIN_REMAT_TOL)[0]
+        row[policy] = r
+        del loss, grads
+    del ref
+    print(f"[train] remat at {TRAIN_BATCH} x {TRAIN_SEQ} (value_and_grad, "
+          "no optimizer state): " + "; ".join(
+              f"{k} peak {v['peak_bytes'] / 2**30:.2f} GiB, "
+              f"{v['ms']:.3f} ms (host {v['host_ms']:.3f}), "
+              f"loss {v['loss']:.6f}"
+              + ("" if "bit_equal" not in v else
+                 ", bit-equal" if v["bit_equal"] else
+                 f", apart by {v['max_share']:.3g} of a leaf's max")
+              for k, v in row.items()), flush=True)
+    return {f"{TRAIN_BATCH}x{TRAIN_SEQ}": row}
+
+
+def train_card_vs_cpu(cfg, params, batch):
+    """(d) Full width, 2 layers, float32 copies of the weights, 1 x 512
+    tokens: the loss and every gradient, the card against the port on the
+    CPU; one AdamW step from the same state on the CPU's gradients, the
+    masters; and (e) accum_steps 2 against 1 on 2 x 512 rows."""
+    model = build_model(dataclasses.replace(cfg,
+                                            n_layers=TRAIN_CHECK_LAYERS))
+    p32 = _fit(model.spec, params)
+    p_cpu = P.tree_map(lambda a: a.cpu(), p32)
+    b1 = {k: v[:1, :TRAIN_CHECK_SEQ] for k, v in batch.items()}
+    b_cpu = {k: v.cpu() for k, v in b1.items()}
+    loss, grads = lm_steps.value_and_grad(model, p32, b1)
+    t0 = time.perf_counter()
+    loss_c, grads_c = lm_steps.value_and_grad(model, p_cpu, b_cpu)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    if loss_err > TRAIN_LOSS_TOL:
+        fail(f"train card vs CPU: loss {float(loss)} against "
+             f"{float(loss_c)}")
+    g_err, g_leaf = _grad_err(grads, grads_c)
+    opt = optim_mod.AdamW(schedule=optim_mod.WSDSchedule(warmup_steps=1))
+    g_card = P.tree_map(lambda a: a.to("cuda"), grads_c)
+    _, st = opt.update(g_card, opt.init(p32), p32)
+    _, st_c = opt.update(grads_c, opt.init(p_cpu), p_cpu)
+    m_err = max(float((a.cpu() - b).abs().max()) for (_, a), (_, b) in zip(
+        ckpt._flatten_with_paths(st.master),
+        ckpt._flatten_with_paths(st_c.master)))
+    if m_err > TRAIN_MASTER_TOL:
+        fail(f"train card vs CPU: one AdamW step's master apart by {m_err}")
+    del st, st_c, g_card
+    # (e) accumulation: the same 2 x 512 rows in one step and in two
+    seen = []
+
+    def capture(g, ctx):
+        seen.append(g)
+        return g, ctx
+
+    rows = {k: v[:2, :TRAIN_CHECK_SEQ] for k, v in batch.items()}
+    res = {}
+    for accum in (1, 2):
+        st = opt.init(p32)
+        step = lm_steps.make_train_step(model, opt, accum_steps=accum,
+                                        grad_transform=capture)
+        _, _, m, _ = step(p32, st, rows, None)
+        res[accum] = {k: float(v) for k, v in m.items()}
+    a_loss = abs(res[2]["loss"] - res[1]["loss"]) / abs(res[1]["loss"])
+    if a_loss > TRAIN_ACCUM_TOL:
+        fail(f"train accum 2 vs 1: loss {res[2]['loss']} against "
+             f"{res[1]['loss']}")
+    a_err, a_leaf = _grad_err(seen[1], seen[0],
+                              lambda k: TRAIN_ACCUM_TOL)
+    print(f"[train] card vs CPU, float32, full width, "
+          f"{TRAIN_CHECK_LAYERS} layers, 1 x {TRAIN_CHECK_SEQ} tokens "
+          f"({cpu_s:.2f} s on the CPU): loss {float(loss):.7f} against "
+          f"{float(loss_c):.7f} (rel {loss_err:.3g}, limit "
+          f"{TRAIN_LOSS_TOL}), gradients apart by at most {g_err:.3g} of a "
+          f"leaf's max ({g_leaf}; limit {TRAIN_GRAD_TOL}); one AdamW step "
+          f"on the same gradients: masters apart by {m_err:.3g} (limit "
+          f"{TRAIN_MASTER_TOL}); accum 2 vs 1 on 2 x {TRAIN_CHECK_SEQ}: "
+          f"loss rel {a_loss:.3g}, gradients {a_err:.3g} of a leaf's max "
+          f"({a_leaf}; limit {TRAIN_ACCUM_TOL})", flush=True)
+    return dict(loss_rel=loss_err, grad_share=g_err, master_abs=m_err,
+                cpu_s=cpu_s, accum_loss_rel=a_loss, accum_grad_share=a_err)
+
+
+def train_resume(seed):
+    """(f) olmo-1b's smoke model: 4 steps with a checkpoint at 2 under
+    build/, then steps 3-4 again from the restore: bit-identical."""
+    cfg = get_config(TRAIN_CONFIG).smoke
+    model = build_model(cfg)
+    opt = optim_mod.AdamW()
+    pipe = SyntheticLM(cfg, seq_len=32, global_batch=2, seed=seed,
+                       device="cuda")
+    step = lm_steps.make_train_step(model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = model.load_params(P.init(model.spec, gen, device="cuda")).params
+    st = opt.init(p)
+    for i in range(2):
+        p, st, _ = step(p, st, pipe.batch_for_step(i))
+    where = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(where, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save(str(where), 2, {"params": p, "opt": st})
+    save_s = time.perf_counter() - t0
+    pa, sa = p, st
+    for i in range(2, 4):
+        pa, sa, _ = step(pa, sa, pipe.batch_for_step(i))
+    t0 = time.perf_counter()
+    _, back, _ = ckpt.restore(str(where), like={"params": p, "opt": st})
+    restore_s = time.perf_counter() - t0
+    pb, sb = back["params"], back["opt"]
+    for i in range(2, 4):
+        pb, sb, _ = step(pb, sb, pipe.batch_for_step(i))
+    shutil.rmtree(where, ignore_errors=True)
+    if not _leaves_equal((pa, sa), (pb, sb)):
+        fail("train resume: steps 3-4 from the checkpoint differ")
+    print(f"[train] resume ({cfg.name} smoke): steps 3-4 from the step-2 "
+          f"checkpoint bit-identical on the card; save {save_s:.3f} s, "
+          f"restore {restore_s:.3f} s", flush=True)
+    return dict(save_s=save_s, restore_s=restore_s)
+
+
+def train_families(seed):
+    """(g) every smoke config: 2 steps on the card (bf16 weights), finite
+    and the parameters moved; float32 copies of the weights: the loss and
+    gradients on the card against the CPU's; (h) ``backend="kernel"``
+    under autograd raises before any launch."""
+    out = {}
+    for name in TRAIN_FAMILIES:
+        cfg = get_config(name).smoke
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        p0 = model.load_params(P.init(model.spec, gen, device="cuda")).params
+        seq = 64 + (cfg.n_patches if cfg.family == "vlm" else 0)
+        pipe = SyntheticLM(cfg, seq_len=seq, global_batch=2, seed=seed,
+                           device="cuda")
+        opt = optim_mod.AdamW(schedule=optim_mod.WSDSchedule(
+            warmup_steps=2, stable_steps=5, decay_steps=2))
+        step = lm_steps.make_train_step(model, opt, remat="dots")
+        p, st = p0, opt.init(p0)
+        losses = []
+        for i in range(2):
+            p, st, m = step(p, st, pipe.batch_for_step(i))
+            losses.append(float(m["loss"]))
+            if not (math.isfinite(losses[-1])
+                    and math.isfinite(float(m["grad_norm"]))):
+                fail(f"train {name}: step {i + 1} loss {losses[-1]}, "
+                     f"grad_norm {float(m['grad_norm'])}")
+        moved = max(float((a.float() - b.float()).abs().max()) for (_, a),
+                    (_, b) in zip(ckpt._flatten_with_paths(p),
+                                  ckpt._flatten_with_paths(p0)))
+        if not moved > 0:
+            fail(f"train {name}: the parameters did not move")
+        p32 = P.tree_map(lambda a: a.float(), p0)
+        batch = pipe.batch_for_step(0)
+        loss, grads = lm_steps.value_and_grad(model, p32, batch)
+        loss_c, grads_c = lm_steps.value_and_grad(
+            model, P.tree_map(lambda a: a.cpu(), p32),
+            {k: v.cpu() for k, v in batch.items()})
+        l_err = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+        if l_err > TRAIN_LOSS_TOL:
+            fail(f"train {name}: card loss {float(loss)} against the CPU's "
+                 f"{float(loss_c)}")
+        g_err, g_leaf = _grad_err(grads, grads_c, lambda k: (
+            TRAIN_MLSTM_TOL if k.startswith("mlstm/") else TRAIN_GRAD_TOL))
+        out[name] = dict(losses=losses, moved=moved, loss_rel=l_err,
+                         grad_share=g_err, grad_leaf=g_leaf)
+    # (h) the attention kernel has no backward: it raises (ROADMAP B5 b)
+    cfg = get_config(TRAIN_CONFIG).smoke
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = model.load_params(P.init(model.spec, gen, device="cuda")).params
+    batch = SyntheticLM(cfg, seq_len=128, global_batch=2,
+                        device="cuda").batch_for_step(0)
+    reset_all_launches()
+    try:
+        lm_steps.value_and_grad(model, p, batch, backend="kernel")
+        fail("train: backend 'kernel' under autograd did not raise")
+    except NotImplementedError as e:
+        if "B5 b" not in str(e):
+            fail(f"train: backend 'kernel' raised {e!r}")
+    if any(all_launches().values()):
+        fail(f"train: the raising call launched {all_launches()}")
+    print("[train] every smoke config, 2 steps on the card (remat dots): "
+          "finite, parameters moved; float32 loss and gradients against the "
+          "CPU: " + "; ".join(
+              f"{k} loss rel {v['loss_rel']:.2g}, grads {v['grad_share']:.2g}"
+              for k, v in out.items())
+          + f" (limits {TRAIN_LOSS_TOL}, {TRAIN_GRAD_TOL}, mLSTM leaves "
+          f"{TRAIN_MLSTM_TOL}); backend 'kernel' under autograd raises "
+          "NotImplementedError (B5 b) before any launch", flush=True)
+    return out
+
+
+def phase_train(seed: int):
+    """Phase 24: olmo-1b training at full width and depth on the card
+    (the train step, its spans, the compressed step, the host's own cost
+    of a step, the remat policies,
+    card vs CPU, accumulation), a resume, every smoke config, the
+    example."""
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = get_config(TRAIN_CONFIG).full
+    model = build_model(cfg)
+    n_params = P.count_params(model.spec)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.load_params(P.init(model.spec, gen, device="cuda")).params
+    batch = SyntheticLM(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        seed=seed, device="cuda").batch_for_step(0)
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.padded_vocab}; {n_params} parameters "
+          f"(bf16 {2 * n_params / 2**30:.2f} GiB; float32 master, m and v "
+          f"{12 * n_params / 2**30:.2f} GiB); SyntheticLM {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: {time.perf_counter() - t0:.2f}s", flush=True)
+    out = {"parameters": n_params, "card": card}
+    out["main"] = train_main(model, cfg, params, batch, card)
+    out["host_cost"] = train_host_cost(cfg, seed, out["main"]["step_ms"])
+    out["remat"] = train_remat(model, params, batch)
+    out["card_vs_cpu"] = train_card_vs_cpu(cfg, params, batch)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["resume"] = train_resume(seed)
+    out["families"] = train_families(seed)
+    ex, ex_stats = run_example("train_lm")
+    if ex["latest"] != 200 or not math.isfinite(ex["final_loss"]):
+        fail(f"train_lm example: {ex}")
+    out["example"] = dict(ex_stats, final_loss=ex["final_loss"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[train] phase 24: {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5708,6 +6231,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ssm = phase_ssm(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     # phase 16: each rank's launches of the process mesh's driven run
@@ -5812,7 +6338,11 @@ def main(argv=None) -> int:
         ssm_path=dict(
             {name: dict(r, launches=r["score_launches"][
                 "flash_attention_wgmma"]) for name, r in ssm.items()
-             if name != "seconds"}, seconds=ssm["seconds"])))
+             if name != "seconds"}, seconds=ssm["seconds"]),
+        # phase 24: training runs the chunked attention, as the
+        # reference's; under autograd the kernel raises (B5 b)
+        train_path=dict(train, launches=train["main"]["launches"][
+            "flash_attention_wgmma"], raises_under_autograd=True)))
     kernels.append(dict(
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
          "replaces": "src/repro/kernels/flash_attention.py:75",

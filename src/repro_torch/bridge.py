@@ -28,7 +28,13 @@ of a virtual-mesh state as the state its process would hold.
 LM parameters (:func:`lm_params_from_arrays`, :func:`lm_params_to_arrays`)
 are keyed by the reference tree's dotted paths (``embed.w``,
 ``blocks.attn.wq``, ...), the paths the port's ``models.model.Model``
-keeps, so nothing is renamed.
+keeps, so nothing is renamed.  An optimizer state
+(:func:`adamw_state_to_arrays`, :func:`adamw_state_from_arrays`) is keyed
+``step``, ``master.<path>``, ``m.<path>``, ``v.<path>`` (the fields of
+``AdamWState``), and a gradient compressor's context
+(:func:`grad_ctx_to_arrays`, :func:`grad_ctx_from_arrays`) ``step``,
+``ref.<path>``, ``residual.<path>``: a JAX tree of either carries across
+with the same helpers applied to its leaves.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from repro_torch.core.ensemble import (
     EnsembleState, replica_state, stack_states,
 )
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.training.optimizer import AdamWState
 
 _SCALARS = ("it", "key", "gid_counter", "dropped", "halo_bytes",
             "codec_overflow", "health")
@@ -226,3 +233,50 @@ def lm_params_to_arrays(params, prefix: str = "") -> Dict[str, np.ndarray]:
             out[path] = (v.float() if v.dtype == torch.bfloat16
                          else v).numpy()
     return out
+
+
+def _trees_to_arrays(step, trees: Mapping[str, object]
+                     ) -> Dict[str, np.ndarray]:
+    out = {"step": np.asarray(step.detach().cpu().numpy(), dtype=np.int32)}
+    for name, tree in trees.items():
+        out.update(lm_params_to_arrays(tree, prefix=f"{name}."))
+    return out
+
+
+def _trees_from_arrays(arrays: Mapping[str, np.ndarray], names,
+                       device: DeviceLike):
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(arrays["step"])), dtype=torch.int32,
+                        device=dev)
+    trees = {name: lm_params_from_arrays(
+        {k[len(name) + 1:]: a for k, a in arrays.items()
+         if k.startswith(name + ".")}, dev) for name in names}
+    return step, trees
+
+
+def adamw_state_to_arrays(state: AdamWState) -> Dict[str, np.ndarray]:
+    """An ``AdamWState`` as ``{"step", "master.<path>", "m.<path>",
+    "v.<path>"}`` numpy arrays (float32 moments and master, int32 step)."""
+    return _trees_to_arrays(state.step, {"master": state.master,
+                                         "m": state.m, "v": state.v})
+
+
+def adamw_state_from_arrays(arrays: Mapping[str, np.ndarray],
+                            device: DeviceLike = "cuda") -> AdamWState:
+    """The inverse of :func:`adamw_state_to_arrays`, on ``device``."""
+    step, trees = _trees_from_arrays(arrays, ("master", "m", "v"), device)
+    return AdamWState(step=step, **trees)
+
+
+def grad_ctx_to_arrays(ctx) -> Dict[str, np.ndarray]:
+    """A ``DeltaEFCompressor`` context as ``{"step", "ref.<path>",
+    "residual.<path>"}`` numpy arrays."""
+    return _trees_to_arrays(ctx["step"], {"ref": ctx["ref"],
+                                          "residual": ctx["residual"]})
+
+
+def grad_ctx_from_arrays(arrays: Mapping[str, np.ndarray],
+                         device: DeviceLike = "cuda"):
+    """The inverse of :func:`grad_ctx_to_arrays`, on ``device``."""
+    step, trees = _trees_from_arrays(arrays, ("ref", "residual"), device)
+    return dict(trees, step=step)

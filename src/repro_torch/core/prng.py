@@ -22,6 +22,12 @@ with: :func:`PRNGKey`, :func:`split`, :func:`fold_in`,
   (Cephes) written out, their multiply-adds fused as XLA fuses them.  So
   normals agree with JAX on the CPU to an ulp, and are bit-equal on all
   but a few in 10^4.
+* a bfloat16 ``normal`` draws 8-bit words (jax's ``rng_bits = 8`` for a
+  type with fewer than 8 mantissa bits: the low byte of the 32 random
+  bits), so it takes one of 128 values, those of :func:`_bf16_normals`;
+* ``randint`` (int32) draws two words a value from the two halves of
+  ``split(key)`` and folds them into ``[minval, maxval)`` with jax's
+  uint32 modular arithmetic, wraps included.
 
 ``torch.uint32`` has no ``+``, ``<<`` or ``>>`` on the CPU, so the words
 are held as ``int32`` with two's-complement wrap: additions wrap as
@@ -276,9 +282,50 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
-    """``jax.random.normal(key, shape)`` in float32."""
+def normal(key: torch.Tensor, shape: Shape = (),
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)``, float32 or bfloat16."""
+    if dtype == torch.bfloat16:
+        low = random_bits(key, _shape(shape)).bitwise_and_(0xFF)
+        return _bf16_normals(key.device)[low.bitwise_right_shift_(1).long()]
+    if dtype != torch.float32:
+        raise TypeError(f"normal: float32 or bfloat16, not {dtype}")
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = uniform(key, shape, minval=float(lo), maxval=1.0)
     return torch.tensor(np.float32(np.sqrt(2)), device=key.device) \
         * erfinv(u)
+
+
+def _bf16_normals(device) -> torch.Tensor:
+    """The 128 values of a bfloat16 normal, indexed by the 7 random bits
+    jax keeps (the byte shifted right by one).  jax's bfloat16 uniform is
+    ``k / 128`` (exact), times ``hi - lo`` rounded to bfloat16 (2.0: lo is
+    ``nextafter(-1, 0) = -255/256``), plus lo: ``(4k - 255) / 256``, exact
+    in bfloat16; XLA's CPU code takes its ``ErfInv`` in float32, rounds it
+    to bfloat16, and multiplies by ``sqrt(2)`` rounded to bfloat16, one
+    more rounding.  (Checked against jax 0.9.0 on all 128 values.)"""
+    k = torch.arange(128, dtype=torch.float32, device=device)
+    u = (4.0 * k - 255.0) / 256.0
+    e = erfinv(u).to(torch.bfloat16)
+    return e * torch.tensor(np.sqrt(2), dtype=torch.bfloat16, device=device)
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32, bounds
+    in int32's range, as jax takes them without x64)."""
+    lo32, hi32 = -(1 << 31), (1 << 31) - 1
+    if not (lo32 <= minval <= hi32 and lo32 <= maxval <= hi32):
+        raise OverflowError(f"randint: [{minval}, {maxval}) is outside "
+                            "int32")
+    shape = _shape(shape)
+    k1, k2 = split(key)
+    mask = 0xFFFFFFFF
+    higher = random_bits(k1, shape).long() & mask
+    lower = random_bits(k2, shape).long() & mask
+    span = maxval - minval if maxval > minval else 1
+    # uint32 products and sums wrap, as jax's do (its multiplier wraps to
+    # 0 past a span of 2**16)
+    mult = (((1 << 16) % span) ** 2 & mask) % span
+    offset = ((((higher % span) * mult) & mask) + lower % span) & mask
+    return (minval + offset % span).to(torch.int32)

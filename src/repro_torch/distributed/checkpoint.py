@@ -1,13 +1,14 @@
 """Fault-tolerant checkpoints: atomic, verified, mesh-independent (port of
 ``repro/distributed/checkpoint.py``).
 
-* :func:`save` writes every array leaf of a tree of dicts, lists and
-  tuples to ``leaf_%05d.npy`` under ``.tmp_step_<step>_<pid>``, with a
-  ``manifest.json`` (step, leaf keys, shapes, dtypes, a crc32 a leaf,
-  user extras), then publishes it by renaming the directory to
-  ``step_<step:010d>``: a crashed writer never corrupts the newest
-  checkpoint.  Leaves go in the reference's order (a dict's keys sorted,
-  as ``jax.tree_util`` flattens), keyed by their ``/``-joined path, and
+* :func:`save` writes every array leaf of a tree of dicts, lists,
+  tuples and NamedTuples (an optimizer state) to ``leaf_%05d.npy`` under
+  ``.tmp_step_<step>_<pid>``, with a ``manifest.json`` (step, leaf keys,
+  shapes, dtypes, a crc32 a leaf, user extras), then publishes it by
+  renaming the directory to ``step_<step:010d>``: a crashed writer never
+  corrupts the newest checkpoint.  Leaves go in the reference's order (a
+  dict's keys sorted, a NamedTuple's fields in order, as
+  ``jax.tree_util`` flattens), keyed by their ``/``-joined path, and
   bfloat16 is widened to float32 with its dtype recorded, so a directory
   either package writes restores in the other.
 * :func:`restore` verifies the manifest and every leaf's crc32 and rolls
@@ -41,11 +42,19 @@ class CheckpointCorrupt(RuntimeError):
     manifest, unreadable array leaf, or a per-leaf checksum mismatch."""
 
 
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
 def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     """``(key, leaf)`` pairs in ``jax.tree_util``'s order: a dict's items
-    by sorted key, a list's or tuple's by index; keys ``/``-joined."""
+    by sorted key, a NamedTuple's by field in its order and keyed by the
+    field's name (``opt/step``, ``opt/m/...``: jax's ``GetAttrKey``), a
+    list's or tuple's by index; keys ``/``-joined."""
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif _is_namedtuple(tree):
+        items = list(zip(tree._fields, tree))
     elif isinstance(tree, (list, tuple)):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
@@ -142,6 +151,8 @@ def _snapshot(tree):
     """A host copy of every leaf of ``tree``, now."""
     if isinstance(tree, dict):
         return {k: _snapshot(v) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_snapshot(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_snapshot(v) for v in tree)
     if isinstance(tree, torch.Tensor):
@@ -353,6 +364,8 @@ def _unflatten(like, leaves: List) -> Any:
     def rec(node):
         if isinstance(node, dict):
             return {k: rec(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*(rec(v) for v in node))
         if isinstance(node, (list, tuple)):
             return type(node)(rec(v) for v in node)
         return next(it)

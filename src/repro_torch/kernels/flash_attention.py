@@ -27,6 +27,13 @@ bfloat16, the output in q's type.
   ``kernels/ref.flash_attention_ref``: float32 scores, the mask, a softmax,
   then the cast.
 
+Neither has a backward (the reference's Pallas kernel has no VJP either,
+ROADMAP B5 b): :func:`flash_attention` raises ``NotImplementedError``
+when grad mode is on and q, k or v requires grad, on the card and on the
+CPU alike, where the kernel would hand back an output without a
+``grad_fn`` and the plain version one that autograd differentiates.
+Training runs ``backend="chunked"``, as the reference's does.
+
 Each launch adds one to the count of the kernel it launched,
 ``LAUNCHES["flash_attention"]`` (float32 kernel) or
 ``LAUNCHES["flash_attention_wgmma"]``; nothing else touches the counts.
@@ -124,6 +131,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     _check_blocks(sq, skv)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward (ROADMAP B5 b, as the "
+            "reference's Pallas kernel has no VJP): train on "
+            "backend='chunked', or call it under torch.no_grad()")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":

@@ -18,7 +18,33 @@ the reference.
 The layers' parameters are stacked along leading axes as in the reference
 (ssm: ``(n_seg, slstm_every - 1, ...)`` mLSTM stacks; hybrid: ``(n_full,
 k, ...)`` Mamba2 groups) and applied by Python loops (the reference's
-``lax.scan``; without autograd there is no remat to choose).
+``lax.scan``).
+
+Each stacked leaf is split into its layers by one ``unbind`` (views; its
+backward is one stack, where indexing a layer at a time would build a
+full-size zero gradient a layer).  Training (grad enabled and a parameter
+requiring grad) changes one thing and no value: each layer body the
+reference wraps in ``_remat`` runs under ``torch.utils.checkpoint``
+(non-reentrant) with the reference's policy: ``"none"`` saves every
+activation; ``"dots"`` saves the products with no batch dimension (the
+weight einsums: ``torch.einsum`` computes them as a ``bmm`` of batch 1)
+and recomputes the rest, the attention's batched products included;
+``"dots+moe"`` also saves a MoE block's output; ``"full"`` saves the
+layer's inputs only.  As in the reference, the dense, moe, vlm and audio
+blocks, xLSTM's mLSTM blocks and zamba2's Mamba2 blocks are rematerialized;
+the sLSTM block (which checkpoints its own 64-step segments,
+``models/xlstm.py``) and zamba2's shared attention block are not.
+Without grad nothing of this runs: scoring and serving are unchanged.
+
+Every forward differentiates as written, with the reference's gradients
+(``tests/test_torch_train.py``): Mamba2 masks before its ``exp`` (no
+``inf * 0`` in the backward, ROADMAP §C 11), the MoE's ``scatter_``s
+write into fresh tensors, and the stabilisers (online softmax, mLSTM,
+sLSTM) are ``torch.maximum`` as the reference's ``jnp.maximum``, which
+splits a tie's gradient in half.  The floors taken with ``clamp`` where
+the reference takes ``maximum`` with a constant (the attention's running
+sum, the sLSTM's normaliser, the MoE renormaliser) never tie: the first
+two are at least 1, the third a sum of top-k probabilities.
 
 The parameter tree is a nested dict of tensors keyed as the reference's
 (``embed.w``, ``blocks.attn.wq``, ``blocks.ln1.scale``, ...).  ``Model`` is
@@ -30,10 +56,13 @@ nothing.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -43,7 +72,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import NORM_FNS, NORM_SPECS, gelu_mlp, \
     gelu_mlp_spec, mm, swiglu, swiglu_spec
-from repro_torch.models.params import ParamSpec, tree_map
+from repro_torch.models.params import ParamSpec, tree_leaves, tree_map
 
 Tensor = torch.Tensor
 
@@ -64,10 +93,91 @@ def _stack_specs(spec_tree, n: int):
                                         s.scale), spec_tree)
 
 
-def _layer(tree, *idx: int):
-    """Layer ``idx`` of a stacked parameter tree (views, no copies): one
+def _layers_of(tree, depth: int):
+    """``(*idx) -> layer tree`` of a stacked tree: every leaf split along
+    its ``depth`` leading axes by one ``unbind`` (views, no copies), one
     index per stacked axis."""
-    return tree_map(lambda a: a[idx], tree)
+    def split(a, d):
+        parts = a.unbind(0)
+        return list(parts) if d == 1 else [split(p, d - 1) for p in parts]
+
+    parts = tree_map(lambda a: split(a, depth), tree)
+
+    def pick(*idx):
+        def get(p):
+            for i in idx:
+                p = p[i]
+            return p
+
+        return tree_map(get, parts)
+
+    return pick
+
+
+def _training(params) -> bool:
+    """Grad mode on and some parameter requires grad."""
+    return torch.is_grad_enabled() and any(
+        a.requires_grad for a in tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# Rematerialization (the reference's ``_remat``)
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("none", "dots", "dots+moe", "full")
+_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.mm.default)
+
+
+def _no_batch_dot(op, args) -> bool:
+    """A product with no batch dimension: ``torch.einsum`` lowers one to a
+    ``bmm`` of batch 1 (or an ``mm``).  A batched product whose batch is 1
+    (one sequence of one KV head) is saved too: that costs memory only."""
+    if op is torch.ops.aten.mm.default:
+        return True
+    return op is torch.ops.aten.bmm.default and args[0].shape[0] == 1
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS and _no_batch_dot(op, args):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_moe_policy(mark, ctx, op, *args, **kwargs):
+    """``"dots"``, and the copy :func:`_moe_out` makes while ``mark[0]``
+    is on."""
+    if mark[0] and op is torch.ops.aten.clone.default:
+        return CheckpointPolicy.MUST_SAVE
+    return _dots_policy(ctx, op, *args, **kwargs)
+
+
+def _moe_out(f: Tensor, mark) -> Tensor:
+    """The reference's ``checkpoint_name(f, "moe_out")``: a copy of the
+    MoE block's output, made with ``mark[0]`` on so that the
+    ``"dots+moe"`` policy saves it."""
+    mark[0] = True
+    try:
+        return f.clone()
+    finally:
+        mark[0] = False
+
+
+def _remat(fn, policy: str, training: bool, mark=None):
+    """``fn`` under the reference's remat ``policy`` when training, else
+    ``fn`` itself; ``mark`` is the flag the layer's :func:`_moe_out`
+    raises (``"dots+moe"``)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r}; expected one of "
+                         f"{REMAT_POLICIES}")
+    if policy == "none" or not training:
+        return fn
+    kw = {}
+    if policy != "full":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            _dots_policy if policy == "dots" else functools.partial(
+                _dots_moe_policy, [False] if mark is None else mark))
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _state_at(state, *idx: int):
@@ -108,8 +218,11 @@ def _block_spec(cfg: ArchConfig):
 
 
 def _block_apply(params, cfg: ArchConfig, x, positions, cache=None,
-                 cache_index=None, length_mask=None, backend="chunked"):
-    """Returns ``(x, cache, aux)``: the MoE auxiliary loss, else 0."""
+                 cache_index=None, length_mask=None, backend="chunked",
+                 moe_mark=None):
+    """Returns ``(x, cache, aux)``: the MoE auxiliary loss, else 0.
+    ``moe_mark``: the ``"dots+moe"`` policy's flag, to mark the MoE
+    output with (:func:`_moe_out`)."""
     norm = NORM_FNS[cfg.norm]
     attn_fn = (attn_mod.gqa_apply if cfg.attention == "gqa"
                else attn_mod.mla_apply)
@@ -123,6 +236,8 @@ def _block_apply(params, cfg: ArchConfig, x, positions, cache=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.moe is not None:
         f, aux = moe_mod.moe_apply(params["ffn"], cfg, z)
+        if moe_mark is not None:
+            f = _moe_out(f, moe_mark)
     elif cfg.family == "audio":
         f = gelu_mlp(params["ffn"], z)
     else:
@@ -147,8 +262,9 @@ class Model(nn.Module):
 
     # logits over the full input sequence (scoring / prefill without cache)
     def logits(self, params, batch: Dict[str, Tensor],
-               backend: str = "chunked") -> Tensor:
-        return _forward(params, self.cfg, batch, backend)
+               backend: str = "chunked", remat: str = "dots") -> Tensor:
+        """``remat`` takes effect only when training (module docstring)."""
+        return _forward(params, self.cfg, batch, backend, remat)
 
     def prefill(self, params, batch, cache):
         return _prefill(params, self.cfg, batch, cache)
@@ -280,25 +396,37 @@ def _groups(cfg: ArchConfig):
     return cfg.n_layers // k, k, cfg.n_layers % k
 
 
-def _run_ssm(params, cfg: ArchConfig, x, cache=None):
+def _run_ssm(params, cfg: ArchConfig, x, cache=None, remat="none"):
     """xLSTM's segments over ``x``; with a cache, returns the new one (new
-    stacked states: the reference's scan outputs)."""
+    stacked states: the reference's scan outputs).  ``remat``: the mLSTM
+    blocks' policy when training (and no cache)."""
     norm = NORM_FNS[cfg.norm]
     n_seg, per = _segments(cfg)
+    training = cache is None and _training(params)
+    mlstm = _layers_of(params["mlstm"], 2)
+    ln_m = _layers_of(params["ln_m"], 2)
+    slstm = _layers_of(params["slstm"], 1)
+    ln_s = _layers_of(params["ln_s"], 1)
+
+    def m_body(c, blk, ln):
+        h, _ = xl.mlstm_apply(blk, cfg, norm(ln, c))
+        return c + h
+
+    m_step = _remat(m_body, remat, training)
     m_states, s_states = [], []
     for g in range(n_seg):
         seg = []
         for j in range(per):
-            st = None if cache is None else _state_at(cache["mlstm"], g, j)
-            h, st = xl.mlstm_apply(_layer(params["mlstm"], g, j), cfg,
-                                   norm(_layer(params["ln_m"], g, j), x),
-                                   state=st)
+            if cache is None:
+                x = m_step(x, mlstm(g, j), ln_m(g, j))
+                continue
+            h, st = xl.mlstm_apply(mlstm(g, j), cfg, norm(ln_m(g, j), x),
+                                   state=_state_at(cache["mlstm"], g, j))
             x = x + h
             seg.append(st)
         m_states.append(seg)
         st = None if cache is None else _state_at(cache["slstm"], g)
-        h, st = xl.slstm_apply(_layer(params["slstm"], g), cfg,
-                               norm(_layer(params["ln_s"], g), x), state=st)
+        h, st = xl.slstm_apply(slstm(g), cfg, norm(ln_s(g), x), state=st)
         x = x + h
         s_states.append(st)
     if cache is None:
@@ -308,25 +436,35 @@ def _run_ssm(params, cfg: ArchConfig, x, cache=None):
 
 
 def _run_hybrid(params, cfg: ArchConfig, x, positions, cache=None,
-                index=None, length_mask=None, backend="chunked"):
+                index=None, length_mask=None, backend="chunked",
+                remat="none"):
     """zamba2's groups, each followed by the shared attention block, then
     the tail; with a cache, the attention's KV cache is written in place
-    and the Mamba2 states come back as new stacked states."""
+    and the Mamba2 states come back as new stacked states.  ``remat``: the
+    Mamba2 blocks' policy when training (and no cache)."""
     norm = NORM_FNS[cfg.norm]
     n_full, k, rem = _groups(cfg)
+    training = cache is None and _training(params)
+    blocks = _layers_of(params["mamba"], 2)
+    lns = _layers_of(params["ln_mamba"], 2)
 
     def mamba(blk, ln, c, st):
         h, st = m2.mamba2_apply(blk, cfg, norm(ln, c), state=st)
         return c + h, st
 
+    def m_body(c, blk, ln):
+        return mamba(blk, ln, c, None)[0]
+
+    m_step = _remat(m_body, remat, training)
     groups = []
     for g in range(n_full):
         group = []
         for j in range(k):
-            x, st = mamba(_layer(params["mamba"], g, j),
-                          _layer(params["ln_mamba"], g, j), x,
-                          None if cache is None
-                          else _state_at(cache["mamba"], g, j))
+            if cache is None:
+                x = m_step(x, blocks(g, j), lns(g, j))
+                continue
+            x, st = mamba(blocks(g, j), lns(g, j), x,
+                          _state_at(cache["mamba"], g, j))
             group.append(st)
         groups.append(group)
         kv = None if cache is None else (cache["attn"][0][g],
@@ -335,11 +473,15 @@ def _run_hybrid(params, cfg: ArchConfig, x, positions, cache=None,
                                cache=kv, cache_index=index,
                                length_mask=length_mask, backend=backend)
     tail = []
+    if rem:
+        t_blocks = _layers_of(params["mamba_tail"], 1)
+        t_lns = _layers_of(params["ln_tail"], 1)
     for j in range(rem):
-        x, st = mamba(_layer(params["mamba_tail"], j),
-                      _layer(params["ln_tail"], j), x,
-                      None if cache is None
-                      else _state_at(cache["mamba_tail"], j))
+        if cache is None:
+            x = m_step(x, t_blocks(j), t_lns(j))
+            continue
+        x, st = mamba(t_blocks(j), t_lns(j), x,
+                      _state_at(cache["mamba_tail"], j))
         tail.append(st)
     if cache is None:
         return x, None
@@ -349,18 +491,29 @@ def _run_hybrid(params, cfg: ArchConfig, x, positions, cache=None,
     return x, new_cache
 
 
-def _forward(params, cfg: ArchConfig, batch, backend: str) -> Tensor:
+def _forward(params, cfg: ArchConfig, batch, backend: str,
+             remat: str = "none") -> Tensor:
     _check_family(cfg)
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.family == "ssm":
-        x, _ = _run_ssm(params, cfg, x)
+        x, _ = _run_ssm(params, cfg, x, remat=remat)
     elif cfg.family == "hybrid":
-        x, _ = _run_hybrid(params, cfg, x, positions, backend=backend)
+        x, _ = _run_hybrid(params, cfg, x, positions, backend=backend,
+                           remat=remat)
     else:
+        training = _training(params)
+        layer = _layers_of(params["blocks"], 1)
+        mark = ([False] if training and remat == "dots+moe"
+                and cfg.moe is not None else None)
+
+        def body(c, lp):
+            return _block_apply(lp, cfg, c, positions, backend=backend,
+                                moe_mark=mark)[0]
+
+        step = _remat(body, remat, training, mark)
         for i in range(_n_layers(params)):
-            x, _, _ = _block_apply(_layer(params["blocks"], i), cfg, x,
-                                   positions, backend=backend)
+            x = step(x, layer(i))
     return _head(params, cfg, x)
 
 
@@ -421,8 +574,9 @@ def _layer_cache(cfg: ArchConfig, cache, i: int):
 
 
 def _run_cached(params, cfg, x, positions, cache, index, length_mask):
+    layer = _layers_of(params["blocks"], 1)
     for i in range(_n_layers(params)):
-        x, _, _ = _block_apply(_layer(params["blocks"], i), cfg, x,
+        x, _, _ = _block_apply(layer(i), cfg, x,
                                positions, cache=_layer_cache(cfg, cache, i),
                                cache_index=index, length_mask=length_mask)
     return x

@@ -3,7 +3,7 @@
 
 Models declare their parameters as a nested dict of ``ParamSpec``; ``init``
 turns the tree into tensors on one device.  The dry run's ``abstract`` and
-``abstract_sharded`` come with the launchers (ROADMAP A12).
+``abstract_sharded`` wait for the dry run itself (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -43,9 +43,24 @@ def tree_map(fn, tree):
 
 
 def tree_leaves(tree):
+    """The leaves of a nested dict, keys sorted (``jax.tree_util``'s
+    order, so trees built in any key order line up)."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A nested dict of ``like``'s structure holding ``leaves`` (in
+    :func:`tree_leaves`' order)."""
+    it = iter(leaves)
+
+    def rec(node):
+        if isinstance(node, dict):
+            return {k: rec(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return rec(like)
 
 
 _WHOLE_DRAW = 2 ** 30    # elements: a larger leaf is drawn a slice at a time

@@ -12,9 +12,13 @@ reference accumulates in bfloat16; with float32 weights the two agree to
 ~2e-7).  One token with a state takes the recurrence.
 
 sLSTM keeps a scalar memory a channel with a block-diagonal recurrence and
-is looped over time here; the reference's 64-step ``jax.checkpoint``
-segments only save memory in a backward pass and give the same forward.
-No Pallas kernel of the reference covers either block.
+is looped over time here.  When training over ``S % 64 == 0`` and ``S >
+64`` steps, the loop runs as the reference's 64-step segments, each under
+``torch.utils.checkpoint``: the backward keeps only the segments'
+boundary states and outputs and recomputes a segment's steps (without
+them it would hold ~20 (B, d) float32 tensors a step, ~8 GB a model at 4
+x 2048).  The segments give the same values; a forward without grad runs
+the plain loop.  No Pallas kernel of the reference covers either block.
 
 xlstm-1.3b assembles 48 blocks, every ``slstm_every``-th an sLSTM and the
 rest mLSTM (the published 7:1 mixing).
@@ -26,6 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import mm, rmsnorm
@@ -254,9 +259,29 @@ def _slstm_step(st: SLSTMState, g_t: Tensor, r: Tensor) -> SLSTMState:
     return SLSTMState(c=c_new, n=n_new, h=h_new, m=m_new)
 
 
+SLSTM_SEGMENT = 64   # steps a checkpointed segment when training
+
+
 def _slstm_scan(st: SLSTMState, gx: Tensor, r: Tensor):
     """The recurrence over time (the reference's ``lax.scan``): the final
-    state and every step's ``h``, (B, S, d)."""
+    state and every step's ``h``, (B, S, d); in checkpointed segments of
+    :data:`SLSTM_SEGMENT` steps when training (module docstring)."""
+    s, seg = gx.shape[1], SLSTM_SEGMENT
+    training = torch.is_grad_enabled() and (
+        gx.requires_grad or r.requires_grad
+        or any(a.requires_grad for a in st))
+    if not (training and s % seg == 0 and s > seg):
+        return _slstm_steps(st, gx, r)
+    hs = []
+    for t0 in range(0, s, seg):
+        st, h = checkpoint(_slstm_steps, st, gx[:, t0:t0 + seg], r,
+                           use_reentrant=False)
+        hs.append(h)
+    return st, torch.cat(hs, dim=1)
+
+
+def _slstm_steps(st: SLSTMState, gx: Tensor, r: Tensor):
+    """The time loop over ``gx``'s steps."""
     hs = []
     for t in range(gx.shape[1]):
         st = _slstm_step(st, gx[:, t], r)

@@ -1,2 +1,3 @@
-"""Scoring and serving steps of the LM stack (port of ``repro/training``);
-training waits for its slice (ROADMAP A12)."""
+"""Training, scoring and serving steps of the LM stack (port of
+``repro/training``): ``optimizer`` (AdamW, the WSD schedule) and
+``steps`` (``loss_fn``, ``make_train_step``, prefill and decode)."""

@@ -1082,6 +1082,25 @@ def test_flash_f32_as_close_to_float64_as_plain_on_cuda(cuda, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
+def test_flash_kernels_raise_under_autograd_on_cuda(cuda, dtype):
+    """ROADMAP B5 b: neither kernel has a backward, so a call that
+    autograd would differentiate raises before any launch (the CPU's
+    plain version raises alike, tests/test_torch_train.py); under
+    ``no_grad`` the same call launches."""
+    q, k, v = _qkv(cuda, 2, 128, 128, 64, 64, dtype)
+    name = fa.kernel_for(dtype, 64, 64)
+    before = fa.LAUNCHES[name]
+    with pytest.raises(NotImplementedError, match="B5 b"):
+        fa.flash_attention(q.requires_grad_(), k, v)
+    assert fa.LAUNCHES[name] == before
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v)
+    assert fa.LAUNCHES[name] == before + 1 and out.grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 def test_flash_kernels_refuse_misaligned_views(cuda, dtype):
     """Both attention kernels load 16-byte chunks (cp.async, TMA): a
     contiguous view that does not start on 16 bytes is refused."""

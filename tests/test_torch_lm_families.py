@@ -162,7 +162,7 @@ def _blockwise(name, backend):
             want, _, aux_j = j_model._block_apply(
                 lj, cfg, x, jnp.asarray(pos), backend=jax_backend)
             got, _, aux_t = model_mod._block_apply(
-                model_mod._layer(tp["blocks"], i), model.cfg,
+                model_mod._layers_of(tp["blocks"], 1)(i), model.cfg,
                 _both(_np(x), "bf16")[1], torch.from_numpy(pos),
                 backend=backend)
             _close(got, want, TOL["bf16"], f"block {i}")
