@@ -347,6 +347,23 @@ Run it from the repository root; it imports ``repro_torch``, ``torch`` and
    ``NotImplementedError`` (ROADMAP B5 b) before any launch;
    ``examples_torch/train_lm.py`` (200 steps) wall seconds and peak
    memory; the phase's seconds.
+25. the LM mesh (``tools/lm_mesh_phase.py``, also alone): four ranks on
+   the one card (a gloo group, CUDA tensors staged through pinned host
+   buffers) run phi3.5-moe at full width cut to 2 layers: (a) the
+   launcher's ``(1, 4)`` path (``choose_lm_mesh(4)``), 2 steps of 4 x 256,
+   then 3 steps of that mesh timed one by one;
+   (b) a ``(2, 2)`` step against the same step emulated rank by rank in
+   this process (collectives as index moves: the loss to 1e-3,
+   the grad norm to 2e-2, sampled masters within 1e-6 but at most 1 % of
+   them, those within 2 lr); (c) olmo-1b (full width, 2 layers) one
+   ``(2, 2)`` step against one device's, the same limits; (d) serving on
+   ``(1, 4)``: weights gathered once, a 4 x 256 prefill (the shard body,
+   attention on B5, every launch against its plain version) and 8 greedy
+   decode steps (the dense decode body), the logits against the
+   emulation's on the same tokens (0.06), the ranks' tokens equal; each
+   rank's step ms, share in the staged collectives and peak memory, the
+   prefill's and a decode step's ms, B5 at the prefill's shape against
+   the plain version and SDPA with its bound.
 
 The last three lines are the card (``nvidia-smi``), one JSON line with
 every kernel and the result line.  Exits nonzero without a result line
@@ -6128,6 +6145,15 @@ def phase_train(seed: int):
     return out
 
 
+def phase_lm_mesh(seed: int):
+    """Phase 25: the LM mesh, four ranks on the card
+    (``tools/lm_mesh_phase.py``)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import lm_mesh_phase
+
+    return lm_mesh_phase.run(seed)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -6234,6 +6260,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mesh = phase_lm_mesh(args.seed)
 
     soft, same = rows["soft_repulsion_adhesion"], rows["same_type"]
     # phase 16: each rank's launches of the process mesh's driven run
@@ -6342,7 +6371,11 @@ def main(argv=None) -> int:
         # phase 24: training runs the chunked attention, as the
         # reference's; under autograd the kernel raises (B5 b)
         train_path=dict(train, launches=train["main"]["launches"][
-            "flash_attention_wgmma"], raises_under_autograd=True)))
+            "flash_attention_wgmma"], raises_under_autograd=True),
+        # phase 25: each rank's serving launches (its prefill's layers)
+        lm_mesh_path=dict(lm_mesh, launches=[
+            r["launches"].get("flash_attention_wgmma", 0)
+            for r in lm_mesh["serve"]["ranks"]])))
     kernels.append(dict(
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
          "replaces": "src/repro/kernels/flash_attention.py:75",

@@ -8,12 +8,17 @@ The draws go through ``core.prng``, bit-equal to the reference's
 ``jax.random`` calls: ``fold_in(PRNGKey(seed), step)``, int32
 ``randint`` tokens in ``[0, vocab)``, bfloat16 ``normal`` patches and
 frames.
+
+With ``mesh`` (an LM mesh) each rank gets its block of that global batch:
+the rows of its coordinates over the data axes (``spec_for`` of
+``"batch"``), bit-equal to a slice of the whole batch, which every rank
+draws (a few int32 tokens a row).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
@@ -31,9 +36,26 @@ class SyntheticLM:
     global_batch: int
     seed: int = 0
     device: DeviceLike = "cuda"
+    mesh: Any = None
 
     def batch_for_step(self, step: int) -> Dict[str, Tensor]:
-        """The full global batch of one step, on :attr:`device`."""
+        """The full global batch of one step, on :attr:`device` (with
+        :attr:`mesh`, this rank's block of it)."""
+        out = self._global_batch(step)
+        if self.mesh is None:
+            return out
+        from repro_torch.distributed import sharding as shlib
+
+        spec = shlib.spec_for((self.global_batch,), ("batch",), self.mesh)
+        data = shlib.data_axes(self.mesh)
+        if self.mesh.axis_size(data) > 1 and shlib.spec_axes(spec) != data:
+            raise ValueError(
+                f"a global batch of {self.global_batch} rows does not split "
+                f"over the mesh's data axes {data}")
+        return {k: shlib.block_of(v, spec, self.mesh).contiguous()
+                for k, v in out.items()}
+
+    def _global_batch(self, step: int) -> Dict[str, Tensor]:
         cfg = self.cfg
         dev = resolve_device(self.device)
         key = prng.fold_in(prng.PRNGKey(self.seed, device=dev), step)

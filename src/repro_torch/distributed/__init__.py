@@ -1,4 +1,5 @@
-"""Port of ``repro.distributed``: checkpoints (logical ABM ones and
-trees of tensors), the ABM half of the elastic restore, fault plans, and
-the delta-encoded gradient compressor (``checkpoint``, ``elastic``,
-``chaos``, ``grad_compress``)."""
+"""Port of ``repro.distributed``: the LM mesh's sharding rules and
+collectives (``sharding``, ``collectives``), checkpoints (logical ABM ones
+and trees of tensors), the elastic restore (both halves), fault plans, and
+gradient compression (``checkpoint``, ``elastic``, ``chaos``,
+``grad_compress``)."""

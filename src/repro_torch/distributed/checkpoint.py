@@ -81,17 +81,34 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
 
 
 def save(ckpt_dir: str, step: int, tree: Any,
-         extras: Optional[Dict] = None, keep: int = 3) -> str:
-    """Synchronous atomic checkpoint save.  Returns the published path."""
+         extras: Optional[Dict] = None, keep: int = 3,
+         shardings: Any = None) -> str:
+    """Synchronous atomic checkpoint save.  Returns the published path.
+
+    ``shardings``: from an LM mesh, a tree of ``tree``'s structure whose
+    leaves are ``sharding.NamedSharding`` (None: a replicated leaf); each
+    leaf is then this rank's block, and the checkpoint holds the logical
+    (whole) array: every rank gathers each leaf in turn, rank 0 writes,
+    and all wait for the publish at a barrier."""
+    mesh = None
+    if shardings is not None:
+        sh = [v for _, v in _flatten_with_paths(shardings)]
+        mesh = next((x.mesh for x in sh if x is not None), None)
+    writer = mesh is None or mesh.rank == 0
     base = pathlib.Path(ckpt_dir)
-    base.mkdir(parents=True, exist_ok=True)
     tmp = base / f".tmp_step_{step:010d}_{os.getpid()}"
     final = base / f"step_{step:010d}"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir()
+    if writer:
+        base.mkdir(parents=True, exist_ok=True)
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
     manifest = {"step": step, "extras": extras or {}, "leaves": []}
     for i, (key, leaf) in enumerate(_flatten_with_paths(tree)):
+        if mesh is not None and sh[i] is not None:
+            leaf = _whole(leaf, sh[i])
+        if not writer:
+            continue
         arr, dtype_name = _host(leaf)
         fname = f"leaf_{i:05d}.npy"
         np.save(tmp / fname, arr)
@@ -101,12 +118,25 @@ def save(ckpt_dir: str, step: int, tree: Any,
              # restore verifies it: a torn write or corrupted storage is
              # detected, not loaded
              "crc32": zlib.crc32(np.ascontiguousarray(arr).tobytes())})
-    (tmp / "manifest.json").write_text(json.dumps(manifest))
-    if final.exists():
-        shutil.rmtree(final)
-    tmp.rename(final)  # atomic publish
-    _prune(base, keep)
+    if writer:
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)  # atomic publish
+        _prune(base, keep)
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
     return str(final)
+
+
+@torch.no_grad()
+def _whole(block: torch.Tensor, sharding) -> torch.Tensor:
+    """The whole tensor of this rank's ``block`` (every rank calls it)."""
+    from repro_torch.distributed.sharding import gather_block
+
+    return gather_block(block, sharding.spec, sharding.mesh)
 
 
 def _prune(base: pathlib.Path, keep: int):
@@ -374,7 +404,7 @@ def _unflatten(like, leaves: List) -> Any:
 
 
 def restore(ckpt_dir: str, step: Optional[int] = None, like: Any = None,
-            device=None) -> Tuple[int, Any, Dict]:
+            device=None, shardings: Any = None) -> Tuple[int, Any, Dict]:
     """Restore a checkpoint.
 
     With ``step=None`` the newest checkpoint that verifies (manifest,
@@ -383,7 +413,11 @@ def restore(ckpt_dir: str, step: Optional[int] = None, like: Any = None,
     verification raises :class:`CheckpointCorrupt`.  Without ``like`` the
     tree comes back as a flat ``{key: array}`` dict; with ``like`` (a tree
     of the same structure) as that tree, each leaf a tensor of ``like``'s
-    leaf's dtype (on ``device``, or the leaf's)."""
+    leaf's dtype (on ``device``, or the leaf's).  ``shardings`` (a tree of
+    ``like``'s structure of ``sharding.NamedSharding``, None for a whole
+    leaf) places this rank's block of each leaf: the device defaults to
+    the mesh's, and ``like`` may hold ``meta`` tensors
+    (``params.abstract_sharded``)."""
     base = pathlib.Path(ckpt_dir)
     if step is not None:
         manifest, arrays = _load_verified(base / f"step_{step:010d}")
@@ -414,12 +448,21 @@ def restore(ckpt_dir: str, step: Optional[int] = None, like: Any = None,
         raise ValueError(f"checkpoint has {len(arrays)} leaves, the tree "
                          f"expects {len(leaves)}")
 
-    def cast(a, ref):
+    places = [None] * len(leaves)
+    if shardings is not None:
+        places = [v for _, v in _flatten_with_paths(shardings)]
+        if device is None:
+            device = next(p.mesh.device for p in places if p is not None)
+
+    def cast(a, ref, place):
         t = torch.from_numpy(np.array(a, copy=True))
+        if place is not None:
+            t = place.block(t).clone()
         if isinstance(ref, torch.Tensor):
             return t.to(device=device or ref.device, dtype=ref.dtype)
         return t.to(device) if device is not None else t
 
     return (manifest["step"],
-            _unflatten(like, [cast(a, ref) for a, ref in zip(arrays, leaves)]),
+            _unflatten(like, [cast(a, ref, p) for a, ref, p in
+                              zip(arrays, leaves, places)]),
             manifest["extras"])

@@ -1,5 +1,10 @@
-"""Elastic restore, the ABM half (port of ``repro/distributed/elastic.py``,
-lines 41-137).
+"""Elastic restore (port of ``repro/distributed/elastic.py``): the
+language-model half and the ABM half.
+
+:func:`choose_lm_mesh` is the reference's largest ``(data, model)``
+factorization of a (possibly degraded) device count, and
+:func:`elastic_restore` restores a logical LM checkpoint onto the current
+process mesh: every rank reads the whole arrays and keeps its blocks.
 
 A logical ABM checkpoint (``checkpoint.save_abm``) holds mesh-independent
 flattened agents and the occupancy histogram.  :func:`elastic_restore_abm`
@@ -10,14 +15,12 @@ re-shard's own path: a run resumes on whatever device count survives.
 :func:`restore_plan` loads a checkpoint and cuts that plan alone, so every
 rank of a process mesh can learn the survivors' mesh shape before the
 ranks that leave stop.
-The language-model half (``choose_lm_mesh``, ``elastic_restore``) needs
-the sharded training stack of ROADMAP A12 and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,15 +28,45 @@ import torch
 from repro_torch.distributed import checkpoint as ckpt_lib
 
 
-def choose_lm_mesh(n_devices: int, model_parallel: int = 16):
-    raise NotImplementedError(
-        "the language-model mesh is not ported yet (ROADMAP A12)")
+def choose_lm_mesh(n_devices: int, model_parallel: int = 16
+                   ) -> Tuple[Tuple[int, int], Tuple[str, str]]:
+    """Largest (data, model) factorization for a (possibly degraded) device
+    count: keep model parallelism at ``model_parallel`` if it divides, else
+    fall back to the largest power-of-two divisor."""
+    mp = model_parallel
+    while mp > 1 and n_devices % mp:
+        mp //= 2
+    return (n_devices // mp, mp), ("data", "model")
 
 
-def elastic_restore(ckpt_dir: str, model, **kwargs):
-    raise NotImplementedError(
-        "the language-model elastic restore is not ported yet "
-        "(ROADMAP A12)")
+def elastic_restore(ckpt_dir: str, model, *, n_devices: Optional[int] = None,
+                    rules=None, step: Optional[int] = None,
+                    device="cuda"):
+    """Restore a logical checkpoint of the parameters onto the current
+    device population: ``choose_lm_mesh`` of ``n_devices`` (default: the
+    default group's ranks, 1 without a group), ``launch.mesh.make_mesh``
+    over the ranks, and each rank's blocks of every leaf
+    (``params_specs``).  Every rank calls it.  Returns ``(step, params,
+    mesh, extras)``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import params_specs
+    from repro_torch.models.params import tree_map
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = world if n_devices is None else int(n_devices)
+    if n != world:
+        raise ValueError(f"a restore onto {n} devices from {world} "
+                         "processes: one process a device")
+    shape, axes = choose_lm_mesh(n)
+    mesh = make_mesh(shape, axes, device)
+    abstract = params_specs(model, mesh, rules)
+    shardings = tree_map(lambda a: a.sharding, abstract)
+    step, params, extras = ckpt_lib.restore(
+        ckpt_dir, step=step, like=abstract, shardings=shardings,
+        device=mesh.device)
+    return step, params, mesh, extras
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,8 +14,10 @@ would carry 4x (int8) or 2x (int16) fewer bytes than float32
 transmitted gradients tracks the sum of the true ones (EF-SGD).  The
 rounding is ``torch.round``'s half to even, as ``jnp.round``'s.
 
-The reference's ``compressed_psum`` (an int8 all-to-all and all-gather
-inside ``shard_map``) needs the LM mesh and waits for it (ROADMAP A12).
+:func:`compressed_psum` is the explicit-collective building block over an
+LM mesh axis: a two-phase all-reduce with int8 on the wire
+(``distributed/collectives.py``, whose ``STATS`` show both phases' int8
+bytes).
 """
 
 from __future__ import annotations
@@ -75,3 +77,61 @@ class DeltaEFCompressor:
             "ref": new_grads,
             "residual": tree_unflatten(grads, [o[1] for o in outs]),
             "step": step + 1}
+
+
+def compressed_psum(x: Tensor, axis, axis_size: int,
+                    qdtype: torch.dtype = torch.int8, mesh=None) -> Tensor:
+    """The sum of ``x`` over the mesh axis ``axis`` (of ``axis_size``
+    ranks) with ``qdtype`` on the wire: the reference's two-phase
+    compressed all-reduce.
+
+      1. quantize the local vector per destination chunk (``N/n``
+         elements, zero-padded to a multiple of ``n``); ``all_to_all`` the
+         int8 payload and the float32 scales (each rank becomes the
+         reducer of its chunk);
+      2. dequantize and sum in float32 in member order, re-quantize the
+         reduced chunk, ``all_gather`` the int8 chunks and scales.
+
+    Scales are ``max(max |chunk|, 1e-30) / qmax``, rounding half to even
+    (``jnp.round``), clipped to the type's range.  ``mesh``: the LM mesh
+    (default: that of the active ``activation_sharding``)."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shlib
+
+    if mesh is None:
+        active = shlib.active()
+        if active is None:
+            raise RuntimeError("compressed_psum needs a mesh (mesh=, or an "
+                               "active activation_sharding)")
+        mesh = active[0]
+    n = int(axis_size)
+    if mesh.axis_size(axis) != n:
+        raise ValueError(f"axis {axis!r} has {mesh.axis_size(axis)} ranks, "
+                         f"not {n}")
+    qinfo = torch.iinfo(qdtype)
+    qmax = float(qinfo.max)
+    orig_shape = x.shape
+    flat = x.reshape(-1).to(torch.float32)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    chunks = flat.reshape(n, -1)                        # (n, N/n)
+
+    # phase 1: per-chunk quantize + all_to_all (int8 wire)
+    s1 = torch.clamp(chunks.abs().amax(dim=1), min=1e-30) / qmax    # (n,)
+    q1 = torch.clamp(torch.round(chunks / s1[:, None]), qinfo.min,
+                     qinfo.max).to(qdtype)
+    rq = col.all_to_all_raw(q1, axis, mesh)
+    rs = col.all_to_all_raw(s1.reshape(n, 1), axis, mesh)  # peer scales
+    part = col.ordered_sum(rq.to(torch.float32) * rs)    # reduced chunk
+
+    # phase 2: re-quantize + all_gather (int8 wire)
+    s2 = torch.clamp(part.abs().max(), min=1e-30) / qmax
+    q2 = torch.clamp(torch.round(part / s2), qinfo.min, qinfo.max
+                     ).to(qdtype)
+    all_q = col.gather_raw(q2, axis, mesh)              # (n, N/n)
+    all_s = col.gather_raw(s2, axis, mesh)              # (n,)
+    out = (all_q.to(torch.float32) * all_s[:, None]).reshape(-1)
+    if pad:
+        out = out[:-pad]
+    return out.reshape(orig_shape)

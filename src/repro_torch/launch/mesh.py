@@ -1,5 +1,6 @@
-"""The spatial device mesh of one process a device (port of
-``repro/launch/mesh.py``'s ``make_abm_mesh``).
+"""The device meshes of one process a device (port of
+``repro/launch/mesh.py``): the ABM's spatial mesh (``make_abm_mesh``) and
+the LM's named-axis mesh (``make_mesh``, ``make_production_mesh``).
 
     init_process_mesh()                        # under torchrun
     mesh = make_abm_mesh((2, 2))               # a DeviceMesh (sx, sy)
@@ -17,13 +18,21 @@ of them in a group of their own (a degraded run's survivors,
 :func:`close_process_mesh` leaves the group with its threads joined.
 :func:`spawn_ranks` starts the ranks of a mesh as processes of this host
 and joins them against a deadline (the tests and ``chip_smoke.py`` run a
-mesh through it).  The reference's production mesh and its TPU hardware
-model are not carried over: neither describes a GPU.
+mesh through it).  
+:func:`make_mesh` lays the default group's ranks out row-major over an LM
+mesh, ``("data", "model")`` or ``("pod", "data", "model")``, as a
+:class:`~repro_torch.distributed.collectives.Mesh` holding a group for
+every set of its axes; the LM stack's collectives
+(``distributed/collectives.py``) run over those groups.
+:func:`make_production_mesh` is the H100 cluster's layout in place of the
+reference's TPU pod.  The reference's TPU hardware model (``HW``) is not
+carried over: an H100 model comes with the roofline.
 """
 
 from __future__ import annotations
 
 import datetime
+import itertools
 import math
 import os
 import time
@@ -64,6 +73,78 @@ def init_process_mesh(backend: str = "gloo", *,
                                 rank=int(rank), world_size=int(world_size),
                                 timeout=timeout)
     return dist.get_rank()
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              device="cuda"):
+    """An LM mesh of ``shape`` with axis names ``axes`` over every rank of
+    the default group, row-major (rank ``r`` at ``unravel(r, shape)``),
+    this process's tensors on ``device``.  Every rank builds, in the same
+    order, a group for each set of axes of more than one device (the
+    whole mesh is the default group), so a collective over any named
+    axes has its group.  With no process group (or one of one rank) a
+    mesh of one device is returned, whose collectives are identities;
+    any other shape then raises."""
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed.collectives import Mesh
+
+    shape = tuple(int(n) for n in shape)
+    axes = tuple(axes)
+    n = math.prod(shape)
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        if n != 1:
+            raise RuntimeError(
+                f"mesh {shape} needs {n} processes and no process group is "
+                "initialized (run under torchrun, or init_process_mesh)")
+        return Mesh(axes, shape, rank=0, device=dev)
+    world = dist.get_world_size()
+    if n != world:
+        raise ValueError(f"mesh {shape} has {n} devices; the process group "
+                         f"has {world} ranks")
+    mesh = Mesh(axes, shape, rank=dist.get_rank(), device=dev,
+                backend=str(dist.get_backend()))
+    for k in range(1, len(axes) + 1):
+        for subset in itertools.combinations(axes, k):
+            size = math.prod(mesh.shape[a] for a in subset)
+            if size == 1:
+                continue
+            if size == world:
+                mesh.groups[subset] = None
+                continue
+            # one group for each setting of the other axes, all ranks in
+            # the same order
+            others = [a for a in axes if a not in subset]
+            for vals in itertools.product(*(range(mesh.shape[a])
+                                            for a in others)):
+                coords = dict(zip(others, vals))
+                coords.update({a: 0 for a in subset})
+                ranks = list(mesh.members(subset, coords))
+                g = dist.new_group(ranks=ranks)
+                if mesh.rank in ranks:
+                    mesh.groups[subset] = g
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The production LM mesh: H100 nodes of 8 NVLink-joined cards, the
+    ``model`` axis over the 8 cards of a node (its all-to-alls and gathers
+    stay on NVLink) and ``data`` over 32 nodes, 256 cards ``(32, 8)``; two
+    such pods ``(2, 32, 8)`` with ``("pod", "data", "model")``.  It takes
+    the place of the reference's TPU pod ``(16, 16)``.  On a group of that
+    many ranks it is a process mesh (:func:`make_mesh`); elsewhere a
+    layout only, which gives the specs and blocks of that mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import Mesh
+
+    shape = (2, 32, 8) if multi_pod else (32, 8)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if dist.is_initialized() and dist.get_world_size() == math.prod(shape):
+        return make_mesh(shape, axes, device)
+    return Mesh(axes, shape)
 
 
 def make_abm_mesh(mesh_shape: Sequence[int],

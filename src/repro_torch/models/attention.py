@@ -12,8 +12,9 @@ Decode (one query token against the cache) is a single-shot softmax.  The
 casts mirror the reference's, on which bfloat16 parity depends: ``q`` is
 scaled in its own type, scores are float32 after a product in the input
 type, and ``p`` is cast to ``v``'s type before the PV product.  The
-reference's ``constrain`` calls are sharding hints, a no-op on one device,
-and have no counterpart here.  MLA (:func:`mla_apply`) runs on the plain
+reference's ``constrain`` calls are sharding hints that change no value
+(``distributed.sharding.constrain`` is the identity: over an LM mesh the
+port places activations itself) and have no call here.  MLA (:func:`mla_apply`) runs on the plain
 paths only, as in the reference.
 """
 
@@ -142,7 +143,10 @@ def gqa_apply(
 ):
     """Returns ``(y, cache)``.  A cache is written in place (the reference
     returns an updated copy, ``dynamic_update_slice``); the tensors
-    returned are the ones passed in."""
+    returned are the ones passed in.  A prefill into the cache (``S > 1``
+    from index 0) attends over the prompt as the reference does, through
+    the kernel where ``backend="kernel"`` (the reference's prefill always
+    runs the chunked path; the two compute the same causal attention)."""
     if backend not in BACKENDS:
         raise ValueError(f"attention backend {backend!r}; expected one of "
                          f"{BACKENDS}")
@@ -162,6 +166,11 @@ def gqa_apply(
         new_cache = (ck, cv)
         if s == 1:  # decode
             out = sdpa_decode(q, ck, cv, length_mask)
+        elif backend == "kernel":   # prefill into cache on the kernel
+            if cache_index != 0:
+                raise ValueError("a prefill on the kernel starts at cache "
+                                 f"index 0, not {cache_index}")
+            out = kernel_ops.flash_attention_bhsd(q, k, v, causal=cfg.causal)
         else:       # prefill into cache
             out = sdpa_chunked(q, k, v, cfg.causal, q_offset=0, chunk=chunk)
     elif backend == "kernel":

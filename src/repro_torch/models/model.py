@@ -46,6 +46,23 @@ the reference takes ``maximum`` with a constant (the attention's running
 sum, the sLSTM's normaliser, the MoE renormaliser) never tie: the first
 two are at least 1, the third a sum of top-k probabilities.
 
+Over an LM mesh (inside ``distributed.sharding.activation_sharding``)
+the parameters passed are this rank's blocks (``sharding.tree_specs`` of
+the model's spec) and the batch is this rank's block of the global batch.
+Each leaf is gathered before use, a layer's leaves inside its layer (the
+reference's ZeRO-3 over the fsdp axes; under remat the gathers are
+recomputed), the top-level ones (embedding, head, final norm) once a
+forward; the ssm and hybrid families gather their whole tree up front.
+The MoE's expert weights stay sharded over ``model``: the block
+dispatches to ``moe.moe_apply_ep`` (``model.py:111`` of the reference).
+The dense compute (embedding, attention, dense MLP, head) runs on the
+rank's batch block and is repeated across ``model``; a gather over
+``model`` hands back this rank's block of the gradient (the weight's
+gradient taken once), a gather over the data axes sums the ranks'
+(``distributed/collectives.py``).  Sharding heads and MLP over ``model``
+would change no result and is later speed work.  A leaf already whole
+(:meth:`Model.gather`, as serving keeps it) is used as it is.
+
 The parameter tree is a nested dict of tensors keyed as the reference's
 (``embed.w``, ``blocks.attn.wq``, ``blocks.ln1.scale``, ...).  ``Model`` is
 an ``nn.Module``: :meth:`Model.load_params` registers a tree under those
@@ -66,6 +83,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
@@ -196,6 +214,50 @@ def _stack_states(states):
 
 
 # ---------------------------------------------------------------------------
+# Over an LM mesh: this rank's blocks gathered before use
+# ---------------------------------------------------------------------------
+
+def _mesh_specs(cfg: ArchConfig):
+    """``(mesh, tree)`` of the active ``activation_sharding``, the tree's
+    leaves ``(whole shape, spec)`` of each parameter; or None."""
+    active = shlib.active()
+    if active is None:
+        return None
+    mesh, rules = active
+    return mesh, tree_map(
+        lambda p: (p.shape, shlib.spec_for(p.shape, p.logical, mesh, rules)),
+        build_model(cfg).spec)
+
+
+def _gathered(tree, specs, mesh, lead: int = 0, moe: bool = False,
+              experts: bool = False):
+    """A tree of this rank's blocks with each leaf gathered whole over the
+    mesh, but a MoE's expert weights (under ``ffn``, not the router) over
+    ``model``; ``lead``: stacked dims the leaves have lost (one layer of a
+    stacked tree).  A leaf already of the gathered shape is kept."""
+    if isinstance(tree, dict):
+        return {k: _gathered(v, specs[k], mesh, lead, moe,
+                             (moe and k == "ffn")
+                             or (experts and k != "router"))
+                for k, v in tree.items()}
+    shape, spec = specs
+    if any(e is not None for e in spec[:lead]):
+        raise NotImplementedError(f"a stacked dim is sharded: spec {spec}")
+    shape, spec = shape[lead:], spec[lead:]
+    keep = ("model",) if experts else ()
+    target = shlib.block_shape(shape, tuple(
+        e if set(shlib.entry_axes(e)) & set(keep) else None for e in spec),
+        mesh)
+    if tuple(tree.shape) == target:
+        return tree
+    if tuple(tree.shape) != shlib.block_shape(shape, spec, mesh):
+        raise ValueError(f"a parameter of shape {tuple(tree.shape)}: "
+                         f"neither this rank's block of {shape} (spec "
+                         f"{spec}) nor gathered {target}")
+    return shlib.gather_block(tree, spec, mesh, keep=keep)
+
+
+# ---------------------------------------------------------------------------
 # Decoder/encoder transformer block (dense / moe / audio / vlm)
 # ---------------------------------------------------------------------------
 
@@ -235,7 +297,7 @@ def _block_apply(params, cfg: ArchConfig, x, positions, cache=None,
     z = norm(params["ln2"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.moe is not None:
-        f, aux = moe_mod.moe_apply(params["ffn"], cfg, z)
+        f, aux = moe_mod.moe_apply_ep(params["ffn"], cfg, z)
         if moe_mark is not None:
             f = _moe_out(f, moe_mark)
     elif cfg.family == "audio":
@@ -266,8 +328,8 @@ class Model(nn.Module):
         """``remat`` takes effect only when training (module docstring)."""
         return _forward(params, self.cfg, batch, backend, remat)
 
-    def prefill(self, params, batch, cache):
-        return _prefill(params, self.cfg, batch, cache)
+    def prefill(self, params, batch, cache, backend: str = "chunked"):
+        return _prefill(params, self.cfg, batch, cache, backend)
 
     def decode_step(self, params, tokens, cache, index, length_mask):
         return _decode(params, self.cfg, tokens, cache, index, length_mask)
@@ -275,6 +337,19 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    device: DeviceLike = "cuda"):
         return _init_cache(self.cfg, batch, max_len, device)
+
+    def gather(self, params):
+        """Inside ``activation_sharding``: this rank's blocks ``params``
+        gathered whole, but the MoE's expert weights over ``model`` (no
+        autograd), the layout a forward gathers to; a server gathers once
+        instead of at every step."""
+        ms = _mesh_specs(self.cfg)
+        if ms is None:
+            raise RuntimeError("Model.gather needs an active "
+                               "activation_sharding")
+        with torch.no_grad():
+            return _gathered(params, ms[1], ms[0],
+                             moe=self.cfg.moe is not None)
 
     def load_params(self, params) -> "Model":
         """Register every tensor of ``params`` (a tree of :attr:`spec`'s
@@ -491,9 +566,29 @@ def _run_hybrid(params, cfg: ArchConfig, x, positions, cache=None,
     return x, new_cache
 
 
+def _on_mesh(params, cfg: ArchConfig):
+    """``(params, layer)`` to run on: outside a mesh ``params`` and the
+    identity; over one, the top-level leaves gathered and ``layer``
+    gathering one layer of ``blocks`` (the ssm and hybrid families: the
+    whole tree gathered, ``layer`` the identity)."""
+    ms = _mesh_specs(cfg)
+    if ms is None:
+        return params, lambda lp: lp
+    mesh, specs = ms
+    moe = cfg.moe is not None
+    if cfg.family not in _BLOCKS:
+        return _gathered(params, specs, mesh, moe=moe), lambda lp: lp
+    top = {k: _gathered(v, specs[k], mesh, moe=moe)
+           for k, v in params.items() if k != "blocks"}
+    top["blocks"] = params["blocks"]
+    return top, lambda lp: _gathered(lp, specs["blocks"], mesh, lead=1,
+                                     moe=moe)
+
+
 def _forward(params, cfg: ArchConfig, batch, backend: str,
              remat: str = "none") -> Tensor:
     _check_family(cfg)
+    params, use = _on_mesh(params, cfg)
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.family == "ssm":
@@ -508,7 +603,7 @@ def _forward(params, cfg: ArchConfig, batch, backend: str,
                 and cfg.moe is not None else None)
 
         def body(c, lp):
-            return _block_apply(lp, cfg, c, positions, backend=backend,
+            return _block_apply(use(lp), cfg, c, positions, backend=backend,
                                 moe_mark=mark)[0]
 
         step = _remat(body, remat, training, mark)
@@ -573,29 +668,36 @@ def _layer_cache(cfg: ArchConfig, cache, i: int):
     return cache[0][i], cache[1][i]
 
 
-def _run_cached(params, cfg, x, positions, cache, index, length_mask):
+def _run_cached(params, cfg, x, positions, cache, index, length_mask,
+                backend="chunked", use=lambda lp: lp):
     layer = _layers_of(params["blocks"], 1)
     for i in range(_n_layers(params)):
-        x, _, _ = _block_apply(layer(i), cfg, x,
+        x, _, _ = _block_apply(use(layer(i)), cfg, x,
                                positions, cache=_layer_cache(cfg, cache, i),
-                               cache_index=index, length_mask=length_mask)
+                               cache_index=index, length_mask=length_mask,
+                               backend=backend)
     return x
 
 
-def _prefill(params, cfg: ArchConfig, batch, cache):
+def _prefill(params, cfg: ArchConfig, batch, cache,
+             backend: str = "chunked"):
     """Run the full prompt, filling the cache; returns ``(last_logits,
     cache)``.  KV and latent caches are written in place; the recurrent
     states of ssm and hybrid come back as new tensors, so use the cache
-    returned."""
+    returned.  ``backend="kernel"`` runs the prompt's attention on the
+    kernel (the reference's prefill runs the chunked path)."""
     _check_family(cfg)
+    params, use = _on_mesh(params, cfg)
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.family == "ssm":
         x, cache = _run_ssm(params, cfg, x, cache)
     elif cfg.family == "hybrid":
-        x, cache = _run_hybrid(params, cfg, x, positions, cache, 0)
+        x, cache = _run_hybrid(params, cfg, x, positions, cache, 0,
+                               backend=backend)
     else:
-        x = _run_cached(params, cfg, x, positions, cache, 0, None)
+        x = _run_cached(params, cfg, x, positions, cache, 0, None, backend,
+                        use)
     return _head(params, cfg, x[:, -1:]), cache
 
 
@@ -605,6 +707,7 @@ def _decode(params, cfg: ArchConfig, tokens, cache, index: int,
     Returns ``(logits, cache)`` as :func:`_prefill` does.  A vlm's decode
     embeds the tokens only (the patches were the prefill's prefix)."""
     _check_family(cfg)
+    params, use = _on_mesh(params, cfg)
     x = params["embed"]["w"][tokens.long()]
     positions = torch.full((1,), index, device=x.device)
     if cfg.family == "ssm":
@@ -614,5 +717,5 @@ def _decode(params, cfg: ArchConfig, tokens, cache, index: int,
                                length_mask)
     else:
         x = _run_cached(params, cfg, x, positions, cache, index,
-                        length_mask)
+                        length_mask, use=use)
     return _head(params, cfg, x), cache

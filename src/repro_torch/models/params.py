@@ -2,8 +2,12 @@
 (port of ``repro/models/params.py``).
 
 Models declare their parameters as a nested dict of ``ParamSpec``; ``init``
-turns the tree into tensors on one device.  The dry run's ``abstract`` and
-``abstract_sharded`` wait for the dry run itself (ROADMAP A12).
+turns the tree into tensors on one device, or with ``mesh=`` each leaf's
+block of an LM mesh.  ``abstract`` turns the tree into ``meta``-device
+tensors of its shapes and types (no allocation), and
+``abstract_sharded`` gives them the sharding of a mesh: each carries a
+``sharding`` attribute (``distributed.sharding.NamedSharding``), as the
+reference's ``ShapeDtypeStruct`` leaves carry theirs.
 """
 
 from __future__ import annotations
@@ -63,11 +67,30 @@ def tree_unflatten(like, leaves):
     return rec(like)
 
 
+def abstract(spec_tree):
+    """``meta`` tensors of every spec's shape and dtype."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), spec_tree)
+
+
+def abstract_sharded(spec_tree, mesh, rules=None):
+    """:func:`abstract`, each tensor carrying ``.sharding``: its spec on
+    ``mesh`` (the whole shape; ``sharding.block_shape`` gives a rank's)."""
+    from repro_torch.distributed.sharding import sharding_for
+
+    def one(s: ParamSpec):
+        t = torch.empty(s.shape, dtype=s.dtype, device="meta")
+        t.sharding = sharding_for(s.shape, s.logical, mesh, rules)
+        return t
+
+    return tree_map(one, spec_tree)
+
+
 _WHOLE_DRAW = 2 ** 30    # elements: a larger leaf is drawn a slice at a time
 
 
 def init(spec_tree, generator: torch.Generator,
-         device: DeviceLike = "cuda"):
+         device: DeviceLike = "cuda", mesh=None, rules=None):
     """Tensors for every spec of ``spec_tree`` on ``device``, drawn from
     ``generator`` (which must live on that device) leaf by leaf in the
     tree's order: normal draws in float32 times the scale, then cast, as
@@ -75,7 +98,9 @@ def init(spec_tree, generator: torch.Generator,
     a MoE model's expert weights) is drawn one slice of its leading axis
     at a time, so the float32 draw never holds the whole leaf.  The numbers
     differ from ``jax.random``'s: tests carry the reference's weights
-    through ``repro_torch.bridge``."""
+    through ``repro_torch.bridge``.  With an LM ``mesh`` every rank draws
+    each whole leaf in turn (the same generator state on every rank) and
+    keeps its block (``sharding.tree_specs`` under ``rules``)."""
     dev = resolve_device(device)
 
     def draw(shape, scale, dtype):
@@ -97,7 +122,12 @@ def init(spec_tree, generator: torch.Generator,
             out[i] = draw(s.shape[1:], scale, s.dtype)
         return out
 
-    return tree_map(one, spec_tree)
+    if mesh is None:
+        return tree_map(one, spec_tree)
+    from repro_torch.distributed.sharding import block_of, spec_for
+
+    return tree_map(lambda s: block_of(one(s), spec_for(
+        s.shape, s.logical, mesh, rules), mesh).clone(), spec_tree)
 
 
 def count_params(spec_tree) -> int:

@@ -78,10 +78,16 @@ class AdamW:
         )
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params
+    def update(self, grads, state: AdamWState, params, inplace: bool = False
                ) -> Tuple[Any, AdamWState]:
         """``(new params, new state)`` from the gradients (any float type)
-        and the parameters (whose types the new ones keep)."""
+        and the parameters (whose types the new ones keep).  ``inplace``
+        writes the new values into ``state``'s and ``params``' tensors
+        (the same values: each is computed whole, then copied in), as the
+        reference's launcher donates the old buffers, so the old and new
+        state are never held together."""
+        if inplace:
+            return self._update_inplace(grads, state, params)
         step = state.step + 1
         lr = self.schedule(step)
         b1, b2 = self.b1, self.b2
@@ -106,3 +112,23 @@ class AdamW:
                for i in range(4)]
         return new[3], AdamWState(step=step, master=new[2], m=new[0],
                                   v=new[1])
+
+    def _update_inplace(self, grads, state: AdamWState, params):
+        step = state.step + 1
+        lr = self.schedule(step)
+        b1, b2 = self.b1, self.b2
+        s = step.to(torch.float32)
+        bc1 = 1.0 - torch.pow(b1, s)
+        bc2 = 1.0 - torch.pow(b2, s)
+        trees = (grads, state.m, state.v, state.master, params)
+        for g, m, v, master, p in zip(*map(tree_leaves, trees)):
+            g = g.to(torch.float32)
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            master.copy_(master - lr * (
+                (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+                + self.weight_decay * master))
+            p.copy_(master.to(p.dtype))
+            del g
+        state.step.copy_(step)
+        return params, state

@@ -154,11 +154,29 @@ def test_generic_tree_layout_equals_jax_and_round_trips(tmp_path):
     assert len(list((tmp_path / "bf16").glob("step_*"))) == 2
 
 
-def test_lm_half_of_elastic_raises_naming_a12():
-    with pytest.raises(NotImplementedError, match="A12"):
-        elastic.choose_lm_mesh(8)
-    with pytest.raises(NotImplementedError, match="A12"):
-        elastic.elastic_restore("ckpt", None)
+def test_lm_half_of_elastic_raises_naming_a12(tmp_path):
+    """The LM half raised, naming ROADMAP A12, until the LM mesh came; now
+    it runs: ``choose_lm_mesh`` is the reference's, and one process
+    restores a checkpoint onto its one-device mesh exactly (the four-rank
+    restore of a JAX checkpoint is in ``tests/test_torch_lm_mesh.py``).
+    Asking for more devices than processes still raises."""
+    from repro_torch.configs import get
+    from repro_torch.models import params as P
+    from repro_torch.models.model import build_model
+
+    assert elastic.choose_lm_mesh(8) == ((1, 8), ("data", "model"))
+    assert elastic.choose_lm_mesh(48) == ((3, 16), ("data", "model"))
+    model = build_model(get("olmo-1b").smoke)
+    params = P.init(model.spec, torch.Generator().manual_seed(0), "cpu")
+    ckpt_lib.save(str(tmp_path), 5, params)
+    step, restored, mesh, _ = elastic.elastic_restore(
+        str(tmp_path), model, device="cpu")
+    assert step == 5 and mesh.shape == {"data": 1, "model": 1}
+    for a, b in zip(P.tree_leaves(params), P.tree_leaves(restored)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    with pytest.raises(ValueError, match="one process a device"):
+        elastic.elastic_restore(str(tmp_path), model, n_devices=8,
+                                device="cpu")
 
 
 # ---------------------------------------------------------------------------
